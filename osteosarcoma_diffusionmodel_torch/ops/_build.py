@@ -1,0 +1,123 @@
+"""Build the port's CUDA kernels with nvcc and bind them through ctypes.
+
+The sources in ``csrc/`` compile into one shared library with a plain C
+interface. The build runs at first use (never at import), from the
+package's own sources only, into ``_build/<hash>/`` beside the package;
+the hash covers every source and the compiler flags, so an edited source
+rebuilds and an unchanged one loads in milliseconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR / "_build"
+LIB_NAME = "libosdm_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U32 = ctypes.c_uint32
+SIGNATURES = {
+    # A, lda, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, tile, stream
+    "osdm_gemm_bf16_f32acc": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    # h, ldh, out, ldo, scale, bias, M, F, eps, stream
+    "osdm_groupnorm8_silu": [_P, _I, _P, _I, _P, _P, _I, _I, _F, _P],
+    # acc, x, M, D, b_out, coeffs, step, mode, noise, seed, clip, stream
+    "osdm_x0_posterior_step": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _U32, _F, _P],
+    # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
+    "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "osdm_rbf_grid_blocks": [_I, _I],
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the port's CUDA kernels "
+        "are built from source at first use"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed build directory (no-op when the
+    library for the current sources exists). Returns the library path."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    # Compile to a private name, then rename: concurrent builders never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+class _Library:
+    """The loaded kernel library, built on first use."""
+
+    def __init__(self):
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib
+
+
+LIBRARY = _Library()
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
