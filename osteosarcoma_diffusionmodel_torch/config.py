@@ -40,11 +40,11 @@ class DiffusionConfig:
     parameterization: str = "x0"
     clip_denoised: bool = True
     denoised_clip_value: float = 30.0
+    discrete_mutation_head: bool = False
     # Rejected when set (check_supported).
     learn_sigma: bool = False
     latent_factor_dim: int = 0
     low_rank_sigma_dim: int = 0
-    discrete_mutation_head: bool = False
     ar_mutation_head: bool = False
 
 
@@ -117,9 +117,9 @@ class GenerationConfig:
     noise_type: str = "uniform"
     calibrate_marginals: Any = "copula_joint"
     calibration_backend: str = "auto"
+    fused_quantize: str = "none"  # none | out | io | all
     # Rejected when set away from the default (check_supported).
     sample_dtype: str = "bfloat16"
-    fused_quantize: str = "none"
     scenarios: List[Scenario] = field(
         default_factory=lambda: [
             Scenario(

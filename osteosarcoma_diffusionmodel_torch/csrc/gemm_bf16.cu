@@ -18,6 +18,13 @@
 // buffers) need no padding in device memory. The wrapper picks 32x32 tiles
 // when 64x64 tiles would leave most SMs idle. No cp.async, TMA or wgmma
 // yet: that is later work.
+//
+// D3PM prologue (the TPU's `st_pre`, :371-385): with a_mut_cols = M > 0,
+// A's first M columns (the mutation bits b of the carry) are staged as
+// 2b - 1, so the input product sees the denoiser's view of the bits and
+// the bf16 carry itself is never copied. Only the k-tiles that start below
+// M take the transforming staging loop (a branch uniform across the
+// block); the others stage exactly as without the head.
 
 #include <mma.h>
 
@@ -32,7 +39,7 @@ constexpr int kThreads = 128;  // 4 warps in a 2x2 layout over the tile
 
 template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads) gemm_bf16_f32acc_kernel(
-    const __nv_bfloat16* __restrict__ A, int lda,
+    const __nv_bfloat16* __restrict__ A, int lda, int a_mut_cols,
     const __nv_bfloat16* __restrict__ B, int ldb,
     void* __restrict__ C, int ldc, int out_bf16,
     int M, int N, int K,
@@ -63,10 +70,21 @@ __global__ void __launch_bounds__(kThreads) gemm_bf16_f32acc_kernel(
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int e = tid; e < BM * kBK; e += kThreads) {
-      const int r = e / kBK, c = e % kBK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[r * LDA_S + c] = (gr < M && gc < K) ? A[(size_t)gr * lda + gc] : zero;
+    if (k0 < a_mut_cols) {  // uniform across the block: only the first k-tiles
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int r = e / kBK, c = e % kBK;
+        const int gr = row0 + r, gc = k0 + c;
+        __nv_bfloat16 v = (gr < M && gc < K) ? A[(size_t)gr * lda + gc] : zero;
+        if (gc < a_mut_cols && gr < M)
+          v = __float2bfloat16(__fsub_rn(2.0f * __bfloat162float(v), 1.0f));
+        As[r * LDA_S + c] = v;
+      }
+    } else {
+      for (int e = tid; e < BM * kBK; e += kThreads) {
+        const int r = e / kBK, c = e % kBK;
+        const int gr = row0 + r, gc = k0 + c;
+        As[r * LDA_S + c] = (gr < M && gc < K) ? A[(size_t)gr * lda + gc] : zero;
+      }
     }
     for (int e = tid; e < kBK * BN; e += kThreads) {
       const int r = e / BN, c = e % BN;
@@ -116,27 +134,28 @@ __global__ void __launch_bounds__(kThreads) gemm_bf16_f32acc_kernel(
 }
 
 template <int BM, int BN>
-void launch(const void* A, int lda, const void* B, int ldb, void* C, int ldc, int out_bf16,
-            int M, int N, int K, const void* bias, const void* row_add, int ldr,
+void launch(const void* A, int lda, int a_mut_cols, const void* B, int ldb, void* C, int ldc,
+            int out_bf16, int M, int N, int K, const void* bias, const void* row_add, int ldr,
             cudaStream_t stream) {
   const dim3 grid(osdm::cdiv(N, BN), osdm::cdiv(M, BM));
   gemm_bf16_f32acc_kernel<BM, BN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(A), lda, static_cast<const __nv_bfloat16*>(B), ldb,
+      static_cast<const __nv_bfloat16*>(A), lda, a_mut_cols,
+      static_cast<const __nv_bfloat16*>(B), ldb,
       C, ldc, out_bf16, M, N, K, static_cast<const float*>(bias),
       static_cast<const float*>(row_add), ldr);
 }
 
 }  // namespace
 
-OSDM_EXPORT int osdm_gemm_bf16_f32acc(const void* A, int lda, const void* B, int ldb,
-                                      void* C, int ldc, int out_bf16, int M, int N, int K,
-                                      const void* bias, const void* row_add, int ldr,
+OSDM_EXPORT int osdm_gemm_bf16_f32acc(const void* A, int lda, int a_mut_cols, const void* B,
+                                      int ldb, void* C, int ldc, int out_bf16, int M, int N,
+                                      int K, const void* bias, const void* row_add, int ldr,
                                       int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile == 64)
-    launch<64, 64>(A, lda, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, s);
+    launch<64, 64>(A, lda, a_mut_cols, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, s);
   else if (tile == 32)
-    launch<32, 32>(A, lda, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, s);
+    launch<32, 32>(A, lda, a_mut_cols, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

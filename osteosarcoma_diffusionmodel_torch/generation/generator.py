@@ -7,7 +7,11 @@ numpy path), the per-scenario and batched loops (:705-768), the
 modality split and the CSV export (:771-820), and checkpoint loading.
 
 Sampling always runs the kernel sampler (``ops/fused_sampler.py``): DDPM
-over all T steps, or eta = 0 DDIM over ``generation.sampling_steps``. The
+over all T steps, or eta = 0 DDIM over ``generation.sampling_steps``, with
+the int8 products of ``generation.fused_quantize`` ("none", "out", "io",
+"all"). With the D3PM mutation head the model's bits are kept as they
+come out of the sampler, and calibration reshapes the continuous block
+only (the JAX `_calibrate`, :481-489, :523-532, :557-586). The
 JAX package's 4096/8192-row thresholds choose between two TPU programs;
 here there is one sampler at every batch size. Calibration runs the
 float64 numpy path of ``ops/copula.py`` (``calibration_backend`` "auto"
@@ -59,7 +63,7 @@ class SyntheticPatientGenerator:
         self.data_stats = data_stats
         self.device = torch.device(device)
         model.denoiser.to(self.device)
-        self._samplers: Dict[Optional[int], FusedSampler] = {}
+        self._samplers: Dict[tuple, FusedSampler] = {}
         self._copula = None
         self._cont_chol = None
         self._joint = None
@@ -101,9 +105,11 @@ class SyntheticPatientGenerator:
     def sampler(self) -> FusedSampler:
         gen = self.config.generation
         steps = gen.sampling_steps if gen.sampler == "ddim" else None
-        if steps not in self._samplers:
-            self._samplers[steps] = FusedSampler(self.model, self.device, ddim_steps=steps)
-        return self._samplers[steps]
+        quantize = None if gen.fused_quantize in ("none", None) else gen.fused_quantize
+        if (steps, quantize) not in self._samplers:
+            self._samplers[steps, quantize] = FusedSampler(
+                self.model, self.device, ddim_steps=steps, quantize=quantize)
+        return self._samplers[steps, quantize]
 
     def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> np.ndarray:
         out = self.sampler().sample(torch.from_numpy(conditions), generator)
@@ -140,11 +146,15 @@ class SyntheticPatientGenerator:
 
     def _calibrate(self, samples: np.ndarray, m: int, mode: str):
         """Marginal (and joint, for the copula modes) calibration against
-        the training cohort; see the JAX `_calibrate` for each mode."""
+        the training cohort; see the JAX `_calibrate` for each mode. With
+        the D3PM head the model owns the bits: they pass through
+        (``raw > 0.5`` of exact 0/1 values), "copula_joint" takes the
+        "copula_full" route for the continuous block."""
         stats = self.data_stats
         raw_mut = samples[:, :m]
-        if (mode == "copula_joint" and "mutation_matrix" in stats and "data_matrix" in stats
-                and samples.shape[0] > 2 and m > 1):
+        discrete = self.model.discrete_head
+        if (mode == "copula_joint" and not discrete and "mutation_matrix" in stats
+                and "data_matrix" in stats and samples.shape[0] > 2 and m > 1):
             if self._joint is None:
                 real = np.asarray(stats["data_matrix"])
                 self._joint = fit_joint_copula(real[:, :m], real[:, m:])
@@ -155,7 +165,9 @@ class SyntheticPatientGenerator:
                 tie_rng=np.random.default_rng(self._tie_seed()),
             )
             return mutations, self._quantile_map_continuous(cont, m)
-        if (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
+        if discrete:
+            mutations = (raw_mut > 0.5).astype(np.float32)
+        elif (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
                 and raw_mut.shape[0] > 2 and m > 1):
             if self._copula is None:
                 self._copula = fit_binary_copula(np.asarray(stats["mutation_matrix"]))

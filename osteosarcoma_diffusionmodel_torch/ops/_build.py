@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
 The sources in ``csrc/`` compile into one shared library with a plain C
-interface. The build runs at first use (never at import), from the
-package's own sources only, into ``_build/<hash>/`` beside the package;
-the hash covers every source and the compiler flags, so an edited source
-rebuilds and an unchanged one loads in milliseconds.
+interface: one nvcc process per source, all started together, then one
+link. The build runs at first use (never at import), from the package's
+own sources only, into ``_build/<hash>/`` beside the package; the hash
+covers every source and the compiler flags, so an edited source rebuilds
+and an unchanged one loads in milliseconds.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_ROOT = PACKAGE_DIR / "_build"
 LIB_NAME = "libosdm_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -33,12 +34,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U32 = ctypes.c_uint32
 SIGNATURES = {
-    # A, lda, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, tile, stream
-    "osdm_gemm_bf16_f32acc": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    # A, lda, a_mut_cols, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, tile, stream
+    "osdm_gemm_bf16_f32acc": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     # h, ldh, out, ldo, scale, bias, M, F, eps, stream
     "osdm_groupnorm8_silu": [_P, _I, _P, _I, _P, _P, _I, _I, _F, _P],
-    # acc, x, M, D, b_out, coeffs, step, mode, noise, seed, clip, stream
-    "osdm_x0_posterior_step": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _U32, _F, _P],
+    # acc, x, M, D, mut_dim, b_out, coeffs, step, mode, noise, seed, clip, stream
+    "osdm_x0_posterior_step": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _U32, _F, _P],
+    # A, lda, in_bf16, M, K, mut_cols, Q, ldq, scale, stream
+    "osdm_rowquant_s8": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    # A, lda, B, ldb, C, ldc, out_bf16, M, N, K, row_scale, col_scale, accumulate,
+    # bias, row_add, ldr, tile, stream
+    "osdm_gemm_s8": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
     # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
     "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "osdm_rbf_grid_blocks": [_I, _I],
@@ -78,20 +84,34 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    # Compile to a private name, then rename: concurrent builders never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    nvcc = find_nvcc()
+    # Build in a private directory, then rename the library: concurrent
+    # builds never load a half-written one.
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [os.path.join(work, cu.stem + ".o") for cu in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", obj, str(cu)]
+                  for obj, cu in zip(objs, sources)], work)
+        tmp = os.path.join(work, LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], work)
+        os.replace(tmp, lib_path)
     return lib_path
+
+
+def _run_all(cmds, work: str) -> None:
+    """Run the commands in parallel (output to files, so no pipe fills),
+    wait for every one, then raise with the first failure's output."""
+    runs = []
+    for i, cmd in enumerate(cmds):
+        log = os.path.join(work, f"nvcc_{i}.log")
+        with open(log, "w") as f:
+            runs.append((cmd, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    for _, _, proc in runs:
+        proc.wait()
+    for cmd, log, proc in runs:
+        if proc.returncode != 0:
+            with open(log) as f:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{f.read()}")
 
 
 class _Library:

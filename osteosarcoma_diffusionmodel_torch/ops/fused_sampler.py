@@ -1,4 +1,4 @@
-"""The reverse diffusion loop through the hand-written kernels K1-K3.
+"""The reverse diffusion loop through the hand-written kernels K1-K3, K5, K6.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py
 `FusedSampler`. The TPU kernel keeps the weights and a state tile on chip
@@ -16,8 +16,21 @@ Decoder inputs ``[h | skip]`` live in preallocated bf16 buffers that the
 encoder blocks write their skip halves into, so no concatenation is
 copied. The host tables follow FusedSampler.__init__ (:661-724): reverse
 timesteps, ``t_add`` (time embedding + input bias, f32), the (n_loop, 6)
-coefficient table (c0, c1, sv, g, 0, 0) whose last DDPM row is (1, 0, 0)
-and the linearized eta = 0 DDIM table.
+coefficient table (c0, c1, sv, g, beta, acp_prev) whose last DDPM row is
+(1, 0, 0) and the linearized eta = 0 DDIM table.
+
+With the D3PM head (``model.discrete_head``) the first ``mutation_dim``
+columns of the carry are bits: the x_T prior draws Bernoulli(1/2) there,
+K1 reads them as 2b - 1 in the input product and K3 draws the binary
+posterior from the step's uniforms (columns 4-5 of the table).
+
+``quantize`` ("out", "io", "all"; the TPU's ``_quant_flags``, :108-124)
+routes the marked products through K5 (per-row int8 activations) and K6
+(s8·s8 -> s32, dequantized with the per-column weight scales of
+:func:`sampler_kernels.pack_int8`). The decoder's fc1 is then two
+products over the [h | skip] halves, each with its own scales, summed in
+f32, as the TPU computes it. K5 quantizes the bf16 activations that K2
+stores, where the TPU quantizes f32 ones.
 
 Noise: "philox" (in-kernel, the DDPM default), "buffer" (a given
 (n_loop, B, D) tensor: the parity hook) or "none" (DDIM). On CPU tensors
@@ -26,14 +39,37 @@ the same loop runs the kernels' plain versions.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.networks import sinusoid
-from .sampler_kernels import gemm_bf16_f32acc, groupnorm8_silu, x0_posterior_step
+from .sampler_kernels import (
+    gemm_bf16_f32acc,
+    gemm_s8,
+    groupnorm8_silu,
+    pack_int8,
+    pad16,
+    rowquant_s8,
+    x0_posterior_step,
+)
 from .schedules import DiffusionSchedule, ddim_timesteps
+
+_QUANT_FLAGS = {
+    None: (False, False, False),
+    "out": (False, False, True),
+    "io": (True, False, True),
+    "all": (True, True, True),
+}
+
+
+def quant_flags(quantize: Optional[str]) -> Tuple[bool, bool, bool]:
+    """(input product, block products, output product) int8 flags of a
+    ``quantize`` mode (the TPU's ``_quant_flags``)."""
+    if quantize not in _QUANT_FLAGS:
+        raise ValueError(f"quantize must be None/'out'/'io'/'all', got {quantize!r}")
+    return _QUANT_FLAGS[quantize]
 
 
 def reverse_timesteps(num_steps: int, ddim_steps: Optional[int] = None) -> np.ndarray:
@@ -44,32 +80,51 @@ def reverse_timesteps(num_steps: int, ddim_steps: Optional[int] = None) -> np.nd
 
 
 def coefficient_table(schedule: DiffusionSchedule, gains: np.ndarray,
-                      ddim_steps: Optional[int] = None) -> np.ndarray:
-    """(n_loop, 6) f32 rows (c0, c1, sv, g, 0, 0) in reverse-time order.
+                      ddim_steps: Optional[int] = None, discrete: bool = False) -> np.ndarray:
+    """(n_loop, 6) f32 rows (c0, c1, sv, g, beta, acp_prev) in reverse-time
+    order.
 
     DDPM: the ancestral posterior, with the t = 0 row (1, 0, 0) returning
     clip(x0) and no noise. DDIM (eta = 0): x_prev = sqrt(acp_prev)·x0 +
     sqrt(1 - acp_prev)·eps with eps from the clipped x0, linearized into
-    c0·x0 + c1·x_t."""
+    c0·x0 + c1·x_t. Columns 4-5 drive the D3PM bits when ``discrete``
+    (zeros otherwise): DDPM the one-step (beta_t, acp_{t-1}) pair, with
+    acp_prev = 1 on the last row; DDIM the strided jump's effective
+    beta = 1 - acp_t/acp_prev (the uniform chain composes exactly)."""
     ts = reverse_timesteps(schedule.num_steps, ddim_steps)
+    acp = schedule.alphas_cumprod
     if ddim_steps is None:
         c0 = schedule.posterior_coef_x0[ts].copy()
         c1 = schedule.posterior_coef_xt[ts].copy()
         sv = np.sqrt(schedule.posterior_variance[ts])
         c0[-1], c1[-1], sv[-1] = 1.0, 0.0, 0.0
+        beta = schedule.betas[ts]
+        acp_prev = np.where(ts >= 1, acp[np.maximum(ts - 1, 0)], 1.0)
     else:
-        acp = schedule.alphas_cumprod
         acp_t = acp[ts]
         prev = np.concatenate([ts[1:], [-1]])
         acp_prev = np.where(prev >= 0, acp[np.maximum(prev, 0)], 1.0)
         c1 = np.sqrt((1.0 - acp_prev) / (1.0 - acp_t))
         c0 = np.sqrt(acp_prev) - c1 * np.sqrt(acp_t)
         sv = np.zeros_like(c0)
+        beta = 1.0 - acp_t / acp_prev
     gains = np.asarray(gains, np.float64).reshape(-1)
     if gains.shape != c0.shape:
         raise ValueError(f"gains must have {c0.shape[0]} rows, got {gains.shape}")
-    zeros = np.zeros_like(c0)
-    return np.stack([c0, c1, sv, gains, zeros, zeros], axis=1).astype(np.float32)
+    if not discrete:
+        beta = acp_prev = np.zeros_like(c0)
+    return np.stack([c0, c1, sv, gains, beta, acp_prev], axis=1).astype(np.float32)
+
+
+def x_prior(batch: int, data_dim: int, mut_dim: int, generator: torch.Generator) -> torch.Tensor:
+    """x_T on the generator's device: Gaussian, with Bernoulli(1/2) bits on
+    the first ``mut_dim`` columns (the TPU's ``_x_init``, :847-861)."""
+    dev = generator.device
+    if not mut_dim:
+        return torch.randn((batch, data_dim), generator=generator, device=dev)
+    cont = torch.randn((batch, data_dim - mut_dim), generator=generator, device=dev)
+    bits = (torch.rand((batch, mut_dim), generator=generator, device=dev) < 0.5).float()
+    return torch.cat([bits, cont], dim=1)
 
 
 def _bf16(w: torch.Tensor, device) -> torch.Tensor:
@@ -80,39 +135,86 @@ def _f32(w: torch.Tensor, device) -> torch.Tensor:
     return w.to(device=device, dtype=torch.float32).contiguous()
 
 
-class _Block:
-    """One DenoiserBlock's weights in kernel layout (K, N) bf16 + f32 vectors."""
+def int8_parts(w: torch.Tensor, device, splits: Optional[Sequence[int]] = None) -> List[tuple]:
+    """A (K, N) weight as int8 parts (lo, hi, codes, column scales), one per
+    row range of ``splits`` (the TPU's ``_block_weights`` splits the
+    decoder's fc1 at its [h | skip] boundary, :141-161)."""
+    parts, lo = [], 0
+    for size in splits or [w.shape[0]]:
+        q, scale = pack_int8(w[lo:lo + size].numpy())
+        parts.append((lo, lo + size, q.to(device), scale.to(device)))
+        lo += size
+    if lo != w.shape[0]:
+        raise ValueError(f"splits {list(splits)} do not cover {w.shape[0]} rows")
+    return parts
 
-    def __init__(self, sd, name: str, device):
-        self.w1 = _bf16(sd[f"{name}.fc1.weight"].T, device)
+
+class _Weight:
+    """One product's (K, N) weight in kernel layout: bf16 for K1, or the
+    :func:`int8_parts` for K5 + K6."""
+
+    def __init__(self, w: torch.Tensor, device, quant: bool,
+                 splits: Optional[Sequence[int]] = None):
+        self.parts = int8_parts(w, device, splits) if quant else []
+        self.max_kp = max((q.shape[0] for _, _, q, _ in self.parts), default=0)
+        if not quant:
+            self.w = _bf16(w, device)
+
+    def __call__(self, a: torch.Tensor, out: torch.Tensor, scratch, bias=None, row_add=None,
+                 mut_cols: int = 0) -> None:
+        """out = a·W + bias + row_add (``mut_cols``: 2a - 1 on A's first
+        columns)."""
+        if not self.parts:
+            gemm_bf16_f32acc(a, self.w, out=out, bias=bias, row_add=row_add, a_mut_cols=mut_cols)
+            return
+        q_buf, s_buf = scratch
+        m, last = a.shape[0], len(self.parts) - 1
+        for i, (lo, hi, q, scale) in enumerate(self.parts):
+            kp = pad16(hi - lo)
+            qa, rs = rowquant_s8(a[:, lo:hi], out=q_buf[: m * kp].view(m, kp), scale=s_buf[:m],
+                                 mut_cols=mut_cols if lo == 0 else 0)
+            gemm_s8(qa, rs, q, scale, out=out, bias=bias if i == last else None,
+                    row_add=row_add if i == last else None, accumulate=i > 0)
+
+
+class _Block:
+    """One DenoiserBlock's weights in kernel layout + f32 vectors."""
+
+    def __init__(self, sd, name: str, device, quant: bool, in_splits: Sequence[int]):
+        self.fc1 = _Weight(sd[f"{name}.fc1.weight"].T, device, quant, in_splits)
         self.b1 = _f32(sd[f"{name}.fc1.bias"], device)
         self.g1 = _f32(sd[f"{name}.norm1.weight"], device)
         self.n1 = _f32(sd[f"{name}.norm1.bias"], device)
-        self.w2 = _bf16(sd[f"{name}.fc2.weight"].T, device)
+        self.fc2 = _Weight(sd[f"{name}.fc2.weight"].T, device, quant)
         self.b2 = _f32(sd[f"{name}.fc2.bias"], device)
         self.g2 = _f32(sd[f"{name}.norm2.weight"], device)
         self.n2 = _f32(sd[f"{name}.norm2.bias"], device)
-        self.features = self.w1.shape[1]
+        self.features = self.b1.shape[0]
+        self.max_kp = max(self.fc1.max_kp, self.fc2.max_kp)
 
     def run(self, a: torch.Tensor, out: torch.Tensor, pre: torch.Tensor,
-            mid: torch.Tensor) -> None:
-        gemm_bf16_f32acc(a, self.w1, out=pre, bias=self.b1)
+            mid: torch.Tensor, scratch) -> None:
+        self.fc1(a, pre, scratch, bias=self.b1)
         groupnorm8_silu(pre, self.g1, self.n1, out=mid)
-        gemm_bf16_f32acc(mid, self.w2, out=pre, bias=self.b2)
+        self.fc2(mid, pre, scratch, bias=self.b2)
         groupnorm8_silu(pre, self.g2, self.n2, out=out)
 
 
 class FusedSampler:
     """Host tables and weight layout built once per (model, device); each
-    :meth:`sample` call runs the reverse loop through K1-K3."""
+    :meth:`sample` call runs the reverse loop through the kernels."""
 
-    def __init__(self, model, device, ddim_steps: Optional[int] = None):
+    def __init__(self, model, device, ddim_steps: Optional[int] = None,
+                 quantize: Optional[str] = None):
+        q_in, q_blk, q_out = quant_flags(quantize)
         d = model.denoiser
         self.model = model
-        self.device = torch.device(device)
+        self.device = dev = torch.device(device)
         self.ddim_steps = ddim_steps
+        self.quantize = quantize
         self.clip_value = float(model.clip_value)
         self.data_dim = d.data_dim
+        self.mut_dim = model.mutation_dim if model.discrete_head else 0
         self.hidden = list(d.hidden_dims)
         T = model.schedule.num_steps
         self.ts = reverse_timesteps(T, ddim_steps)
@@ -125,23 +227,32 @@ class FusedSampler:
         gains = sin @ sd["skip_gain.weight"].numpy().T + sd["skip_gain.bias"].numpy()
         self.t_add = torch.from_numpy(
             (t_emb + sd["input_proj.bias"].numpy()).astype(np.float32)
-        ).to(self.device)
+        ).to(dev)
         self.coeffs = torch.from_numpy(
-            coefficient_table(model.schedule, gains[:, 0], ddim_steps)
-        ).to(self.device)
+            coefficient_table(model.schedule, gains[:, 0], ddim_steps, self.mut_dim > 0)
+        ).to(dev)
 
-        self.w_in = _bf16(sd["input_proj.weight"].T, self.device)
-        self.encoders = [_Block(sd, n, self.device) for n in d.encoder_names]
-        self.bottleneck = _Block(sd, "bottleneck", self.device)
-        self.decoders = [_Block(sd, n, self.device) for n in d.decoder_names]
-        self.w_out = _bf16(sd["output_proj.weight"].T, self.device)
-        self.b_out = _f32(sd["output_proj.bias"], self.device)
+        self.w_in = _Weight(sd["input_proj.weight"].T, dev, q_in)
+        self.encoders, width = [], self.hidden[0]
+        for name in d.encoder_names:
+            self.encoders.append(_Block(sd, name, dev, q_blk, [width]))
+            width = self.encoders[-1].features
+        self.bottleneck = _Block(sd, "bottleneck", dev, q_blk, [width])
+        width = self.bottleneck.features
+        self.decoders = []
+        for name, enc in zip(d.decoder_names, self.encoders[::-1]):
+            self.decoders.append(_Block(sd, name, dev, q_blk, [width, enc.features]))
+            width = self.decoders[-1].features
+        self.w_out = _Weight(sd["output_proj.weight"].T, dev, q_out)
+        self.b_out = _f32(sd["output_proj.bias"], dev)
+        self.max_kp = max(w.max_kp for w in [self.w_in, self.w_out, self.bottleneck]
+                          + self.encoders + self.decoders)
 
     # ------------------------------------------------------------------
     def _buffers(self, batch: int):
         """Per-call activations. ``cats[j]`` is decoder j's [h | skip]
         input; encoder i writes its output into the skip half of
-        ``cats[L-1-i]``."""
+        ``cats[L-1-i]``. ``quant`` is K5's scratch (codes, row scales)."""
         dev, bf = self.device, torch.bfloat16
         feats = [b.features for b in self.encoders]
         prev = [self.bottleneck.features] + [b.features for b in self.decoders[:-1]]
@@ -157,6 +268,8 @@ class FusedSampler:
             "h_last": torch.empty(batch, self.decoders[-1].features if self.decoders
                                   else self.bottleneck.features, dtype=bf, device=dev),
             "acc": torch.empty(batch, self.data_dim, dtype=torch.float32, device=dev),
+            "quant": (torch.empty(batch * self.max_kp, dtype=torch.int8, device=dev),
+                      torch.empty(batch, dtype=torch.float32, device=dev)),
         }
 
     def _step(self, s: int, x: torch.Tensor, c_proj: torch.Tensor, buf, mode: str,
@@ -164,26 +277,28 @@ class FusedSampler:
         batch = x.shape[0]
         cats: List[torch.Tensor] = buf["cats"]
         n_enc = len(self.encoders)
+        scratch = buf["quant"]
 
-        def scratch(f):
+        def scratch_rows(f):
             return (buf["pre"][: batch * f].view(batch, f),
                     buf["mid"][: batch * f].view(batch, f))
 
-        gemm_bf16_f32acc(x, self.w_in, out=buf["h_in"], bias=self.t_add[s], row_add=c_proj)
+        self.w_in(x, buf["h_in"], scratch, bias=self.t_add[s], row_add=c_proj,
+                  mut_cols=self.mut_dim)
         h = buf["h_in"]
         for i, blk in enumerate(self.encoders):
             cat = cats[n_enc - 1 - i]
             out = cat[:, cat.shape[1] - blk.features:]
-            blk.run(h, out, *scratch(blk.features))
+            blk.run(h, out, *scratch_rows(blk.features), scratch)
             h = out
         dst = cats[0][:, : self.bottleneck.features] if cats else buf["h_last"]
-        self.bottleneck.run(h, dst, *scratch(self.bottleneck.features))
+        self.bottleneck.run(h, dst, *scratch_rows(self.bottleneck.features), scratch)
         for j, blk in enumerate(self.decoders):
             dst = cats[j + 1][:, : blk.features] if j + 1 < len(cats) else buf["h_last"]
-            blk.run(cats[j], dst, *scratch(blk.features))
-        gemm_bf16_f32acc(buf["h_last"], self.w_out, out=buf["acc"])
+            blk.run(cats[j], dst, *scratch_rows(blk.features), scratch)
+        self.w_out(buf["h_last"], buf["acc"], scratch)
         x0_posterior_step(buf["acc"], x, self.b_out, self.coeffs, s, mode,
-                          noise=noise, seed=seed, clip=self.clip_value)
+                          noise=noise, seed=seed, clip=self.clip_value, mut_dim=self.mut_dim)
 
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: torch.Generator,
@@ -192,7 +307,8 @@ class FusedSampler:
         """Samples (B, D) float32 on the sampler's device. ``x_init``: the
         x_T prior (B, D), drawn from ``generator`` when omitted; ``noise``:
         (n_loop, B, D) per-step transition noise replacing the in-kernel
-        Philox stream (DDPM only)."""
+        Philox stream (DDPM only; with the D3PM head its mutation columns
+        give the bit uniforms z/(2sqrt3) + 1/2)."""
         dev = self.device
         batch, D = conditions.shape[0], self.data_dim
         if self.ddim_steps is not None:
@@ -208,7 +324,7 @@ class FusedSampler:
             noise = noise.to(device=dev, dtype=torch.float32).contiguous()
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         if x_init is None:
-            x_init = torch.randn((batch, D), generator=generator, device=generator.device)
+            x_init = x_prior(batch, D, self.mut_dim, generator)
         x = x_init.to(device=dev, dtype=torch.bfloat16).contiguous().clone()
 
         # Loop-invariant condition projection (plain torch, as the JAX

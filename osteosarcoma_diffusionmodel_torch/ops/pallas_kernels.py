@@ -53,7 +53,7 @@ def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Tens
         partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), _stream(x),
     )
     check(status, RBF.name)
-    RBF.launches += 1
+    RBF.count()
     return out
 
 

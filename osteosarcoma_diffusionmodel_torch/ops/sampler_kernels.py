@@ -1,28 +1,36 @@
-"""Wrappers for the sampler's Hopper kernels K1-K3, beside their plain versions.
+"""Wrappers for the sampler's Hopper kernels K1-K3, K5 and K6, beside their
+plain versions.
 
-The three kernels together compute what the TPU's whole-loop sampler
+Together the kernels compute what the TPU's whole-loop sampler
 (osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py `_build_kernel`)
 computes in one Pallas kernel, one reverse step at a time:
 
-- K1 ``gemm_bf16_f32acc``: every matrix product of the step;
+- K1 ``gemm_bf16_f32acc``: the bf16 matrix products of the step, with
+  the D3PM head's 2b-1 prologue on the input product;
 - K2 ``groupnorm8_silu``: GroupNorm(8) with f32 statistics, then SiLU;
-- K3 ``x0_posterior_step``: output epilogue, clip and the transition.
+- K3 ``x0_posterior_step``: output epilogue, clip and the transition,
+  with the binary D3PM posterior on the mutation columns;
+- K5 ``rowquant_s8`` and K6 ``gemm_s8``: the int8 products of the
+  ``quantize`` modes (per-row dynamic activation scales, per-column
+  weight scales, s8·s8 -> s32, dequantized in the epilogue).
 
-A wrapper launches its kernel for CUDA tensors and counts the launch; for
-CPU tensors it runs the plain PyTorch version (the tests' path). Any
-other device raises. There is no fallback from a CUDA tensor to the
-plain version.
+A wrapper launches its kernel for CUDA tensors and counts the launch, in
+total and by mode; for CPU tensors it runs the plain PyTorch version (the
+tests' path). Any other device raises. There is no fallback from a CUDA
+tensor to the plain version.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ._build import LIBRARY, check
+from .discrete import posterior_prob_one
 
 GN_EPS = 1e-6
 UNIFORM_SCALE = 2.0 * math.sqrt(3.0)  # U(-sqrt3, sqrt3): zero mean, unit variance
@@ -33,15 +41,26 @@ _M32 = 0xFFFFFFFF
 
 class Kernel:
     """A hand-written kernel's wrapper: identity for reports plus its
-    launch count (incremented once per kernel launch, nowhere else)."""
+    launch counts, in total and by mode (both incremented by
+    :meth:`count` once per kernel launch, nowhere else)."""
 
     route = "cuda"
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str, source: str, replaces: str,
+                 modes: Sequence[str] = ("default",)):
         self.name = name
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.modes = dict.fromkeys(modes, 0)
+
+    def count(self, mode: str = "default") -> None:
+        self.modes[mode] += 1
+        self.launches += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.modes = dict.fromkeys(self.modes, 0)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -81,12 +100,27 @@ GEMM = Kernel(
     "gemm_bf16_f32acc",
     "osteosarcoma_diffusionmodel_torch/csrc/gemm_bf16.cu",
     "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:347",
+    modes=("bf16", "mut_prologue"),
 )
 
 
-def gemm_bf16_f32acc_plain(a, b, bias=None, row_add=None):
+def mutation_transform(a: torch.Tensor, mut_cols: int) -> torch.Tensor:
+    """f32 copy of ``a`` with 2a - 1 on its first ``mut_cols`` columns:
+    the denoiser's view of the D3PM bits (TPU ``st_pre``, :371-385)."""
+    x = a.float()
+    if mut_cols:
+        x = x.clone()
+        x[:, :mut_cols] = 2.0 * x[:, :mut_cols] - 1.0
+    return x
+
+
+def gemm_bf16_f32acc_plain(a, b, bias=None, row_add=None, a_mut_cols: int = 0):
     """bf16 x bf16 products accumulated in f32 (every bf16 product is
-    exact in f32), then bias and the per-row add in that order."""
+    exact in f32), then bias and the per-row add in that order. With
+    ``a_mut_cols`` the first columns of A enter as 2A - 1, rounded to
+    bf16 as the TPU rounds its f32 input for the dot."""
+    if a_mut_cols:
+        a = mutation_transform(a, a_mut_cols).to(torch.bfloat16)
     acc = a.float() @ b.float()
     if bias is not None:
         acc = acc + bias
@@ -106,22 +140,9 @@ def gemm_tile(m: int, n: int, sms: int) -> int:
     return 64 if math.ceil(m / 64) * math.ceil(n / 64) >= sms else 32
 
 
-def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None,
-                     bias: Optional[torch.Tensor] = None,
-                     row_add: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out = a @ b + bias + row_add`` with ``a`` (M, K) and ``b`` (K, N)
-    in bf16, f32 accumulation, ``bias`` (N,) and ``row_add`` (M, N) f32.
-    ``a``, ``row_add`` and ``out`` may be row-strided views. ``out`` is
-    f32 (allocated when omitted) or bf16 (the rounding of the f32 result)."""
-    _check_rows(a, "a")
-    _check_dtype(a, torch.bfloat16, "a")
-    _check_dtype(b, torch.bfloat16, "b")
-    if not b.is_contiguous() or b.dim() != 2:
-        raise ValueError("b must be a contiguous (K, N) matrix")
-    m, k = a.shape
-    if b.shape[0] != k:
-        raise ValueError(f"inner dims differ: a {tuple(a.shape)} b {tuple(b.shape)}")
-    n = b.shape[1]
+def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
+    """Checks K1/K6's epilogue operands; returns ``out`` (f32, allocated
+    when omitted)."""
     if bias is not None:
         _check_dtype(bias, torch.float32, "bias")
         if bias.shape != (n,) or not bias.is_contiguous():
@@ -132,17 +153,42 @@ def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tenso
         if row_add.shape != (m, n):
             raise ValueError(f"row_add must be ({m}, {n}), got {tuple(row_add.shape)}")
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        out = torch.empty((m, n), dtype=torch.float32, device=device)
     _check_rows(out, "out")
     if out.shape != (m, n) or out.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out must be ({m}, {n}) f32/bf16, got {tuple(out.shape)} {out.dtype}")
+    return out
+
+
+def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     row_add: Optional[torch.Tensor] = None,
+                     a_mut_cols: int = 0) -> torch.Tensor:
+    """``out = a @ b + bias + row_add`` with ``a`` (M, K) and ``b`` (K, N)
+    in bf16, f32 accumulation, ``bias`` (N,) and ``row_add`` (M, N) f32.
+    ``a``, ``row_add`` and ``out`` may be row-strided views. ``out`` is
+    f32 (allocated when omitted) or bf16 (the rounding of the f32 result).
+    ``a_mut_cols``: A's first columns are read as 2A - 1 (the D3PM
+    prologue of the input product; ``a`` itself is not changed)."""
+    _check_rows(a, "a")
+    _check_dtype(a, torch.bfloat16, "a")
+    _check_dtype(b, torch.bfloat16, "b")
+    if not b.is_contiguous() or b.dim() != 2:
+        raise ValueError("b must be a contiguous (K, N) matrix")
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"inner dims differ: a {tuple(a.shape)} b {tuple(b.shape)}")
+    if not 0 <= a_mut_cols <= k:
+        raise ValueError(f"a_mut_cols must be in [0, {k}], got {a_mut_cols}")
+    n = b.shape[1]
+    out = _check_epilogue(m, n, bias, row_add, out, a.device)
 
     if not _on_cuda(a, b, bias, row_add, out):
-        out.copy_(gemm_bf16_f32acc_plain(a, b, bias, row_add))
+        out.copy_(gemm_bf16_f32acc_plain(a, b, bias, row_add, a_mut_cols))
         return out
     lib = LIBRARY.get()
     status = lib.osdm_gemm_bf16_f32acc(
-        a.data_ptr(), a.stride(0), b.data_ptr(), n, out.data_ptr(), out.stride(0),
+        a.data_ptr(), a.stride(0), a_mut_cols, b.data_ptr(), n, out.data_ptr(), out.stride(0),
         int(out.dtype == torch.bfloat16), m, n, k,
         bias.data_ptr() if bias is not None else None,
         row_add.data_ptr() if row_add is not None else None,
@@ -151,7 +197,7 @@ def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tenso
         _stream(a),
     )
     check(status, GEMM.name)
-    GEMM.launches += 1
+    GEMM.count("mut_prologue" if a_mut_cols else "bf16")
     return out
 
 
@@ -206,7 +252,7 @@ def groupnorm8_silu(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         scale.data_ptr(), bias.data_ptr(), m, f, GN_EPS, _stream(h),
     )
     check(status, GROUPNORM.name)
-    GROUPNORM.launches += 1
+    GROUPNORM.count()
     return out
 
 
@@ -217,6 +263,7 @@ POSTERIOR = Kernel(
     "x0_posterior_step",
     "osteosarcoma_diffusionmodel_torch/csrc/posterior_step.cu",
     "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:449",
+    modes=tuple(NOISE_MODES) + tuple(f"d3pm_{m}" for m in NOISE_MODES),
 )
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -239,40 +286,71 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_uniform_noise(seed: int, step: int, rows: int, cols: int,
-                         device=None) -> torch.Tensor:
-    """The kernel's transition noise z ~ U(-sqrt3, sqrt3) for one step:
-    Philox keyed by (seed, step), counter = row*cols + col, top 24 bits."""
-    idx = torch.arange(rows * cols, dtype=torch.int64, device=device)
+def philox_uniform(seed: int, step: int, rows: int, cols: int, device=None,
+                   width: Optional[int] = None) -> torch.Tensor:
+    """The kernel's per-step uniforms u in [0, 1): Philox keyed by
+    (seed, step), counter = row*cols + col, top 24 bits of the first
+    word. ``width``: only the first ``width`` columns (the D3PM bit
+    draws of eta = 0 DDIM)."""
+    width = cols if width is None else width
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(width, dtype=torch.int64, device=device)[None, :]
+    idx = r * cols + c
     zero = torch.zeros_like(idx)
     r0, _, _, _ = philox4x32_10(idx & _M32, (idx >> 32) & _M32, zero, zero, seed, step)
-    u = (r0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return ((u - 0.5) * UNIFORM_SCALE).reshape(rows, cols)
+    return (r0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def philox_uniform_noise(seed: int, step: int, rows: int, cols: int,
+                         device=None) -> torch.Tensor:
+    """The kernel's transition noise z = (u - 1/2)·2sqrt3 ~ U(-sqrt3, sqrt3)
+    for one step, from :func:`philox_uniform`."""
+    return (philox_uniform(seed, step, rows, cols, device) - 0.5) * UNIFORM_SCALE
 
 
 def x0_posterior_step_plain(acc, x, b_out, coeffs, step: int, mode: str,
-                            noise=None, seed: int = 0, clip: float = 30.0):
-    """Returns the new bf16 carry (the kernel updates ``x`` in place)."""
-    c0, c1, sv, gain = (coeffs[step, i] for i in range(4))
+                            noise=None, seed: int = 0, clip: float = 30.0,
+                            mut_dim: int = 0):
+    """Returns the new bf16 carry (the kernel updates ``x`` in place).
+    The same f32 operations in the same order as the kernel."""
+    c0, c1, sv, gain, beta, acp_prev = (coeffs[step, i] for i in range(6))
     xf = x.float()
-    x0 = torch.clamp(acc + b_out + gain * xf, -clip, clip)
+    out = acc + b_out + gain * mutation_transform(x, mut_dim)
+    x0 = torch.clamp(out, -clip, clip)
     xn = c0 * x0 + c1 * xf
+    u = None
     if mode == "buffer":
-        xn = xn + sv * noise[step]
+        z = noise[step]
+        xn = xn + sv * z
+        u = z * (1.0 / UNIFORM_SCALE) + 0.5
     elif mode == "philox":
-        xn = xn + sv * philox_uniform_noise(seed, step, *x.shape, device=x.device)
+        u = philox_uniform(seed, step, *x.shape, device=x.device)
+        xn = xn + sv * ((u - 0.5) * UNIFORM_SCALE)
+    elif mut_dim:
+        u = philox_uniform(seed, step, *x.shape, device=x.device, width=mut_dim)
+    if mut_dim:
+        m = mut_dim
+        p_prev = posterior_prob_one(xf[:, :m], torch.sigmoid(out[:, :m]), beta, acp_prev)
+        xn[:, :m] = (u[:, :m] < p_prev).float()
     return xn.to(torch.bfloat16)
 
 
 def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
                       coeffs: torch.Tensor, step: int, mode: str,
                       noise: Optional[torch.Tensor] = None, seed: int = 0,
-                      clip: float = 30.0) -> torch.Tensor:
+                      clip: float = 30.0, mut_dim: int = 0) -> torch.Tensor:
     """In place on the bf16 carry ``x`` (B, D): out = acc + b_out + g·x,
     x0 = clip(out), x <- c0·x0 + c1·x [+ sv·z], with (c0, c1, sv, g) from
     row ``step`` of the (n_loop, 6) f32 table. ``mode``: "none" (eta = 0
     DDIM), "buffer" (z = noise[step], noise (n_loop, B, D) f32) or
-    "philox" (in-kernel noise keyed by (seed, step))."""
+    "philox" (in-kernel noise keyed by (seed, step)).
+
+    ``mut_dim`` > 0: the first columns hold D3PM bits. There the gain
+    term is g·(2b - 1), p1 = sigmoid(out) of the unclipped logits, and
+    the new bit is u < posterior_prob_one(b, p1, beta, acp_prev), with
+    (beta, acp_prev) from columns 4-5 of the row and u the step's
+    uniform on that column: Philox in "philox" and "none" mode,
+    z/(2sqrt3) + 1/2 in "buffer" mode."""
     if mode not in NOISE_MODES:
         raise ValueError(f"unknown noise mode {mode!r}")
     for t, name in ((acc, "acc"), (x, "x")):
@@ -283,6 +361,8 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
     if acc.shape != x.shape:
         raise ValueError(f"acc {tuple(acc.shape)} and x {tuple(x.shape)} differ")
     b, d = x.shape
+    if not 0 <= mut_dim <= d:
+        raise ValueError(f"mut_dim must be in [0, {d}], got {mut_dim}")
     _check_dtype(b_out, torch.float32, "b_out")
     _check_dtype(coeffs, torch.float32, "coeffs")
     if b_out.shape != (d,) or not b_out.is_contiguous():
@@ -299,15 +379,179 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
         raise ValueError("seed must fit in 32 bits")
 
     if not _on_cuda(acc, x, b_out, coeffs, noise if mode == "buffer" else None):
-        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip))
+        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip,
+                                        mut_dim))
         return x
     lib = LIBRARY.get()
     status = lib.osdm_x0_posterior_step(
-        acc.data_ptr(), x.data_ptr(), b, d, b_out.data_ptr(), coeffs.data_ptr(),
+        acc.data_ptr(), x.data_ptr(), b, d, mut_dim, b_out.data_ptr(), coeffs.data_ptr(),
         step, NOISE_MODES[mode], noise.data_ptr() if mode == "buffer" else None,
         seed, clip, _stream(x),
     )
     check(status, POSTERIOR.name)
-    POSTERIOR.launches += 1
+    POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
     return x
 
+
+# ----------------------------------------------------------------------
+# K5: per-row dynamic int8 quantization of the activations
+# ----------------------------------------------------------------------
+ROWQUANT = Kernel(
+    "rowquant_s8",
+    "osteosarcoma_diffusionmodel_torch/csrc/rowquant_s8.cu",
+    "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:336",
+    modes=("plain", "mut_transform"),
+)
+
+QUANT_ALIGN = 16  # int8 rows of K5's output and of the packed weights
+
+
+def pad16(n: int) -> int:
+    return -(-n // QUANT_ALIGN) * QUANT_ALIGN
+
+
+def rowquant_s8_plain(a, mut_cols: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU's ``mm`` activation quantization (:336-339) on the f32 view
+    of ``a`` (2a - 1 on its first ``mut_cols`` columns): per row,
+    amax = max(max|x|, 1e-6), q = round_half_even(x·(127/amax)) as int8,
+    zero-padded to a multiple of 16 columns, and the row scale
+    amax·(1/127) in f32."""
+    x = mutation_transform(a, mut_cols)
+    amax = torch.clamp(x.abs().amax(dim=1, keepdim=True), min=1e-6)
+    # A true division: ``127.0 / amax`` would be 127·(1/amax) in torch.
+    q = torch.round(x * (amax.new_tensor(127.0) / amax)).to(torch.int8)
+    q = torch.nn.functional.pad(q, (0, pad16(x.shape[1]) - x.shape[1]))
+    return q, (amax * (1.0 / 127.0)).reshape(-1)
+
+
+def rowquant_s8(a: torch.Tensor, out: Optional[torch.Tensor] = None,
+                scale: Optional[torch.Tensor] = None,
+                mut_cols: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 codes of ``a`` (M, K), bf16 or f32, a row-strided view
+    allowed: ``out`` (M, pad16(K)) int8 contiguous with zeros past K, and
+    ``scale`` (M,) f32 such that a ~ out·scale. ``mut_cols``: the first
+    columns are quantized as 2a - 1 (the D3PM input view)."""
+    _check_rows(a, "a")
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"a must be bf16 or f32, got {a.dtype}")
+    m, k = a.shape
+    if not 0 <= mut_cols <= k:
+        raise ValueError(f"mut_cols must be in [0, {k}], got {mut_cols}")
+    kp = pad16(k)
+    if out is None:
+        out = torch.empty((m, kp), dtype=torch.int8, device=a.device)
+    if scale is None:
+        scale = torch.empty(m, dtype=torch.float32, device=a.device)
+    if out.shape != (m, kp) or out.dtype != torch.int8 or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous ({m}, {kp}) int8")
+    if scale.shape != (m,) or scale.dtype != torch.float32 or not scale.is_contiguous():
+        raise ValueError(f"scale must be contiguous ({m},) f32")
+
+    if not _on_cuda(a, out, scale):
+        q, s = rowquant_s8_plain(a, mut_cols)
+        out.copy_(q)
+        scale.copy_(s)
+        return out, scale
+    lib = LIBRARY.get()
+    status = lib.osdm_rowquant_s8(
+        a.data_ptr(), a.stride(0), int(a.dtype == torch.bfloat16), m, k, mut_cols,
+        out.data_ptr(), kp, scale.data_ptr(), _stream(a),
+    )
+    check(status, ROWQUANT.name)
+    ROWQUANT.count("mut_transform" if mut_cols else "plain")
+    return out, scale
+
+
+# ----------------------------------------------------------------------
+# K6: s8·s8 -> s32 product, dequantized, with K1's epilogue
+# ----------------------------------------------------------------------
+GEMM_S8 = Kernel(
+    "gemm_s8",
+    "osteosarcoma_diffusionmodel_torch/csrc/gemm_s8.cu",
+    "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:340",
+    modes=("f32_out", "bf16_out", "accumulate"),
+)
+
+
+def pack_int8(w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One weight (K, N) as symmetric per-output-column int8 (the TPU's
+    ``_pack_mat``, :127-138, in float32 numpy): sw = max(max|w|, 1e-8)/127
+    per column, q = clip(round_half_even(w / sw), -127, 127). Returns the
+    codes zero-padded to (pad16(K), pad16(N)) and the (N,) f32 scales."""
+    w = np.asarray(w, np.float32)
+    sw = np.maximum(np.abs(w).max(axis=0, keepdims=True), 1e-8) / 127.0
+    qw = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
+    k, n = w.shape
+    padded = np.zeros((pad16(k), pad16(n)), np.int8)
+    padded[:k, :n] = qw
+    return torch.from_numpy(padded), torch.from_numpy(sw.reshape(-1).astype(np.float32))
+
+
+def gemm_s8_plain(qa, row_scale, qb, col_scale, bias=None, row_add=None, acc_into=None):
+    """The exact integer product (float64 holds every partial sum:
+    |sum| <= K·127^2 < 2^53), one rounding to f32, then in f32 and in this
+    order: ·row_scale, ·col_scale (the TPU's dequant, :344-346),
+    + ``acc_into`` (the earlier part of a split product), + bias,
+    + row_add."""
+    n = col_scale.shape[0]
+    v = (qa.double() @ qb[:, :n].double()).float()
+    v = v * row_scale[:, None] * col_scale[None, :]
+    if acc_into is not None:
+        v = acc_into + v
+    if bias is not None:
+        v = v + bias
+    if row_add is not None:
+        v = v + row_add
+    return v
+
+
+def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
+            col_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None, row_add: Optional[torch.Tensor] = None,
+            accumulate: bool = False) -> torch.Tensor:
+    """``out (+)= (qa @ qb)·row_scale·col_scale + bias + row_add`` with
+    ``qa`` (M, Kp) int8 from :func:`rowquant_s8`, ``qb`` (Kp, Np) int8 from
+    :func:`pack_int8`, ``row_scale`` (M,), ``col_scale`` (N,) with
+    N <= Np, and the epilogue of :func:`gemm_bf16_f32acc`. ``accumulate``
+    adds the result to the f32 ``out`` (the second half of the decoder's
+    split fc1)."""
+    for t, name in ((qa, "qa"), (qb, "qb")):
+        _check_dtype(t, torch.int8, name)
+        if t.dim() != 2 or not t.is_contiguous() or t.shape[1] % QUANT_ALIGN:
+            raise ValueError(f"{name} must be contiguous 2-D with a multiple of "
+                             f"{QUANT_ALIGN} columns, got {tuple(t.shape)}")
+    m, kp = qa.shape
+    if qb.shape[0] != kp:
+        raise ValueError(f"inner dims differ: qa {tuple(qa.shape)} qb {tuple(qb.shape)}")
+    n = col_scale.shape[0] if col_scale.dim() == 1 else -1
+    for t, name, size in ((row_scale, "row_scale", m), (col_scale, "col_scale", n)):
+        _check_dtype(t, torch.float32, name)
+        if t.dim() != 1 or t.shape[0] != size or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous ({size},)")
+    if not 0 < n <= qb.shape[1]:
+        raise ValueError(f"col_scale has {n} entries for {qb.shape[1]} packed columns")
+    if accumulate and (out is None or out.dtype != torch.float32):
+        raise ValueError("accumulate needs an f32 out")
+    out = _check_epilogue(m, n, bias, row_add, out, qa.device)
+
+    if not _on_cuda(qa, row_scale, qb, col_scale, bias, row_add, out):
+        out.copy_(gemm_s8_plain(qa, row_scale, qb, col_scale, bias, row_add,
+                                out if accumulate else None))
+        return out
+    if qa.data_ptr() % 16 or qb.data_ptr() % 16:
+        raise ValueError("qa and qb must be 16-byte aligned")
+    lib = LIBRARY.get()
+    status = lib.osdm_gemm_s8(
+        qa.data_ptr(), kp, qb.data_ptr(), qb.shape[1], out.data_ptr(), out.stride(0),
+        int(out.dtype == torch.bfloat16), m, n, kp, row_scale.data_ptr(), col_scale.data_ptr(),
+        int(accumulate),
+        bias.data_ptr() if bias is not None else None,
+        row_add.data_ptr() if row_add is not None else None,
+        row_add.stride(0) if row_add is not None else 0,
+        gemm_tile(m, n, _sm_count(qa.device.index)),
+        _stream(qa),
+    )
+    check(status, GEMM_S8.name)
+    GEMM_S8.count("accumulate" if accumulate else
+                  "bf16_out" if out.dtype == torch.bfloat16 else "f32_out")
+    return out

@@ -5,17 +5,19 @@ on one NVIDIA card.
 
 At full model width (data 62/5054/26, hidden 256/512/256, T = 1000) with
 seeded weights: wall time of whole ``FusedSampler.sample`` calls (DDPM-1000
-and DDIM-50, at 333 and 999 rows), a torch.profiler trace of one DDIM-50
-call (device time by kernel), the MMD of 100 real against 9999 synthetic
-rows through kernel K4, and the DDPM-1000 generate and validate steps of
-``chip_smoke.py``'s workload split by layer (sampler, calibration, CSV,
-validator parts). Needs a CUDA device; prints one JSON object and writes
-it to ``--out``.
+and DDIM-50, at 333 and 999 rows; with the D3PM mutation head; with each
+int8 ``quantize`` mode), a torch.profiler trace of one DDIM-50 call per
+variant (device time by kernel), the MMD of 100 real against 9999
+synthetic rows through kernel K4, and the DDPM-1000 generate and validate
+steps of ``chip_smoke.py``'s workload split by layer (sampler,
+calibration, CSV, validator parts). Needs a CUDA device; prints one JSON
+object and writes it to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -123,44 +125,57 @@ def main(argv=None) -> None:
     model = ConditionalDiffusion.from_config(cfg, dims)
     init_weights(model.denoiser, torch.Generator().manual_seed(0))
     model.denoiser.to(dev)
-    samplers = {"DDPM-1000": FusedSampler(model, dev), "DDIM-50": FusedSampler(model, dev, 50)}
+    d3pm = dataclasses.replace(model, discrete_head=True)
+    samplers = {
+        "DDPM-1000": FusedSampler(model, dev), "DDIM-50": FusedSampler(model, dev, 50),
+        "d3pm DDPM-1000": FusedSampler(d3pm, dev), "d3pm DDIM-50": FusedSampler(d3pm, dev, 50),
+    }
+    for mode in ("out", "io", "all"):
+        samplers[f"int8-{mode} DDPM-1000"] = FusedSampler(model, dev, quantize=mode)
+        samplers[f"int8-{mode} DDIM-50"] = FusedSampler(model, dev, 50, quantize=mode)
     t0 = time.perf_counter()
     _build.LIBRARY.get()
-    report = {"card": card, "build_seconds": time.perf_counter() - t0, "sampler_seconds": {}}
+    report = {"card": card, "build_seconds": time.perf_counter() - t0, "sampler_seconds": {},
+              "profile_ddim50_x333": {}}
     # Warm-up: first launches, allocator and cuBLAS handles are set-up.
-    samplers["DDIM-50"].sample(torch.randn(333, 3), torch.Generator().manual_seed(0))
+    for label, sampler in samplers.items():
+        if "DDIM" in label:
+            sampler.sample(torch.randn(333, 3), torch.Generator().manual_seed(0))
     for rows in (333, 999):
         cond = torch.randn(rows, 3, generator=torch.Generator().manual_seed(rows))
         for label, sampler in samplers.items():
             gen = torch.Generator().manual_seed(1)
-            seconds = wall(lambda: sampler.sample(cond, gen), repeats=2 if label == "DDIM-50" else 1)
+            seconds = wall(lambda: sampler.sample(cond, gen), repeats=2 if "DDIM" in label else 1)
             report["sampler_seconds"][f"{label} x{rows}"] = {
                 "seconds": seconds, "patients_per_sec": rows / seconds,
                 "ms_per_step": 1e3 * seconds / sampler.n_loop}
 
     cond = torch.randn(333, 3, generator=torch.Generator().manual_seed(5))
-    gen = torch.Generator().manual_seed(2)
-    samplers["DDIM-50"].sample(cond, gen)
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        samplers["DDIM-50"].sample(cond, gen)
+    for label, sampler in samplers.items():
+        if "DDIM" not in label:
+            continue
+        gen = torch.Generator().manual_seed(2)
+        sampler.sample(cond, gen)
         torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    kernels = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0.0)
-        if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
-            kernels[evt.key] = {"device_ms": dev_us / 1e3, "count": evt.count}
-    busy_ms = sum(v["device_ms"] for v in kernels.values())
-    report["profile_ddim50_x333"] = {
-        "wall_ms": window * 1e3, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / (window * 1e3),
-        "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])),
-    }
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            t0 = time.perf_counter()
+            sampler.sample(cond, gen)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        kernels = {}
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "cuda_time_total", 0.0)
+            if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0:
+                kernels[evt.key] = {"device_ms": dev_us / 1e3, "count": evt.count}
+        busy_ms = sum(v["device_ms"] for v in kernels.values())
+        report["profile_ddim50_x333"][label] = {
+            "wall_ms": window * 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (window * 1e3),
+            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["device_ms"])),
+        }
 
     real = torch.randn(100, sum(DATA_DIMS), device=dev)
     synth = torch.randn(9999, sum(DATA_DIMS), device=dev) * 1.05

@@ -93,3 +93,80 @@ def test_cuda_rbf_kernel_sum_matches_plain(cuda):
         assert got == float(pk.rbf_kernel_sum(a, b, 1 / 5142))  # run to run
         ref = float(pk.rbf_kernel_sum_plain(a, b, 1 / 5142))
         assert abs(got - ref) <= 1e-5 * abs(ref)
+
+
+# ----------------------------------------------------------------------
+# The D3PM modes of K1 and K3, and the int8 kernels K5 and K6
+# ----------------------------------------------------------------------
+def _bits_and_values(rng, m, d, mut):
+    x = _bf16(rng, (m, d))
+    x[:, :mut] = torch.from_numpy((rng.uniform(size=(m, mut)) < 0.5).astype(np.float32))
+    return x
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_mut_prologue_matches_plain(cuda):
+    # The input product with the 2b - 1 prologue on 62 columns; one bf16
+    # rounding of sums that differ in f32 order: 2^-7 of max(1, |ref|).
+    rng = np.random.default_rng(2)
+    a = _bits_and_values(rng, 333, 5142, 62).to(cuda)
+    before = a.clone()
+    b = _bf16(rng, (5142, 256), 1 / math.sqrt(5142)).to(cuda)
+    bias = torch.randn(256, device=cuda)
+    out = torch.empty(333, 256, dtype=torch.bfloat16, device=cuda)
+    launches = sk.GEMM.modes["mut_prologue"]
+    got = sk.gemm_bf16_f32acc(a, b, out=out, bias=bias, a_mut_cols=62).float()
+    assert sk.GEMM.modes["mut_prologue"] == launches + 1
+    ref = sk.gemm_bf16_f32acc_plain(a, b, bias, a_mut_cols=62).to(torch.bfloat16).float()
+    assert float((got - ref).abs().max()) <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+    assert torch.equal(a, before)
+
+
+@pytest.mark.cuda
+def test_cuda_posterior_d3pm_matches_plain(cuda):
+    # Continuous columns within one bf16 rounding; bits: the kernel writes
+    # the plain version's operations with _rn intrinsics, so at most a
+    # 1e-4 share may differ (an expf ulp at a threshold).
+    acc, x, b_out, coeffs, noise = (t.to(cuda) for t in _posterior_inputs(333, 5142))
+    x[:, :62] = (torch.rand(333, 62, device=cuda) < 0.5).to(torch.bfloat16)
+    coeffs[:, 4:] = torch.tensor([0.05, 0.7], device=cuda)
+    for mode in ("none", "buffer", "philox"):
+        ref = sk.x0_posterior_step_plain(acc, x, b_out, coeffs, 1, mode, noise, seed=3, mut_dim=62)
+        got = sk.x0_posterior_step(acc, x.clone(), b_out, coeffs, 1, mode, noise=noise, seed=3,
+                                   mut_dim=62)
+        bits = got[:, :62].float()
+        assert set(torch.unique(bits).tolist()) <= {0.0, 1.0}
+        assert float((bits != ref[:, :62].float()).float().mean()) <= 1e-4
+        cont, cref = got[:, 62:].float(), ref[:, 62:].float()
+        assert float((cont - cref).abs().max()) <= 2 ** -7 * max(1.0, float(cref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_rowquant_matches_plain(cuda):
+    # Codes and scales equal: the same f32 operations, rint half to even.
+    rng = np.random.default_rng(3)
+    x = _bits_and_values(rng, 333, 5142, 62).to(cuda)
+    wide = _bf16(rng, (333, 1024), 3.0).to(cuda)
+    for a, mut in ((x, 62), (wide[:, 512:], 0), (wide[:, :256].float(), 0)):
+        q, scale = sk.rowquant_s8(a, mut_cols=mut)
+        rq, rs = sk.rowquant_s8_plain(a, mut)
+        assert torch.equal(q, rq) and torch.equal(scale, rs)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_s8_matches_plain(cuda):
+    # Exact int32 sums, then the plain version's f32 operations in its
+    # order: equal up to one f32 rounding of the largest value.
+    rng = np.random.default_rng(4)
+    for m, k, n, out_dtype, acc in ((333, 5142, 256, torch.bfloat16, False),
+                                    (333, 512, 256, torch.float32, True),
+                                    (333, 256, 5142, torch.float32, False)):
+        qa, rs = sk.rowquant_s8_plain(_bf16(rng, (m, k)).to(cuda))
+        qb, cs = (t.to(cuda) for t in sk.pack_int8(rng.standard_normal((k, n)).astype(np.float32)))
+        bias = torch.randn(n, device=cuda)
+        start = torch.randn(m, n, device=cuda)
+        out = start.clone() if acc else torch.empty(m, n, dtype=out_dtype, device=cuda)
+        got = sk.gemm_s8(qa, rs, qb, cs, out=out, bias=bias, accumulate=acc).float()
+        ref = sk.gemm_s8_plain(qa, rs, qb, cs, bias, acc_into=start if acc else None)
+        ref = ref.to(out_dtype).float()
+        assert float((got - ref).abs().max()) <= 2 ** -23 * max(1.0, float(ref.abs().max()))

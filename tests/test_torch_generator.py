@@ -112,7 +112,7 @@ def test_unported_features_raise(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("discrete_mutation_head", True), ("ar_mutation_head", True), ("learn_sigma", True),
+    ("ar_mutation_head", True), ("learn_sigma", True),
     ("low_rank_sigma_dim", 2), ("latent_factor_dim", 2), ("parameterization", "v"),
 ])
 def test_unported_diffusion_heads_raise(field, value):
@@ -127,8 +127,7 @@ def test_unported_diffusion_heads_raise(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sample_dtype", "float32"), ("fused_quantize", "out"), ("fused_quantize", "all"),
-    ("noise_type", "gaussian"), ("sampler", "dpm"),
+    ("sample_dtype", "float32"), ("noise_type", "gaussian"), ("sampler", "dpm"),
 ])
 def test_unported_generation_settings_raise(field, value):
     from osteosarcoma_diffusionmodel_torch.config import Config
@@ -139,6 +138,40 @@ def test_unported_generation_settings_raise(field, value):
     dims = cfg.freeze_dims(4, 8, 4, ["a"])
     with pytest.raises(NotImplementedError):
         ConditionalDiffusion.from_config(cfg, dims)
+
+
+@pytest.mark.parametrize("section,field,value", [
+    ("diffusion", "discrete_mutation_head", True), ("generation", "fused_quantize", "none"),
+    ("generation", "fused_quantize", "out"), ("generation", "fused_quantize", "io"),
+    ("generation", "fused_quantize", "all"),
+])
+def test_ported_settings_generate(section, field, value):
+    """The D3PM head and every int8 mode build and generate a cohort
+    through the generator, with binary mutations."""
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+
+    cfg = _configure(Config(), 4, "bfloat16")
+    setattr(cfg.model.diffusion if section == "diffusion" else cfg.generation, field, value)
+    dims = cfg.freeze_dims(4, 8, 4, ["a"])
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    assert model.discrete_head == (field == "discrete_mutation_head")
+    gen = SyntheticPatientGenerator(model, cfg, dims)
+    out = gen.generate(6, {"survival_time": 500})
+    assert gen.sampler().quantize == (None if value in ("none", True) else value)
+    assert out["mutations"].shape == (6, 4) and np.isfinite(out["expression"]).all()
+    assert set(np.unique(out["mutations"])) <= {0.0, 1.0}
+
+
+def test_unknown_fused_quantize_raises():
+    """As the TPU sampler rejects it (fused_sampler.py:645-648)."""
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+
+    cfg = Config()
+    cfg.generation.fused_quantize = "int4"
+    with pytest.raises(ValueError, match="fused_quantize"):
+        ConditionalDiffusion.from_config(cfg, cfg.freeze_dims(4, 8, 4, ["a"]))
 
 
 def test_unknown_config_keys_are_ignored_on_load():

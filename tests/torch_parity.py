@@ -23,19 +23,22 @@ CONDITIONS = ["a", "b", "c"]
 TILE_B = 16
 
 
-def _configure(cfg, num_steps: int, compute_dtype: str):
+def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False):
     cfg.model.hidden_dims = list(HIDDEN)
     cfg.model.latent_dim = 32
     cfg.model.diffusion.num_steps = num_steps
+    cfg.model.diffusion.discrete_mutation_head = discrete
     cfg.model.compute_dtype = compute_dtype
     cfg.generation.noise_type = "uniform"
     return cfg
 
 
-def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0):
-    """(jax_model, flax_params as numpy, port_model) on the same weights."""
-    jc = _configure(JaxConfig(), num_steps, compute_dtype)
-    pc = _configure(Config(), num_steps, compute_dtype)
+def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0,
+              discrete: bool = False):
+    """(jax_model, flax_params as numpy, port_model) on the same weights;
+    ``discrete`` turns on the D3PM mutation head on both."""
+    jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete)
+    pc = _configure(Config(), num_steps, compute_dtype, discrete)
     jdims = jc.freeze_dims(*DATA_DIMS, CONDITIONS)
     pdims = pc.freeze_dims(*DATA_DIMS, CONDITIONS)
     jmodel = JaxDiffusion.from_config(jc, jdims)
