@@ -7,9 +7,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. the card, as nvidia-smi reports its name and power limit;
 2. the build of the hand-written CUDA kernels from ``csrc/`` (one nvcc
    per source, in parallel);
-3. each kernel (K1-K6, every mode the main paths use) against its plain
-   PyTorch version on the card, at the shapes the main paths give it,
-   with the stated tolerance and both times;
+3. each kernel (K1-K8, every mode the paths use) against its plain
+   PyTorch version on the card, at the shapes the paths give it, with the
+   stated tolerance, both times, the least time the card could take for
+   the same work (``bound_ms``: bytes over 3.35 TB/s or operations over
+   the H100's published peak for their type, whichever is larger) and,
+   where one PyTorch call computes the same function, that call's time
+   (``library_ms``; the port never calls it);
 4. the main paths at full model width (data dims 62/5054/26, hidden
    256/512/256, T = 1000, cosine schedule): the port's CLI step
    functions generate -> calibrate (copula_joint) -> validate on a
@@ -22,8 +26,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      DDIM-50, and "all" with the D3PM head at DDIM-50.
    Every launch count is set to 0 just before a path and read just
    after it; each (kernel, mode) the path runs must have launched;
+   - "latent": the latent-tail hybrid sampler. ``scripts/bench_latent_torch.py``
+     as a subprocess at 999 rows, DDPM-1000, once with the probe's head
+     and once with head 100 (its launches counted in that process: K7
+     once per latent step in each mode; only the kernel latent sampler's
+     launches join the path's); then in process at full width,
+     ``LatentFusedSampler`` with head 100 (899 latent steps), its counts
+     read right after the latent calls, and, where the probe says the clip
+     does not bind in the tail, its per-feature moments against the
+     data-space kernel sampler's;
 5. the kernel sampler against the plain PyTorch loop at 333 rows:
-   continuous DDPM-20 and DDIM-10, D3PM DDPM-20, and each int8 mode.
+   continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
+   latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
+   the same x_T, noise, zeta and eta).
+
+K8 (``posterior_update``) has no caller in either package: its launches
+are those of its own check in phase 3.
 
 The last two lines are the kernel report and
 ``{"ok": true, "device": {...}}``. There is no CPU branch: without a
@@ -60,9 +78,19 @@ from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffus
 from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
 from osteosarcoma_diffusionmodel_torch.ops import _build
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
+from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
+    LatentFusedSampler,
+    LatentTailSampler,
+    calibrate_head_steps,
+)
 from osteosarcoma_diffusionmodel_torch.ops.schedules import DiffusionSchedule
 from osteosarcoma_diffusionmodel_torch.ops.pallas_kernels import (
+    POSTERIOR_UPDATE,
     RBF,
+    gaussian_noise,
+    posterior_update,
+    posterior_update_plain,
+    posterior_update_traced,
     rbf_kernel_sum,
     rbf_kernel_sum_plain,
 )
@@ -70,6 +98,7 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM,
     GEMM_S8,
     GROUPNORM,
+    LATENT,
     POSTERIOR,
     ROWQUANT,
     gemm_bf16_f32acc,
@@ -78,6 +107,10 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     gemm_s8_plain,
     groupnorm8_silu,
     groupnorm8_silu_plain,
+    latent_draw,
+    latent_draw_plain,
+    latent_update,
+    latent_update_plain,
     pack_int8,
     philox_uniform_noise,
     rowquant_s8,
@@ -98,13 +131,32 @@ from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 
-KERNELS = (GEMM, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8)
+KERNELS = (GEMM, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8, LATENT, POSTERIOR_UPDATE)
+REPO = Path(__file__).resolve().parent
 BATCH = 333  # rows per scenario: 1000 // 3
+LATENT_ROWS = 999  # the latent path's rows: three scenarios of 333, batched
+LATENT_HEAD = 100  # a fixed head that leaves 899 latent steps at T = 1000
 DATA_DIMS = (62, 5054, 26)
 D = sum(DATA_DIMS)
 MUT = DATA_DIMS[0]
 BF16_ULP = 2.0 ** -7  # one bf16 unit in the last place at 1.0
 MAX_BIT_MISMATCH = 1e-4  # K3's D3PM bits against the plain version
+F32_ULP2 = 2.0 ** -22  # two f32 units in the last place at 1.0
+
+# Published peaks of one H100 SXM (dense, at the 700 W limit), the bound_ms
+# yardstick: HBM bytes/s; operations/s by type (bf16 and int8 on the tensor
+# cores, f32 on the CUDA cores).
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def roofline(bytes_moved: float, ops: float, kind: str) -> tuple:
+    """(least ms, what bounds it): every input read once and every output
+    written once at the HBM rate, or the operations at the peak rate of
+    their type, whichever takes longer."""
+    by_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -125,13 +177,18 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _report(kernel, case: str, err: float, tol: float, ms: float, plain_ms: float) -> dict:
+def _report(kernel, case: str, err: float, tol: float, ms: float, plain_ms: float,
+            limit: tuple, library_ms=None) -> dict:
+    """One [kernel] line; ``limit`` is :func:`roofline`'s (ms, what bounds it)."""
     ok = bool(err <= tol)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"[kernel] {kernel.name} {case}: max|diff| {err:.3e} (tol {tol:.3e}) "
-          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {limit[0]:.4f} ms ({limit[1]}), library {lib}", flush=True)
     if not ok:
         raise AssertionError(f"{kernel.name} {case}: max|diff| {err} > tol {tol}")
-    return {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"case": case, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": limit[0], "bound_by": limit[1], "library_ms": library_ms}
 
 
 def _with_bits(a: torch.Tensor, g) -> torch.Tensor:
@@ -145,7 +202,8 @@ def check_gemm(dev, g) -> list:
     input product with the step's t_add row as bias and c_proj as the row
     add, written in bf16 (also with the D3PM prologue on the first 62
     columns); the block products with a bias, one of them on a row-strided
-    view, into f32; the output product into f32.
+    view, into f32; the output product into f32; the latent step's two
+    256-wide products at 999 rows into f32.
     Tolerance: both sides sum bf16-exact products in f32, in different
     orders, so an f32 result differs by f32 rounding of the sum, 1e-3
     relative to max(1, |ref|); a bf16 result is the plain f32 result
@@ -153,27 +211,34 @@ def check_gemm(dev, g) -> list:
     may round the other way: 2^-7 of max(1, |ref|)."""
     out = []
     cases = [
-        ("333x5142.5142x256 +t_add +c_proj ->bf16", 5142, 256, True, True, False,
+        ("333x5142.5142x256 +t_add +c_proj ->bf16", BATCH, 5142, 256, True, True, False,
          torch.bfloat16, 0),
-        ("333x5142(2b-1 on 62).5142x256 +t_add +c_proj ->bf16", 5142, 256, True, True, False,
-         torch.bfloat16, MUT),
-        ("333x1024.1024x256 +bias", 1024, 256, True, False, False, torch.float32, 0),
-        ("333x512(view of 1024).512x256 +bias", 512, 256, True, False, True, torch.float32, 0),
-        ("333x256.256x5142", 256, 5142, False, False, False, torch.float32, 0),
+        ("333x5142(2b-1 on 62).5142x256 +t_add +c_proj ->bf16", BATCH, 5142, 256, True, True,
+         False, torch.bfloat16, MUT),
+        ("333x1024.1024x256 +bias", BATCH, 1024, 256, True, False, False, torch.float32, 0),
+        ("333x512(view of 1024).512x256 +bias", BATCH, 512, 256, True, False, True,
+         torch.float32, 0),
+        ("333x256.256x5142", BATCH, 256, 5142, False, False, False, torch.float32, 0),
+        # The latent step's products at the latent path's 999 rows:
+        # o_lat = h·M2 + m_b and n_inj = bf16(zeta)·Lᵀ.
+        ("999x256.256x256 +bias (h.M2 + m_b)", LATENT_ROWS, 256, 256, True, False, False,
+         torch.float32, 0),
+        ("999x256.256x256 (zeta.Lt)", LATENT_ROWS, 256, 256, False, False, False,
+         torch.float32, 0),
     ]
-    for case, k, n, has_bias, has_row_add, strided, out_dtype, mut in cases:
+    for case, m, k, n, has_bias, has_row_add, strided, out_dtype, mut in cases:
         if strided:
-            base = torch.randn(BATCH, 2 * k, generator=g).to(dev, torch.bfloat16)
+            base = torch.randn(m, 2 * k, generator=g).to(dev, torch.bfloat16)
             a = base[:, k:]
         else:
-            a = torch.randn(BATCH, k, generator=g).to(dev, torch.bfloat16)
+            a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
         if mut:
             a = _with_bits(a, g)
         w = (torch.randn(k, n, generator=g) / math.sqrt(k)).to(dev, torch.bfloat16)
         bias = torch.randn(n, generator=g).to(dev) if has_bias else None
-        row_add = (torch.randn(BATCH, n, generator=g).to(dev, torch.bfloat16).float()
+        row_add = (torch.randn(m, n, generator=g).to(dev, torch.bfloat16).float()
                    if has_row_add else None)
-        buf = torch.empty(BATCH, n, dtype=out_dtype, device=dev)
+        buf = torch.empty(m, n, dtype=out_dtype, device=dev)
         got = gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add, a_mut_cols=mut).float()
         ref = gemm_bf16_f32acc_plain(a, w, bias, row_add, mut).to(out_dtype).float()
         torch.cuda.synchronize()
@@ -183,7 +248,16 @@ def check_gemm(dev, g) -> list:
         ms = time_ms(lambda: gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add,
                                               a_mut_cols=mut))
         plain_ms = time_ms(lambda: gemm_bf16_f32acc_plain(a, w, bias, row_add, mut).to(out_dtype))
-        out.append(_report(GEMM, case, err, tol, ms, plain_ms))
+        # Yardstick: cuBLAS bf16 (bf16 out), with the bias where there is one.
+        if bias is not None:
+            bias_bf = bias.to(torch.bfloat16)
+            library_ms = time_ms(lambda: torch.addmm(bias_bf, a, w))
+        else:
+            library_ms = time_ms(lambda: torch.matmul(a, w))
+        moved = (2 * (m * k + k * n) + (4 * n if has_bias else 0)
+                 + (4 * m * n if has_row_add else 0) + buf.element_size() * m * n)
+        out.append(_report(GEMM, case, err, tol, ms, plain_ms,
+                           roofline(moved, 2.0 * m * n * k, "bf16"), library_ms))
     return out
 
 
@@ -205,7 +279,8 @@ def check_groupnorm(dev, g) -> list:
         buf = torch.empty(BATCH, f, dtype=torch.bfloat16, device=dev)
         ms = time_ms(lambda: groupnorm8_silu(h, scale, bias, out=buf))
         plain_ms = time_ms(lambda: groupnorm8_silu_plain(h, scale, bias).to(torch.bfloat16))
-        out.append(_report(GROUPNORM, f"333x{f}", err, tol, ms, plain_ms))
+        limit = roofline(BATCH * f * (4 + 2) + 2 * 4 * f, 10.0 * BATCH * f, "f32")
+        out.append(_report(GROUPNORM, f"333x{f}", err, tol, ms, plain_ms, limit))
     return out
 
 
@@ -263,7 +338,10 @@ def check_posterior(dev, g) -> list:
             plain_ms = time_ms(lambda: x0_posterior_step_plain(acc, start, b_out, table, step,
                                                                mode, noise, seed=1234,
                                                                mut_dim=mut))
-            out.append(_report(POSTERIOR, case, err, tol, ms, plain_ms))
+            # acc read, carry read and written, b_out, the noise slab in buffer mode.
+            moved = BATCH * D * (4 + 2 + 2 + (4 if mode == "buffer" else 0)) + 4 * D
+            limit = roofline(moved, 10.0 * BATCH * D, "f32")
+            out.append(_report(POSTERIOR, case, err, tol, ms, plain_ms, limit))
 
     # The noise alone: a row (c0, c1, sv, g) = (0, 0, 1, 0) leaves x = z.
     unit = torch.tensor([[0.0, 0.0, 1.0, 0.0, 0.0, 0.0]] * 3, device=dev)
@@ -307,7 +385,9 @@ def check_rowquant(dev, g) -> list:
         err = float((q.int() - rq.int()).abs().max()) + float((scale - rs).abs().max())
         ms = time_ms(lambda: rowquant_s8(a, out=q, scale=scale, mut_cols=mut))
         plain_ms = time_ms(lambda: rowquant_s8_plain(a, mut))
-        out.append(_report(ROWQUANT, case, err, 0.0, ms, plain_ms))
+        m, k = a.shape
+        limit = roofline(m * k * a.element_size() + q.numel() + 4 * m, 3.0 * m * k, "f32")
+        out.append(_report(ROWQUANT, case, err, 0.0, ms, plain_ms, limit))
     return out
 
 
@@ -347,7 +427,15 @@ def check_gemm_s8(dev, g) -> list:
         ms = time_ms(lambda: gemm_s8(qa, rs, qb, cs, out=buf, bias=bias, row_add=row_add,
                                      accumulate=acc))
         plain_ms = time_ms(lambda: gemm_s8_plain(qa, rs, qb, cs, bias, row_add, start).to(out_dtype))
-        out.append(_report(GEMM_S8, case, err, tol, ms, plain_ms))
+        # Yardstick: cuBLASLt s8·s8 -> s32 at the padded shapes (B column-major).
+        qb_cm = qb.t().contiguous().t()
+        library_ms = time_ms(lambda: torch._int_mm(qa, qb_cm))
+        kp, n_p = qb.shape
+        moved = (qa.numel() + qb.numel() + 4 * (BATCH + n) + (4 * n if bias is not None else 0)
+                 + (4 * BATCH * n if row_add is not None else 0) + (4 * BATCH * n if acc else 0)
+                 + buf.element_size() * BATCH * n)
+        limit = roofline(moved, 2.0 * BATCH * n * kp, "int8")
+        out.append(_report(GEMM_S8, case, err, tol, ms, plain_ms, limit, library_ms))
     return out
 
 
@@ -369,12 +457,153 @@ def check_rbf(dev, g) -> list:
         tol = 1e-5 * abs(ref)
         ms = time_ms(lambda: rbf_kernel_sum(a, b, gamma))
         plain_ms = time_ms(lambda: rbf_kernel_sum_plain(a, b, gamma))
-        out.append(_report(RBF, f"{case}x{D}", err, tol, ms, plain_ms))
+        n, m = a.shape[0], b.shape[0]
+        limit = roofline(4 * (n + m) * (D + 1) + 8, 2.0 * n * m * D + 4.0 * n * m, "f32")
+        out.append(_report(RBF, f"{case}x{D}", err, tol, ms, plain_ms, limit))
+    return out
+
+
+def check_latent_step(dev, g) -> list:
+    """K7 at the latent tail's shapes, 333 x 256 and 999 x 256, in both
+    draw modes and the update. Tolerances: the kernel writes the plain
+    version's f32 operations with _rn intrinsics, so s, H_acc and xi agree
+    to f32 rounding (two ulps of max(1, |ref|), expected 0) and the bf16
+    outputs (bf16(zeta), the next stack input) within one bf16 rounding.
+    The Philox zeta at 333 x 256 (read back through xi with (w, v) =
+    (0, 1) from 0) must equal the plain generator's bit for bit, repeat
+    for a repeated seed, stay within +-sqrt3 and have mean ~0 and variance
+    ~1 (|mean| < 0.02, |var - 1| < 0.02: six standard errors at 85k
+    draws)."""
+    h, n_lat = 256, 4
+    coeffs = (torch.rand(n_lat, 5, generator=g) + 0.1).to(dev)
+    out = []
+    for m in (BATCH, LATENT_ROWS):
+        hid = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+        zeta = torch.randn(n_lat, m, h, generator=g).to(dev)
+        zbf = torch.empty(m, h, dtype=torch.bfloat16, device=dev)
+        for mode in ("philox", "buffer"):
+            hacc0 = torch.randn(m, h, generator=g).to(dev)
+            xi0 = torch.randn(m, h, generator=g).to(dev)
+            hacc, xi = hacc0.clone(), xi0.clone()
+            latent_draw(hid, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta, seed=4321)
+            rz, rxi, rhacc = latent_draw_plain(hid, hacc0, xi0, coeffs, 2, mode, zeta, 4321)
+            torch.cuda.synchronize()
+            zerr = float((zbf.float() - rz.float()).abs().max())
+            if zerr > BF16_ULP * max(1.0, float(rz.float().abs().max())):
+                raise AssertionError(f"K7 draw {mode} {m}x{h}: bf16(zeta) differs by {zerr}")
+            err = max(float((xi - rxi).abs().max()), float((hacc - rhacc).abs().max()))
+            tol = F32_ULP2 * max(1.0, float(rxi.abs().max()), float(rhacc.abs().max()))
+            ms = time_ms(lambda: latent_draw(hid, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta,
+                                             seed=4321))
+            plain_ms = time_ms(lambda: latent_draw_plain(hid, hacc0, xi0, coeffs, 2, mode, zeta,
+                                                         4321))
+            moved = m * h * (2 + 8 + 8 + 2 + (4 if mode == "buffer" else 0))
+            out.append(_report(LATENT, f"draw {mode} {m}x{h}", err, tol, ms, plain_ms,
+                               roofline(moved, 4.0 * m * h, "f32")))
+
+        s0, o_lat, n_inj, c_proj = (torch.randn(m, h, generator=g).to(dev) for _ in range(4))
+        t_add = torch.randn(n_lat + 1, h, generator=g).to(dev)
+        s, h_in = s0.clone(), torch.empty(m, h, dtype=torch.bfloat16, device=dev)
+        latent_update(s, o_lat, n_inj, c_proj, t_add, coeffs, 3, h_in)
+        rs, rh = latent_update_plain(s0, o_lat, n_inj, c_proj, t_add, coeffs, 3)
+        torch.cuda.synchronize()
+        herr = float((h_in.float() - rh.float()).abs().max())
+        if herr > BF16_ULP * max(1.0, float(rh.float().abs().max())):
+            raise AssertionError(f"K7 update {m}x{h}: the bf16 stack input differs by {herr}")
+        err = float((s - rs).abs().max())
+        tol = F32_ULP2 * max(1.0, float(rs.abs().max()))
+        ms = time_ms(lambda: latent_update(s, o_lat, n_inj, c_proj, t_add, coeffs, 3, h_in))
+        plain_ms = time_ms(lambda: latent_update_plain(s0, o_lat, n_inj, c_proj, t_add, coeffs, 3))
+        out.append(_report(LATENT, f"update {m}x{h}", err, tol, ms, plain_ms,
+                           roofline(m * h * (8 + 4 + 4 + 4 + 2) + 4 * h, 7.0 * m * h, "f32")))
+
+    m = BATCH
+    hid = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+    zbf = torch.empty(m, h, dtype=torch.bfloat16, device=dev)
+    unit = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0]] * 3, device=dev)
+    zs = []
+    for _ in range(2):
+        xi = torch.zeros(m, h, device=dev)
+        latent_draw(hid, torch.zeros(m, h, device=dev), xi, zbf, unit, 1, "philox", seed=99)
+        zs.append(xi)
+    plain_z = philox_uniform_noise(99, 1, m, h, device=dev)
+    torch.cuda.synchronize()
+    z = zs[0]
+    mean, var, zmax = float(z.mean()), float(z.var()), float(z.abs().max())
+    exact, same_seed = bool(torch.equal(z, plain_z)), bool(torch.equal(zs[0], zs[1]))
+    ok = (abs(mean) < 0.02 and abs(var - 1.0) < 0.02 and zmax <= math.sqrt(3.0) and exact
+          and same_seed)
+    print(f"[kernel] {LATENT.name} philox zeta: mean {mean:.2e} var {var:.5f} max|z| {zmax:.5f} "
+          f"repeatable {same_seed} equals plain {exact} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("K7 Philox zeta check failed")
+    return out
+
+
+def check_posterior_update(dev, g) -> list:
+    """K8 at 333 x 5142, static and traced, with add_noise 1 and 0.
+    Tolerance: the affine part is the plain version's f32 operations with
+    _rn intrinsics; z goes through logf/sqrtf/cosf, which may differ from
+    the plain version's by an ulp or two: 2^-19 of max(1, |ref|) (a few f32
+    ulps of the largest value). The noise alone (c0 = c1 = 0, sv = 1) must
+    match the plain Box-Muller to the same bound, repeat for a repeated
+    seed, be the same through both variants and have mean ~0 and std ~1
+    (|mean| < 0.005, six standard errors at 1.7M draws; |std - 1| < 0.005).
+    The plain noise is a function of (seed, row, col) with no grid, so the
+    match also shows that the kernel's noise does not depend on its tiling.
+    K8 has no caller on any path: the launches reported for it are this
+    check's."""
+    x = torch.randn(BATCH, D, generator=g).to(dev)
+    pred = (40.0 * torch.randn(BATCH, D, generator=g)).to(dev)  # exercises the clip
+    out = []
+    for variant in ("static", "traced"):
+        for add_noise in (1.0, 0.0):
+            coefs = (0.3, 0.6, 0.8, add_noise, 30.0)
+            ct = torch.tensor(coefs, device=dev)
+            if variant == "static":
+                call = lambda: posterior_update(x, pred, 21, *coefs)  # noqa: E731
+            else:
+                call = lambda: posterior_update_traced(x, pred, ct, 21)  # noqa: E731
+            got = call()
+            ref = posterior_update_plain(x, pred, 21, *coefs)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol = 2.0 ** -19 * max(1.0, float(ref.abs().max()))
+            ms = time_ms(call)
+            plain_ms = time_ms(lambda: posterior_update_plain(x, pred, 21, *coefs))
+            # x0_pred read, out written, and x read only with noise; the
+            # five coefficients. Per element: the clip, and with noise
+            # Philox, Box-Muller and the affine sum (~15 operations).
+            if add_noise > 0:
+                limit = roofline(BATCH * D * 12 + 20, 15.0 * BATCH * D, "f32")
+            else:
+                limit = roofline(BATCH * D * 8 + 20, 2.0 * BATCH * D, "f32")
+            out.append(_report(POSTERIOR_UPDATE, f"{variant} add_noise={add_noise:g} 333x5142",
+                               err, tol, ms, plain_ms, limit))
+
+    zeros = torch.zeros(BATCH, D, device=dev)
+    unit = torch.tensor([0.0, 0.0, 1.0, 1.0, 30.0], device=dev)
+    z = posterior_update(zeros, zeros, 5, 0.0, 0.0, 1.0, 1.0)
+    again = posterior_update(zeros, zeros, 5, 0.0, 0.0, 1.0, 1.0)
+    traced = posterior_update_traced(zeros, zeros, unit, 5)
+    plain_z = gaussian_noise(5, BATCH, D, device=dev)
+    torch.cuda.synchronize()
+    zerr = float((z - plain_z).abs().max())
+    mean, std = float(z.mean()), float(z.std())
+    ok = (zerr <= 2.0 ** -19 * max(1.0, float(plain_z.abs().max())) and abs(mean) < 0.005
+          and abs(std - 1.0) < 0.005 and bool(torch.equal(z, again))
+          and bool(torch.equal(z, traced)))
+    print(f"[kernel] {POSTERIOR_UPDATE.name} gaussian noise: mean {mean:.2e} std {std:.5f} "
+          f"max|z - plain| {zerr:.2e} repeatable {bool(torch.equal(z, again))} "
+          f"static == traced {bool(torch.equal(z, traced))} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("K8 noise check failed")
     return out
 
 
 def check_kernels(dev) -> dict:
     g = torch.Generator().manual_seed(0)
+    POSTERIOR_UPDATE.reset()
     return {
         GEMM.name: check_gemm(dev, g),
         GROUPNORM.name: check_groupnorm(dev, g),
@@ -382,6 +611,8 @@ def check_kernels(dev) -> dict:
         RBF.name: check_rbf(dev, g),
         ROWQUANT.name: check_rowquant(dev, g),
         GEMM_S8.name: check_gemm_s8(dev, g),
+        LATENT.name: check_latent_step(dev, g),
+        POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
     }
 
 
@@ -527,6 +758,156 @@ def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
     return totals
 
 
+def run_bench_latent(tmp: Path, head) -> dict:
+    """scripts/bench_latent_torch.py as a user runs it (999 rows,
+    DDPM-1000, one timed call after a warm-up), with the probe's head
+    (``head`` None) or a fixed one. Its launches are counted in its own
+    process, per sampler: K7 must have launched once per latent step and
+    call in each of its modes. Returns the bench's report."""
+    out = tmp / f"bench_latent_{head or 'probe'}.json"
+    cmd = [sys.executable, str(REPO / "scripts" / "bench_latent_torch.py"), "--batch",
+           str(LATENT_ROWS), "--steps", "1000", "--reps", "1", "--out", str(out)]
+    if head:
+        cmd += ["--head", str(head)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_latent_torch.py failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    probe = report["probe"]
+    print(f"[latent] bench_latent_torch.py --batch {LATENT_ROWS} --steps 1000"
+          f"{f' --head {head}' if head else ''} ({time.perf_counter() - t0:.1f} s): probe head "
+          f"{probe['head_steps']} (max|x0_pred| {probe['profile_max']:.3f}, "
+          f"{probe['seconds']:.2f} s); running head {report['head_steps']}", flush=True)
+    for name, entry in report["timings"].items():
+        print(f"[latent]   {name}{' (reference)' if entry.get('role') else ''}: "
+              f"{entry['seconds']:.4f} s, {entry['patients_per_sec']:.1f} patients/sec; "
+              f"launches {json.dumps(entry['launches'])}", flush=True)
+    entry = report["timings"][f"latent_kernel_head{report['head_steps']}"]
+    want = entry["n_lat"] * entry["calls"]
+    k7 = entry["launches"].get(LATENT.name, {})
+    if k7.get("draw_philox", 0) != want or k7.get("update", 0) != want:
+        raise AssertionError(f"K7 launched {k7}, want {want} per mode (n_lat {entry['n_lat']} "
+                             f"x {entry['calls']} calls)")
+    return report
+
+
+def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
+    """The latent-tail path at full width, DDPM-1000: the bench script
+    twice (probe head; head 100), then in process on the checkpoint's
+    weights, ``LatentFusedSampler`` at 999 rows with head 100 and, where
+    the probe says the clip does not bind in the tail and its head is
+    longer, with the probe's head too. The in-process launch counts are set
+    to 0 just before the latent sampler calls and read just after them:
+    K1, K2, K3 (the head) and K7 must have launched, K7 once per latent
+    step in each mode. Then, outside that count, the moment check of the
+    hybrid against the data-space kernel sampler (per-feature mean within
+    0.2, std within 0.2 + 25%: the bounds of
+    tests/test_latent_sampler.py:145-169). Returns the launches of the
+    latent sampler calls, those of the bench processes' included."""
+    from osteosarcoma_diffusionmodel_torch.generation.generator import load_trained_model
+
+    totals = {k.name: 0 for k in KERNELS}
+    for head in (None, LATENT_HEAD):
+        for name, entry in run_bench_latent(tmp, head)["timings"].items():
+            if name.startswith("latent_kernel_"):
+                for kernel, modes in entry["launches"].items():
+                    totals[kernel] += sum(modes.values())
+
+    model, _, _ = load_trained_model(cfg.training.save_dir, cfg)
+    model.denoiser.to(dev)
+    T = model.schedule.num_steps
+    cond = torch.zeros(LATENT_ROWS, metadata_to_dims(load_metadata(cfg.training.save_dir)).condition_dim)
+    probe_head, profile = calibrate_head_steps(model, cond[:256], torch.Generator(dev).manual_seed(9),
+                                               device=dev)
+    x_init = torch.randn(LATENT_ROWS, D, generator=torch.Generator(dev).manual_seed(10), device=dev)
+    # The moment check needs a head after which the clip does not bind.
+    moment_head = None if probe_head >= T - 1 else max(probe_head, LATENT_HEAD)
+
+    for k in KERNELS:
+        k.reset()
+    calls_n_lat = 0
+    sampler = LatentFusedSampler(model, LATENT_HEAD, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = sampler.sample(cond, torch.Generator(dev).manual_seed(11), x_init=x_init)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    calls_n_lat += sampler.n_lat
+    if lat.shape != (LATENT_ROWS, D) or not bool(torch.isfinite(lat).all()):
+        raise AssertionError(f"latent sampler output {tuple(lat.shape)} not finite")
+    print(f"[latent] LatentFusedSampler head {LATENT_HEAD} ({sampler.n_lat} latent steps) "
+          f"{LATENT_ROWS}x{D}: {seconds:.3f} s ({LATENT_ROWS / seconds:.1f} patients/sec), "
+          f"finite, std {float(lat.std()):.3f}", flush=True)
+    if moment_head is not None and moment_head != LATENT_HEAD:
+        sampler = LatentFusedSampler(model, moment_head, dev)
+        lat = sampler.sample(cond, torch.Generator(dev).manual_seed(11), x_init=x_init)
+        calls_n_lat += sampler.n_lat
+    torch.cuda.synchronize()
+    counts = {k.name: dict(k.modes) for k in KERNELS}
+    print(f"[main] latent kernel launches by mode: {json.dumps(counts)}", flush=True)
+    required = {GEMM: ["bf16"], GROUPNORM: ["default"], POSTERIOR: ["philox"],
+                LATENT: ["draw_philox", "update"]}
+    missing = [f"{k.name}:{m}" for k, modes in required.items() for m in modes
+               if counts[k.name][m] == 0]
+    if missing:
+        raise AssertionError(f"latent: kernels never launched on the path: {missing}")
+    if not LATENT.modes["draw_philox"] == LATENT.modes["update"] == calls_n_lat:
+        raise AssertionError(f"K7 launched {LATENT.modes}, want {calls_n_lat} per mode")
+    for k in KERNELS:
+        totals[k.name] += k.launches
+
+    if moment_head is None:
+        print(f"[latent] moment check skipped: the probe's head is {probe_head} = T-1, so the clip "
+              f"may bind on every loop row and no latent tail is equivalent; profile: "
+              f"{json.dumps(np.round(profile, 3).tolist())}", flush=True)
+        return totals
+    data = FusedSampler(model, dev).sample(cond, torch.Generator(dev).manual_seed(12),
+                                           x_init=x_init)
+    dmean = (lat.mean(0) - data.mean(0)).abs()
+    dstd = (lat.std(0) - data.std(0)).abs()
+    ok_mean = bool((dmean <= 0.2).all())
+    ok_std = bool((dstd <= 0.2 + 0.25 * data.std(0)).all())
+    print(f"[latent] moments, head {moment_head} (probe head {probe_head}, max|x0_pred| after it "
+          f"{float(profile[moment_head:T - 1].max()):.3f} <= {0.5 * model.clip_value}): "
+          f"per-feature max |d mean| {float(dmean.max()):.4f} (<= 0.2), max |d std| "
+          f"{float(dstd.max()):.4f} (<= 0.2 + 25%), data-space std {float(data.std()):.3f}: "
+          f"{ok_mean and ok_std}", flush=True)
+    if not (ok_mean and ok_std):
+        raise AssertionError("latent sampler moments differ from the data-space sampler's")
+    return totals
+
+
+def check_latent_against_plain(cfg: Config, dev) -> None:
+    """The latent kernel sampler against the plain ``LatentTailSampler``
+    at full width, 333 rows, a 20-step schedule, head 3, f32 compute, with
+    the same x_T and head noise, and zeta = L^-1 K_inᵀ z, eta = Σ v z /
+    sqrt(v2) from the same wide noise (so both reproduce one trajectory).
+    Both drop the clip in the tail. Tolerance: atol 0.15 / rtol 0.05, the
+    bf16-carry bound of tests/test_latent_sampler.py:213-215."""
+    model = _reference_model(cfg, dev)
+    g = torch.Generator().manual_seed(13)
+    head, steps = 3, 20
+    cond = torch.randn(BATCH, 3, generator=g)
+    x_init = torch.randn(BATCH, D, generator=g).to(torch.bfloat16).float()
+    noise = torch.randn(steps, BATCH, D, generator=g).to(dev)
+    sampler = LatentFusedSampler(model, head, dev)
+    t = sampler.tables
+    seg = noise[head: steps - 1].double()
+    zeta = (seg @ t.K_in.double()) @ torch.linalg.inv(t.L_T.double())
+    eta = torch.einsum("k,kbd->bd", t.v.double(), seg) / math.sqrt(t.v2)
+    got = sampler.sample(cond, g, x_init=x_init, noise=noise, zeta=zeta.float(), eta=eta.float())
+    ref = LatentTailSampler(model, head, dev).sample(cond, g, x_init=x_init, noise=noise)
+    err = (got - ref).abs()
+    ok = bool((err <= 0.15 + 0.05 * ref.abs()).all()) and bool(torch.isfinite(got).all())
+    print(f"[reference] latent head {head} DDPM-{steps} {BATCH}x{D}: kernel vs plain "
+          f"LatentTailSampler max|diff| {float(err.max()):.4f}, within atol 0.15 / rtol 0.05: "
+          f"{ok}; std {float(ref.std()):.3f}", flush=True)
+    if not ok:
+        raise AssertionError("latent kernel sampler disagrees with the plain LatentTailSampler")
+
+
 def check_d3pm_calibration(cfg: Config, ckpt: str, dev) -> None:
     """With the head on, calibration (copula_joint) returns the sampler's
     bits unchanged: one scenario of 333 patients at DDIM-50."""
@@ -632,15 +1013,22 @@ def check_against_plain_loop(cfg: Config, dev) -> None:
 
 
 def kernel_report(cases: dict, launches: dict) -> list:
+    """One entry per kernel; times and bounds summed over its cases,
+    ``bound_by`` that of its largest bound, ``library_ms`` null where no
+    single PyTorch call computes the function."""
     out = []
     for k in KERNELS:
         rows = cases[k.name]
+        libs = [r["library_ms"] for r in rows]
         out.append({
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None if None in libs else sum(libs),
         })
     return out
 
@@ -662,16 +1050,21 @@ def main(argv=None) -> int:
     print(f"[build] {_build.LIB_NAME} from csrc/ in {time.perf_counter() - t0:.1f} s", flush=True)
 
     cases = check_kernels(dev)
+    k8_launches = POSTERIOR_UPDATE.launches  # no path calls K8: its check's launches
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
+        for name, n in run_latent_path(cfg, dev, Path(tmp)).items():
+            launches[name] += n
+        launches[POSTERIOR_UPDATE.name] = k8_launches
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
         report = kernel_report(cases, launches)
         check_d3pm_calibration(cfg, ckpts[True], dev)
         check_against_plain_loop(cfg, dev)
+        check_latent_against_plain(cfg, dev)
 
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Pipeline CLI of the PyTorch port: the generate and validate steps.
 
     python -m osteosarcoma_diffusionmodel_torch.cli --config config/config.yaml \
-        --steps generate validate [--device cuda]
+        --steps generate validate [--device cpu]
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:280-398). It
 reads the port's checkpoint directory (``training.save_dir``: weights
@@ -12,7 +12,9 @@ expression,pathways,conditions}.csv`` and
 ``<results_dir>/validation_results.csv``. The model section of the config
 always comes from the checkpoint's metadata (the JAX CLI also consults
 ``config/config_updated.yaml``, which the port does not). Training and
-the other steps are not ported yet.
+the other steps are not ported yet. The steps run on the CUDA card; the
+CPU runs them only when asked (``--device cpu``): without a card and
+without that flag the CLI raises before it reads or writes anything.
 """
 
 from __future__ import annotations
@@ -38,7 +40,12 @@ STEPS = ("generate", "validate")
 
 
 def default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The card. Raises when none is present: the CPU runs the port only
+    when the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu (device='cpu') "
+                           "to run the PyTorch port on the CPU")
+    return "cuda"
 
 
 def _header(path: Path) -> list:
@@ -120,13 +127,14 @@ def main(argv=None) -> None:
         description="Osteosarcoma synthetic-patient pipeline (PyTorch port: generate, validate)")
     parser.add_argument("--config", default="config/config.yaml", help="YAML configuration")
     parser.add_argument("--steps", nargs="+", default=list(STEPS), choices=STEPS)
-    parser.add_argument("--device", default=None, help="cuda or cpu (default: cuda if present)")
+    parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
+    device = args.device or default_device()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     config = Config.from_yaml(args.config)
     for step in args.steps:
-        STEP_FUNCTIONS[step](config, device=args.device)
+        STEP_FUNCTIONS[step](config, device=device)
 
 
 if __name__ == "__main__":

@@ -53,10 +53,11 @@ def seeded_generator(*entropy: int) -> torch.Generator:
 
 
 class SyntheticPatientGenerator:
-    """Generate synthetic patient cohorts from a trained model on ``device``."""
+    """Generate synthetic patient cohorts from a trained model on ``device``
+    (the card unless the caller passes the CPU)."""
 
     def __init__(self, model: ConditionalDiffusion, config: Config, dims: FrozenDims,
-                 data_stats: Optional[Dict[str, np.ndarray]] = None, device="cpu"):
+                 data_stats: Optional[Dict[str, np.ndarray]] = None, device="cuda"):
         self.model = model
         self.config = config
         self.dims = dims

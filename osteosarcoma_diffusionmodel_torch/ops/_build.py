@@ -48,6 +48,12 @@ SIGNATURES = {
     # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
     "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "osdm_rbf_grid_blocks": [_I, _I],
+    # h, hacc, xi, zeta_bf, M, H, coeffs, step, mode, zeta, seed, stream
+    "osdm_latent_draw": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _U32, _P],
+    # s, o_lat, n_inj, c_proj, t_add, coeffs, step, h_in, M, H, stream
+    "osdm_latent_update": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # x, pred, out, n, d, coefs, c0, c1, sv, add_noise, clip, seed, stream
+    "osdm_posterior_update": [_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _U32, _P],
 }
 
 

@@ -272,9 +272,11 @@ class FusedSampler:
                       torch.empty(batch, dtype=torch.float32, device=dev)),
         }
 
-    def _step(self, s: int, x: torch.Tensor, c_proj: torch.Tensor, buf, mode: str,
-              noise: Optional[torch.Tensor], seed: int) -> None:
-        batch = x.shape[0]
+    def run_stack(self, buf) -> None:
+        """The block stack from ``buf["h_in"]`` to ``buf["h_last"]`` (K1 and K2,
+        or K5 and K6 under int8): the stack of every reverse step, and of the
+        latent-tail sampler's steps on its 256-wide state."""
+        batch = buf["h_in"].shape[0]
         cats: List[torch.Tensor] = buf["cats"]
         n_enc = len(self.encoders)
         scratch = buf["quant"]
@@ -283,8 +285,6 @@ class FusedSampler:
             return (buf["pre"][: batch * f].view(batch, f),
                     buf["mid"][: batch * f].view(batch, f))
 
-        self.w_in(x, buf["h_in"], scratch, bias=self.t_add[s], row_add=c_proj,
-                  mut_cols=self.mut_dim)
         h = buf["h_in"]
         for i, blk in enumerate(self.encoders):
             cat = cats[n_enc - 1 - i]
@@ -296,6 +296,13 @@ class FusedSampler:
         for j, blk in enumerate(self.decoders):
             dst = cats[j + 1][:, : blk.features] if j + 1 < len(cats) else buf["h_last"]
             blk.run(cats[j], dst, *scratch_rows(blk.features), scratch)
+
+    def _step(self, s: int, x: torch.Tensor, c_proj: torch.Tensor, buf, mode: str,
+              noise: Optional[torch.Tensor], seed: int) -> None:
+        scratch = buf["quant"]
+        self.w_in(x, buf["h_in"], scratch, bias=self.t_add[s], row_add=c_proj,
+                  mut_cols=self.mut_dim)
+        self.run_stack(buf)
         self.w_out(buf["h_last"], buf["acc"], scratch)
         x0_posterior_step(buf["acc"], x, self.b_out, self.coeffs, s, mode,
                           noise=noise, seed=seed, clip=self.clip_value, mut_dim=self.mut_dim)
@@ -303,14 +310,22 @@ class FusedSampler:
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: torch.Generator,
                x_init: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None,
+               stop_after: Optional[int] = None) -> torch.Tensor:
         """Samples (B, D) float32 on the sampler's device. ``x_init``: the
         x_T prior (B, D), drawn from ``generator`` when omitted; ``noise``:
         (n_loop, B, D) per-step transition noise replacing the in-kernel
         Philox stream (DDPM only; with the D3PM head its mutation columns
-        give the bit uniforms z/(2sqrt3) + 1/2)."""
+        give the bit uniforms z/(2sqrt3) + 1/2). ``stop_after``: run only
+        the first N reverse rows and return the carry x_{t(N)} (its bf16
+        values, as float32): the data-space head of the latent-tail sampler
+        (the JAX ``stop_after``, fused_sampler.py:879-883); ``noise`` keeps
+        its full shape."""
         dev = self.device
         batch, D = conditions.shape[0], self.data_dim
+        n_run = self.n_loop if stop_after is None else int(stop_after)
+        if not 0 <= n_run <= self.n_loop:
+            raise ValueError(f"stop_after must be in [0, {self.n_loop}], got {stop_after}")
         if self.ddim_steps is not None:
             if noise is not None:
                 raise ValueError("eta = 0 DDIM takes no transition noise")
@@ -322,7 +337,7 @@ class FusedSampler:
                 raise ValueError(f"noise must be ({self.n_loop}, {batch}, {D}), "
                                  f"got {tuple(noise.shape)}")
             noise = noise.to(device=dev, dtype=torch.float32).contiguous()
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
         if x_init is None:
             x_init = x_prior(batch, D, self.mut_dim, generator)
         x = x_init.to(device=dev, dtype=torch.bfloat16).contiguous().clone()
@@ -335,6 +350,6 @@ class FusedSampler:
         c_proj = c_proj.to(dev, torch.bfloat16).float().contiguous()
 
         buf = self._buffers(batch)
-        for s in range(self.n_loop):
+        for s in range(n_run):
             self._step(s, x, c_proj, buf, mode, noise, seed)
         return x.float()

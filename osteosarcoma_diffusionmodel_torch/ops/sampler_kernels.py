@@ -1,4 +1,4 @@
-"""Wrappers for the sampler's Hopper kernels K1-K3, K5 and K6, beside their
+"""Wrappers for the samplers' Hopper kernels K1-K3 and K5-K7, beside their
 plain versions.
 
 Together the kernels compute what the TPU's whole-loop sampler
@@ -12,7 +12,11 @@ computes in one Pallas kernel, one reverse step at a time:
   with the binary D3PM posterior on the mutation columns;
 - K5 ``rowquant_s8`` and K6 ``gemm_s8``: the int8 products of the
   ``quantize`` modes (per-row dynamic activation scales, per-column
-  weight scales, s8·s8 -> s32, dequantized in the epilogue).
+  weight scales, s8·s8 -> s32, dequantized in the epilogue);
+- K7 ``latent_step`` (:func:`latent_draw`, :func:`latent_update`): the
+  per-step elementwise work of the latent-tail sampler
+  (osteosarcoma_diffusionmodel_tpu/ops/latent_sampler.py
+  `_build_latent_kernel`), whose products and hidden stack run on K1/K2.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch, in
 total and by mode; for CPU tensors it runs the plain PyTorch version (the
@@ -555,3 +559,125 @@ def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
     GEMM_S8.count("accumulate" if accumulate else
                   "bf16_out" if out.dtype == torch.bfloat16 else "f32_out")
     return out
+
+
+# ----------------------------------------------------------------------
+# K7: the latent-tail sampler's per-step elementwise work
+# ----------------------------------------------------------------------
+LATENT = Kernel(
+    "latent_step",
+    "osteosarcoma_diffusionmodel_torch/csrc/latent_step.cu",
+    "osteosarcoma_diffusionmodel_tpu/ops/latent_sampler.py:442",
+    modes=("draw_philox", "draw_buffer", "update"),
+)
+LATENT_COLS = 5  # the (n_lat, 5) table: A, c0, sv, w, v
+
+
+def _check_latent_table(coeffs: torch.Tensor, step: int) -> None:
+    _check_dtype(coeffs, torch.float32, "coeffs")
+    if coeffs.dim() != 2 or coeffs.shape[1] != LATENT_COLS or not coeffs.is_contiguous():
+        raise ValueError(f"coeffs must be a contiguous (n_lat, {LATENT_COLS}) table")
+    if not 0 <= step < coeffs.shape[0]:
+        raise IndexError(f"step {step} outside the {coeffs.shape[0]}-row table")
+
+
+def _check_state(tensors, shape, dtype) -> None:
+    for t, name in tensors:
+        _check_dtype(t, dtype, name)
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape}, got {tuple(t.shape)}")
+
+
+def latent_draw_plain(h, hacc, xi, coeffs, step: int, mode: str, zeta=None, seed: int = 0):
+    """Returns (bf16 zeta_k, xi + v·zeta_k, H_acc + w·h): the kernel's f32
+    operations in its order. zeta_k is Philox U(-sqrt3, sqrt3) keyed by
+    (seed, step) ("philox") or ``zeta[step]`` ("buffer")."""
+    w, v = coeffs[step, 3], coeffs[step, 4]
+    if mode == "buffer":
+        z = zeta[step]
+    else:
+        z = philox_uniform_noise(seed, step, *xi.shape, device=xi.device)
+    return z.to(torch.bfloat16), xi + v * z, hacc + w * h.float()
+
+
+def latent_draw(h: torch.Tensor, hacc: torch.Tensor, xi: torch.Tensor, zeta_bf: torch.Tensor,
+                coeffs: torch.Tensor, step: int, mode: str,
+                zeta: Optional[torch.Tensor] = None, seed: int = 0) -> None:
+    """In place, for latent step ``step`` with (w, v) from row ``step`` of
+    the (n_lat, 5) f32 table: ``zeta_bf`` <- bf16(zeta_k), ``xi`` += v·zeta_k,
+    ``hacc`` += w·h. ``h`` (M, H) bf16 is the step's hidden stack output;
+    ``hacc``/``xi`` (M, H) f32, ``zeta_bf`` (M, H) bf16. ``mode``: "philox"
+    (in-kernel, keyed by (seed, step), counter = row·H + col) or "buffer"
+    (``zeta`` (n_lat, M, H) f32)."""
+    if mode not in ("philox", "buffer"):
+        raise ValueError(f"unknown draw mode {mode!r}")
+    if h.dim() != 2:
+        raise ValueError("h must be 2-D")
+    shape = tuple(h.shape)
+    _check_state([(h, "h"), (zeta_bf, "zeta_bf")], shape, torch.bfloat16)
+    _check_state([(hacc, "hacc"), (xi, "xi")], shape, torch.float32)
+    _check_latent_table(coeffs, step)
+    if mode == "buffer":
+        if zeta is None or tuple(zeta.shape) != (coeffs.shape[0], *shape) or not zeta.is_contiguous():
+            raise ValueError(f"buffer mode needs contiguous zeta ({coeffs.shape[0]}, {shape[0]}, "
+                             f"{shape[1]})")
+        _check_dtype(zeta, torch.float32, "zeta")
+    if not 0 <= seed <= _M32:
+        raise ValueError("seed must fit in 32 bits")
+
+    if not _on_cuda(h, hacc, xi, zeta_bf, coeffs, zeta if mode == "buffer" else None):
+        z, x_new, h_new = latent_draw_plain(h, hacc, xi, coeffs, step, mode, zeta, seed)
+        zeta_bf.copy_(z)
+        xi.copy_(x_new)
+        hacc.copy_(h_new)
+        return
+    lib = LIBRARY.get()
+    status = lib.osdm_latent_draw(
+        h.data_ptr(), hacc.data_ptr(), xi.data_ptr(), zeta_bf.data_ptr(), shape[0], shape[1],
+        coeffs.data_ptr(), step, NOISE_MODES[mode],
+        zeta.data_ptr() if mode == "buffer" else None, seed, _stream(h),
+    )
+    check(status, LATENT.name)
+    LATENT.count(f"draw_{mode}")
+
+
+def latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, step: int):
+    """Returns (A·s + c0·o_lat + sv·n_inj, its bf16 next stack input
+    s + t_add[step + 1] + c_proj): the kernel's f32 operations in its order."""
+    a, c0, sv = coeffs[step, 0], coeffs[step, 1], coeffs[step, 2]
+    s_new = a * s + c0 * o_lat + sv * n_inj
+    return s_new, (s_new + t_add[step + 1] + c_proj).to(torch.bfloat16)
+
+
+def latent_update(s: torch.Tensor, o_lat: torch.Tensor, n_inj: torch.Tensor,
+                  c_proj: torch.Tensor, t_add: torch.Tensor, coeffs: torch.Tensor, step: int,
+                  h_in: torch.Tensor) -> None:
+    """In place, for latent step ``step`` with (A, c0, sv) from row ``step``
+    of the (n_lat, 5) table: ``s`` <- A·s + c0·o_lat + sv·n_inj and
+    ``h_in`` <- bf16(s + t_add[step + 1] + c_proj), the next hidden stack
+    input. ``s``, ``o_lat``, ``n_inj``, ``c_proj`` (M, H) f32; ``t_add``
+    (n_lat + 1, H) f32 (the segment's rows); ``h_in`` (M, H) bf16."""
+    if s.dim() != 2:
+        raise ValueError("s must be 2-D")
+    shape = tuple(s.shape)
+    _check_state([(s, "s"), (o_lat, "o_lat"), (n_inj, "n_inj"), (c_proj, "c_proj")], shape,
+                 torch.float32)
+    _check_state([(h_in, "h_in")], shape, torch.bfloat16)
+    _check_latent_table(coeffs, step)
+    _check_dtype(t_add, torch.float32, "t_add")
+    if (t_add.dim() != 2 or t_add.shape[1] != shape[1] or t_add.shape[0] < step + 2
+            or not t_add.is_contiguous()):
+        raise ValueError(f"t_add must be contiguous with more than {step + 1} rows of {shape[1]}")
+
+    if not _on_cuda(s, o_lat, n_inj, c_proj, t_add, coeffs, h_in):
+        s_new, h_new = latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, step)
+        s.copy_(s_new)
+        h_in.copy_(h_new)
+        return
+    lib = LIBRARY.get()
+    status = lib.osdm_latent_update(
+        s.data_ptr(), o_lat.data_ptr(), n_inj.data_ptr(), c_proj.data_ptr(), t_add.data_ptr(),
+        coeffs.data_ptr(), step, h_in.data_ptr(), shape[0], shape[1], _stream(s),
+    )
+    check(status, LATENT.name)
+    LATENT.count("update")

@@ -50,7 +50,7 @@ def _pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 class BiologicalValidator:
     """Validate synthetic patients against biological knowledge."""
 
-    def __init__(self, config: Config, device="cpu"):
+    def __init__(self, config: Config, device="cuda"):
         ev = config.evaluation
         self.config = config
         self.driver_genes = ev.driver_genes

@@ -172,3 +172,27 @@ def test_dummy_cohort_matches_make_dummy_data(tmp_path):
         b = pd.read_csv(tmp_path / "jax" / fname, index_col=0)
         assert list(a.columns) == list(b.columns) and list(a.index) == list(b.index)
         np.testing.assert_array_equal(a.values.astype(np.float32), b.values.astype(np.float32))
+
+
+def test_cli_without_device_raises_without_a_card(workspace, monkeypatch):
+    """The port runs on the card unless asked for the CPU: with no card
+    and no ``--device``, the CLI raises before it writes anything."""
+    import torch
+
+    root, proc, ckpt, _ = workspace
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = {
+        "data": {"processed_dir": str(proc)},
+        "training": {"save_dir": str(ckpt)},
+        "output": {"results_dir": str(root / "results_nocard"),
+                   "synthetic_data_dir": str(root / "synthetic_nocard")},
+    }
+    path = root / "config_nocard.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--config", str(path), "--steps", "generate", "validate"])
+    assert not (root / "synthetic_nocard").exists()
+    assert not (root / "results_nocard").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.generate_synthetic_patients(Config.from_yaml(path))
+    assert not (root / "synthetic_nocard").exists()

@@ -170,3 +170,55 @@ def test_cuda_gemm_s8_matches_plain(cuda):
         ref = sk.gemm_s8_plain(qa, rs, qb, cs, bias, acc_into=start if acc else None)
         ref = ref.to(out_dtype).float()
         assert float((got - ref).abs().max()) <= 2 ** -23 * max(1.0, float(ref.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# K7 (the latent tail's step) and K8 (the standalone posterior update)
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_latent_step_matches_plain(cuda):
+    # The _rn intrinsics in the plain version's order: s, H_acc, xi and the
+    # Philox zeta equal the plain version's f32 results; the bf16 outputs
+    # are one rounding of equal f32 values.
+    rng = np.random.default_rng(5)
+    m, h, n_lat = 333, 256, 4
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    coeffs = torch.from_numpy(rng.uniform(0.1, 1.0, (n_lat, 5)).astype(np.float32)).to(cuda)
+    hid = f(m, h).bfloat16()
+    zeta = f(n_lat, m, h)
+    for mode in ("philox", "buffer"):
+        hacc, xi = f(m, h), f(m, h)
+        ref_z, ref_xi, ref_hacc = sk.latent_draw_plain(hid, hacc, xi, coeffs, 2, mode, zeta, 9)
+        zbf = torch.empty(m, h, dtype=torch.bfloat16, device=cuda)
+        before = sk.LATENT.modes[f"draw_{mode}"]
+        sk.latent_draw(hid, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta, seed=9)
+        assert sk.LATENT.modes[f"draw_{mode}"] == before + 1
+        assert torch.equal(zbf, ref_z) and torch.equal(xi, ref_xi) and torch.equal(hacc, ref_hacc)
+    s, o_lat, n_inj, c_proj, t_add = f(m, h), f(m, h), f(m, h), f(m, h), f(n_lat + 1, h)
+    ref_s, ref_h = sk.latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, 3)
+    h_in = torch.empty(m, h, dtype=torch.bfloat16, device=cuda)
+    sk.latent_update(s, o_lat, n_inj, c_proj, t_add, coeffs, 3, h_in)
+    assert torch.equal(s, ref_s) and torch.equal(h_in, ref_h)
+
+
+@pytest.mark.cuda
+def test_cuda_posterior_update_matches_plain(cuda):
+    # The affine part with _rn intrinsics; z through logf/sqrtf/cosf, within
+    # a few f32 ulps of the plain version's: 2^-19 of max(1, |ref|).
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((333, 5142)).astype(np.float32)).to(cuda)
+    pred = torch.from_numpy((40 * rng.standard_normal((333, 5142))).astype(np.float32)).to(cuda)
+    for add_noise in (1.0, 0.0):
+        coefs = (0.3, 0.6, 0.8, add_noise, 30.0)
+        ref = pk.posterior_update_plain(x, pred, 21, *coefs)
+        got = pk.posterior_update(x, pred, 21, *coefs)
+        traced = pk.posterior_update_traced(x, pred, torch.tensor(coefs, device=cuda), 21)
+        tol = 2 ** -19 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= tol
+        assert torch.equal(got, traced)
+    z = pk.posterior_update(torch.zeros_like(x), torch.zeros_like(x), 4, 0.0, 0.0, 1.0, 1.0)
+    assert abs(float(z.mean())) < 0.005 and abs(float(z.std()) - 1.0) < 0.005
+    # The plain noise is a function of (seed, row, col) with no grid: the
+    # kernel's matching it shows its noise does not depend on its tiling.
+    plain_z = pk.gaussian_noise(4, *x.shape, device=cuda)
+    assert float((z - plain_z).abs().max()) <= 2 ** -19 * max(1.0, float(plain_z.abs().max()))

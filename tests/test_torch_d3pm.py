@@ -320,7 +320,7 @@ def test_discrete_head_calibration_matches_jax_host_path(tmp_path, mode):
     jc.generation.calibrate_marginals = mode
     pc.generation.calibrate_marginals = mode
     ref = JaxGenerator(jmodel, params, jc, jdims, data_stats=stats)._postprocess(samples, conds)
-    got = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats)._postprocess(samples,
+    got = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")._postprocess(samples,
                                                                                      conds)
     for key in ref:
         np.testing.assert_array_equal(got[key], np.asarray(ref[key]), err_msg=key)

@@ -53,7 +53,7 @@ def test_postprocess_matches_jax_host_path(setup, mode):
     jc.generation.calibrate_marginals = mode
     pc.generation.calibrate_marginals = mode
     ref = JaxGenerator(jmodel, params, jc, jdims, data_stats=stats)._postprocess(samples, conds)
-    got = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats)._postprocess(samples, conds)
+    got = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")._postprocess(samples, conds)
     assert set(got) == set(ref) == {"mutations", "expression", "pathways", "conditions"}
     for key in ref:
         np.testing.assert_array_equal(got[key], np.asarray(ref[key]), err_msg=key)
@@ -66,14 +66,14 @@ def test_create_conditions_matches_jax(setup):
         jc.generation.condition_normalization = norm
         pc.generation.condition_normalization = norm
         ref = np.asarray(JaxGenerator(jmodel, params, jc, jdims).create_conditions(5, scenario))
-        got = SyntheticPatientGenerator(pmodel, pc, pdims).create_conditions(5, scenario)
+        got = SyntheticPatientGenerator(pmodel, pc, pdims, device="cpu").create_conditions(5, scenario)
         np.testing.assert_array_equal(got, ref)
 
 
 def test_generate_scenarios_shapes_and_reproducibility(setup):
     _, _, _, _, pc, pdims, pmodel, stats, _, _ = setup
     pc.generation.calibrate_marginals = "copula_joint"
-    gen = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats)
+    gen = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")
     out = gen.generate_scenarios(pc.generation.scenarios, 7)
     again = gen.generate_scenarios(pc.generation.scenarios, 7)
     assert list(out) == [s.name for s in pc.generation.scenarios]
@@ -156,7 +156,7 @@ def test_ported_settings_generate(section, field, value):
     dims = cfg.freeze_dims(4, 8, 4, ["a"])
     model = ConditionalDiffusion.from_config(cfg, dims)
     assert model.discrete_head == (field == "discrete_mutation_head")
-    gen = SyntheticPatientGenerator(model, cfg, dims)
+    gen = SyntheticPatientGenerator(model, cfg, dims, device="cpu")
     out = gen.generate(6, {"survival_time": 500})
     assert gen.sampler().quantize == (None if value in ("none", True) else value)
     assert out["mutations"].shape == (6, 4) and np.isfinite(out["expression"]).all()
@@ -191,6 +191,6 @@ def test_device_calibration_backend_is_rejected(setup):
     pc.generation.calibration_backend = "device"
     try:
         with pytest.raises(NotImplementedError):
-            SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats)
+            SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")
     finally:
         pc.generation.calibration_backend = "auto"

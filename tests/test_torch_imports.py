@@ -39,7 +39,7 @@ cfg.model.diffusion.num_steps = 5
 dims = cfg.freeze_dims(6, 20, 6, ["a", "b", "c"])
 model = ConditionalDiffusion.from_config(cfg, dims)
 init_weights(model.denoiser, torch.Generator().manual_seed(0))
-out = SyntheticPatientGenerator(model, cfg, dims).generate(8, {"survival_time": 500})
+out = SyntheticPatientGenerator(model, cfg, dims, device="cpu").generate(8, {"survival_time": 500})
 assert out["expression"].shape == (8, 20) and np.isfinite(out["expression"]).all()
 assert _build.LIBRARY._lib is None  # nothing was built or loaded
 bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "osteosarcoma_diffusionmodel_tpu")

@@ -57,7 +57,7 @@ def test_validate_all_matches_jax(cohorts):
     ref = JaxValidator(JaxConfig()).validate_all(
         real["mut"], real["expr"], real["path"], synth["mut"], synth["expr"], synth["path"],
         pathway_gene_matrix=gpm)
-    got = BiologicalValidator(Config()).validate_all(
+    got = BiologicalValidator(Config(), device="cpu").validate_all(
         _matrix(real["mut"]), _matrix(real["expr"]), _matrix(real["path"]),
         _matrix(synth["mut"]), _matrix(synth["expr"]), _matrix(synth["path"]),
         pathway_gene_matrix=_matrix(gpm))
@@ -73,7 +73,7 @@ def test_validate_all_on_identical_cohorts(cohorts):
     synthetic row is an exact duplicate."""
     real, _, _ = cohorts
     m = [_matrix(real[k]) for k in ("mut", "expr", "path")]
-    got = BiologicalValidator(Config()).validate_all(*m, *m)
+    got = BiologicalValidator(Config(), device="cpu").validate_all(*m, *m)
     assert got["mutation_frequency_correlation"] == pytest.approx(1.0)
     assert got["mmd"] == pytest.approx(0.0, abs=1e-6)
     assert got["exact_duplicate_rate"] == 1.0
