@@ -9,7 +9,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    per source, in parallel);
 3. each kernel (K1-K8, every mode the paths use) against its plain
    PyTorch version on the card, at the shapes the paths give it, with the
-   stated tolerance, both times, the least time the card could take for
+   stated tolerance (K1 at every distinct product of the bf16 step, as
+   recorded from one sampler step, with its launches per step and its
+   summed time per step; K1 and K6 run each case twice and require equal
+   bits, split-K included), both times, the least time the card could take for
    the same work (``bound_ms``: bytes over 3.35 TB/s or operations over
    the H100's published peak for their type, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time
@@ -25,7 +28,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    - "int8": fused_quantize "out" with DDPM-1000, "io" and "all" with
      DDIM-50, and "all" with the D3PM head at DDIM-50.
    Every launch count is set to 0 just before a path and read just
-   after it; each (kernel, mode) the path runs must have launched;
+   after it; each (kernel, mode) the path runs must have launched, and
+   K1's general ("unaligned") path must not have;
    - "latent": the latent-tail hybrid sampler. ``scripts/bench_latent_torch.py``
      as a subprocess at 999 rows, DDPM-1000, once with the probe's head
      and once with head 100 (its launches counted in that process: K7
@@ -76,7 +80,7 @@ from osteosarcoma_diffusionmodel_torch.data.dummy import (
 )
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
-from osteosarcoma_diffusionmodel_torch.ops import _build
+from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
 from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
     LatentFusedSampler,
@@ -103,15 +107,18 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     ROWQUANT,
     gemm_bf16_f32acc,
     gemm_bf16_f32acc_plain,
+    gemm_plan,
     gemm_s8,
     gemm_s8_plain,
     groupnorm8_silu,
     groupnorm8_silu_plain,
+    kmajor_int8,
     latent_draw,
     latent_draw_plain,
     latent_update,
     latent_update_plain,
     pack_int8,
+    pad16,
     philox_uniform_noise,
     rowquant_s8,
     rowquant_s8_plain,
@@ -197,67 +204,119 @@ def _with_bits(a: torch.Tensor, g) -> torch.Tensor:
     return a
 
 
+def step_products(dev) -> list:
+    """K1's launches in one bf16 reverse step of the main path, as the
+    sampler makes them: a seeded model at full width (data 62/5054/26,
+    hidden 256/512/256), one step of ``FusedSampler.sample`` at 333 rows
+    with the sampler's K1 calls recorded (outside every count; the call
+    goes through). Returns per call (m, k, n, A's row stride, B's row
+    stride, bias, row_add, out dtype, out row stride, a_mut_cols)."""
+    cfg = Config()
+    dims = cfg.freeze_dims(*DATA_DIMS, list(cfg.model.condition_on))
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    model.denoiser.to(dev)
+    sampler = FusedSampler(model, dev)
+    calls = []
+
+    def record(a, b, out=None, bias=None, row_add=None, a_mut_cols=0):
+        calls.append((a.shape[0], a.shape[1], b.shape[1], a.stride(0), b.stride(0),
+                      bias is not None, row_add is not None, out.dtype, out.stride(0), a_mut_cols))
+        return gemm_bf16_f32acc(a, b, out=out, bias=bias, row_add=row_add, a_mut_cols=a_mut_cols)
+
+    cond = torch.zeros(BATCH, dims.condition_dim, device=dev)
+    fused_sampler.gemm_bf16_f32acc = record
+    try:
+        sampler.sample(cond, torch.Generator(dev).manual_seed(0), stop_after=1)
+    finally:
+        fused_sampler.gemm_bf16_f32acc = gemm_bf16_f32acc
+    torch.cuda.synchronize()
+    return calls
+
+
+def _strided(rows: int, cols: int, ld: int, dtype, dev, fill) -> torch.Tensor:
+    """A (rows, cols) view with row stride ``ld``, values from ``fill``."""
+    buf = torch.zeros(rows, ld, dtype=dtype, device=dev)
+    view = buf[:, ld - cols:] if ld >= 2 * cols else buf[:, :cols]
+    view.copy_(fill(rows, cols))
+    return view
+
+
 def check_gemm(dev, g) -> list:
-    """K1 at the sampler's product shapes, as the main path calls it: the
-    input product with the step's t_add row as bias and c_proj as the row
-    add, written in bf16 (also with the D3PM prologue on the first 62
-    columns); the block products with a bias, one of them on a row-strided
-    view, into f32; the output product into f32; the latent step's two
-    256-wide products at 999 rows into f32.
+    """K1 at every distinct product of the main path's bf16 step, with the
+    layout the sampler gives it (padded carry, W_out and acc; [h | skip]
+    halves as row-strided views; the input product with the step's t_add
+    row as bias, c_proj as the row add, bf16 out), plus the input product
+    with the D3PM prologue on the first 62 columns and the latent step's
+    two 256-wide products at 999 rows. Each case runs twice and the two
+    outputs must be equal bit for bit (split-K sums in a fixed order).
+    Prints K1's launches per step of each product and its summed time per
+    step. No case may take the general ("unaligned") path.
     Tolerance: both sides sum bf16-exact products in f32, in different
     orders, so an f32 result differs by f32 rounding of the sum, 1e-3
     relative to max(1, |ref|); a bf16 result is the plain f32 result
     rounded once to bf16, and a sum that lands near a rounding boundary
     may round the other way: 2^-7 of max(1, |ref|)."""
-    out = []
-    cases = [
-        ("333x5142.5142x256 +t_add +c_proj ->bf16", BATCH, 5142, 256, True, True, False,
-         torch.bfloat16, 0),
-        ("333x5142(2b-1 on 62).5142x256 +t_add +c_proj ->bf16", BATCH, 5142, 256, True, True,
-         False, torch.bfloat16, MUT),
-        ("333x1024.1024x256 +bias", BATCH, 1024, 256, True, False, False, torch.float32, 0),
-        ("333x512(view of 1024).512x256 +bias", BATCH, 512, 256, True, False, True,
-         torch.float32, 0),
-        ("333x256.256x5142", BATCH, 256, 5142, False, False, False, torch.float32, 0),
-        # The latent step's products at the latent path's 999 rows:
-        # o_lat = h·M2 + m_b and n_inj = bf16(zeta)·Lᵀ.
-        ("999x256.256x256 +bias (h.M2 + m_b)", LATENT_ROWS, 256, 256, True, False, False,
-         torch.float32, 0),
-        ("999x256.256x256 (zeta.Lt)", LATENT_ROWS, 256, 256, False, False, False,
-         torch.float32, 0),
-    ]
-    for case, m, k, n, has_bias, has_row_add, strided, out_dtype, mut in cases:
-        if strided:
-            base = torch.randn(m, 2 * k, generator=g).to(dev, torch.bfloat16)
-            a = base[:, k:]
-        else:
-            a = torch.randn(m, k, generator=g).to(dev, torch.bfloat16)
+    calls = step_products(dev)
+    per_step = {}
+    for c in calls:
+        per_step[c] = per_step.get(c, 0) + 1
+    cases = [(c, n) for c, n in per_step.items()]
+    first = calls[0]
+    cases.insert(1, (first[:9] + (MUT,), 0))  # the D3PM step's input product
+    # The latent step's products at 999 rows: o_lat = h·M2 + m_b, n_inj = bf16(zeta)·Lᵀ.
+    cases += [((LATENT_ROWS, 256, 256, 256, 256, True, False, torch.float32, 256, 0), 0),
+              ((LATENT_ROWS, 256, 256, 256, 256, False, False, torch.float32, 256, 0), 0)]
+    out, step_ms, step_launches = [], 0.0, 0
+    randn = lambda r, c: torch.randn(r, c, generator=g)  # noqa: E731
+    for (m, k, n, lda, ldb, has_bias, has_row_add, out_dtype, ldc, mut), count in cases:
+        a = _strided(m, k, lda, torch.bfloat16, dev, randn)
         if mut:
             a = _with_bits(a, g)
-        w = (torch.randn(k, n, generator=g) / math.sqrt(k)).to(dev, torch.bfloat16)
+        w = _strided(k, n, ldb, torch.bfloat16, dev, lambda r, c: randn(r, c) / math.sqrt(k))
         bias = torch.randn(n, generator=g).to(dev) if has_bias else None
         row_add = (torch.randn(m, n, generator=g).to(dev, torch.bfloat16).float()
                    if has_row_add else None)
-        buf = torch.empty(m, n, dtype=out_dtype, device=dev)
-        got = gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add, a_mut_cols=mut).float()
+        buf = _strided(m, n, ldc, out_dtype, dev, lambda r, c: torch.zeros(r, c))
+        unaligned = GEMM.modes["unaligned"]
+        got = gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add, a_mut_cols=mut).clone()
+        again = gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add, a_mut_cols=mut)
         ref = gemm_bf16_f32acc_plain(a, w, bias, row_add, mut).to(out_dtype).float()
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
+        if GEMM.modes["unaligned"] != unaligned:
+            raise AssertionError(f"K1 {m}x{k}x{n}: the path's layout took the general path")
+        plan = gemm_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                         "bf16")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {m}x{k}x{n} plan {tuple(plan)}: two launches differ")
+        err = float((got.float() - ref).abs().max())
         rel = BF16_ULP if out_dtype == torch.bfloat16 else 1e-3
         tol = rel * max(1.0, float(ref.abs().max()))
         ms = time_ms(lambda: gemm_bf16_f32acc(a, w, out=buf, bias=bias, row_add=row_add,
                                               a_mut_cols=mut))
         plain_ms = time_ms(lambda: gemm_bf16_f32acc_plain(a, w, bias, row_add, mut).to(out_dtype))
         # Yardstick: cuBLAS bf16 (bf16 out), with the bias where there is one.
+        ac, wc = a.contiguous(), w.contiguous()
         if bias is not None:
             bias_bf = bias.to(torch.bfloat16)
-            library_ms = time_ms(lambda: torch.addmm(bias_bf, a, w))
+            library_ms = time_ms(lambda: torch.addmm(bias_bf, ac, wc))
         else:
-            library_ms = time_ms(lambda: torch.matmul(a, w))
+            library_ms = time_ms(lambda: torch.matmul(ac, wc))
         moved = (2 * (m * k + k * n) + (4 * n if has_bias else 0)
                  + (4 * m * n if has_row_add else 0) + buf.element_size() * m * n)
-        out.append(_report(GEMM, case, err, tol, ms, plain_ms,
-                           roofline(moved, 2.0 * m * n * k, "bf16"), library_ms))
+        case = (f"{m}x{k}{'(2b-1 on 62)' if mut else ''}{' view' if lda != k else ''}"
+                f".{k}x{n}{' +bias' if has_bias else ''}{' +row_add' if has_row_add else ''}"
+                f" ->{'bf16' if out_dtype == torch.bfloat16 else 'f32'}")
+        row = _report(GEMM, case, err, tol, ms, plain_ms, roofline(moved, 2.0 * m * n * k, "bf16"),
+                      library_ms)
+        row.update(plan=f"{plan.bm}x{plan.bn}/{plan.splits}", per_step=count)
+        print(f"[kernel] {GEMM.name} {case}: plan {plan.bm}x{plan.bn} tiles, {plan.splits} "
+              f"split(s), repeat bit-equal; {count} launch(es) per bf16 step", flush=True)
+        out.append(row)
+        step_ms += count * ms
+        step_launches += count
+    print(f"[kernel] {GEMM.name} per bf16 step at {BATCH} rows: {step_launches} launches, "
+          f"{step_ms:.4f} ms summed", flush=True)
     return out
 
 
@@ -396,10 +455,13 @@ def check_gemm_s8(dev, g) -> list:
     (333x5152.5152x256 from the quantized carry, + t_add + c_proj, bf16
     out), a decoder fc1's second half (333x512.512x256, accumulated onto
     the first half's f32 result, + bias) and the output product
-    (333x256.256x5142, f32). The int32 sums are exact and the epilogue is
-    the plain version's f32 operations in its order, so the results agree
-    to f32 rounding: 2^-22 of max(1, |ref|) in f32 (two f32 ulps), one
-    bf16 rounding (2^-7) for the bf16 output."""
+    (333x256.256x5142 into the padded f32 acc), with the weight codes
+    K-major as the sampler stores them. Each case runs twice (from the
+    same start where it accumulates) and the outputs must be equal bit
+    for bit. The int32 sums are exact and the epilogue is the plain
+    version's f32 operations in its order, so the results agree to f32
+    rounding: 2^-22 of max(1, |ref|) in f32 (two f32 ulps), one bf16
+    rounding (2^-7) for the bf16 output."""
     out = []
     carry = _with_bits(torch.randn(BATCH, D, generator=g).to(dev, torch.bfloat16), g)
     cases = [
@@ -407,35 +469,48 @@ def check_gemm_s8(dev, g) -> list:
         ("333x512.512x256 accumulate +bias", None, 0, 256, torch.float32, True),
         ("333x256.256x5142", None, 0, 5142, torch.float32, False),
     ]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for case, a, mut, n, out_dtype, acc in cases:
         if a is None:
             k = 512 if acc else 256
             a = (3.0 * torch.randn(BATCH, k, generator=g)).to(dev, torch.bfloat16)
         qa, rs = rowquant_s8_plain(a, mut)
         w = torch.randn(a.shape[1], n, generator=g) / math.sqrt(a.shape[1])
-        qb, cs = (t.to(dev) for t in pack_int8(w.numpy()))
+        q, cs = pack_int8(w.numpy())
+        qb, cs = kmajor_int8(q).to(dev), cs.to(dev)
         bias = torch.randn(n, generator=g).to(dev) if n == 256 else None
         row_add = torch.randn(BATCH, n, generator=g).to(dev) if out_dtype == torch.bfloat16 else None
         start = torch.randn(BATCH, n, generator=g).to(dev) if acc else None
-        buf = start.clone() if acc else torch.empty(BATCH, n, dtype=out_dtype, device=dev)
-        got = gemm_s8(qa, rs, qb, cs, out=buf, bias=bias, row_add=row_add, accumulate=acc).float()
+        buf = _strided(BATCH, n, pad16(n), out_dtype, dev, lambda r, c: torch.zeros(r, c))
+        results = []
+        for _ in range(2):
+            if acc:
+                buf.copy_(start)
+            results.append(gemm_s8(qa, rs, qb, cs, out=buf, bias=bias, row_add=row_add,
+                                   accumulate=acc).clone())
         ref = gemm_s8_plain(qa, rs, qb, cs, bias, row_add, start).to(out_dtype).float()
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
+        plan = gemm_plan(BATCH, n, qa.shape[1], sms, "int8")
+        if not torch.equal(results[0], results[1]):
+            raise AssertionError(f"K6 {case} plan {tuple(plan)}: two launches differ")
+        err = float((results[0].float() - ref).abs().max())
         rel = BF16_ULP if out_dtype == torch.bfloat16 else 2.0 ** -22
         tol = rel * max(1.0, float(ref.abs().max()))
         ms = time_ms(lambda: gemm_s8(qa, rs, qb, cs, out=buf, bias=bias, row_add=row_add,
                                      accumulate=acc))
         plain_ms = time_ms(lambda: gemm_s8_plain(qa, rs, qb, cs, bias, row_add, start).to(out_dtype))
         # Yardstick: cuBLASLt s8·s8 -> s32 at the padded shapes (B column-major).
-        qb_cm = qb.t().contiguous().t()
-        library_ms = time_ms(lambda: torch._int_mm(qa, qb_cm))
-        kp, n_p = qb.shape
+        library_ms = time_ms(lambda: torch._int_mm(qa, qb.t()))
+        n_p, kp = qb.shape
         moved = (qa.numel() + qb.numel() + 4 * (BATCH + n) + (4 * n if bias is not None else 0)
                  + (4 * BATCH * n if row_add is not None else 0) + (4 * BATCH * n if acc else 0)
                  + buf.element_size() * BATCH * n)
         limit = roofline(moved, 2.0 * BATCH * n * kp, "int8")
-        out.append(_report(GEMM_S8, case, err, tol, ms, plain_ms, limit, library_ms))
+        row = _report(GEMM_S8, case, err, tol, ms, plain_ms, limit, library_ms)
+        row.update(plan=f"{plan.bm}x{plan.bn}/{plan.splits}")
+        print(f"[kernel] {GEMM_S8.name} {case}: plan {plan.bm}x{plan.bn} tiles, {plan.splits} "
+              f"split(s), repeat bit-equal", flush=True)
+        out.append(row)
     return out
 
 
@@ -715,6 +790,13 @@ REQUIRED = {
 }
 
 
+def check_no_general_path(path: str) -> None:
+    """Every K1 launch of a main path went through TMA: the sampler's
+    buffers are laid out for it, so the general path never runs there."""
+    if GEMM.modes["unaligned"]:
+        raise AssertionError(f"{path}: K1 took its general path {GEMM.modes['unaligned']} times")
+
+
 def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
     """generate -> calibrate -> validate through the port's CLI step
     functions for every run of every main path. The launch counts are
@@ -752,6 +834,7 @@ def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
                    for mode in modes if counts[k.name][mode] == 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched on the main path: {missing}")
+        check_no_general_path(path)
         for k in KERNELS:
             totals[k.name] += k.launches
     cfg.training.save_dir, cfg.generation.fused_quantize = ckpts[False], "none"
@@ -784,6 +867,9 @@ def run_bench_latent(tmp: Path, head) -> dict:
         print(f"[latent]   {name}{' (reference)' if entry.get('role') else ''}: "
               f"{entry['seconds']:.4f} s, {entry['patients_per_sec']:.1f} patients/sec; "
               f"launches {json.dumps(entry['launches'])}", flush=True)
+    for name, entry in report["timings"].items():
+        if entry["launches"].get(GEMM.name, {}).get("unaligned", 0):
+            raise AssertionError(f"bench {name}: K1 took its general path")
     entry = report["timings"][f"latent_kernel_head{report['head_steps']}"]
     want = entry["n_lat"] * entry["calls"]
     k7 = entry["launches"].get(LATENT.name, {})
@@ -853,6 +939,7 @@ def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
                if counts[k.name][m] == 0]
     if missing:
         raise AssertionError(f"latent: kernels never launched on the path: {missing}")
+    check_no_general_path("latent")
     if not LATENT.modes["draw_philox"] == LATENT.modes["update"] == calls_n_lat:
         raise AssertionError(f"K7 launched {LATENT.modes}, want {calls_n_lat} per mode")
     for k in KERNELS:

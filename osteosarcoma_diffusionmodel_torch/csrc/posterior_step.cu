@@ -30,7 +30,10 @@
 // per element, well under the memory time.
 //
 // What the design does about it: one grid-stride elementwise pass; the
-// carry is updated in place, so no second state buffer exists.
+// carry is updated in place, so no second state buffer exists. acc and the
+// carry are row-strided views (the sampler pads their rows to 5152 columns
+// so K1 can read and write them through TMA); the noise slab and the
+// Philox counter stay indexed by row·D + col.
 
 #include "common.cuh"
 
@@ -65,7 +68,7 @@ __device__ __forceinline__ float posterior_prob_one(float xm, float p1, float be
 }
 
 __global__ void __launch_bounds__(256) x0_posterior_step_kernel(
-    const float* __restrict__ acc, __nv_bfloat16* x, int M, int D, int mut_dim,
+    const float* __restrict__ acc, int lda, __nv_bfloat16* x, int ldx, int M, int D, int mut_dim,
     const float* __restrict__ b_out, const float* __restrict__ coeffs, int step, int mode,
     const float* __restrict__ noise, uint32_t seed, float clip) {
   const float* cf = coeffs + (size_t)step * 6;
@@ -74,10 +77,12 @@ __global__ void __launch_bounds__(256) x0_posterior_step_kernel(
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int col = (int)(i % (size_t)D);
+    const size_t row = i / (size_t)D;
     const bool bit = col < mut_dim;
-    const float xf = __bfloat162float(x[i]);
+    __nv_bfloat16* xp = x + row * ldx + col;
+    const float xf = __bfloat162float(*xp);
     const float xt = bit ? __fsub_rn(2.0f * xf, 1.0f) : xf;
-    const float out = __fadd_rn(__fadd_rn(acc[i], b_out[col]), __fmul_rn(gain, xt));
+    const float out = __fadd_rn(__fadd_rn(acc[row * lda + col], b_out[col]), __fmul_rn(gain, xt));
     float u = 0.0f;
     float xn = 0.0f;
     if (!bit) {
@@ -99,13 +104,14 @@ __global__ void __launch_bounds__(256) x0_posterior_step_kernel(
       const float p1 = 1.0f / (1.0f + expf(-out));
       xn = (u < posterior_prob_one(xf, p1, beta, acp_prev)) ? 1.0f : 0.0f;
     }
-    x[i] = __float2bfloat16(xn);
+    *xp = __float2bfloat16(xn);
   }
 }
 
 }  // namespace
 
-OSDM_EXPORT int osdm_x0_posterior_step(const void* acc, void* x, int M, int D, int mut_dim,
+OSDM_EXPORT int osdm_x0_posterior_step(const void* acc, int lda, void* x, int ldx, int M, int D,
+                                       int mut_dim,
                                        const void* b_out, const void* coeffs, int step, int mode,
                                        const void* noise, uint32_t seed, float clip,
                                        void* stream) {
@@ -117,7 +123,7 @@ OSDM_EXPORT int osdm_x0_posterior_step(const void* acc, void* x, int M, int D, i
   if (blocks > 132 * 16) blocks = 132 * 16;
   if (blocks == 0) blocks = 1;
   x0_posterior_step_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(acc), static_cast<__nv_bfloat16*>(x), M, D, mut_dim,
+      static_cast<const float*>(acc), lda, static_cast<__nv_bfloat16*>(x), ldx, M, D, mut_dim,
       static_cast<const float*>(b_out), static_cast<const float*>(coeffs), step, mode,
       static_cast<const float*>(noise), seed, clip);
   return static_cast<int>(cudaGetLastError());

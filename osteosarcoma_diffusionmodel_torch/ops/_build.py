@@ -34,17 +34,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U32 = ctypes.c_uint32
 SIGNATURES = {
-    # A, lda, a_mut_cols, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr, tile, stream
-    "osdm_gemm_bf16_f32acc": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
+    # A, lda, a_mut_cols, B, ldb, C, ldc, out_bf16, M, N, K, bias, row_add, ldr,
+    # bn, splits, tma, partials, tickets, stream
+    "osdm_gemm_bf16_f32acc": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                              _I, _I, _I, _P, _P, _P],
     # h, ldh, out, ldo, scale, bias, M, F, eps, stream
     "osdm_groupnorm8_silu": [_P, _I, _P, _I, _P, _P, _I, _I, _F, _P],
-    # acc, x, M, D, mut_dim, b_out, coeffs, step, mode, noise, seed, clip, stream
-    "osdm_x0_posterior_step": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _U32, _F, _P],
+    # acc, lda, x, ldx, M, D, mut_dim, b_out, coeffs, step, mode, noise, seed, clip, stream
+    "osdm_x0_posterior_step": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _U32, _F, _P],
     # A, lda, in_bf16, M, K, mut_cols, Q, ldq, scale, stream
     "osdm_rowquant_s8": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
-    # A, lda, B, ldb, C, ldc, out_bf16, M, N, K, row_scale, col_scale, accumulate,
-    # bias, row_add, ldr, tile, stream
-    "osdm_gemm_s8": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P],
+    # A, lda, B, ldb, b_rows, C, ldc, out_bf16, M, N, K, row_scale, col_scale, accumulate,
+    # bias, row_add, ldr, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                     _I, _I, _P, _P, _P],
     # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
     "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "osdm_rbf_grid_blocks": [_I, _I],

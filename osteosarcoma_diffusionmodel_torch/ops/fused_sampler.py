@@ -14,7 +14,9 @@ with the carry x in bf16, products in bf16 with f32 accumulation and the
 group statistics in f32 -- the TPU kernel's ``gn_mode="f32"`` numerics.
 Decoder inputs ``[h | skip]`` live in preallocated bf16 buffers that the
 encoder blocks write their skip halves into, so no concatenation is
-copied. The host tables follow FusedSampler.__init__ (:661-724): reverse
+copied. The 5142-wide carry, acc and K1's copy of W_out have rows padded
+to 5152 columns (16-byte multiples), so K1 and K3 work on views that TMA
+can address. The host tables follow FusedSampler.__init__ (:661-724): reverse
 timesteps, ``t_add`` (time embedding + input bias, f32), the (n_loop, 6)
 coefficient table (c0, c1, sv, g, beta, acp_prev) whose last DDPM row is
 (1, 0, 0) and the linearized eta = 0 DDIM table.
@@ -49,6 +51,7 @@ from .sampler_kernels import (
     gemm_bf16_f32acc,
     gemm_s8,
     groupnorm8_silu,
+    kmajor_int8,
     pack_int8,
     pad16,
     rowquant_s8,
@@ -131,6 +134,13 @@ def _bf16(w: torch.Tensor, device) -> torch.Tensor:
     return w.to(device=device, dtype=torch.bfloat16).contiguous()
 
 
+def padded_rows(rows: int, cols: int, dtype, device) -> torch.Tensor:
+    """A zeroed (rows, pad16(cols)) buffer's (rows, cols) view: its row
+    stride is a multiple of 16 elements, so K1 reads and writes it
+    through TMA (16-byte-aligned rows) at every width, 5142 included."""
+    return torch.zeros(rows, pad16(cols), dtype=dtype, device=device)[:, :cols]
+
+
 def _f32(w: torch.Tensor, device) -> torch.Tensor:
     return w.to(device=device, dtype=torch.float32).contiguous()
 
@@ -138,11 +148,12 @@ def _f32(w: torch.Tensor, device) -> torch.Tensor:
 def int8_parts(w: torch.Tensor, device, splits: Optional[Sequence[int]] = None) -> List[tuple]:
     """A (K, N) weight as int8 parts (lo, hi, codes, column scales), one per
     row range of ``splits`` (the TPU's ``_block_weights`` splits the
-    decoder's fc1 at its [h | skip] boundary, :141-161)."""
+    decoder's fc1 at its [h | skip] boundary, :141-161). The codes are
+    K-major, (pad16(N), pad16(hi - lo)), as K6 takes them."""
     parts, lo = [], 0
     for size in splits or [w.shape[0]]:
         q, scale = pack_int8(w[lo:lo + size].numpy())
-        parts.append((lo, lo + size, q.to(device), scale.to(device)))
+        parts.append((lo, lo + size, kmajor_int8(q).to(device), scale.to(device)))
         lo += size
     if lo != w.shape[0]:
         raise ValueError(f"splits {list(splits)} do not cover {w.shape[0]} rows")
@@ -150,15 +161,17 @@ def int8_parts(w: torch.Tensor, device, splits: Optional[Sequence[int]] = None) 
 
 
 class _Weight:
-    """One product's (K, N) weight in kernel layout: bf16 for K1, or the
-    :func:`int8_parts` for K5 + K6."""
+    """One product's (K, N) weight in kernel layout: for K1 bf16 with its
+    rows padded to pad16(N) (a view of the first N columns; W_out's 5142),
+    or the :func:`int8_parts` for K5 + K6."""
 
     def __init__(self, w: torch.Tensor, device, quant: bool,
                  splits: Optional[Sequence[int]] = None):
         self.parts = int8_parts(w, device, splits) if quant else []
-        self.max_kp = max((q.shape[0] for _, _, q, _ in self.parts), default=0)
+        self.max_kp = max((q.shape[1] for _, _, q, _ in self.parts), default=0)
         if not quant:
-            self.w = _bf16(w, device)
+            self.w = padded_rows(*w.shape, torch.bfloat16, device)
+            self.w.copy_(w)
 
     def __call__(self, a: torch.Tensor, out: torch.Tensor, scratch, bias=None, row_add=None,
                  mut_cols: int = 0) -> None:
@@ -252,7 +265,8 @@ class FusedSampler:
     def _buffers(self, batch: int):
         """Per-call activations. ``cats[j]`` is decoder j's [h | skip]
         input; encoder i writes its output into the skip half of
-        ``cats[L-1-i]``. ``quant`` is K5's scratch (codes, row scales)."""
+        ``cats[L-1-i]``. ``acc`` (the output product) has padded rows.
+        ``quant`` is K5's scratch (codes, row scales)."""
         dev, bf = self.device, torch.bfloat16
         feats = [b.features for b in self.encoders]
         prev = [self.bottleneck.features] + [b.features for b in self.decoders[:-1]]
@@ -267,7 +281,7 @@ class FusedSampler:
             "mid": torch.empty(batch * width, dtype=bf, device=dev),
             "h_last": torch.empty(batch, self.decoders[-1].features if self.decoders
                                   else self.bottleneck.features, dtype=bf, device=dev),
-            "acc": torch.empty(batch, self.data_dim, dtype=torch.float32, device=dev),
+            "acc": padded_rows(batch, self.data_dim, torch.float32, dev),
             "quant": (torch.empty(batch * self.max_kp, dtype=torch.int8, device=dev),
                       torch.empty(batch, dtype=torch.float32, device=dev)),
         }
@@ -340,7 +354,8 @@ class FusedSampler:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
         if x_init is None:
             x_init = x_prior(batch, D, self.mut_dim, generator)
-        x = x_init.to(device=dev, dtype=torch.bfloat16).contiguous().clone()
+        x = padded_rows(batch, D, torch.bfloat16, dev)  # the bf16 carry, TMA-readable rows
+        x.copy_(x_init.to(device=dev, dtype=torch.bfloat16))
 
         # Loop-invariant condition projection (plain torch, as the JAX
         # sampler computes it outside its kernel), rounded to bf16 (:890).
@@ -352,4 +367,4 @@ class FusedSampler:
         buf = self._buffers(batch)
         for s in range(n_run):
             self._step(s, x, c_proj, buf, mode, noise, seed)
-        return x.float()
+        return x.float().contiguous()

@@ -6,7 +6,9 @@ Together the kernels compute what the TPU's whole-loop sampler
 computes in one Pallas kernel, one reverse step at a time:
 
 - K1 ``gemm_bf16_f32acc``: the bf16 matrix products of the step, with
-  the D3PM head's 2b-1 prologue on the input product;
+  the D3PM head's 2b-1 prologue on the input product; K1 and K6 share one
+  wgmma/TMA mainloop (csrc/gemm_sm90.cuh) whose launch :func:`gemm_plan`
+  chooses;
 - K2 ``groupnorm8_silu``: GroupNorm(8) with f32 statistics, then SiLU;
 - K3 ``x0_posterior_step``: output epilogue, clip and the transition,
   with the binary D3PM posterior on the mutation columns;
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,11 +87,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_rows(t: torch.Tensor, name: str) -> None:
-    """2-D with unit column stride (row stride may exceed the width)."""
-    if t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+def _check_rows(t: torch.Tensor, name: str) -> int:
+    """2-D with unit column stride (row stride may exceed the width);
+    returns the row stride."""
+    st = t.stride()
+    if len(st) != 2 or st[1] != 1 or st[0] < t.shape[1]:
         raise ValueError(f"{name} must be a 2-D row-major view, got shape "
-                         f"{tuple(t.shape)} strides {t.stride()}")
+                         f"{tuple(t.shape)} strides {st}")
+    return st[0]
 
 
 def _check_dtype(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -104,7 +109,7 @@ GEMM = Kernel(
     "gemm_bf16_f32acc",
     "osteosarcoma_diffusionmodel_torch/csrc/gemm_bf16.cu",
     "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:347",
-    modes=("bf16", "mut_prologue"),
+    modes=("bf16", "mut_prologue", "unaligned"),
 )
 
 
@@ -138,10 +143,107 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def gemm_tile(m: int, n: int, sms: int) -> int:
-    """64x64 output tiles when they give each of the card's ``sms``
-    multiprocessors work, else 32x32."""
-    return 64 if math.ceil(m / 64) * math.ceil(n / 64) >= sms else 32
+GEMM_BM = 64  # rows of a block tile: one m64 wgmma (csrc/gemm_sm90.cuh)
+GEMM_WIDTHS = (256, 128, 64)  # block widths = wgmma N widths the kernels are built for
+GEMM_STAGE_BYTES = 128  # bytes of k per pipeline stage: 64 bf16 or 128 int8
+GEMM_MIN_SPLIT_KTILES = 8  # a split walks at least this many k-tiles
+# The kernel's shared-memory ring (gemm_sm90.cuh stages/smem_bytes): a
+# stage holds A's 64 rows and B's bn rows of 128 bytes; up to 200 KB of
+# stages, no more than a split walks; an SM has 228 KB.
+_RING_BYTES, _SM_SMEM = 200 * 1024, 228 * 1024
+
+
+class GemmPlan(NamedTuple):
+    """A launch of the shared mainloop: ``bm`` x ``bn`` block tiles, one
+    wgmma of N = ``bn`` per k-step, K cut into ``splits`` ranges of whole
+    k-tiles (split s owns k-tiles [s·kt/S, (s+1)·kt/S))."""
+    bm: int
+    bn: int
+    splits: int
+
+
+def k_tiles(k: int, kind: str) -> int:
+    """k-tiles of one 128-byte stage over K (64 bf16 or 128 int8)."""
+    return -(-k // (GEMM_STAGE_BYTES // (2 if kind == "bf16" else 1)))
+
+
+def _ctas_per_sm(bn: int, walk: int) -> int:
+    """CTAs of one launch that share an SM, by shared memory: the ring
+    takes min(walk, the deepest ring) stages of (64 + bn) x 128 bytes."""
+    stage = (GEMM_BM + bn) * GEMM_STAGE_BYTES
+    ring = max(1, min(walk, _RING_BYTES // stage, 16))
+    return max(1, _SM_SMEM // (1024 + ring * (stage + 8) + 16 + 1024))
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(m: int, n: int, k: int, sms: int, kind: str) -> GemmPlan:
+    """The block width and split count for an (m, k)·(k, n) product of
+    ``kind`` ("bf16" or "int8") on a card with ``sms`` multiprocessors,
+    cached by shape. Where the output tiles leave SMs idle, K is split so
+    that tiles × splits comes as close to ``sms`` as it can without
+    exceeding it, each split keeping at least GEMM_MIN_SPLIT_KTILES
+    k-tiles. The products are latency-bound, so among the widths the plan
+    takes the fewest rounds of CTAs (CTAs over the SMs times the CTAs
+    that share one, by shared memory), then the fewest bytes a CTA moves
+    (its k-tiles of A and B, plus, when split, its partial written and
+    the last split's reads of all of them), then the wider tile."""
+    if kind not in ("bf16", "int8"):
+        raise ValueError(f"kind must be 'bf16' or 'int8', got {kind!r}")
+    kt = k_tiles(k, kind)
+    rows = -(-m // GEMM_BM)
+    best = None
+    for bn in GEMM_WIDTHS:
+        tiles = rows * -(-n // bn)
+        splits = 1
+        if tiles < sms:
+            splits = max(1, min(sms // tiles, kt // GEMM_MIN_SPLIT_KTILES))
+        walk = -(-kt // splits)
+        rounds = -(-tiles * splits // (sms * _ctas_per_sm(bn, walk)))
+        moved = walk * (GEMM_BM + bn) * GEMM_STAGE_BYTES
+        if splits > 1:
+            moved += (1 + splits) * GEMM_BM * bn * 4
+        if best is None or (rounds, moved) < best[0]:
+            best = ((rounds, moved), GemmPlan(GEMM_BM, bn, splits))
+    return best[1]
+
+
+class _SplitWorkspace:
+    """Split-K scratch, one per device, grown as plans need: the partial
+    sums (f32 or s32: 4-byte words, tiles x splits x bm x bn) and one int32
+    ticket per tile, zeroed once (the last split of a tile resets its own).
+    Launches on one stream are ordered, so one workspace serves them all."""
+
+    def __init__(self):
+        self._bufs = {}
+
+    def pointers(self, device, m: int, n: int, plan: GemmPlan) -> Tuple[int, int]:
+        tiles = -(-m // plan.bm) * -(-n // plan.bn)
+        words = tiles * plan.splits * plan.bm * plan.bn
+        part, tick = self._bufs.get(device, (None, None))
+        if part is None or part.numel() < words:
+            part = torch.empty(words, dtype=torch.int32, device=device)
+        if tick is None or tick.numel() < tiles:
+            tick = torch.zeros(tiles, dtype=torch.int32, device=device)
+        self._bufs[device] = (part, tick)
+        return part.data_ptr(), tick.data_ptr()
+
+
+_WORKSPACE = _SplitWorkspace()
+
+
+def _tma_aligned(ptr: int, row_bytes: int) -> bool:
+    return not (ptr | row_bytes) & 15
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """A 2-D operand TMA can read: 16-byte-aligned base and row stride."""
+    return _tma_aligned(t.data_ptr(), t.stride(0) * t.element_size())
+
+
+def _check_plan(plan: GemmPlan, k: int, kind: str) -> None:
+    if plan.bm != GEMM_BM or plan.bn not in GEMM_WIDTHS or not 1 <= plan.splits <= max(
+            1, k_tiles(k, kind)):
+        raise ValueError(f"invalid plan {plan} for K = {k}")
 
 
 def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
@@ -167,18 +269,20 @@ def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
 def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None,
                      bias: Optional[torch.Tensor] = None,
                      row_add: Optional[torch.Tensor] = None,
-                     a_mut_cols: int = 0) -> torch.Tensor:
+                     a_mut_cols: int = 0, plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """``out = a @ b + bias + row_add`` with ``a`` (M, K) and ``b`` (K, N)
     in bf16, f32 accumulation, ``bias`` (N,) and ``row_add`` (M, N) f32.
-    ``a``, ``row_add`` and ``out`` may be row-strided views. ``out`` is
-    f32 (allocated when omitted) or bf16 (the rounding of the f32 result).
-    ``a_mut_cols``: A's first columns are read as 2A - 1 (the D3PM
-    prologue of the input product; ``a`` itself is not changed)."""
-    _check_rows(a, "a")
+    ``a``, ``b``, ``row_add`` and ``out`` may be row-strided views. ``out``
+    is f32 (allocated when omitted) or bf16 (the rounding of the f32
+    result). ``a_mut_cols``: A's first columns are read as 2A - 1 (the
+    D3PM prologue of the input product; ``a`` itself is not changed).
+    ``plan``: the launch, :func:`gemm_plan`'s when omitted. On the card,
+    ``a`` and ``b`` go through TMA when :func:`tma_ready`, else through
+    the kernel's general path (mode "unaligned")."""
+    lda = _check_rows(a, "a")
+    ldb = _check_rows(b, "b")
     _check_dtype(a, torch.bfloat16, "a")
     _check_dtype(b, torch.bfloat16, "b")
-    if not b.is_contiguous() or b.dim() != 2:
-        raise ValueError("b must be a contiguous (K, N) matrix")
     m, k = a.shape
     if b.shape[0] != k:
         raise ValueError(f"inner dims differ: a {tuple(a.shape)} b {tuple(b.shape)}")
@@ -190,18 +294,27 @@ def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tenso
     if not _on_cuda(a, b, bias, row_add, out):
         out.copy_(gemm_bf16_f32acc_plain(a, b, bias, row_add, a_mut_cols))
         return out
+    if plan is None:
+        plan = gemm_plan(m, n, k, _sm_count(a.device.index), "bf16")
+    else:
+        _check_plan(plan, k, "bf16")
+    # tma_ready(a) and tma_ready(b), each pointer and stride read once: this
+    # runs 12 times per sampler step, on the host's critical path.
+    pa, pb = a.data_ptr(), b.data_ptr()
+    tma = _tma_aligned(pa, 2 * lda) and _tma_aligned(pb, 2 * ldb)
+    partials, tickets = (_WORKSPACE.pointers(a.device, m, n, plan) if plan.splits > 1
+                         else (None, None))
     lib = LIBRARY.get()
     status = lib.osdm_gemm_bf16_f32acc(
-        a.data_ptr(), a.stride(0), a_mut_cols, b.data_ptr(), n, out.data_ptr(), out.stride(0),
+        pa, lda, a_mut_cols, pb, ldb, out.data_ptr(), out.stride(0),
         int(out.dtype == torch.bfloat16), m, n, k,
         bias.data_ptr() if bias is not None else None,
         row_add.data_ptr() if row_add is not None else None,
         row_add.stride(0) if row_add is not None else 0,
-        gemm_tile(m, n, _sm_count(a.device.index)),
-        _stream(a),
+        plan.bn, plan.splits, int(tma), partials, tickets, _stream(a),
     )
     check(status, GEMM.name)
-    GEMM.count("mut_prologue" if a_mut_cols else "bf16")
+    GEMM.count("unaligned" if not tma else "mut_prologue" if a_mut_cols else "bf16")
     return out
 
 
@@ -343,7 +456,8 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
                       coeffs: torch.Tensor, step: int, mode: str,
                       noise: Optional[torch.Tensor] = None, seed: int = 0,
                       clip: float = 30.0, mut_dim: int = 0) -> torch.Tensor:
-    """In place on the bf16 carry ``x`` (B, D): out = acc + b_out + g·x,
+    """In place on the bf16 carry ``x`` (B, D), a row-strided view like the
+    f32 ``acc`` (B, D) may be: out = acc + b_out + g·x,
     x0 = clip(out), x <- c0·x0 + c1·x [+ sv·z], with (c0, c1, sv, g) from
     row ``step`` of the (n_loop, 6) f32 table. ``mode``: "none" (eta = 0
     DDIM), "buffer" (z = noise[step], noise (n_loop, B, D) f32) or
@@ -357,9 +471,8 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
     z/(2sqrt3) + 1/2 in "buffer" mode."""
     if mode not in NOISE_MODES:
         raise ValueError(f"unknown noise mode {mode!r}")
-    for t, name in ((acc, "acc"), (x, "x")):
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    _check_rows(acc, "acc")
+    _check_rows(x, "x")
     _check_dtype(acc, torch.float32, "acc")
     _check_dtype(x, torch.bfloat16, "x")
     if acc.shape != x.shape:
@@ -388,7 +501,8 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
         return x
     lib = LIBRARY.get()
     status = lib.osdm_x0_posterior_step(
-        acc.data_ptr(), x.data_ptr(), b, d, mut_dim, b_out.data_ptr(), coeffs.data_ptr(),
+        acc.data_ptr(), acc.stride(0), x.data_ptr(), x.stride(0), b, d, mut_dim,
+        b_out.data_ptr(), coeffs.data_ptr(),
         step, NOISE_MODES[mode], noise.data_ptr() if mode == "buffer" else None,
         seed, clip, _stream(x),
     )
@@ -491,14 +605,21 @@ def pack_int8(w) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(padded), torch.from_numpy(sw.reshape(-1).astype(np.float32))
 
 
+def kmajor_int8(q: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_int8`'s (Kp, Np) codes as the (Np, Kp) K-major layout
+    K6 takes (an 8-bit wgmma reads both operands K-major); made once per
+    weight."""
+    return q.t().contiguous()
+
+
 def gemm_s8_plain(qa, row_scale, qb, col_scale, bias=None, row_add=None, acc_into=None):
-    """The exact integer product (float64 holds every partial sum:
-    |sum| <= K·127^2 < 2^53), one rounding to f32, then in f32 and in this
-    order: ·row_scale, ·col_scale (the TPU's dequant, :344-346),
-    + ``acc_into`` (the earlier part of a split product), + bias,
-    + row_add."""
+    """The exact integer product of ``qa`` (M, Kp) and the K-major codes
+    ``qb`` (Np, Kp) (float64 holds every partial sum: |sum| <= K·127^2 <
+    2^53), one rounding to f32, then in f32 and in this order:
+    ·row_scale, ·col_scale (the TPU's dequant, :344-346), + ``acc_into``
+    (the earlier part of a split product), + bias, + row_add."""
     n = col_scale.shape[0]
-    v = (qa.double() @ qb[:, :n].double()).float()
+    v = (qa.double() @ qb[:n].double().t()).float()
     v = v * row_scale[:, None] * col_scale[None, :]
     if acc_into is not None:
         v = acc_into + v
@@ -512,28 +633,29 @@ def gemm_s8_plain(qa, row_scale, qb, col_scale, bias=None, row_add=None, acc_int
 def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
             col_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None, row_add: Optional[torch.Tensor] = None,
-            accumulate: bool = False) -> torch.Tensor:
-    """``out (+)= (qa @ qb)·row_scale·col_scale + bias + row_add`` with
-    ``qa`` (M, Kp) int8 from :func:`rowquant_s8`, ``qb`` (Kp, Np) int8 from
-    :func:`pack_int8`, ``row_scale`` (M,), ``col_scale`` (N,) with
-    N <= Np, and the epilogue of :func:`gemm_bf16_f32acc`. ``accumulate``
-    adds the result to the f32 ``out`` (the second half of the decoder's
-    split fc1)."""
+            accumulate: bool = False, plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """``out (+)= (qa @ qbᵀ)·row_scale·col_scale + bias + row_add`` with
+    ``qa`` (M, Kp) int8 from :func:`rowquant_s8`, ``qb`` (Np, Kp) int8
+    K-major codes from :func:`kmajor_int8`, ``row_scale`` (M,),
+    ``col_scale`` (N,) with N <= Np, and the epilogue of
+    :func:`gemm_bf16_f32acc`. ``accumulate`` adds the result to the f32
+    ``out`` (the second half of the decoder's split fc1). ``plan``: the
+    launch, :func:`gemm_plan`'s when omitted."""
     for t, name in ((qa, "qa"), (qb, "qb")):
         _check_dtype(t, torch.int8, name)
         if t.dim() != 2 or not t.is_contiguous() or t.shape[1] % QUANT_ALIGN:
             raise ValueError(f"{name} must be contiguous 2-D with a multiple of "
                              f"{QUANT_ALIGN} columns, got {tuple(t.shape)}")
     m, kp = qa.shape
-    if qb.shape[0] != kp:
+    if qb.shape[1] != kp:
         raise ValueError(f"inner dims differ: qa {tuple(qa.shape)} qb {tuple(qb.shape)}")
     n = col_scale.shape[0] if col_scale.dim() == 1 else -1
     for t, name, size in ((row_scale, "row_scale", m), (col_scale, "col_scale", n)):
         _check_dtype(t, torch.float32, name)
         if t.dim() != 1 or t.shape[0] != size or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous ({size},)")
-    if not 0 < n <= qb.shape[1]:
-        raise ValueError(f"col_scale has {n} entries for {qb.shape[1]} packed columns")
+    if not 0 < n <= qb.shape[0]:
+        raise ValueError(f"col_scale has {n} entries for {qb.shape[0]} packed columns")
     if accumulate and (out is None or out.dtype != torch.float32):
         raise ValueError("accumulate needs an f32 out")
     out = _check_epilogue(m, n, bias, row_add, out, qa.device)
@@ -544,16 +666,21 @@ def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
         return out
     if qa.data_ptr() % 16 or qb.data_ptr() % 16:
         raise ValueError("qa and qb must be 16-byte aligned")
+    if plan is None:
+        plan = gemm_plan(m, n, kp, _sm_count(qa.device.index), "int8")
+    else:
+        _check_plan(plan, kp, "int8")
+    partials, tickets = (_WORKSPACE.pointers(qa.device, m, n, plan) if plan.splits > 1
+                         else (None, None))
     lib = LIBRARY.get()
     status = lib.osdm_gemm_s8(
-        qa.data_ptr(), kp, qb.data_ptr(), qb.shape[1], out.data_ptr(), out.stride(0),
+        qa.data_ptr(), kp, qb.data_ptr(), kp, qb.shape[0], out.data_ptr(), out.stride(0),
         int(out.dtype == torch.bfloat16), m, n, kp, row_scale.data_ptr(), col_scale.data_ptr(),
         int(accumulate),
         bias.data_ptr() if bias is not None else None,
         row_add.data_ptr() if row_add is not None else None,
         row_add.stride(0) if row_add is not None else 0,
-        gemm_tile(m, n, _sm_count(qa.device.index)),
-        _stream(qa),
+        plan.bn, plan.splits, partials, tickets, _stream(qa),
     )
     check(status, GEMM_S8.name)
     GEMM_S8.count("accumulate" if accumulate else

@@ -21,6 +21,11 @@ def _bf16(rng, shape, scale=1.0):
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(torch.bfloat16)
 
 
+def _padded(rows, cols, dtype, device, extra=0):
+    """A (rows, cols) view of a buffer with rows of pad16(cols) + extra."""
+    return torch.zeros(rows, sk.pad16(cols) + extra, dtype=dtype, device=device)[:, :cols]
+
+
 def _posterior_inputs(b, d, steps=4, seed=0):
     rng = np.random.default_rng(seed)
     acc = torch.from_numpy((20 * rng.standard_normal((b, d))).astype(np.float32))
@@ -108,8 +113,10 @@ def _bits_and_values(rng, m, d, mut):
 def test_cuda_gemm_mut_prologue_matches_plain(cuda):
     # The input product with the 2b - 1 prologue on 62 columns; one bf16
     # rounding of sums that differ in f32 order: 2^-7 of max(1, |ref|).
+    # The carry's layout on the path: rows padded to 5152 (TMA-readable).
     rng = np.random.default_rng(2)
-    a = _bits_and_values(rng, 333, 5142, 62).to(cuda)
+    a = _padded(333, 5142, torch.bfloat16, cuda)
+    a.copy_(_bits_and_values(rng, 333, 5142, 62).to(cuda))
     before = a.clone()
     b = _bf16(rng, (5142, 256), 1 / math.sqrt(5142)).to(cuda)
     bias = torch.randn(256, device=cuda)
@@ -162,7 +169,8 @@ def test_cuda_gemm_s8_matches_plain(cuda):
                                     (333, 512, 256, torch.float32, True),
                                     (333, 256, 5142, torch.float32, False)):
         qa, rs = sk.rowquant_s8_plain(_bf16(rng, (m, k)).to(cuda))
-        qb, cs = (t.to(cuda) for t in sk.pack_int8(rng.standard_normal((k, n)).astype(np.float32)))
+        q, cs = sk.pack_int8(rng.standard_normal((k, n)).astype(np.float32))
+        qb, cs = sk.kmajor_int8(q).to(cuda), cs.to(cuda)
         bias = torch.randn(n, device=cuda)
         start = torch.randn(m, n, device=cuda)
         out = start.clone() if acc else torch.empty(m, n, dtype=out_dtype, device=cuda)
@@ -170,6 +178,84 @@ def test_cuda_gemm_s8_matches_plain(cuda):
         ref = sk.gemm_s8_plain(qa, rs, qb, cs, bias, acc_into=start if acc else None)
         ref = ref.to(out_dtype).float()
         assert float((got - ref).abs().max()) <= 2 ** -23 * max(1.0, float(ref.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# The sm90 mainloop: ragged shapes, strided views, split-K
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 16, 256), (17, 62, 24), (17, 5142, 256), (333, 5152, 256),
+                                   (999, 256, 5142), (70, 200, 130)])
+@pytest.mark.parametrize("layout", ["padded", "contiguous", "offset"])
+def test_cuda_gemm_ragged_and_strided(cuda, m, k, n, layout):
+    # Ragged M, N and K through TMA where the operands allow it, else the
+    # general path; bf16 and f32 outputs into padded views. Tolerances as
+    # in chip_smoke.py: 1e-3 (f32) and 2^-7 (bf16) of max(1, |ref|).
+    rng = np.random.default_rng(m + k + n)
+    fill = lambda r, c, sc=1.0: _bf16(rng, (r, c), sc).to(cuda)  # noqa: E731
+    if layout == "padded":
+        a = _padded(m, k, torch.bfloat16, cuda)
+    elif layout == "contiguous":
+        a = torch.empty(m, k, dtype=torch.bfloat16, device=cuda)
+    else:  # one element in: never 16-byte aligned
+        a = torch.zeros(m, k + 1, dtype=torch.bfloat16, device=cuda)[:, 1:]
+    a.copy_(fill(m, k))
+    b = _padded(k, n, torch.bfloat16, cuda)
+    b.copy_(fill(k, n, 1 / math.sqrt(k)))
+    bias = torch.randn(n, device=cuda)
+    row_add = torch.randn(m, n, device=cuda)
+    mode = "bf16" if sk.tma_ready(a) and sk.tma_ready(b) else "unaligned"
+    for out_dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2 ** -7)):
+        buf = torch.zeros(m, sk.pad16(n) + 8, dtype=out_dtype, device=cuda)
+        out = buf[:, :n]
+        before = sk.GEMM.modes[mode]
+        sk.gemm_bf16_f32acc(a, b, out=out, bias=bias, row_add=row_add)
+        assert sk.GEMM.modes[mode] == before + 1
+        ref = sk.gemm_bf16_f32acc_plain(a, b, bias, row_add).to(out_dtype).float()
+        assert float((out.float() - ref).abs().max()) <= tol * max(1.0, float(ref.abs().max()))
+        assert not buf[:, n:].any()  # the padding is never written
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mut", [62, 100])
+def test_cuda_gemm_prologue_inside_a_split(cuda, mut):
+    # The 2b - 1 prologue with K split: 62 bits fall in k-tile 0 (the first
+    # split's), 100 bits also in k-tile 1, which a 40-way split gives to the
+    # second split. Every plan equals the plain version within one bf16
+    # rounding, and the carry is not changed.
+    rng = np.random.default_rng(8)
+    a = _padded(333, 5142, torch.bfloat16, cuda)
+    a.copy_(_bits_and_values(rng, 333, 5142, mut).to(cuda))
+    before = a.clone()
+    b = _bf16(rng, (5142, 256), 1 / math.sqrt(5142)).to(cuda)
+    ref = sk.gemm_bf16_f32acc_plain(a, b, a_mut_cols=mut).to(torch.bfloat16).float()
+    for plan in (sk.GemmPlan(64, 64, 1), sk.GemmPlan(64, 64, 5), sk.GemmPlan(64, 128, 40),
+                 sk.GemmPlan(64, 256, 3), None):
+        out = torch.empty(333, 256, dtype=torch.bfloat16, device=cuda)
+        sk.gemm_bf16_f32acc(a, b, out=out, a_mut_cols=mut, plan=plan)
+        assert float((out.float() - ref).abs().max()) <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+    assert torch.equal(a, before)
+
+
+@pytest.mark.cuda
+def test_cuda_split_k_is_deterministic(cuda):
+    # Split-K sums its partials in split order: repeated launches give the
+    # same bits (K1, f32), and int8 splits equal the unsplit product exactly.
+    rng = np.random.default_rng(9)
+    a = _padded(333, 5142, torch.bfloat16, cuda)
+    a.copy_(_bf16(rng, (333, 5142)).to(cuda))
+    b = _bf16(rng, (5142, 256), 1 / math.sqrt(5142)).to(cuda)
+    plan = sk.GemmPlan(64, 64, 7)
+    first = sk.gemm_bf16_f32acc(a, b, plan=plan)
+    for _ in range(3):
+        assert torch.equal(sk.gemm_bf16_f32acc(a, b, plan=plan), first)
+    qa, rs = sk.rowquant_s8_plain(a)
+    q, cs = sk.pack_int8(rng.standard_normal((5142, 256)).astype(np.float32))
+    qb, cs = sk.kmajor_int8(q).to(cuda), cs.to(cuda)
+    whole = sk.gemm_s8(qa, rs, qb, cs, plan=sk.GemmPlan(64, 64, 1))
+    for splits in (2, 5, 41):
+        assert torch.equal(sk.gemm_s8(qa, rs, qb, cs, plan=sk.GemmPlan(64, 128, splits)), whole)
+    assert torch.equal(whole, sk.gemm_s8_plain(qa, rs, qb, cs))
 
 
 # ----------------------------------------------------------------------

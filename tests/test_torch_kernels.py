@@ -64,9 +64,68 @@ def test_gemm_rejects_bad_inputs():
         sk.gemm_bf16_f32acc(a, torch.zeros(8, 4, dtype=torch.bfloat16).T.contiguous().T)
 
 
-def test_gemm_tile_choice():
-    assert sk.gemm_tile(333, 256, 132) == 32  # 24 tiles of 64 would idle most SMs
-    assert sk.gemm_tile(333, 5142, 132) == 64
+@pytest.mark.parametrize("m", [1, 17, 333, 999])
+@pytest.mark.parametrize("k", [16, 62, 5142, 5152])
+def test_gemm_plan(m, k):
+    """For the paths' shapes and ragged ones, both kinds and N 256/5142 on
+    132 SMs: the tiles cover M x N with no empty tile; the wgmma width is
+    a multiple of 8 and at most 256; the splits cover K's k-tiles exactly,
+    none empty; the launch stays within one wave of CTAs and, where K
+    allows, comes within one tile row of filling the SMs; the input
+    product (333 x 5142 · 5142 x 256) is split."""
+    sms = 132
+    for kind in ("bf16", "int8"):
+        kt = sk.k_tiles(k, kind)
+        assert (kt - 1) * (64 if kind == "bf16" else 128) < k <= kt * (64 if kind == "bf16" else 128)
+        for n in (256, 5142):
+            plan = sk.gemm_plan(m, n, k, sms, kind)
+            assert plan is sk.gemm_plan(m, n, k, sms, kind)  # cached by shape
+            assert plan.bm == 64 and plan.bn % 8 == 0 and 8 <= plan.bn <= 256
+            rows, cols = -(-m // plan.bm), -(-n // plan.bn)
+            assert (rows - 1) * plan.bm < m <= rows * plan.bm
+            assert (cols - 1) * plan.bn < n <= cols * plan.bn
+            # The kernel's cut: split s owns k-tiles [s·kt/S, (s+1)·kt/S).
+            ranges = [(s * kt // plan.splits, (s + 1) * kt // plan.splits)
+                      for s in range(plan.splits)]
+            assert ranges[0][0] == 0 and ranges[-1][1] == kt
+            assert all(lo < hi for lo, hi in ranges)
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            tiles = rows * cols
+            ctas = tiles * plan.splits
+            assert ctas <= max(tiles, sms)
+            if tiles < sms and kt >= sk.GEMM_MIN_SPLIT_KTILES * (sms // tiles):
+                assert ctas > sms - tiles
+            if (m, n) == (333, 256) and k >= 5142:
+                assert plan.splits > 1
+
+
+def test_gemm_plan_rejects_unknown_kind():
+    with pytest.raises(ValueError):
+        sk.gemm_plan(333, 256, 512, 132, "fp8")
+
+
+def test_tma_ready_operands():
+    """TMA reads 16-byte-aligned bases and row strides: a 5142-wide bf16
+    carry is not (10,284-byte rows), its padded view is, and so is a
+    [h | skip] half of the decoder buffer; a view one element in is not."""
+    carry = torch.zeros(333, 5142, dtype=torch.bfloat16)
+    padded = torch.zeros(333, sk.pad16(5142), dtype=torch.bfloat16)[:, :5142]
+    cat = torch.zeros(333, 768, dtype=torch.bfloat16)
+    assert not sk.tma_ready(carry)
+    assert sk.tma_ready(padded) and sk.tma_ready(cat[:, 256:]) and sk.tma_ready(cat[:, :256])
+    assert not sk.tma_ready(cat[:, 1:257])
+    assert sk.tma_ready(torch.zeros(333, sk.pad16(5142))[:, :5142])
+
+
+def test_gemm_takes_a_row_strided_weight():
+    """B may be a row-strided view (the padded W_out): the same result as
+    the contiguous weight."""
+    rng = np.random.default_rng(7)
+    a = _bf16(rng, (9, 32))
+    w = _bf16(rng, (32, 50))
+    padded = torch.zeros(32, sk.pad16(50), dtype=torch.bfloat16)
+    padded[:, :50] = w
+    assert torch.equal(sk.gemm_bf16_f32acc(a, padded[:, :50]), sk.gemm_bf16_f32acc(a, w))
 
 
 def test_wrappers_refuse_other_devices():
@@ -146,6 +205,27 @@ def test_posterior_step_clips_and_updates_in_place():
     out = sk.x0_posterior_step(acc, x, b_out, coeffs, 0, "none")
     assert out is x
     assert float(x.float().abs().max()) == 30.0
+
+
+@pytest.mark.parametrize("mut_dim", [0, 12])
+def test_posterior_step_on_row_strided_views(mut_dim):
+    """acc and the carry as views into padded rows (the sampler's layout):
+    the same carry as on contiguous tensors, the padding untouched."""
+    acc, x, b_out, coeffs, noise = _posterior_inputs()
+    b, d = x.shape
+    acc_pad = torch.full((b, sk.pad16(d)), 7.0)
+    x_pad = torch.full((b, sk.pad16(d)), 3.0).to(torch.bfloat16)
+    acc_pad[:, :d] = acc
+    x_pad[:, :d] = x
+    for mode in ("none", "buffer", "philox"):
+        want = sk.x0_posterior_step(acc, x.clone(), b_out, coeffs, 1, mode, noise=noise, seed=4,
+                                    mut_dim=mut_dim)
+        xv = x_pad.clone()
+        got = sk.x0_posterior_step(acc_pad[:, :d], xv[:, :d], b_out, coeffs, 1, mode,
+                                   noise=noise, seed=4, mut_dim=mut_dim)
+        assert got.stride(0) == sk.pad16(d)
+        assert torch.equal(got, want)
+        assert torch.equal(xv[:, d:], x_pad[:, d:])
 
 
 def test_posterior_step_checks_arguments():

@@ -88,18 +88,24 @@ def test_rowquant_matches_jax_mm_quantization(dtype):
 
 def test_gemm_s8_matches_jax_int8_dot():
     """The s8·s8 -> s32 product and dequantization of the TPU's ``mm``
-    (:340-346): exact integers, the same f32 operations, so equal."""
+    (:340-346), with the weight codes in K6's K-major (Np, Kp) layout:
+    exact integers, the same f32 operations, so equal, through the plain
+    version and through the wrapper."""
     rng = np.random.default_rng(2)
     x = (2 * rng.standard_normal((21, 70))).astype(np.float32)
     w = rng.standard_normal((70, 37)).astype(np.float32)
     qa, rs = sk.rowquant_s8(torch.from_numpy(x))
-    qb, cs = sk.pack_int8(w)
-    got = sk.gemm_s8(qa, rs, qb, cs)
+    q, cs = sk.pack_int8(w)
+    qb = sk.kmajor_int8(q)
+    assert qb.shape == (48, 80) and qb.is_contiguous()
     jq, jrs = _jax_mm_quant(jnp.asarray(x))
     jqw, jsw = jax_fs._pack_mat(w, True)
     acc = jax.lax.dot_general(jq, jqw, (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
-    ref = acc.astype(jnp.float32) * jrs * jsw
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ref = np.asarray(acc.astype(jnp.float32) * jrs * jsw)
+    np.testing.assert_array_equal(sk.gemm_s8_plain(qa, rs, qb, cs).numpy(), ref)
+    np.testing.assert_array_equal(sk.gemm_s8(qa, rs, qb, cs).numpy(), ref)
+    with pytest.raises(ValueError, match="inner dims"):
+        sk.gemm_s8(qa, rs, q, cs)  # (Kp, Np) codes are not K-major
 
 
 def test_gemm_s8_epilogue_and_accumulate():
@@ -115,7 +121,7 @@ def test_gemm_s8_epilogue_and_accumulate():
     for lo, hi in parts:
         qa, rs = sk.rowquant_s8(h[:, lo:hi])
         qb, cs = sk.pack_int8(w[lo:hi])
-        terms.append((qa, rs, qb, cs))
+        terms.append((qa, rs, sk.kmajor_int8(qb), cs))
     out = torch.empty(5, 24)
     sk.gemm_s8(*terms[0], out=out)
     sk.gemm_s8(*terms[1], out=out, bias=bias, row_add=row_add, accumulate=True)
@@ -140,7 +146,8 @@ def test_all_mode_packs_every_product_like_jax(pair):
         ref = jax_fs._block_weights(p[f"dec_{j}"], [prev, skip], True)
         assert len(blk.fc1.parts) == 2
         for (lo, hi, q, scale), (jq, js) in zip(blk.fc1.parts, (ref[0:2], ref[2:4])):
-            np.testing.assert_array_equal(q[: hi - lo, : scale.shape[0]].numpy(), np.asarray(jq))
+            # K6's K-major codes: (pad16(N), pad16(hi - lo)).
+            np.testing.assert_array_equal(q[: scale.shape[0], : hi - lo].T.numpy(), np.asarray(jq))
             np.testing.assert_array_equal(scale.numpy(), np.asarray(js).reshape(-1))
     assert sampler.w_in.parts and sampler.w_out.parts and sampler.encoders[0].fc2.parts
     out_only = FusedSampler(pmodel, "cpu", quantize="out")

@@ -87,6 +87,33 @@ def test_ddpm_matches_jax_fused_sampler(pair):
     _close(got, ref)
 
 
+def test_padded_carry_acc_and_w_out_layout():
+    """At a data width that is not a multiple of 16 (50), the carry, acc
+    and the kernel copy of W_out have rows padded to 64 columns (16-byte
+    multiples, so K1 reads them through TMA); the sample still has 50
+    contiguous columns and still matches the TPU kernel in interpret mode
+    at the bf16-carry tolerance."""
+    dims = (10, 31, 9)
+    d = sum(dims)
+    jmodel, params, pmodel = make_pair(num_steps=6, data_dims=dims)
+    sampler = FusedSampler(pmodel, "cpu")
+    buf = sampler._buffers(B)
+    assert sampler.w_out.w.shape == (128, d) and sampler.w_out.w.stride(0) == 64
+    assert buf["acc"].shape == (B, d) and buf["acc"].stride(0) == 64
+    rng = jax.random.PRNGKey(8)
+    cond = _conditions(9)
+    noise = np.random.default_rng(10).standard_normal((6, B, d)).astype(np.float32)
+    ref = np.asarray(JaxFusedSampler(jmodel, params, tile_b=TILE_B, interpret=True,
+                                     gn_mode="f32").sample(jnp.asarray(cond), rng,
+                                                           noise=jnp.asarray(noise)))
+    init_rng, _ = jax.random.split(rng)
+    x_init = np.array(jax.random.normal(init_rng, (B, d), jnp.bfloat16).astype(jnp.float32))
+    got = sampler.sample(torch.from_numpy(cond), torch.Generator().manual_seed(0),
+                         x_init=torch.from_numpy(x_init), noise=torch.from_numpy(noise))
+    assert got.shape == (B, d) and got.is_contiguous()
+    _close(got.numpy(), ref)
+
+
 def test_ddpm_matches_jax_reference_loop(pair):
     jmodel, params, pmodel = pair
     x_init = _x_init(jax.random.PRNGKey(4))

@@ -34,13 +34,13 @@ def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False):
 
 
 def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0,
-              discrete: bool = False):
+              discrete: bool = False, data_dims=DATA_DIMS):
     """(jax_model, flax_params as numpy, port_model) on the same weights;
     ``discrete`` turns on the D3PM mutation head on both."""
     jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete)
     pc = _configure(Config(), num_steps, compute_dtype, discrete)
-    jdims = jc.freeze_dims(*DATA_DIMS, CONDITIONS)
-    pdims = pc.freeze_dims(*DATA_DIMS, CONDITIONS)
+    jdims = jc.freeze_dims(*data_dims, CONDITIONS)
+    pdims = pc.freeze_dims(*data_dims, CONDITIONS)
     jmodel = JaxDiffusion.from_config(jc, jdims)
     params = jax.tree_util.tree_map(
         np.asarray, jmodel.init_params(jax.random.PRNGKey(seed), len(CONDITIONS))
