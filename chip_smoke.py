@@ -7,16 +7,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. the card, as nvidia-smi reports its name and power limit;
 2. the build of the hand-written CUDA kernels from ``csrc/`` (one nvcc
    per source, in parallel);
-3. each kernel (K1-K8, every mode the paths use) against its plain
-   PyTorch version on the card, at the shapes the paths give it, with the
-   stated tolerance (K1 at every distinct product of the bf16 step, as
-   recorded from one sampler step, with its launches per step and its
-   summed time per step; K1 and K6 run each case twice and require equal
-   bits, split-K included), both times, the least time the card could take for
-   the same work (``bound_ms``: bytes over 3.35 TB/s or operations over
-   the H100's published peak for their type, whichever is larger) and,
-   where one PyTorch call computes the same function, that call's time
-   (``library_ms``; the port never calls it);
+3. each kernel (K1-K8 and the fused epilogues, every mode the paths use)
+   against its plain PyTorch version on the card, at the shapes the paths
+   give it, with the stated tolerance, both times, the least time the card
+   could take for the same work (``bound_ms``: bytes over 3.35 TB/s or
+   operations over the H100's published peak for their type, whichever is
+   larger) and, where one PyTorch call computes the same function, that
+   call's time (``library_ms``; the port never calls it). The products
+   are those of one recorded sampler step: K1's input product, the block
+   products with GroupNorm+SiLU in their epilogue (K1, and K6 under int8
+   "all"), the output product with the posterior step in its epilogue (K1,
+   and K6 under the int8 modes), each fused case also against the
+   hand-written pair it replaces (K1 or K6, then K2 or K3: ``pair_ms``,
+   and the posterior epilogue's carry bit for bit equal to the pair's).
+   K1, K6 and the fused kernels run each case twice and require equal
+   bits, split-K included. The step's launches by kernel and mode, for
+   bf16, D3PM and each int8 mode (12 a bf16 step, 13 / 14 / 28 under
+   int8 "out" / "io" / "all"), and its summed kernel time;
 4. the main paths at full model width (data dims 62/5054/26, hidden
    256/512/256, T = 1000, cosine schedule): the port's CLI step
    functions generate -> calibrate (copula_joint) -> validate on a
@@ -29,7 +36,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      DDIM-50, and "all" with the D3PM head at DDIM-50.
    Every launch count is set to 0 just before a path and read just
    after it; each (kernel, mode) the path runs must have launched, and
-   K1's general ("unaligned") path must not have;
+   K1's general ("unaligned") path, the standalone K2 and the standalone
+   K3 must not have;
    - "latent": the latent-tail hybrid sampler. ``scripts/bench_latent_torch.py``
      as a subprocess at 999 rows, DDPM-1000, once with the probe's head
      and once with head 100 (its launches counted in that process: K7
@@ -100,16 +108,26 @@ from osteosarcoma_diffusionmodel_torch.ops.pallas_kernels import (
 )
 from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM,
+    GEMM_GN,
+    GEMM_POSTERIOR,
     GEMM_S8,
+    GEMM_S8_GN,
+    GEMM_S8_POSTERIOR,
     GROUPNORM,
     LATENT,
     POSTERIOR,
+    POSTERIOR_WIDTHS,
     ROWQUANT,
     gemm_bf16_f32acc,
     gemm_bf16_f32acc_plain,
+    gemm_bf16_gn_silu,
+    gemm_bf16_posterior,
     gemm_plan,
     gemm_s8,
+    gemm_s8_gn_silu,
     gemm_s8_plain,
+    gemm_s8_posterior,
+    gn_widths,
     groupnorm8_silu,
     groupnorm8_silu_plain,
     kmajor_int8,
@@ -138,7 +156,10 @@ from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 
-KERNELS = (GEMM, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8, LATENT, POSTERIOR_UPDATE)
+KERNELS = (GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8,
+           GEMM_S8_GN, GEMM_S8_POSTERIOR, LATENT, POSTERIOR_UPDATE)
+# Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
+STEP_LAUNCHES = {"none": 12, "out": 13, "io": 14, "all": 28}
 REPO = Path(__file__).resolve().parent
 BATCH = 333  # rows per scenario: 1000 // 3
 LATENT_ROWS = 999  # the latent path's rows: three scenarios of 333, batched
@@ -204,34 +225,91 @@ def _with_bits(a: torch.Tensor, g) -> torch.Tensor:
     return a
 
 
-def step_products(dev) -> list:
-    """K1's launches in one bf16 reverse step of the main path, as the
-    sampler makes them: a seeded model at full width (data 62/5054/26,
-    hidden 256/512/256), one step of ``FusedSampler.sample`` at 333 rows
-    with the sampler's K1 calls recorded (outside every count; the call
-    goes through). Returns per call (m, k, n, A's row stride, B's row
-    stride, bias, row_add, out dtype, out row stride, a_mut_cols)."""
+_STEP_WRAPPERS = ("gemm_bf16_f32acc", "gemm_bf16_gn_silu", "gemm_bf16_posterior", "gemm_s8",
+                  "gemm_s8_gn_silu", "gemm_s8_posterior", "rowquant_s8", "groupnorm8_silu")
+
+
+def _signature(name: str, args, kw) -> tuple:
+    """What a case needs of one call: shapes, row strides and options."""
+    if not name.startswith("gemm_") or name == "gemm_s8":
+        return ()
+    a, b = args[0], args[1] if name.startswith("gemm_bf16") else args[2]
+    if name == "gemm_bf16_f32acc":
+        out = kw["out"]
+        return (a.shape[0], a.shape[1], b.shape[1], a.stride(0), b.stride(0),
+                kw.get("bias") is not None, kw.get("row_add") is not None, out.dtype,
+                out.stride(0), kw.get("a_mut_cols", 0))
+    if name == "gemm_bf16_gn_silu":
+        return (a.shape[0], a.shape[1], b.shape[1], a.stride(0), b.stride(0), kw["out"].stride(0))
+    if name == "gemm_bf16_posterior":
+        return (a.shape[0], a.shape[1], b.shape[1], a.stride(0), b.stride(0), args[2].stride(0))
+    if name == "gemm_s8_gn_silu":
+        return (a.shape[0], a.shape[1], args[3].shape[0], kw["out"].stride(0),
+                kw.get("acc_into") is not None)
+    if name == "gemm_s8_posterior":
+        return (a.shape[0], a.shape[1], args[3].shape[0], args[4].stride(0))
+    return ()
+
+
+def record_step(dev, quantize: str = "none", head: bool = False) -> tuple:
+    """One reverse step of the main path as the sampler makes it: a seeded
+    model at full width (data 62/5054/26, hidden 256/512/256), one step of
+    ``FusedSampler.sample`` at 333 rows (``stop_after=1``) with its kernel
+    wrapper calls recorded (each call goes through). Returns the calls as
+    (wrapper, :func:`_signature`) and the step's launches by kernel and
+    mode (counts read before and after the step)."""
     cfg = Config()
+    cfg.model.diffusion.discrete_mutation_head = head
     dims = cfg.freeze_dims(*DATA_DIMS, list(cfg.model.condition_on))
     model = ConditionalDiffusion.from_config(cfg, dims)
     init_weights(model.denoiser, torch.Generator().manual_seed(0))
     model.denoiser.to(dev)
-    sampler = FusedSampler(model, dev)
-    calls = []
-
-    def record(a, b, out=None, bias=None, row_add=None, a_mut_cols=0):
-        calls.append((a.shape[0], a.shape[1], b.shape[1], a.stride(0), b.stride(0),
-                      bias is not None, row_add is not None, out.dtype, out.stride(0), a_mut_cols))
-        return gemm_bf16_f32acc(a, b, out=out, bias=bias, row_add=row_add, a_mut_cols=a_mut_cols)
-
+    sampler = FusedSampler(model, dev, quantize=None if quantize == "none" else quantize)
     cond = torch.zeros(BATCH, dims.condition_dim, device=dev)
-    fused_sampler.gemm_bf16_f32acc = record
+    sampler.sample(cond, torch.Generator(dev).manual_seed(0), stop_after=1)  # plans, maps
+    torch.cuda.synchronize()
+    calls, real = [], {n: getattr(fused_sampler, n) for n in _STEP_WRAPPERS}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls.append((name, _signature(name, args, kw)))
+            return real[name](*args, **kw)
+        return call
+
+    before = {k.name: dict(k.modes) for k in KERNELS}
+    for name in _STEP_WRAPPERS:
+        setattr(fused_sampler, name, recorder(name))
     try:
         sampler.sample(cond, torch.Generator(dev).manual_seed(0), stop_after=1)
     finally:
-        fused_sampler.gemm_bf16_f32acc = gemm_bf16_f32acc
+        for name in _STEP_WRAPPERS:
+            setattr(fused_sampler, name, real[name])
     torch.cuda.synchronize()
-    return calls
+    launches = {k.name: {m: n - before[k.name][m] for m, n in k.modes.items()
+                         if n - before[k.name][m]} for k in KERNELS}
+    return calls, {name: modes for name, modes in launches.items() if modes}
+
+
+def check_step_launches(dev) -> dict:
+    """The launches of one reverse step by kernel and mode at 333 rows:
+    bf16 and D3PM 12 (w_in, 10 block products with the GN epilogue, the
+    output product with the posterior epilogue), int8 "out" 13, "io" 14,
+    "all" 28; never the standalone K2 or K3. Returns the bf16 step's
+    recorded calls and the int8 "all" step's."""
+    recorded = {}
+    for quantize, head in (("none", False), ("none", True), ("out", False), ("io", False),
+                           ("all", False), ("all", True)):
+        calls, launches = record_step(dev, quantize, head)
+        total = sum(sum(m.values()) for m in launches.values())
+        label = f"{'d3pm ' if head else ''}{'bf16' if quantize == 'none' else 'int8-' + quantize}"
+        print(f"[kernel] launches per reverse step, {label} at {BATCH} rows: {total} "
+              f"{json.dumps(launches)}", flush=True)
+        if total != STEP_LAUNCHES[quantize] or GROUPNORM.name in launches or (
+                POSTERIOR.name in launches):
+            raise AssertionError(f"{label} step: {total} launches (want "
+                                 f"{STEP_LAUNCHES[quantize]}, no standalone K2/K3): {launches}")
+        recorded[(quantize, head)] = calls
+    return recorded
 
 
 def _strided(rows: int, cols: int, ld: int, dtype, dev, fill) -> torch.Tensor:
@@ -242,32 +320,30 @@ def _strided(rows: int, cols: int, ld: int, dtype, dev, fill) -> torch.Tensor:
     return view
 
 
-def check_gemm(dev, g) -> list:
-    """K1 at every distinct product of the main path's bf16 step, with the
-    layout the sampler gives it (padded carry, W_out and acc; [h | skip]
-    halves as row-strided views; the input product with the step's t_add
-    row as bias, c_proj as the row add, bf16 out), plus the input product
-    with the D3PM prologue on the first 62 columns and the latent step's
-    two 256-wide products at 999 rows. Each case runs twice and the two
-    outputs must be equal bit for bit (split-K sums in a fixed order).
-    Prints K1's launches per step of each product and its summed time per
-    step. No case may take the general ("unaligned") path.
-    Tolerance: both sides sum bf16-exact products in f32, in different
-    orders, so an f32 result differs by f32 rounding of the sum, 1e-3
-    relative to max(1, |ref|); a bf16 result is the plain f32 result
-    rounded once to bf16, and a sum that lands near a rounding boundary
-    may round the other way: 2^-7 of max(1, |ref|)."""
-    calls = step_products(dev)
+def check_gemm(dev, g, calls) -> list:
+    """K1 at the products of the main path's bf16 step that it runs
+    without a fused epilogue (``calls``, recorded by :func:`record_step`:
+    the input product, with the t_add row as bias, c_proj as the row add,
+    bf16 out), plus that product with the D3PM prologue on the first 62
+    columns and the latent step's two 256-wide products at 999 rows. Each
+    case runs twice and the two outputs must be equal bit for bit (split-K
+    sums in a fixed order). No case may take the general ("unaligned")
+    path. Tolerance: both sides sum bf16-exact products in f32, in
+    different orders, so an f32 result differs by f32 rounding of the sum,
+    1e-3 relative to max(1, |ref|); a bf16 result is the plain f32 result
+    rounded once to bf16, and a sum that lands near a rounding boundary may
+    round the other way: 2^-7 of max(1, |ref|)."""
     per_step = {}
-    for c in calls:
-        per_step[c] = per_step.get(c, 0) + 1
-    cases = [(c, n) for c, n in per_step.items()]
-    first = calls[0]
+    for name, sig in calls:
+        if name == "gemm_bf16_f32acc":
+            per_step[sig] = per_step.get(sig, 0) + 1
+    cases = list(per_step.items())
+    first = cases[0][0]
     cases.insert(1, (first[:9] + (MUT,), 0))  # the D3PM step's input product
     # The latent step's products at 999 rows: o_lat = h·M2 + m_b, n_inj = bf16(zeta)·Lᵀ.
     cases += [((LATENT_ROWS, 256, 256, 256, 256, True, False, torch.float32, 256, 0), 0),
               ((LATENT_ROWS, 256, 256, 256, 256, False, False, torch.float32, 256, 0), 0)]
-    out, step_ms, step_launches = [], 0.0, 0
+    out = []
     randn = lambda r, c: torch.randn(r, c, generator=g)  # noqa: E731
     for (m, k, n, lda, ldb, has_bias, has_row_add, out_dtype, ldc, mut), count in cases:
         a = _strided(m, k, lda, torch.bfloat16, dev, randn)
@@ -313,10 +389,187 @@ def check_gemm(dev, g) -> list:
         print(f"[kernel] {GEMM.name} {case}: plan {plan.bm}x{plan.bn} tiles, {plan.splits} "
               f"split(s), repeat bit-equal; {count} launch(es) per bf16 step", flush=True)
         out.append(row)
-        step_ms += count * ms
-        step_launches += count
-    print(f"[kernel] {GEMM.name} per bf16 step at {BATCH} rows: {step_launches} launches, "
-          f"{step_ms:.4f} ms summed", flush=True)
+    return out
+
+
+def _gn_vectors(n: int, g, dev) -> tuple:
+    return (torch.randn(n, generator=g).to(dev), (1.0 + 0.1 * torch.randn(n, generator=g)).to(dev),
+            (0.1 * torch.randn(n, generator=g)).to(dev))
+
+
+def _fused_report(kernel, case: str, got, again, ref, tol: float, ms: float, plain_ms: float,
+                  pair_ms: float, limit: tuple, plan, count: int) -> dict:
+    """A fused case's [kernel] line, beside the hand-written pair it replaces."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{kernel.name} {case}: two launches differ")
+    err = float((got.float() - ref).abs().max())
+    row = _report(kernel, case, err, tol, ms, plain_ms, limit)
+    row.update(pair_ms=pair_ms, plan=f"{plan.bm}x{plan.bn}/{plan.splits}", per_step=count)
+    print(f"[kernel] {kernel.name} {case}: pair {pair_ms:.4f} ms, fused/pair {ms / pair_ms:.3f}; "
+          f"plan {plan.bm}x{plan.bn}/{plan.splits}; repeat bit-equal; {count} launch(es) per "
+          "step", flush=True)
+    if ms >= pair_ms:
+        print(f"[kernel] WARNING {kernel.name} {case}: fused {ms:.4f} ms not below the pair's "
+              f"{pair_ms:.4f} ms", flush=True)
+    return row
+
+
+def check_gn_epilogue(dev, g, bf16_calls, all_calls) -> dict:
+    """The block products with GroupNorm+SiLU in their epilogue, at every
+    distinct product of the recorded steps, in the sampler's layout (A and
+    the output as [h | skip] views where the step has them): K1's in the
+    bf16 step, K6's in the int8 "all" step (the decoders' second fc1 part
+    accumulating the first part's f32 sum). Against the plain composition
+    (the product's plain version, then K2's) with K2's tolerance, 2^-7 of
+    max(1, |ref|); timed beside the pair it replaces (K1 or K6 into an f32
+    buffer, then K2)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {GEMM_GN.name: [], GEMM_S8_GN.name: []}
+    for kind, calls, name in (("bf16", bf16_calls, "gemm_bf16_gn_silu"),
+                              ("int8", all_calls, "gemm_s8_gn_silu")):
+        per_step = {}
+        for wrapper, sig in calls:
+            if wrapper == name:
+                per_step[sig] = per_step.get(sig, 0) + 1
+        for sig, count in per_step.items():
+            if kind == "bf16":
+                m, k, n, lda, ldb, ldo = sig
+                a = _strided(m, k, lda, torch.bfloat16, dev,
+                             lambda r, c: 2.0 * torch.randn(r, c, generator=g))
+                w = _strided(k, n, ldb, torch.bfloat16, dev,
+                             lambda r, c: torch.randn(r, c, generator=g) / math.sqrt(k))
+                ops, acc_into, kernel = (a, w), None, GEMM_GN
+                fused, product = gemm_bf16_gn_silu, gemm_bf16_f32acc
+                plain = lambda b: gemm_bf16_f32acc_plain(a, w, b)  # noqa: E731
+                kk, moved_in = k, 2 * (m * k + k * n)
+            else:
+                m, kp, n, ldo, has_acc = sig
+                qa, rs = rowquant_s8_plain(3.0 * torch.randn(m, kp, generator=g).to(dev))
+                q, cs = pack_int8((torch.randn(kp, n, generator=g) / math.sqrt(kp)).numpy())
+                ops, kernel = (qa, rs, kmajor_int8(q).to(dev), cs.to(dev)), GEMM_S8_GN
+                acc_into = torch.randn(m, n, generator=g).to(dev) if has_acc else None
+                fused, product = gemm_s8_gn_silu, gemm_s8
+                plain = lambda b: gemm_s8_plain(*ops, b, acc_into=acc_into)  # noqa: E731
+                kk, moved_in = kp, m * kp + ops[2].numel() + 4 * (m + n)
+            bias, scale, shift = _gn_vectors(n, g, dev)
+            res = _strided(m, n, ldo, torch.bfloat16, dev, lambda r, c: torch.zeros(r, c))
+            plan = gemm_plan(m, n, kk, sms, kind, gn_widths(n))
+
+            def run():
+                return fused(*ops, bias, scale, shift, out=res, acc_into=acc_into) if acc_into \
+                    is not None else fused(*ops, bias, scale, shift, out=res)
+
+            got = run().clone()
+            again = run().clone()
+            ref = groupnorm8_silu_plain(plain(bias), scale, shift).to(torch.bfloat16).float()
+            torch.cuda.synchronize()
+            tol = BF16_ULP * max(1.0, float(ref.abs().max()))
+            pre = acc_into.clone() if acc_into is not None else torch.empty(m, n, device=dev)
+
+            def pair():
+                if acc_into is not None:  # the timed repeats add to pre again: the same work
+                    product(*ops, out=pre, bias=bias, accumulate=True)
+                else:
+                    product(*ops, out=pre, bias=bias)
+                groupnorm8_silu(pre, scale, shift, out=res)
+
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: groupnorm8_silu_plain(plain(bias), scale, shift).to(
+                torch.bfloat16))
+            pair_ms = time_ms(pair)
+            # A, B, the four f32 vectors, the f32 sum read where it accumulates,
+            # the bf16 output; the product's operations (10 per element of GN).
+            moved = moved_in + 12 * n + (4 * m * n if acc_into is not None else 0) + 2 * m * n
+            limit = roofline(moved, 2.0 * m * n * kk, kind)
+            case = (f"{m}x{kk}{' view' if kind == 'bf16' and sig[3] != kk else ''}.{kk}x{n} +bias"
+                    f"{' +acc' if acc_into is not None else ''} ->GN+SiLU bf16"
+                    f"{' view' if ldo != n else ''}")
+            out[kernel.name].append(_fused_report(kernel, case, got, again, ref, tol, ms, plain_ms,
+                                                  pair_ms, limit, plan, count))
+    return out
+
+
+def check_posterior_epilogue(dev, g) -> dict:
+    """The output product with the reverse step in its epilogue, at the
+    path's shape (333 x 256 · 256 x 5142, the padded W_out and carry): K1
+    (bf16) and K6 (int8, from K5's codes of h), in every noise mode,
+    without and with the D3PM head (62 bit columns, the discrete DDPM
+    table). The carry must equal the pair's (the product into the padded
+    f32 acc, then K3, with the same plan) bit for bit. Against the plain
+    composition as K3 is held: 2^-7 of max(1, |ref|) on the continuous
+    columns, at most a 1e-4 share of differing bits. Timed beside the pair."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sched = DiffusionSchedule.create("cosine", 1000)
+    gains = torch.randn(1000, generator=g).numpy() * 0.3
+    m, k = BATCH, 256
+    h = (2.0 * torch.randn(m, k, generator=g)).to(dev, torch.bfloat16)
+    w = _strided(k, D, pad16(D), torch.bfloat16, dev,
+                 lambda r, c: torch.randn(r, c, generator=g) / math.sqrt(k))
+    qa, rs = rowquant_s8_plain(h)
+    q, cs = pack_int8((torch.randn(k, D, generator=g) / math.sqrt(k)).numpy())
+    s8_ops = (qa, rs, kmajor_int8(q).to(dev), cs.to(dev))
+    b_out = (0.1 * torch.randn(D, generator=g)).to(dev)
+    x0 = _strided(m, D, pad16(D), torch.bfloat16, dev, lambda r, c: torch.randn(r, c, generator=g))
+    xb0 = _with_bits(x0.clone(), g)
+    acc = _strided(m, D, pad16(D), torch.float32, dev, lambda r, c: torch.zeros(r, c))
+    out = {GEMM_POSTERIOR.name: [], GEMM_S8_POSTERIOR.name: []}
+    for kind in ("bf16", "int8"):
+        if kind == "bf16":
+            ops, kernel, fused, product = (h, w), GEMM_POSTERIOR, gemm_bf16_posterior, \
+                gemm_bf16_f32acc
+            plain_acc = lambda: gemm_bf16_f32acc_plain(h, w)  # noqa: E731
+            moved_in, kk = 2 * (m * k + k * D), k
+        else:
+            ops, kernel, fused, product = s8_ops, GEMM_S8_POSTERIOR, gemm_s8_posterior, gemm_s8
+            plain_acc = lambda: gemm_s8_plain(*s8_ops)  # noqa: E731
+            moved_in, kk = qa.numel() + s8_ops[2].numel() + 4 * (m + D), qa.shape[1]
+        plan = gemm_plan(m, D, kk, sms, kind, POSTERIOR_WIDTHS)
+        for mut in (0, MUT):
+            coeffs = torch.from_numpy(coefficient_table(sched, gains, discrete=mut > 0)).to(dev)
+            start = xb0 if mut else x0
+            for mode, step in (("philox", 17), ("buffer", 0), ("none", 999)):
+                noise = torch.randn(1, m, D, generator=g).to(dev) if mode == "buffer" else None
+                table = coeffs[17:18].contiguous() if mode == "buffer" else coeffs
+                kw = dict(b_out=b_out, coeffs=table, step=step, mode=mode, noise=noise, seed=1234,
+                          mut_dim=mut)
+                x = start.clone()
+
+                # Timed repeats step the same carry again: the same work.
+                def run(x=x, kw=kw):
+                    return fused(*ops, x, **kw, plan=plan)
+
+                def pair(x=x, kw=kw):
+                    product(*ops, out=acc, plan=plan)
+                    return x0_posterior_step(acc, x, **kw)
+
+                got = run().clone()
+                x.copy_(start)
+                again = run().clone()
+                x.copy_(start)
+                paired = pair().clone()
+                ref = x0_posterior_step_plain(plain_acc(), start, b_out, table, step, mode,
+                                              noise, seed=1234, mut_dim=mut)
+                torch.cuda.synchronize()
+                if not torch.equal(got, paired):
+                    raise AssertionError(f"{kernel.name} {mode} d3pm={mut}: the carry differs from "
+                                         f"the pair's ({int((got != paired).sum())} elements)")
+                if mut:
+                    flips = float((got[:, :mut] != ref[:, :mut]).float().mean())
+                    if flips > MAX_BIT_MISMATCH:
+                        raise AssertionError(f"{kernel.name} d3pm {mode}: bits differ from the "
+                                             f"plain version ({flips:.2e})")
+                tol = BF16_ULP * max(1.0, float(ref[:, mut:].float().abs().max()))
+                ms, plain_ms, pair_ms = (time_ms(run), time_ms(
+                    lambda: x0_posterior_step_plain(plain_acc(), start, b_out, table, step, mode,
+                                                    noise, seed=1234, mut_dim=mut)),
+                    time_ms(pair))
+                # A, B, b_out, the carry read and written, the noise slab in buffer mode.
+                moved = (moved_in + 4 * D + m * D * (2 + 2 + (4 if mode == "buffer" else 0)))
+                limit = roofline(moved, 2.0 * m * D * kk, kind)
+                case = f"333x{kk}.{kk}x5142 {'d3pm(62) ' if mut else ''}{mode} (bits = pair)"
+                out[kernel.name].append(_fused_report(
+                    kernel, case, got[:, mut:], again[:, mut:], ref[:, mut:].float(), tol, ms,
+                    plain_ms, pair_ms, limit, plan, 1))
     return out
 
 
@@ -349,8 +602,9 @@ def check_posterior(dev, g) -> list:
     DDPM table). Tolerance: both sides compute in f32 with the same
     operations in the same order and round once to bf16; 2^-7 of
     max(1, |ref|) on the continuous columns. Bits: the kernel writes the
-    plain version's posterior with _rn intrinsics, so a threshold
-    u < p_prev sees the same p_prev unless expf differs by an ulp; at
+    plain version's posterior with _rn intrinsics but for the sigmoid's
+    fast divide, so a threshold u < p_prev moves only where u lies within
+    a few ulp of p_prev; at
     most a 1e-4 share of the bits may differ. The Philox stream must
     equal the plain generator's exactly, repeat for a repeated seed, and
     have mean ~0 (|mean| < 0.005, 6 standard errors at 1.7M draws),
@@ -676,11 +930,31 @@ def check_posterior_update(dev, g) -> list:
     return out
 
 
+def step_time(cases: dict) -> None:
+    """The bf16 step's summed kernel time at 333 rows, fused, and with each
+    fused product replaced by the pair it replaces."""
+    rows = [r for r in cases[GEMM.name] if r["per_step"]]
+    rows += [r for r in cases[GEMM_GN.name] if r["per_step"]]
+    rows += [r for r in cases[GEMM_POSTERIOR.name]
+             if r["case"].endswith("x5142 philox (bits = pair)")]
+    launches = sum(r["per_step"] for r in rows)
+    fused_launches = sum(r["per_step"] for r in rows if "pair_ms" in r)
+    fused = sum(r["per_step"] * r["ms"] for r in rows)
+    unfused = sum(r["per_step"] * r.get("pair_ms", r["ms"]) for r in rows)
+    print(f"[kernel] per bf16 DDPM step at {BATCH} rows: {launches} launches, {fused:.4f} ms "
+          f"summed; with K2 and K3 apart: {launches + fused_launches} launches, {unfused:.4f} ms",
+          flush=True)
+
+
 def check_kernels(dev) -> dict:
     g = torch.Generator().manual_seed(0)
     POSTERIOR_UPDATE.reset()
-    return {
-        GEMM.name: check_gemm(dev, g),
+    steps = check_step_launches(dev)
+    bf16_calls, all_calls = steps[("none", False)], steps[("all", False)]
+    cases = {
+        GEMM.name: check_gemm(dev, g, bf16_calls),
+        **check_gn_epilogue(dev, g, bf16_calls, all_calls),
+        **check_posterior_epilogue(dev, g),
         GROUPNORM.name: check_groupnorm(dev, g),
         POSTERIOR.name: check_posterior(dev, g),
         RBF.name: check_rbf(dev, g),
@@ -689,6 +963,8 @@ def check_kernels(dev) -> dict:
         LATENT.name: check_latent_step(dev, g),
         POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
     }
+    step_time(cases)
+    return cases
 
 
 def card_line() -> str:
@@ -780,21 +1056,27 @@ MAIN_PATHS = {
     "int8": [(False, "out", "ddpm"), (False, "io", "ddim"), (False, "all", "ddim"),
              (True, "all", "ddim")],
 }
-_COMMON = {GROUPNORM: ["default"], RBF: ["default"]}
+_COMMON = {GEMM_GN: ["default"], RBF: ["default"]}
 REQUIRED = {
-    "continuous": {**_COMMON, GEMM: ["bf16"], POSTERIOR: ["philox", "none"]},
-    "d3pm": {**_COMMON, GEMM: ["bf16", "mut_prologue"], POSTERIOR: ["d3pm_philox", "d3pm_none"]},
-    "int8": {**_COMMON, GEMM: ["bf16"], POSTERIOR: ["philox", "none", "d3pm_none"],
-             ROWQUANT: ["plain", "mut_transform"],
-             GEMM_S8: ["f32_out", "bf16_out", "accumulate"]},
+    "continuous": {**_COMMON, GEMM: ["bf16"], GEMM_POSTERIOR: ["philox", "none"]},
+    "d3pm": {**_COMMON, GEMM: ["mut_prologue"], GEMM_POSTERIOR: ["d3pm_philox", "d3pm_none"]},
+    "int8": {**_COMMON, GEMM: ["bf16"], GEMM_S8_POSTERIOR: ["philox", "none", "d3pm_none"],
+             ROWQUANT: ["plain", "mut_transform"], GEMM_S8: ["f32_out", "bf16_out"],
+             GEMM_S8_GN: ["default", "accumulate"]},
 }
+# Kernels that must not launch on any main path: K1's general path, and
+# K2 and K3 apart from a product (their work runs in the epilogues).
+FORBIDDEN = {GEMM: ["unaligned"], GROUPNORM: list(GROUPNORM.modes),
+             POSTERIOR: list(POSTERIOR.modes)}
 
 
-def check_no_general_path(path: str) -> None:
-    """Every K1 launch of a main path went through TMA: the sampler's
-    buffers are laid out for it, so the general path never runs there."""
-    if GEMM.modes["unaligned"]:
-        raise AssertionError(f"{path}: K1 took its general path {GEMM.modes['unaligned']} times")
+def check_forbidden(path: str) -> None:
+    """Every K1 launch of a main path went through TMA (the sampler's
+    buffers are laid out for it), and K2 and K3 never ran apart."""
+    ran = {f"{k.name}:{m}": k.modes[m] for k, modes in FORBIDDEN.items() for m in modes
+           if k.modes[m]}
+    if ran:
+        raise AssertionError(f"{path}: launches that the main paths must not make: {ran}")
 
 
 def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
@@ -834,7 +1116,7 @@ def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
                    for mode in modes if counts[k.name][mode] == 0]
         if missing:
             raise AssertionError(f"{path}: kernels never launched on the main path: {missing}")
-        check_no_general_path(path)
+        check_forbidden(path)
         for k in KERNELS:
             totals[k.name] += k.launches
     cfg.training.save_dir, cfg.generation.fused_quantize = ckpts[False], "none"
@@ -868,8 +1150,10 @@ def run_bench_latent(tmp: Path, head) -> dict:
               f"{entry['seconds']:.4f} s, {entry['patients_per_sec']:.1f} patients/sec; "
               f"launches {json.dumps(entry['launches'])}", flush=True)
     for name, entry in report["timings"].items():
-        if entry["launches"].get(GEMM.name, {}).get("unaligned", 0):
-            raise AssertionError(f"bench {name}: K1 took its general path")
+        ran = {k.name: entry["launches"].get(k.name, {}).get(m, 0) for k, modes in
+               FORBIDDEN.items() for m in modes}
+        if any(ran.values()):
+            raise AssertionError(f"bench {name}: launches that the paths must not make: {ran}")
     entry = report["timings"][f"latent_kernel_head{report['head_steps']}"]
     want = entry["n_lat"] * entry["calls"]
     k7 = entry["launches"].get(LATENT.name, {})
@@ -886,7 +1170,8 @@ def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
     the probe says the clip does not bind in the tail and its head is
     longer, with the probe's head too. The in-process launch counts are set
     to 0 just before the latent sampler calls and read just after them:
-    K1, K2, K3 (the head) and K7 must have launched, K7 once per latent
+    K1, K1 with the GN epilogue, K1 with the posterior epilogue (the head)
+    and K7 must have launched, K2 and K3 apart never, K7 once per latent
     step in each mode. Then, outside that count, the moment check of the
     hybrid against the data-space kernel sampler (per-feature mean within
     0.2, std within 0.2 + 25%: the bounds of
@@ -933,13 +1218,13 @@ def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
     torch.cuda.synchronize()
     counts = {k.name: dict(k.modes) for k in KERNELS}
     print(f"[main] latent kernel launches by mode: {json.dumps(counts)}", flush=True)
-    required = {GEMM: ["bf16"], GROUPNORM: ["default"], POSTERIOR: ["philox"],
+    required = {GEMM: ["bf16"], GEMM_GN: ["default"], GEMM_POSTERIOR: ["philox"],
                 LATENT: ["draw_philox", "update"]}
     missing = [f"{k.name}:{m}" for k, modes in required.items() for m in modes
                if counts[k.name][m] == 0]
     if missing:
         raise AssertionError(f"latent: kernels never launched on the path: {missing}")
-    check_no_general_path("latent")
+    check_forbidden("latent")
     if not LATENT.modes["draw_philox"] == LATENT.modes["update"] == calls_n_lat:
         raise AssertionError(f"K7 launched {LATENT.modes}, want {calls_n_lat} per mode")
     for k in KERNELS:

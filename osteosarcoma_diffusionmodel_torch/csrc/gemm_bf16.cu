@@ -61,10 +61,9 @@ OSDM_EXPORT int osdm_gemm_bf16_f32acc(const void* A, int lda, int a_mut_cols, co
   a.tickets = static_cast<int*>(tickets);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap ma{}, mb{};
-  if (!tma) return static_cast<int>(dispatch<__nv_bfloat16, false>(bn, ma, mb, a, s));
-  cudaError_t err = tensor_map(&ma, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, lda, 64, kBM);
-  if (err == cudaSuccess)
-    err = tensor_map(&mb, B, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, ldb, 64, 64);
+  if (!tma)
+    return static_cast<int>(dispatch<__nv_bfloat16, false, kPlain, 64, 128, 256>(bn, ma, mb, a, s));
+  const cudaError_t err = bf16_maps(&ma, &mb, A, lda, B, ldb, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<__nv_bfloat16, true>(bn, ma, mb, a, s));
+  return static_cast<int>(dispatch<__nv_bfloat16, true, kPlain, 64, 128, 256>(bn, ma, mb, a, s));
 }

@@ -55,10 +55,8 @@ OSDM_EXPORT int osdm_gemm_s8(const void* A, int lda, const void* B, int ldb, int
   a.partials = partials;
   a.tickets = static_cast<int*>(tickets);
   CUtensorMap ma{}, mb{};
-  cudaError_t err = tensor_map(&ma, A, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, lda, kStageK, kBM);
-  if (err == cudaSuccess)
-    err = tensor_map(&mb, B, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b_rows, K, ldb, kStageK, bn);
+  const cudaError_t err = s8_maps(&ma, &mb, A, lda, B, ldb, b_rows, M, K, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      dispatch<int8_t, true>(bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch<int8_t, true, kPlain, 64, 128, 256>(
+      bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
 }

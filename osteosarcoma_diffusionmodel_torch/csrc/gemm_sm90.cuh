@@ -33,6 +33,13 @@
 // multiple of 16 bytes) take the general path: the same wgmma consumer,
 // one stage filled by masked loads of all 128 threads in the swizzled
 // layout. Only bf16 (K1) has it; the wrapper counts it as its own mode.
+//
+// Epilogues (template kEpi), applied once to the tile's full sum in the
+// accumulator registers: kPlain stores C (+ bias, + row_add; K6's dequant
+// and accumulate); kGroupNormSilu is K2's GroupNorm(8)+SiLU on that value
+// (gemm_bf16_fused.cu, gemm_s8_fused.cu), stored as bf16 elsewhere;
+// kPosterior is K3's step on the output product (posterior.cuh), which
+// updates the bf16 carry in place and stores no product at all.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched through the runtime
@@ -42,7 +49,7 @@
 #include <tuple>
 #include <type_traits>
 
-#include "common.cuh"
+#include "posterior.cuh"
 
 namespace osdm {
 namespace sm90 {
@@ -52,6 +59,8 @@ constexpr int kStageK = 128;   // bytes of k per stage: one swizzle span
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kBox = kBM * kStageK;  // 8 KB: A's stage, or one 64x64 bf16 box of B
 constexpr int kRingBytes = 200 * 1024;  // of the 227 KB a block may use
+
+enum Epilogue { kPlain = 0, kGroupNormSilu = 1, kPosterior = 2 };
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return kBox + bn * kStageK; }
 // Deepest copy ring: as many stages as fit, so an SM keeps ~200 KB of
@@ -86,6 +95,22 @@ struct Args {
   int ldb;
   void* partials;  // split-K slots, tiles x splits x 64 x BN words
   int* tickets;    // one per tile, 0 between launches
+  // kGroupNormSilu: groups of `group` contiguous columns, out = bf16(SiLU(
+  // GN(v)·gn_scale + gn_bias)) into gn_out (row stride ldo).
+  __nv_bfloat16* gn_out;
+  int ldo, group;
+  const float* gn_scale;
+  const float* gn_bias;
+  float eps;
+  // kPosterior: the (M, N) bf16 carry x (row stride ldx), N = D.
+  __nv_bfloat16* x;
+  int ldx, mut_dim;
+  const float* b_out;
+  const float* coeffs;  // (n_loop, 6) table; row `step` is read in the kernel
+  int step, noise_mode;
+  const float* noise;  // (n_loop, M, N), "buffer" mode only
+  uint32_t seed;
+  float clip;
 };
 
 template <typename T>
@@ -437,6 +462,280 @@ __device__ __forceinline__ float epilogue(const Args& a, int r, int c, int acc) 
   return v;
 }
 
+// The fused epilogues' inputs other than the accumulators, for one
+// thread's elements: columns c0 + 8i + q (i < BN/8, q < 2) of rows r0 and
+// r0 + 8. One warpgroup per tile does an epilogue's work, so a load that
+// waits for another serialises the tile; these are loaded in one
+// straight-line batch (predicated, no branch between them), before the
+// mainloop where registers allow (BN = 64), else as the epilogue starts.
+template <int BN, int kEpi>
+struct Ahead {
+  static constexpr int kCols = BN / 4, kElems = BN / 2;
+  float vec[kEpi == kGroupNormSilu ? 3 : 1][kCols];  // GN: bias, gn_scale, gn_bias; else b_out
+  float col_scale[kCols];                            // K6: the weight's column scales
+  float row_scale[2];                                // K6: the activations' row scales
+  float elem[kElems];  // GN: K6's accumulated C; posterior: Philox u ("buffer": noise z)
+  uint32_t x[kEpi == kPosterior ? kElems / 2 : 1];  // posterior: the carry, bf16 pairs
+};
+
+// Two bf16 of a row, as one word (low half first), where the row allows a
+// 4-byte access, else one by one; `two` false: the second is past N.
+__device__ __forceinline__ uint32_t load_bf16_pair(const __nv_bfloat16* p, bool pairs, bool two) {
+  if (pairs && two) return *reinterpret_cast<const uint32_t*>(p);
+  const uint32_t lo = __bfloat16_as_ushort(p[0]);
+  return two ? lo | (static_cast<uint32_t>(__bfloat16_as_ushort(p[1])) << 16) : lo;
+}
+
+__device__ __forceinline__ float bf16_half(uint32_t w, int q) {
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(q ? w >> 16 : w)));
+}
+
+__device__ __forceinline__ float ldg_or_zero(const float* p, bool ok) { return ok ? __ldg(p) : 0.0f; }
+
+template <typename Acc, int BN, int kEpi>
+__device__ __forceinline__ void load_ahead(const Args& a, int m0, int n0, Ahead<BN, kEpi>& in) {
+  constexpr bool kInt8 = std::is_same<Acc, int>::value;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + warp * 16 + (lane >> 2), c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = c0 + 8 * i + q, k = 2 * i + q;
+      const bool ok = c < a.N;
+      if constexpr (kEpi == kGroupNormSilu) {
+        in.vec[0][k] = ldg_or_zero(a.bias + c, ok && a.bias != nullptr);
+        in.vec[1][k] = ldg_or_zero(a.gn_scale + c, ok);
+        in.vec[2][k] = ldg_or_zero(a.gn_bias + c, ok);
+      } else {
+        in.vec[0][k] = ldg_or_zero(a.b_out + c, ok);
+      }
+      if constexpr (kInt8) in.col_scale[k] = ldg_or_zero(a.col_scale + c, ok);
+    }
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) in.row_scale[j] = ldg_or_zero(a.row_scale + r0 + 8 * j, r0 + 8 * j < a.M);
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + 8 * j, c = c0 + 8 * i;
+      const bool ok = r < a.M && c < a.N;
+      if constexpr (kEpi == kGroupNormSilu && kInt8) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          in.elem[4 * i + 2 * j + q] = ldg_or_zero(
+              static_cast<const float*>(a.C) + (size_t)r * a.ldc + c + q,
+              a.accumulate && ok && c + q < a.N);
+      }
+      if constexpr (kEpi == kPosterior) {
+        const bool pairs = (a.ldx % 2 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 4 == 0);
+        in.x[2 * i + j] = ok ? load_bf16_pair(a.x + (size_t)r * a.ldx + c, pairs, c + 1 < a.N) : 0u;
+      }
+    }
+  if constexpr (kEpi == kPosterior) {
+    // One loop for the block's mode, so the elements' Philox rounds have
+    // no branch between them: "philox" draws every element, "none" only
+    // the D3PM bits (in the first block column); "buffer" reads the step's
+    // noise slab.
+    if (a.noise_mode == kNoisePhilox || (a.noise_mode == kNoiseNone && n0 < a.mut_dim)) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int i = e >> 2, j = (e >> 1) & 1, q = e & 1;
+        in.elem[e] = philox_uniform((size_t)(r0 + 8 * j) * a.N + c0 + 8 * i + q, a.seed, a.step);
+      }
+    } else if (a.noise_mode == kNoiseBuffer) {
+      const float* noise_step = a.noise + (size_t)a.step * a.M * a.N;
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int i = e >> 2, j = (e >> 1) & 1, q = e & 1;
+        const int r = r0 + 8 * j, c = c0 + 8 * i + q;
+        in.elem[e] = ldg_or_zero(noise_step + (size_t)r * a.N + c, r < a.M && c < a.N);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) in.elem[e] = 0.0f;
+    }
+  }
+}
+
+// The value K1 or K6 would store, from the accumulator and the loaded
+// inputs (the plain epilogue's f32 operations in its order; row_add has no
+// fused caller). K1: acc + bias.
+template <int BN, int kEpi>
+__device__ __forceinline__ float fused_value(const Args& a, const Ahead<BN, kEpi>& in, float acc,
+                                             int k, int, int) {
+  return kEpi == kGroupNormSilu && a.bias != nullptr ? __fadd_rn(acc, in.vec[0][k]) : acc;
+}
+
+// K6: float(acc)·row_scale·col_scale, + C when accumulating, + bias.
+template <int BN, int kEpi>
+__device__ __forceinline__ float fused_value(const Args& a, const Ahead<BN, kEpi>& in, int acc,
+                                             int k, int j, int e) {
+  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), in.row_scale[j]), in.col_scale[k]);
+  if constexpr (kEpi == kGroupNormSilu) {
+    if (a.accumulate) v = __fadd_rn(in.elem[e], v);
+    if (a.bias != nullptr) v = __fadd_rn(v, in.vec[0][k]);
+  }
+  return v;
+}
+
+// K2's GroupNorm(8)+SiLU on the tile's values. A group (a multiple of 8
+// columns that divides BN, so it never leaves the tile) of one row lies in
+// one lane quad: each lane sums its columns, the quad adds by two xor
+// shuffles at the group's last 8 columns (a uniform branch), and the
+// quad's first lane keeps mean and rstd in shared memory (the ring is
+// free once every wgmma has retired), which only the same warp reads back.
+// Statistics as K2 and the plain "f32" gn_mode: mean = s/g,
+// var = max(E[x^2] - mean^2, 0), rstd = rsqrt(var + eps); SiLU t/(1 + e^-t)
+// with the fast exp and divide (well within the bf16 rounding of the output).
+template <int BN, typename Acc>
+__device__ __forceinline__ void groupnorm_silu_epilogue(const Args& a, const Acc (&d)[BN / 2],
+                                                        const Ahead<BN, kGroupNormSilu>& in,
+                                                        uint8_t* smem, int m0, int n0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gs = a.group, per = gs >> 3, shift = __ffs(per) - 1, groups = BN / gs;
+  const float inv_gs = 1.0f / gs;  // exact: the group is a power of two
+  float2* stats = reinterpret_cast<float2*>(smem);  // [64 tile rows][groups]: mean, rstd
+  const int lr0 = warp * 16 + (lane >> 2);
+  const int r0 = m0 + lr0, c0 = n0 + 2 * (lane & 3);
+  float v[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int e = 4 * i + 2 * j + q;
+        const float val = fused_value(a, in, d[e], 2 * i + q, j, e);
+        v[e] = (r0 + 8 * j < a.M && c0 + 8 * i + q < a.N) ? val : 0.0f;
+      }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float s = 0.0f, sq = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const float v0 = v[4 * i + 2 * j], v1 = v[4 * i + 2 * j + 1];
+      s += v0 + v1;
+      sq += v0 * v0 + v1 * v1;
+      if (((i + 1) & (per - 1)) == 0) {
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+        if ((lane & 3) == 0) {
+          const float mean = s * inv_gs;
+          const float var = fmaxf(sq * inv_gs - mean * mean, 0.0f);
+          stats[(lr0 + 8 * j) * groups + (i >> shift)] = make_float2(mean, rsqrtf(var + a.eps));
+        }
+        s = sq = 0.0f;
+      }
+    }
+  }
+  __syncwarp();
+  const bool pairs = (a.ldo % 2 == 0) && (reinterpret_cast<uintptr_t>(a.gn_out) % 4 == 0);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const int c = c0 + 8 * i;
+    if (c >= a.N) continue;  // the same for the whole warp: N is a multiple of 8
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + 8 * j;
+      const float2 st = stats[(lr0 + 8 * j) * groups + (i >> shift)];
+      float y[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float t =
+            (v[4 * i + 2 * j + q] - st.x) * st.y * in.vec[1][2 * i + q] + in.vec[2][2 * i + q];
+        y[q] = __fdividef(t, 1.0f + __expf(-t));
+      }
+      if (r >= a.M) continue;
+      __nv_bfloat16* o = a.gn_out + (size_t)r * a.ldo + c;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y[0], y[1]);
+      } else {
+        o[0] = __float2bfloat16(y[0]);
+        o[1] = __float2bfloat16(y[1]);
+      }
+    }
+  }
+}
+
+// K3's step on the output product (posterior.cuh), element for element as
+// the standalone kernel computes it from the stored f32 product, with the
+// inputs loaded ahead; the carry is written in place, two columns at a
+// time where its rows allow 4-byte bf16 pairs. kBits: 0, a block with no
+// D3PM bit; 1, a block whose bits are all 0 or 1 (the sampler's: their
+// posteriors are the two computed once); 2, any other bits. A block with
+// bits computes both values of each element and keeps one, so that no
+// branch separates its elements and they run side by side.
+template <int kBits, int BN, typename Acc>
+__device__ __forceinline__ void posterior_elements(const Args& a, const Acc (&d)[BN / 2],
+                                                   const Ahead<BN, kPosterior>& in, int m0,
+                                                   int n0) {
+  const StepCoeffs cf = step_coeffs(a.coeffs, a.step);
+  const BitPosteriors bp0 = bit_posteriors(0.0f, cf.beta, cf.acp_prev);
+  const BitPosteriors bp1 = bit_posteriors(1.0f, cf.beta, cf.acp_prev);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + warp * 16 + (lane >> 2), c0 = n0 + 2 * (lane & 3);
+  const bool pairs = (a.ldx % 2 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 4 == 0);
+  // Every element is computed (those past M or N on zeros) and only the
+  // stores are guarded, so no branch separates the elements' arithmetic.
+  float xn[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) {
+    const int i = e >> 2, j = (e >> 1) & 1, q = e & 1;
+    const float v = fused_value(a, in, d[e], 2 * i + q, j, e), b = in.vec[0][2 * i + q];
+    const float xf = bf16_half(in.x[2 * i + j], q), u = in.elem[e];  // u, or z in "buffer"
+    xn[e] = posterior_continuous(v, b, xf, u, u, cf, a.noise_mode, a.clip);
+    if constexpr (kBits > 0) {
+      const BitPosteriors bp = kBits == 1 ? (xf == 1.0f ? bp1 : bp0)
+                                          : bit_posteriors(xf, cf.beta, cf.acp_prev);
+      const float bit = posterior_bit(v, b, xf, u, u, cf, a.noise_mode, bp);
+      xn[e] = c0 + 8 * i + q < a.mut_dim ? bit : xn[e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + 8 * j, c = c0 + 8 * i;
+      if (r >= a.M || c >= a.N) continue;
+      const bool two = c + 1 < a.N;
+      const float x0 = xn[4 * i + 2 * j], x1 = xn[4 * i + 2 * j + 1];
+      __nv_bfloat16* xp = a.x + (size_t)r * a.ldx + c;
+      if (pairs && two) {
+        *reinterpret_cast<__nv_bfloat162*>(xp) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        xp[0] = __float2bfloat16(x0);
+        if (two) xp[1] = __float2bfloat16(x1);
+      }
+    }
+}
+
+template <int BN, typename Acc>
+__device__ __forceinline__ void posterior_epilogue(const Args& a, const Acc (&d)[BN / 2],
+                                                   const Ahead<BN, kPosterior>& in, int m0,
+                                                   int n0) {
+  if (n0 >= a.mut_dim) {  // the same for the whole block
+    posterior_elements<0, BN>(a, d, in, m0, n0);
+    return;
+  }
+  bool binary = true;
+#pragma unroll
+  for (int k = 0; k < BN / 4; ++k)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float xf = bf16_half(in.x[k], q);
+      binary &= xf == 0.0f || xf == 1.0f;
+    }
+  if (__syncthreads_and(binary))
+    posterior_elements<1, BN>(a, d, in, m0, n0);
+  else
+    posterior_elements<2, BN>(a, d, in, m0, n0);
+}
+
 __device__ __forceinline__ void store_out(const Args& a, size_t at, float v) {
   if (a.out_bf16)
     static_cast<__nv_bfloat16*>(a.C)[at] = __float2bfloat16(v);
@@ -444,8 +743,14 @@ __device__ __forceinline__ void store_out(const Args& a, size_t at, float v) {
     static_cast<float*>(a.C)[at] = v;
 }
 
-template <typename T, int BN, bool kTma>
-__global__ void __launch_bounds__(kThreads, 1)
+// The posterior epilogue's output product is short (K = 256: 2-4 k-tiles)
+// and its elementwise work long, so its blocks keep a ring of at most two
+// stages and at most 128 registers a thread: four blocks share an SM and
+// the 492 tiles at 333 rows run in one wave.
+constexpr int kPosteriorRing = 2;
+
+template <typename T, int BN, bool kTma, int kEpi>
+__global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                 const __grid_constant__ Args a) {
   using Acc = typename Traits<T>::Acc;
@@ -474,6 +779,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) d[i] = 0;
   fence_operand(d);
+  // The fused epilogues' other inputs, loaded before the mainloop at BN = 64
+  // (load_ahead), while the first TMA loads are in flight.
+  constexpr bool kAheadEarly = kEpi != kPlain && BN == 64;
+  [[maybe_unused]] Ahead<BN, kEpi> ahead;
 
   if constexpr (kTma) {
     if (tid == 0) {
@@ -486,6 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < ring && i < n_kt; ++i)
         issue_stage<T, BN>(sa + i * kBox, sb + i * BN * kStageK, &full[i], &map_a, &map_b, kt0 + i,
                            m0, n0);
+    if constexpr (kAheadEarly) load_ahead<Acc>(a, m0, n0, ahead);
     for (int i = 0; i < n_kt; ++i) {
       const int s = i % ring;
       mbar_wait(&full[s], (i / ring) & 1);
@@ -548,6 +858,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Accumulator layout of m64nNk*: thread (warp w, lane l) holds rows
   // 16w + l/4 (+8) and columns 8i + 2(l%4) (+1) as d[4i + 2j + q]; the
   // two neighbouring columns are stored together where the output allows.
+  if constexpr (kEpi != kPlain) {
+    static_assert(kTma, "the fused epilogues run on the TMA path only");
+    if constexpr (!kAheadEarly) load_ahead<Acc>(a, m0, n0, ahead);
+    if constexpr (kEpi == kGroupNormSilu) {
+      __syncthreads();  // every warp's last wgmma has retired: the ring is free for the statistics
+      groupnorm_silu_epilogue<BN>(a, d, ahead, smem, m0, n0);
+    } else {
+      posterior_epilogue<BN>(a, d, ahead, m0, n0);
+    }
+    return;
+  }
   const int warp = tid >> 5, lane = tid & 31;
   const int r0 = m0 + warp * 16 + (lane >> 2);
   const int c0 = n0 + 2 * (lane & 3);
@@ -632,34 +953,60 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapData
   return cudaSuccess;
 }
 
-template <typename T, int BN, bool kTma>
+template <typename T, int BN, bool kTma, int kEpi>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, Args a, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(gemm_kernel<T, BN, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bytes(BN, stages(BN)));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_kernel<T, BN, kTma, kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(BN, stages(BN)));
   if (attr != cudaSuccess) return attr;
   // A split walks at most cdiv(k_tiles, splits) k-tiles. k-tile j >= ring
   // is issued in iteration j - ring + 1, which must come before iteration
   // j: a ring of 1 serves only single-tile splits.
   const int walk = cdiv(a.k_tiles, a.splits);
-  a.ring = walk <= 1 ? 1 : (walk < stages(BN) ? walk : stages(BN));
+  const int deepest = kEpi == kPosterior ? kPosteriorRing : stages(BN);
+  a.ring = walk <= 1 ? 1 : (walk < deepest ? walk : deepest);
   const dim3 grid(cdiv(a.N, BN), cdiv(a.M, kBM), a.splits);
-  gemm_kernel<T, BN, kTma><<<grid, kThreads, smem_bytes(BN, a.ring), stream>>>(ma, mb, a);
+  gemm_kernel<T, BN, kTma, kEpi><<<grid, kThreads, smem_bytes(BN, a.ring), stream>>>(ma, mb, a);
   return cudaGetLastError();
 }
 
-// The block width (= the wgmma N) the host's plan chose.
-template <typename T, bool kTma>
+// The block width (= the wgmma N) the host's plan chose, among the widths
+// this epilogue is built for (each width is one kernel in the build).
+template <typename T, bool kTma, int kEpi, int... kWidths>
 cudaError_t dispatch(int bn, const CUtensorMap& ma, const CUtensorMap& mb, const Args& a,
                      cudaStream_t stream) {
   if (a.splits < 1 || a.splits > (a.k_tiles > 0 ? a.k_tiles : 1)) return cudaErrorInvalidValue;
   if (a.splits > 1 && (a.partials == nullptr || a.tickets == nullptr)) return cudaErrorInvalidValue;
-  switch (bn) {
-    case 64: return launch<T, 64, kTma>(ma, mb, a, stream);
-    case 128: return launch<T, 128, kTma>(ma, mb, a, stream);
-    case 256: return launch<T, 256, kTma>(ma, mb, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)(((bn == kWidths && ((err = launch<T, kWidths, kTma, kEpi>(ma, mb, a, stream)), true))) ||
+         ...);
+  return err;
+}
+
+// The TMA maps of K1's operands: A (M, K) in 64 x 64 boxes, the (K, N)
+// weight in 64 x 64 boxes read MN-major.
+inline cudaError_t bf16_maps(CUtensorMap* ma, CUtensorMap* mb, const void* A, int lda,
+                             const void* B, int ldb, int M, int N, int K) {
+  const cudaError_t err = tensor_map(ma, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, lda, 64, kBM);
+  return err != cudaSuccess
+             ? err
+             : tensor_map(mb, B, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, ldb, 64, 64);
+}
+
+// The TMA maps of K6's operands: the (M, K) codes and the K-major
+// (b_rows, K) weight codes, 128 bytes of k per box.
+inline cudaError_t s8_maps(CUtensorMap* ma, CUtensorMap* mb, const void* A, int lda,
+                           const void* B, int ldb, int b_rows, int M, int K, int bn) {
+  const cudaError_t err = tensor_map(ma, A, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, lda, kStageK, kBM);
+  return err != cudaSuccess
+             ? err
+             : tensor_map(mb, B, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b_rows, K, ldb, kStageK, bn);
+}
+
+// The GN epilogue's precondition: groups of a multiple of 8 columns that
+// tile both the block width and N.
+inline bool groupnorm_fits(int group, int bn, int N) {
+  return group >= 8 && group % 8 == 0 && bn % group == 0 && N % group == 0;
 }
 
 }  // namespace sm90

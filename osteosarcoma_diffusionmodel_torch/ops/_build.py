@@ -38,6 +38,14 @@ SIGNATURES = {
     # bn, splits, tma, partials, tickets, stream
     "osdm_gemm_bf16_f32acc": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                               _I, _I, _I, _P, _P, _P],
+    # A, lda, B, ldb, out, ldo, M, N, K, bias, gn_scale, gn_bias, group, eps, bn, splits,
+    # partials, tickets, stream
+    "osdm_gemm_bf16_gn_silu": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I, _F, _I, _I,
+                               _P, _P, _P],
+    # A, lda, B, ldb, M, N, K, x, ldx, mut_dim, b_out, coeffs, step, mode, noise, seed, clip,
+    # bn, splits, partials, tickets, stream
+    "osdm_gemm_bf16_posterior": [_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P, _U32,
+                                 _F, _I, _I, _P, _P, _P],
     # h, ldh, out, ldo, scale, bias, M, F, eps, stream
     "osdm_groupnorm8_silu": [_P, _I, _P, _I, _P, _P, _I, _I, _F, _P],
     # acc, lda, x, ldx, M, D, mut_dim, b_out, coeffs, step, mode, noise, seed, clip, stream
@@ -48,6 +56,14 @@ SIGNATURES = {
     # bias, row_add, ldr, bn, splits, partials, tickets, stream
     "osdm_gemm_s8": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                      _I, _I, _P, _P, _P],
+    # A, lda, B, ldb, b_rows, C, ldc, out, ldo, M, N, K, row_scale, col_scale, accumulate,
+    # bias, gn_scale, gn_bias, group, eps, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8_gn_silu": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
+                             _P, _I, _F, _I, _I, _P, _P, _P],
+    # A, lda, B, ldb, b_rows, M, N, K, row_scale, col_scale, x, ldx, mut_dim, b_out, coeffs,
+    # step, mode, noise, seed, clip, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8_posterior": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+                               _I, _P, _U32, _F, _I, _I, _P, _P, _P],
     # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
     "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
     "osdm_rbf_grid_blocks": [_I, _I],

@@ -3,19 +3,22 @@
 Counterpart of osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py
 `FusedSampler`. The TPU kernel keeps the weights and a state tile on chip
 for the whole loop; an H100 SM cannot hold them, so this is design (a)
-of the roadmap: per-step kernels. Each reverse step is
+of the roadmap: per-step kernels, with K2's and K3's work as epilogues of
+the products before them. Each reverse step is 12 launches:
 
-    h   = x·W_in + t_add[s] + c_proj                          (K1)
-    5 blocks of fc1 (K1) -> GN+SiLU (K2) -> fc2 (K1) -> GN+SiLU (K2)
-    acc = h·W_out                                             (K1)
-    x  <- c0·clip(acc + b_out + g_s·x) + c1·x + sv·z          (K3)
+    h   = x·W_in + t_add[s] + c_proj                              (K1)
+    5 blocks of fc1 -> GN+SiLU, fc2 -> GN+SiLU                    (K1 + K2 epilogue, x2)
+    x  <- c0·clip(h·W_out + b_out + g_s·x) + c1·x + sv·z          (K1 + K3 epilogue)
 
 with the carry x in bf16, products in bf16 with f32 accumulation and the
 group statistics in f32 -- the TPU kernel's ``gn_mode="f32"`` numerics.
+A block whose GroupNorm groups no tile width holds whole
+(:func:`sampler_kernels.gn_widths`) runs its products and K2 apart,
+through an f32 pre-activation buffer; no configuration of the repo does.
 Decoder inputs ``[h | skip]`` live in preallocated bf16 buffers that the
 encoder blocks write their skip halves into, so no concatenation is
-copied. The 5142-wide carry, acc and K1's copy of W_out have rows padded
-to 5152 columns (16-byte multiples), so K1 and K3 work on views that TMA
+copied. The 5142-wide carry and K1's copy of W_out have rows padded
+to 5152 columns (16-byte multiples), so K1 works on views that TMA
 can address. The host tables follow FusedSampler.__init__ (:661-724): reverse
 timesteps, ``t_add`` (time embedding + input bias, f32), the (n_loop, 6)
 coefficient table (c0, c1, sv, g, beta, acp_prev) whose last DDPM row is
@@ -29,10 +32,13 @@ posterior from the step's uniforms (columns 4-5 of the table).
 ``quantize`` ("out", "io", "all"; the TPU's ``_quant_flags``, :108-124)
 routes the marked products through K5 (per-row int8 activations) and K6
 (s8·s8 -> s32, dequantized with the per-column weight scales of
-:func:`sampler_kernels.pack_int8`). The decoder's fc1 is then two
-products over the [h | skip] halves, each with its own scales, summed in
-f32, as the TPU computes it. K5 quantizes the bf16 activations that K2
-stores, where the TPU quantizes f32 ones.
+:func:`sampler_kernels.pack_int8`), with the same fused epilogues. The
+decoder's fc1 is then two products over the [h | skip] halves, each with
+its own scales, summed in f32, as the TPU computes it: the first into the
+f32 pre-activation buffer, the second reading it back in its GN epilogue.
+K5 quantizes the bf16 activations that the GN epilogue stores, where the
+TPU quantizes f32 ones. A step launches 28 kernels under "all", 14 under
+"io" and 13 under "out".
 
 Noise: "philox" (in-kernel, the DDPM default), "buffer" (a given
 (n_loop, B, D) tensor: the parity hook) or "none" (DDIM). On CPU tensors
@@ -49,13 +55,17 @@ import torch
 from ..models.networks import sinusoid
 from .sampler_kernels import (
     gemm_bf16_f32acc,
+    gemm_bf16_gn_silu,
+    gemm_bf16_posterior,
     gemm_s8,
+    gemm_s8_gn_silu,
+    gemm_s8_posterior,
+    gn_widths,
     groupnorm8_silu,
     kmajor_int8,
     pack_int8,
     pad16,
     rowquant_s8,
-    x0_posterior_step,
 )
 from .schedules import DiffusionSchedule, ddim_timesteps
 
@@ -173,6 +183,17 @@ class _Weight:
             self.w = padded_rows(*w.shape, torch.bfloat16, device)
             self.w.copy_(w)
 
+    def _quantized(self, a: torch.Tensor, scratch, mut_cols: int = 0):
+        """(i, last, K5's codes and row scales of A's part i, the part's
+        weight codes and column scales) for each int8 part in turn."""
+        q_buf, s_buf = scratch
+        m, last = a.shape[0], len(self.parts) - 1
+        for i, (lo, hi, q, scale) in enumerate(self.parts):
+            kp = pad16(hi - lo)
+            qa, rs = rowquant_s8(a[:, lo:hi], out=q_buf[: m * kp].view(m, kp), scale=s_buf[:m],
+                                 mut_cols=mut_cols if lo == 0 else 0)
+            yield i, last, qa, rs, q, scale
+
     def __call__(self, a: torch.Tensor, out: torch.Tensor, scratch, bias=None, row_add=None,
                  mut_cols: int = 0) -> None:
         """out = a·W + bias + row_add (``mut_cols``: 2a - 1 on A's first
@@ -180,14 +201,34 @@ class _Weight:
         if not self.parts:
             gemm_bf16_f32acc(a, self.w, out=out, bias=bias, row_add=row_add, a_mut_cols=mut_cols)
             return
-        q_buf, s_buf = scratch
-        m, last = a.shape[0], len(self.parts) - 1
-        for i, (lo, hi, q, scale) in enumerate(self.parts):
-            kp = pad16(hi - lo)
-            qa, rs = rowquant_s8(a[:, lo:hi], out=q_buf[: m * kp].view(m, kp), scale=s_buf[:m],
-                                 mut_cols=mut_cols if lo == 0 else 0)
+        for i, last, qa, rs, q, scale in self._quantized(a, scratch, mut_cols):
             gemm_s8(qa, rs, q, scale, out=out, bias=bias if i == last else None,
                     row_add=row_add if i == last else None, accumulate=i > 0)
+
+    def gn_silu(self, a: torch.Tensor, out: torch.Tensor, scratch, pre, bias, gn_scale,
+                gn_bias) -> None:
+        """out = bf16(SiLU(GroupNorm8(a·W + bias)·gn_scale + gn_bias)), GN in
+        the product's epilogue. A split int8 weight sums its earlier parts
+        into the f32 ``pre``, which the last part's epilogue reads."""
+        if not self.parts:
+            gemm_bf16_gn_silu(a, self.w, bias, gn_scale, gn_bias, out=out)
+            return
+        for i, last, qa, rs, q, scale in self._quantized(a, scratch):
+            if i < last:
+                gemm_s8(qa, rs, q, scale, out=pre, accumulate=i > 0)
+            else:
+                gemm_s8_gn_silu(qa, rs, q, scale, bias, gn_scale, gn_bias, out=out,
+                                acc_into=pre if last else None)
+
+    def posterior(self, a: torch.Tensor, x: torch.Tensor, scratch, **step) -> None:
+        """The output product with the reverse step as its epilogue, on the
+        carry ``x`` in place (``step``: the arguments of
+        :func:`sampler_kernels.x0_posterior_step` after ``x``)."""
+        if not self.parts:
+            gemm_bf16_posterior(a, self.w, x, **step)
+            return
+        for _, _, qa, rs, q, scale in self._quantized(a, scratch):
+            gemm_s8_posterior(qa, rs, q, scale, x, **step)
 
 
 class _Block:
@@ -204,13 +245,20 @@ class _Block:
         self.n2 = _f32(sd[f"{name}.norm2.bias"], device)
         self.features = self.b1.shape[0]
         self.max_kp = max(self.fc1.max_kp, self.fc2.max_kp)
+        # GN in the products' epilogue where a tile width holds whole groups.
+        self.fused = bool(gn_widths(self.features))
+        self.needs_pre = not self.fused or len(self.fc1.parts) > 1
 
-    def run(self, a: torch.Tensor, out: torch.Tensor, pre: torch.Tensor,
-            mid: torch.Tensor, scratch) -> None:
+    def run(self, a: torch.Tensor, out: torch.Tensor, mid: torch.Tensor,
+            pre: Optional[torch.Tensor], scratch) -> None:
+        if self.fused:
+            self.fc1.gn_silu(a, mid, scratch, pre, self.b1, self.g1, self.n1)
+            self.fc2.gn_silu(mid, out, scratch, pre, self.b2, self.g2, self.n2)
+            return
         self.fc1(a, pre, scratch, bias=self.b1)
-        groupnorm8_silu(pre, self.g1, self.n1, out=mid)
+        groupnorm8_silu(pre, self.g1, self.n1, out=mid, mode="unfused_block")
         self.fc2(mid, pre, scratch, bias=self.b2)
-        groupnorm8_silu(pre, self.g2, self.n2, out=out)
+        groupnorm8_silu(pre, self.g2, self.n2, out=out, mode="unfused_block")
 
 
 class FusedSampler:
@@ -265,39 +313,42 @@ class FusedSampler:
     def _buffers(self, batch: int):
         """Per-call activations. ``cats[j]`` is decoder j's [h | skip]
         input; encoder i writes its output into the skip half of
-        ``cats[L-1-i]``. ``acc`` (the output product) has padded rows.
+        ``cats[L-1-i]``. ``pre`` (f32) exists only where a block needs it
+        (:attr:`_Block.needs_pre`: a split int8 fc1, or GN run apart).
         ``quant`` is K5's scratch (codes, row scales)."""
         dev, bf = self.device, torch.bfloat16
+        blocks = self.encoders + [self.bottleneck] + self.decoders
         feats = [b.features for b in self.encoders]
         prev = [self.bottleneck.features] + [b.features for b in self.decoders[:-1]]
         skips = feats[::-1]
         cats = [torch.empty(batch, p + s, dtype=bf, device=dev) for p, s in zip(prev, skips)]
-        width = max([self.hidden[0]] + [b.features for b in
-                     self.encoders + [self.bottleneck] + self.decoders])
+        width = max([self.hidden[0]] + [b.features for b in blocks])
+        pre = max([b.features for b in blocks if b.needs_pre], default=0)
         return {
             "h_in": torch.empty(batch, self.hidden[0], dtype=bf, device=dev),
             "cats": cats,
-            "pre": torch.empty(batch * width, dtype=torch.float32, device=dev),
+            "pre": torch.empty(batch * pre, dtype=torch.float32, device=dev) if pre else None,
             "mid": torch.empty(batch * width, dtype=bf, device=dev),
             "h_last": torch.empty(batch, self.decoders[-1].features if self.decoders
                                   else self.bottleneck.features, dtype=bf, device=dev),
-            "acc": padded_rows(batch, self.data_dim, torch.float32, dev),
             "quant": (torch.empty(batch * self.max_kp, dtype=torch.int8, device=dev),
                       torch.empty(batch, dtype=torch.float32, device=dev)),
         }
 
     def run_stack(self, buf) -> None:
-        """The block stack from ``buf["h_in"]`` to ``buf["h_last"]`` (K1 and K2,
-        or K5 and K6 under int8): the stack of every reverse step, and of the
-        latent-tail sampler's steps on its 256-wide state."""
+        """The block stack from ``buf["h_in"]`` to ``buf["h_last"]`` (K1 with
+        the GN epilogue, or K5 and K6 with it under int8): the stack of every
+        reverse step, and of the latent-tail sampler's steps on its 256-wide
+        state."""
         batch = buf["h_in"].shape[0]
         cats: List[torch.Tensor] = buf["cats"]
         n_enc = len(self.encoders)
         scratch = buf["quant"]
 
         def scratch_rows(f):
-            return (buf["pre"][: batch * f].view(batch, f),
-                    buf["mid"][: batch * f].view(batch, f))
+            pre = buf["pre"]
+            return (buf["mid"][: batch * f].view(batch, f),
+                    None if pre is None else pre[: batch * f].view(batch, f))
 
         h = buf["h_in"]
         for i, blk in enumerate(self.encoders):
@@ -317,9 +368,9 @@ class FusedSampler:
         self.w_in(x, buf["h_in"], scratch, bias=self.t_add[s], row_add=c_proj,
                   mut_cols=self.mut_dim)
         self.run_stack(buf)
-        self.w_out(buf["h_last"], buf["acc"], scratch)
-        x0_posterior_step(buf["acc"], x, self.b_out, self.coeffs, s, mode,
-                          noise=noise, seed=seed, clip=self.clip_value, mut_dim=self.mut_dim)
+        self.w_out.posterior(buf["h_last"], x, scratch, b_out=self.b_out, coeffs=self.coeffs,
+                             step=s, mode=mode, noise=noise, seed=seed, clip=self.clip_value,
+                             mut_dim=self.mut_dim)
 
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: torch.Generator,

@@ -27,8 +27,10 @@ clip does not bind.
 
 :class:`LatentTailSampler` is the plain PyTorch reference in f32 (the
 JAX "XLA reference"); :class:`LatentFusedSampler` runs the data-space
-head on K1/K2/K3 and each latent step on K1/K2 (the hidden stack and the
-two 256-wide products) and K7 (``latent_draw``, ``latent_update``). The
+head on the kernel sampler's step (K1, with K2's and K3's work as
+epilogues) and each latent step on K1 (the hidden stack with the GN
+epilogue, and the two 256-wide products) and K7 (``latent_draw``,
+``latent_update``). The
 one-time reconstruction is plain f32 ``torch.matmul`` in full f32 (no
 TF32: eta - (eta·K_in)·R cancels), as the JAX package leaves it to XLA.
 """
@@ -238,7 +240,8 @@ class LatentTailSampler:
 class LatentFusedSampler:
     """Data-space head on the kernel sampler (``FusedSampler.sample``
     with ``stop_after``), then the latent segment, one step at a time on
-    K1/K2/K7, then the one-time wide reconstruction (JAX :476-697).
+    K1 (with the GN epilogue in the stack) and K7, then the one-time wide
+    reconstruction (JAX :476-697).
     Tables come from :class:`LatentTailSampler`. Runs on ``device``."""
 
     def __init__(self, model, head_steps: int = 1, device="cuda"):

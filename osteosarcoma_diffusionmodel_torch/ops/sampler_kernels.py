@@ -15,6 +15,12 @@ computes in one Pallas kernel, one reverse step at a time:
 - K5 ``rowquant_s8`` and K6 ``gemm_s8``: the int8 products of the
   ``quantize`` modes (per-row dynamic activation scales, per-column
   weight scales, s8·s8 -> s32, dequantized in the epilogue);
+- K2's and K3's work as epilogues of K1's and K6's mainloop
+  (:func:`gemm_bf16_gn_silu`, :func:`gemm_bf16_posterior`,
+  :func:`gemm_s8_gn_silu`, :func:`gemm_s8_posterior`): the sampler's
+  block and output products, one launch each. The standalone K2 and K3
+  stay as their unfused reference and for GroupNorm widths whose groups
+  no tile holds whole;
 - K7 ``latent_step`` (:func:`latent_draw`, :func:`latent_update`): the
   per-step elementwise work of the latent-tail sampler
   (osteosarcoma_diffusionmodel_tpu/ops/latent_sampler.py
@@ -176,10 +182,12 @@ def _ctas_per_sm(bn: int, walk: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def gemm_plan(m: int, n: int, k: int, sms: int, kind: str) -> GemmPlan:
+def gemm_plan(m: int, n: int, k: int, sms: int, kind: str,
+              widths: Tuple[int, ...] = GEMM_WIDTHS) -> GemmPlan:
     """The block width and split count for an (m, k)·(k, n) product of
     ``kind`` ("bf16" or "int8") on a card with ``sms`` multiprocessors,
-    cached by shape. Where the output tiles leave SMs idle, K is split so
+    cached by shape, with the block width among ``widths`` (those an
+    epilogue is built for or allows). Where the output tiles leave SMs idle, K is split so
     that tiles × splits comes as close to ``sms`` as it can without
     exceeding it, each split keeping at least GEMM_MIN_SPLIT_KTILES
     k-tiles. The products are latency-bound, so among the widths the plan
@@ -189,10 +197,12 @@ def gemm_plan(m: int, n: int, k: int, sms: int, kind: str) -> GemmPlan:
     the last split's reads of all of them), then the wider tile."""
     if kind not in ("bf16", "int8"):
         raise ValueError(f"kind must be 'bf16' or 'int8', got {kind!r}")
+    if not widths or not set(widths) <= set(GEMM_WIDTHS):
+        raise ValueError(f"widths must be a non-empty subset of {GEMM_WIDTHS}, got {widths}")
     kt = k_tiles(k, kind)
     rows = -(-m // GEMM_BM)
     best = None
-    for bn in GEMM_WIDTHS:
+    for bn in widths:
         tiles = rows * -(-n // bn)
         splits = 1
         if tiles < sms:
@@ -240,10 +250,23 @@ def tma_ready(t: torch.Tensor) -> bool:
     return _tma_aligned(t.data_ptr(), t.stride(0) * t.element_size())
 
 
-def _check_plan(plan: GemmPlan, k: int, kind: str) -> None:
-    if plan.bm != GEMM_BM or plan.bn not in GEMM_WIDTHS or not 1 <= plan.splits <= max(
+def _check_plan(plan: GemmPlan, k: int, kind: str, widths: Tuple[int, ...] = GEMM_WIDTHS) -> None:
+    if plan.bm != GEMM_BM or plan.bn not in widths or not 1 <= plan.splits <= max(
             1, k_tiles(k, kind)):
-        raise ValueError(f"invalid plan {plan} for K = {k}")
+        raise ValueError(f"invalid plan {plan} for K = {k} (block widths {widths})")
+
+
+def _launch_plan(plan: Optional[GemmPlan], device, m: int, n: int, k: int, kind: str,
+                 widths: Tuple[int, ...] = GEMM_WIDTHS) -> GemmPlan:
+    """``plan`` checked, or :func:`gemm_plan`'s for the card of ``device``."""
+    if plan is None:
+        return gemm_plan(m, n, k, _sm_count(device.index), kind, widths)
+    _check_plan(plan, k, kind, widths)
+    return plan
+
+
+def _split_pointers(device, m: int, n: int, plan: GemmPlan):
+    return _WORKSPACE.pointers(device, m, n, plan) if plan.splits > 1 else (None, None)
 
 
 def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
@@ -266,6 +289,19 @@ def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
     return out
 
 
+def _check_bf16_operands(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """K1's A (M, K) and B (K, N): bf16 row-major views; returns
+    (lda, ldb, M, K, N)."""
+    lda = _check_rows(a, "a")
+    ldb = _check_rows(b, "b")
+    _check_dtype(a, torch.bfloat16, "a")
+    _check_dtype(b, torch.bfloat16, "b")
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"inner dims differ: a {tuple(a.shape)} b {tuple(b.shape)}")
+    return lda, ldb, m, k, b.shape[1]
+
+
 def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None,
                      bias: Optional[torch.Tensor] = None,
                      row_add: Optional[torch.Tensor] = None,
@@ -279,31 +315,20 @@ def gemm_bf16_f32acc(a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tenso
     ``plan``: the launch, :func:`gemm_plan`'s when omitted. On the card,
     ``a`` and ``b`` go through TMA when :func:`tma_ready`, else through
     the kernel's general path (mode "unaligned")."""
-    lda = _check_rows(a, "a")
-    ldb = _check_rows(b, "b")
-    _check_dtype(a, torch.bfloat16, "a")
-    _check_dtype(b, torch.bfloat16, "b")
-    m, k = a.shape
-    if b.shape[0] != k:
-        raise ValueError(f"inner dims differ: a {tuple(a.shape)} b {tuple(b.shape)}")
+    lda, ldb, m, k, n = _check_bf16_operands(a, b)
     if not 0 <= a_mut_cols <= k:
         raise ValueError(f"a_mut_cols must be in [0, {k}], got {a_mut_cols}")
-    n = b.shape[1]
     out = _check_epilogue(m, n, bias, row_add, out, a.device)
 
     if not _on_cuda(a, b, bias, row_add, out):
         out.copy_(gemm_bf16_f32acc_plain(a, b, bias, row_add, a_mut_cols))
         return out
-    if plan is None:
-        plan = gemm_plan(m, n, k, _sm_count(a.device.index), "bf16")
-    else:
-        _check_plan(plan, k, "bf16")
+    plan = _launch_plan(plan, a.device, m, n, k, "bf16")
     # tma_ready(a) and tma_ready(b), each pointer and stride read once: this
-    # runs 12 times per sampler step, on the host's critical path.
+    # runs on every sampler step, on the host's critical path.
     pa, pb = a.data_ptr(), b.data_ptr()
     tma = _tma_aligned(pa, 2 * lda) and _tma_aligned(pb, 2 * ldb)
-    partials, tickets = (_WORKSPACE.pointers(a.device, m, n, plan) if plan.splits > 1
-                         else (None, None))
+    partials, tickets = _split_pointers(a.device, m, n, plan)
     lib = LIBRARY.get()
     status = lib.osdm_gemm_bf16_f32acc(
         pa, lda, a_mut_cols, pb, ldb, out.data_ptr(), out.stride(0),
@@ -325,6 +350,7 @@ GROUPNORM = Kernel(
     "groupnorm8_silu",
     "osteosarcoma_diffusionmodel_torch/csrc/groupnorm_silu.cu",
     "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:167",
+    modes=("default", "unfused_block"),
 )
 
 
@@ -341,9 +367,12 @@ def groupnorm8_silu_plain(h, scale, bias):
 
 
 def groupnorm8_silu(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None, mode: str = "default") -> torch.Tensor:
     """GroupNorm with 8 groups of contiguous features on f32 ``h`` (M, F),
-    written as bf16 into ``out`` (may be a row-strided view)."""
+    written as bf16 into ``out`` (may be a row-strided view). ``mode`` is
+    the launch's count label: "unfused_block" where a sampler block runs
+    K1 (or K6) and this kernel apart because :func:`gn_widths` has no tile
+    width for its groups."""
     _check_rows(h, "h")
     _check_dtype(h, torch.float32, "h")
     m, f = h.shape
@@ -369,18 +398,19 @@ def groupnorm8_silu(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         scale.data_ptr(), bias.data_ptr(), m, f, GN_EPS, _stream(h),
     )
     check(status, GROUPNORM.name)
-    GROUPNORM.count()
+    GROUPNORM.count(mode)
     return out
 
 
 # ----------------------------------------------------------------------
 # K3: output epilogue + clip + transition
 # ----------------------------------------------------------------------
+_STEP_MODES = tuple(NOISE_MODES) + tuple(f"d3pm_{m}" for m in NOISE_MODES)
 POSTERIOR = Kernel(
     "x0_posterior_step",
     "osteosarcoma_diffusionmodel_torch/csrc/posterior_step.cu",
     "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:449",
-    modes=tuple(NOISE_MODES) + tuple(f"d3pm_{m}" for m in NOISE_MODES),
+    modes=_STEP_MODES,
 )
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -469,14 +499,37 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
     (beta, acp_prev) from columns 4-5 of the row and u the step's
     uniform on that column: Philox in "philox" and "none" mode,
     z/(2sqrt3) + 1/2 in "buffer" mode."""
-    if mode not in NOISE_MODES:
-        raise ValueError(f"unknown noise mode {mode!r}")
     _check_rows(acc, "acc")
-    _check_rows(x, "x")
     _check_dtype(acc, torch.float32, "acc")
-    _check_dtype(x, torch.bfloat16, "x")
+    _check_step(x, b_out, coeffs, step, mode, noise, seed, mut_dim)
     if acc.shape != x.shape:
         raise ValueError(f"acc {tuple(acc.shape)} and x {tuple(x.shape)} differ")
+
+    if not _on_cuda(acc, x, b_out, coeffs, noise if mode == "buffer" else None):
+        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip,
+                                        mut_dim))
+        return x
+    b, d = x.shape
+    lib = LIBRARY.get()
+    status = lib.osdm_x0_posterior_step(
+        acc.data_ptr(), acc.stride(0), x.data_ptr(), x.stride(0), b, d, mut_dim,
+        b_out.data_ptr(), coeffs.data_ptr(),
+        step, NOISE_MODES[mode], noise.data_ptr() if mode == "buffer" else None,
+        seed, clip, _stream(x),
+    )
+    check(status, POSTERIOR.name)
+    POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
+    return x
+
+
+def _check_step(x: torch.Tensor, b_out: torch.Tensor, coeffs: torch.Tensor, step: int,
+                mode: str, noise: Optional[torch.Tensor], seed: int, mut_dim: int) -> None:
+    """The reverse step's operands, as K3 and the fused output products
+    take them (see :func:`x0_posterior_step`)."""
+    if mode not in NOISE_MODES:
+        raise ValueError(f"unknown noise mode {mode!r}")
+    _check_rows(x, "x")
+    _check_dtype(x, torch.bfloat16, "x")
     b, d = x.shape
     if not 0 <= mut_dim <= d:
         raise ValueError(f"mut_dim must be in [0, {d}], got {mut_dim}")
@@ -494,21 +547,6 @@ def x0_posterior_step(acc: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
         _check_dtype(noise, torch.float32, "noise")
     if not 0 <= seed <= _M32:
         raise ValueError("seed must fit in 32 bits")
-
-    if not _on_cuda(acc, x, b_out, coeffs, noise if mode == "buffer" else None):
-        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip,
-                                        mut_dim))
-        return x
-    lib = LIBRARY.get()
-    status = lib.osdm_x0_posterior_step(
-        acc.data_ptr(), acc.stride(0), x.data_ptr(), x.stride(0), b, d, mut_dim,
-        b_out.data_ptr(), coeffs.data_ptr(),
-        step, NOISE_MODES[mode], noise.data_ptr() if mode == "buffer" else None,
-        seed, clip, _stream(x),
-    )
-    check(status, POSTERIOR.name)
-    POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
-    return x
 
 
 # ----------------------------------------------------------------------
@@ -630,17 +668,9 @@ def gemm_s8_plain(qa, row_scale, qb, col_scale, bias=None, row_add=None, acc_int
     return v
 
 
-def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
-            col_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
-            bias: Optional[torch.Tensor] = None, row_add: Optional[torch.Tensor] = None,
-            accumulate: bool = False, plan: Optional[GemmPlan] = None) -> torch.Tensor:
-    """``out (+)= (qa @ qbᵀ)·row_scale·col_scale + bias + row_add`` with
-    ``qa`` (M, Kp) int8 from :func:`rowquant_s8`, ``qb`` (Np, Kp) int8
-    K-major codes from :func:`kmajor_int8`, ``row_scale`` (M,),
-    ``col_scale`` (N,) with N <= Np, and the epilogue of
-    :func:`gemm_bf16_f32acc`. ``accumulate`` adds the result to the f32
-    ``out`` (the second half of the decoder's split fc1). ``plan``: the
-    launch, :func:`gemm_plan`'s when omitted."""
+def _check_s8_operands(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
+                       col_scale: torch.Tensor) -> Tuple[int, int, int]:
+    """K6's codes and scales (see :func:`gemm_s8`); returns (M, Kp, N)."""
     for t, name in ((qa, "qa"), (qb, "qb")):
         _check_dtype(t, torch.int8, name)
         if t.dim() != 2 or not t.is_contiguous() or t.shape[1] % QUANT_ALIGN:
@@ -656,6 +686,26 @@ def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
             raise ValueError(f"{name} must be contiguous ({size},)")
     if not 0 < n <= qb.shape[0]:
         raise ValueError(f"col_scale has {n} entries for {qb.shape[0]} packed columns")
+    return m, kp, n
+
+
+def _check_s8_aligned(qa: torch.Tensor, qb: torch.Tensor) -> None:
+    if qa.data_ptr() % 16 or qb.data_ptr() % 16:
+        raise ValueError("qa and qb must be 16-byte aligned")
+
+
+def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
+            col_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None, row_add: Optional[torch.Tensor] = None,
+            accumulate: bool = False, plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """``out (+)= (qa @ qbᵀ)·row_scale·col_scale + bias + row_add`` with
+    ``qa`` (M, Kp) int8 from :func:`rowquant_s8`, ``qb`` (Np, Kp) int8
+    K-major codes from :func:`kmajor_int8`, ``row_scale`` (M,),
+    ``col_scale`` (N,) with N <= Np, and the epilogue of
+    :func:`gemm_bf16_f32acc`. ``accumulate`` adds the result to the f32
+    ``out`` (the second half of the decoder's split fc1). ``plan``: the
+    launch, :func:`gemm_plan`'s when omitted."""
+    m, kp, n = _check_s8_operands(qa, row_scale, qb, col_scale)
     if accumulate and (out is None or out.dtype != torch.float32):
         raise ValueError("accumulate needs an f32 out")
     out = _check_epilogue(m, n, bias, row_add, out, qa.device)
@@ -664,14 +714,9 @@ def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
         out.copy_(gemm_s8_plain(qa, row_scale, qb, col_scale, bias, row_add,
                                 out if accumulate else None))
         return out
-    if qa.data_ptr() % 16 or qb.data_ptr() % 16:
-        raise ValueError("qa and qb must be 16-byte aligned")
-    if plan is None:
-        plan = gemm_plan(m, n, kp, _sm_count(qa.device.index), "int8")
-    else:
-        _check_plan(plan, kp, "int8")
-    partials, tickets = (_WORKSPACE.pointers(qa.device, m, n, plan) if plan.splits > 1
-                         else (None, None))
+    _check_s8_aligned(qa, qb)
+    plan = _launch_plan(plan, qa.device, m, n, kp, "int8")
+    partials, tickets = _split_pointers(qa.device, m, n, plan)
     lib = LIBRARY.get()
     status = lib.osdm_gemm_s8(
         qa.data_ptr(), kp, qb.data_ptr(), kp, qb.shape[0], out.data_ptr(), out.stride(0),
@@ -686,6 +731,203 @@ def gemm_s8(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
     GEMM_S8.count("accumulate" if accumulate else
                   "bf16_out" if out.dtype == torch.bfloat16 else "f32_out")
     return out
+
+
+# ----------------------------------------------------------------------
+# K1 and K6 with K2's or K3's work as their epilogue
+# ----------------------------------------------------------------------
+_FUSED_BF16 = "osteosarcoma_diffusionmodel_torch/csrc/gemm_bf16_fused.cu"
+_FUSED_S8 = "osteosarcoma_diffusionmodel_torch/csrc/gemm_s8_fused.cu"
+_TPU_GN_STAGES = "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:421"
+_TPU_OUT_STAGES = "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:449"
+GEMM_GN = Kernel("gemm_bf16_gn_silu", _FUSED_BF16, _TPU_GN_STAGES)
+GEMM_POSTERIOR = Kernel("gemm_bf16_posterior", _FUSED_BF16, _TPU_OUT_STAGES, modes=_STEP_MODES)
+GEMM_S8_GN = Kernel("gemm_s8_gn_silu", _FUSED_S8, _TPU_GN_STAGES,
+                    modes=("default", "accumulate"))
+GEMM_S8_POSTERIOR = Kernel("gemm_s8_posterior", _FUSED_S8, _TPU_OUT_STAGES, modes=_STEP_MODES)
+
+# The block widths the fused epilogues are built at (csrc/gemm_*_fused.cu).
+# GN: 64 (every block product of the paths) and 128; at 256 its inputs and
+# accumulators do not fit in registers. Posterior: 64, the fastest for the
+# output product at 333 and 999 rows, bf16 and int8.
+GN_WIDTHS = (128, 64)
+POSTERIOR_WIDTHS = (64,)
+
+
+def gn_widths(features: int) -> Tuple[int, ...]:
+    """The block widths whose tiles hold whole GroupNorm(8) groups of
+    ``features`` columns: the group, features/8, a multiple of 8 that
+    divides the width (so features is 64-1024, a power of two). Empty where
+    no width does; the sampler then runs the block's product and K2 apart."""
+    group = features // 8
+    if features % 8 or group % 8:
+        return ()
+    return tuple(w for w in GN_WIDTHS if w % group == 0)
+
+
+def _check_gn(n: int, bias, gn_scale, gn_bias, out, m: int, device) -> torch.Tensor:
+    """The GN epilogue's vectors and bf16 ``out`` (allocated when omitted)."""
+    if not gn_widths(n):
+        raise ValueError(f"GroupNorm(8) of {n} features: groups of {n / 8:g} columns fit no "
+                         f"block width of {GN_WIDTHS} (a multiple of 8 that divides it)")
+    for t, name in ((bias, "bias"), (gn_scale, "gn_scale"), (gn_bias, "gn_bias")):
+        if t is None and name == "bias":
+            continue
+        _check_dtype(t, torch.float32, name)
+        if t.shape != (n,) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous ({n},), got {tuple(t.shape)}")
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=device)
+    _check_rows(out, "out")
+    _check_dtype(out, torch.bfloat16, "out")
+    if out.shape != (m, n):
+        raise ValueError(f"out must be ({m}, {n}), got {tuple(out.shape)}")
+    return out
+
+
+def _check_tma(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
+    if not (tma_ready(a) and tma_ready(b)):
+        raise ValueError(f"{name} reads its operands through TMA: 16-byte-aligned bases and "
+                         "row strides")
+
+
+def gemm_bf16_gn_silu(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+                      gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                      out: Optional[torch.Tensor] = None,
+                      plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """``out = bf16(SiLU(GroupNorm8(a @ b + bias)·gn_scale + gn_bias))`` in
+    one launch: K1's product with K2's work as its epilogue (f32 group
+    statistics, as :func:`groupnorm8_silu_plain`). ``a`` (M, K) and ``b``
+    (K, N) bf16 as for :func:`gemm_bf16_f32acc` but TMA-readable; ``out``
+    bf16 (M, N), a row-strided view allowed. Needs :func:`gn_widths` (N)
+    non-empty; ``plan`` (:func:`gemm_plan`'s among those widths when
+    omitted) must take one of them."""
+    lda, ldb, m, k, n = _check_bf16_operands(a, b)
+    out = _check_gn(n, bias, gn_scale, gn_bias, out, m, a.device)
+
+    if not _on_cuda(a, b, bias, gn_scale, gn_bias, out):
+        out.copy_(groupnorm8_silu_plain(gemm_bf16_f32acc_plain(a, b, bias), gn_scale, gn_bias))
+        return out
+    _check_tma(a, b, GEMM_GN.name)
+    plan = _launch_plan(plan, a.device, m, n, k, "bf16", gn_widths(n))
+    partials, tickets = _split_pointers(a.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_bf16_gn_silu(
+        a.data_ptr(), lda, b.data_ptr(), ldb, out.data_ptr(), out.stride(0), m, n, k,
+        bias.data_ptr() if bias is not None else None, gn_scale.data_ptr(), gn_bias.data_ptr(),
+        n // 8, GN_EPS, plan.bn, plan.splits, partials, tickets, _stream(a),
+    )
+    check(status, GEMM_GN.name)
+    GEMM_GN.count()
+    return out
+
+
+def gemm_bf16_posterior(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
+                        coeffs: torch.Tensor, step: int, mode: str,
+                        noise: Optional[torch.Tensor] = None, seed: int = 0,
+                        clip: float = 30.0, mut_dim: int = 0,
+                        plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """The output product and the reverse step in one launch: K1's
+    ``a @ b`` (f32, never stored) with :func:`x0_posterior_step`'s work as
+    its epilogue, updating the bf16 carry ``x`` (B, D) in place; ``b`` is
+    (K, D). The arguments after ``x`` are :func:`x0_posterior_step`'s.
+    With the same plan the carry gets the bits of K1 then K3. ``plan``:
+    among ``POSTERIOR_WIDTHS``."""
+    lda, ldb, m, k, n = _check_bf16_operands(a, b)
+    _check_step(x, b_out, coeffs, step, mode, noise, seed, mut_dim)
+    if x.shape != (m, n):
+        raise ValueError(f"x must be ({m}, {n}), got {tuple(x.shape)}")
+
+    if not _on_cuda(a, b, x, b_out, coeffs, noise if mode == "buffer" else None):
+        x.copy_(x0_posterior_step_plain(gemm_bf16_f32acc_plain(a, b), x, b_out, coeffs, step,
+                                        mode, noise, seed, clip, mut_dim))
+        return x
+    _check_tma(a, b, GEMM_POSTERIOR.name)
+    plan = _launch_plan(plan, a.device, m, n, k, "bf16", POSTERIOR_WIDTHS)
+    partials, tickets = _split_pointers(a.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_bf16_posterior(
+        a.data_ptr(), lda, b.data_ptr(), ldb, m, n, k, x.data_ptr(), x.stride(0), mut_dim,
+        b_out.data_ptr(), coeffs.data_ptr(), step, NOISE_MODES[mode],
+        noise.data_ptr() if mode == "buffer" else None, seed, clip, plan.bn, plan.splits,
+        partials, tickets, _stream(a),
+    )
+    check(status, GEMM_POSTERIOR.name)
+    GEMM_POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
+    return x
+
+
+def gemm_s8_gn_silu(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
+                    col_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                    gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                    out: Optional[torch.Tensor] = None, acc_into: Optional[torch.Tensor] = None,
+                    plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """K6's product with K2's work as its epilogue:
+    ``out = bf16(SiLU(GroupNorm8(v)·gn_scale + gn_bias))`` with
+    v = (qa @ qbᵀ)·row_scale·col_scale (+ ``acc_into``) + bias, the
+    operands of :func:`gemm_s8`. ``acc_into`` (M, N) f32: the earlier
+    parts' sum of a split product (the decoder's fc1 over [h | skip]), read
+    and not written. Needs :func:`gn_widths` (N) non-empty."""
+    m, kp, n = _check_s8_operands(qa, row_scale, qb, col_scale)
+    out = _check_gn(n, bias, gn_scale, gn_bias, out, m, qa.device)
+    if acc_into is not None:
+        _check_dtype(acc_into, torch.float32, "acc_into")
+        if acc_into.shape != (m, n):
+            raise ValueError(f"acc_into must be ({m}, {n}), got {tuple(acc_into.shape)}")
+        _check_rows(acc_into, "acc_into")
+
+    if not _on_cuda(qa, row_scale, qb, col_scale, bias, gn_scale, gn_bias, out, acc_into):
+        v = gemm_s8_plain(qa, row_scale, qb, col_scale, bias, acc_into=acc_into)
+        out.copy_(groupnorm8_silu_plain(v, gn_scale, gn_bias))
+        return out
+    _check_s8_aligned(qa, qb)
+    plan = _launch_plan(plan, qa.device, m, n, kp, "int8", gn_widths(n))
+    partials, tickets = _split_pointers(qa.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_s8_gn_silu(
+        qa.data_ptr(), kp, qb.data_ptr(), kp, qb.shape[0],
+        acc_into.data_ptr() if acc_into is not None else None,
+        acc_into.stride(0) if acc_into is not None else 0, out.data_ptr(), out.stride(0),
+        m, n, kp, row_scale.data_ptr(), col_scale.data_ptr(), int(acc_into is not None),
+        bias.data_ptr() if bias is not None else None, gn_scale.data_ptr(), gn_bias.data_ptr(),
+        n // 8, GN_EPS, plan.bn, plan.splits, partials, tickets, _stream(qa),
+    )
+    check(status, GEMM_S8_GN.name)
+    GEMM_S8_GN.count("accumulate" if acc_into is not None else "default")
+    return out
+
+
+def gemm_s8_posterior(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tensor,
+                      col_scale: torch.Tensor, x: torch.Tensor, b_out: torch.Tensor,
+                      coeffs: torch.Tensor, step: int, mode: str,
+                      noise: Optional[torch.Tensor] = None, seed: int = 0, clip: float = 30.0,
+                      mut_dim: int = 0, plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """The int8 output product and the reverse step in one launch: K6's
+    dequantized (qa @ qbᵀ)·row_scale·col_scale (never stored) with
+    :func:`x0_posterior_step`'s work as its epilogue, on the bf16 carry
+    ``x`` (B, D) in place. With the same plan the carry gets the bits of
+    K6 then K3. ``plan``: among ``POSTERIOR_WIDTHS``."""
+    m, kp, n = _check_s8_operands(qa, row_scale, qb, col_scale)
+    _check_step(x, b_out, coeffs, step, mode, noise, seed, mut_dim)
+    if x.shape != (m, n):
+        raise ValueError(f"x must be ({m}, {n}), got {tuple(x.shape)}")
+
+    if not _on_cuda(qa, row_scale, qb, col_scale, x, b_out, coeffs,
+                    noise if mode == "buffer" else None):
+        acc = gemm_s8_plain(qa, row_scale, qb, col_scale)
+        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip,
+                                        mut_dim))
+        return x
+    _check_s8_aligned(qa, qb)
+    plan = _launch_plan(plan, qa.device, m, n, kp, "int8", POSTERIOR_WIDTHS)
+    partials, tickets = _split_pointers(qa.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_s8_posterior(
+        qa.data_ptr(), kp, qb.data_ptr(), kp, qb.shape[0], m, n, kp, row_scale.data_ptr(),
+        col_scale.data_ptr(), x.data_ptr(), x.stride(0), mut_dim, b_out.data_ptr(),
+        coeffs.data_ptr(), step, NOISE_MODES[mode],
+        noise.data_ptr() if mode == "buffer" else None, seed, clip, plan.bn, plan.splits,
+        partials, tickets, _stream(qa),
+    )
+    check(status, GEMM_S8_POSTERIOR.name)
+    GEMM_S8_POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
+    return x
 
 
 # ----------------------------------------------------------------------

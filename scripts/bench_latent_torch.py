@@ -16,7 +16,8 @@ schedule, ``--steps`` DDPM steps) with weights made from seed 0, on
 - best wall time over ``--reps`` calls, after one warm-up call, of the
   port's data-space kernel sampler ``FusedSampler`` (all steps), the plain
   ``LatentTailSampler`` (the reference, as the JAX script's XLA row) and
-  the kernel ``LatentFusedSampler`` (head on K1/K2/K3, tail on K1/K2/K7),
+  the kernel ``LatentFusedSampler`` (head and stack on K1 with the GN
+  and posterior epilogues, tail on K1/K7),
   each with the kernel launches of its calls by kernel and mode;
 - with ``--profile``: one call of each kernel sampler under
   torch.profiler, its device time by kernel and its busy share (device
@@ -54,7 +55,8 @@ from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (  # noqa: E402
 DATA_DIMS = (62, 5054, 26)
 CONDITIONS = ["survival_days_norm", "event_occurred", "metastasis_at_diagnosis"]
 PROBE_ROWS = 256
-KERNELS = (sk.GEMM, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT, sk.GEMM_S8, sk.LATENT)
+KERNELS = (sk.GEMM, sk.GEMM_GN, sk.GEMM_POSTERIOR, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT,
+           sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR, sk.LATENT)
 
 
 def build_model(steps: int, dev) -> ConditionalDiffusion:

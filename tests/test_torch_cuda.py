@@ -132,8 +132,9 @@ def test_cuda_gemm_mut_prologue_matches_plain(cuda):
 @pytest.mark.cuda
 def test_cuda_posterior_d3pm_matches_plain(cuda):
     # Continuous columns within one bf16 rounding; bits: the kernel writes
-    # the plain version's operations with _rn intrinsics, so at most a
-    # 1e-4 share may differ (an expf ulp at a threshold).
+    # the plain version's operations with _rn intrinsics but for the
+    # sigmoid's fast divide, so at most a 1e-4 share may differ (an ulp of
+    # expf or of the divide at a threshold).
     acc, x, b_out, coeffs, noise = (t.to(cuda) for t in _posterior_inputs(333, 5142))
     x[:, :62] = (torch.rand(333, 62, device=cuda) < 0.5).to(torch.bfloat16)
     coeffs[:, 4:] = torch.tensor([0.05, 0.7], device=cuda)
@@ -308,3 +309,123 @@ def test_cuda_posterior_update_matches_plain(cuda):
     # kernel's matching it shows its noise does not depend on its tiling.
     plain_z = pk.gaussian_noise(4, *x.shape, device=cuda)
     assert float((z - plain_z).abs().max()) <= 2 ** -19 * max(1.0, float(plain_z.abs().max()))
+
+
+# ----------------------------------------------------------------------
+# K2's and K3's work as epilogues of K1 and K6
+# ----------------------------------------------------------------------
+def _int8_operands(rng, a, n, cuda):
+    qa, rs = sk.rowquant_s8_plain(a)
+    q, cs = sk.pack_int8(rng.standard_normal((a.shape[1], n)).astype(np.float32) / math.sqrt(n))
+    return qa, rs, sk.kmajor_int8(q).to(cuda), cs.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("k,f", [(256, 512), (512, 256), (768, 256), (1024, 64)])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_cuda_gn_epilogue_matches_plain(cuda, kind, k, f, splits):
+    # GroupNorm(8)+SiLU in the product's epilogue, split and unsplit, at
+    # every width that holds whole groups, into the h half of a [h | skip]
+    # buffer; int8 at K = 768 as the decoder's two-part fc1 (512 + 256).
+    # K2's tolerance: f32 statistics in another order can move a value
+    # across one bf16 rounding, 2^-7 of max(1, |ref|).
+    rng = np.random.default_rng(k + f + splits)
+    m = 333
+    a = _bf16(rng, (m, k), 3.0).to(cuda)
+    bias = torch.randn(f, device=cuda)
+    scale = 1.0 + 0.1 * torch.randn(f, device=cuda)
+    shift = 0.1 * torch.randn(f, device=cuda)
+    buf = torch.zeros(m, f + 256, dtype=torch.bfloat16, device=cuda)
+    out = buf[:, :f]
+    for bn in sk.gn_widths(f):
+        plan = sk.GemmPlan(64, bn, splits)
+        if kind == "bf16":
+            w = _bf16(rng, (k, f), 1 / math.sqrt(k)).to(cuda)
+            before = sk.GEMM_GN.launches
+            sk.gemm_bf16_gn_silu(a, w, bias, scale, shift, out=out, plan=plan)
+            assert sk.GEMM_GN.launches == before + 1
+            v = sk.gemm_bf16_f32acc_plain(a, w, bias)
+        else:
+            cuts = [(0, 512), (512, 768)] if k == 768 else [(0, k)]
+            parts = [_int8_operands(rng, a[:, lo:hi], f, cuda) for lo, hi in cuts]
+            pre = torch.randn(m, f, device=cuda) if len(parts) > 1 else None
+            if pre is not None:
+                sk.gemm_s8(*parts[0], out=pre)
+            sk.gemm_s8_gn_silu(*parts[-1], bias, scale, shift, out=out, acc_into=pre, plan=plan)
+            v = sk.gemm_s8_plain(*parts[-1], bias, acc_into=pre)
+        ref = sk.groupnorm8_silu_plain(v, scale, shift).to(torch.bfloat16).float()
+        tol = 2 ** -7 * max(1.0, float(ref.abs().max()))
+        assert float((out.float() - ref).abs().max()) <= tol, (bn, splits)
+        assert not buf[:, f:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["philox", "buffer", "none"])
+@pytest.mark.parametrize("mut,binary", [(0, True), (62, True), (62, False)])
+def test_cuda_posterior_epilogue_equals_the_pair(cuda, kind, mode, mut, binary):
+    # The output product with K3 in its epilogue against K1 (K6) into the
+    # padded f32 acc, then K3, with the same plan: the carry gets the same
+    # bits, D3PM bits included, at every width the epilogue is built for;
+    # also where the bit columns hold values other than 0 and 1 (the
+    # epilogue's general path for a block's bits).
+    rng = np.random.default_rng(len(mode) + mut + binary)
+    m, k, d = 333, 256, 5142
+    h = _bf16(rng, (m, k), 2.0).to(cuda)
+    start = _padded(m, d, torch.bfloat16, cuda)
+    start.copy_((_bits_and_values(rng, m, d, mut) if binary else _bf16(rng, (m, d))).to(cuda))
+    b_out = torch.randn(d, device=cuda)
+    coeffs = torch.from_numpy(rng.uniform(0.1, 1.0, (4, 6)).astype(np.float32)).to(cuda)
+    coeffs[:, 4:] = torch.tensor([0.05, 0.7], device=cuda)
+    noise = torch.randn(4, m, d, device=cuda)
+    step = dict(b_out=b_out, coeffs=coeffs, step=1, mode=mode, noise=noise, seed=3,
+                mut_dim=mut)
+    if kind == "bf16":
+        w = _padded(k, d, torch.bfloat16, cuda)
+        w.copy_(_bf16(rng, (k, d), 1 / math.sqrt(k)).to(cuda))
+    else:
+        ops = _int8_operands(rng, h, d, cuda)
+    for bn in sk.POSTERIOR_WIDTHS:
+        plan = sk.GemmPlan(64, bn, 1)
+        acc = _padded(m, d, torch.float32, cuda)
+        pair, fused = start.clone(), start.clone()
+        if kind == "bf16":
+            sk.gemm_bf16_f32acc(h, w, out=acc, plan=plan)
+            sk.gemm_bf16_posterior(h, w, fused, **step, plan=plan)
+        else:
+            sk.gemm_s8(*ops, out=acc, plan=plan)
+            sk.gemm_s8_posterior(*ops, fused, **step, plan=plan)
+        sk.x0_posterior_step(acc, pair, **step)
+        assert torch.equal(fused, pair), bn
+        assert not torch.equal(fused, start)
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_step_launches(cuda):
+    # One reverse step at the default widths (hidden 256/512/256): 12
+    # launches in bf16 (w_in, 10 fused block products, 1 fused output
+    # product), 28 under int8 "all"; K2 and K3 apart never launch.
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+
+    cfg = Config()
+    dims = cfg.freeze_dims(10, 40, 14, list(cfg.model.condition_on))
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    model.denoiser.to(cuda)
+    kernels = (sk.GEMM, sk.GEMM_GN, sk.GEMM_POSTERIOR, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT,
+               sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR)
+    for quantize, want in ((None, 12), ("out", 13), ("io", 14), ("all", 28)):
+        sampler = FusedSampler(model, cuda, quantize=quantize)
+        cond = torch.zeros(7, dims.condition_dim)
+        sampler.sample(cond, torch.Generator(cuda).manual_seed(0), stop_after=1)  # warm
+        before = [k.launches for k in kernels]
+        x = sampler.sample(cond, torch.Generator(cuda).manual_seed(0), stop_after=1)
+        torch.cuda.synchronize()
+        delta = {k.name: k.launches - b for k, b in zip(kernels, before)}
+        assert sum(delta.values()) == want, (quantize, delta)
+        assert delta["groupnorm8_silu"] == delta["x0_posterior_step"] == 0
+        assert bool(torch.isfinite(x).all())

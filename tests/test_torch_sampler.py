@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from osteosarcoma_diffusionmodel_tpu.ops.fused_sampler import FusedSampler as JaxFusedSampler
+from osteosarcoma_diffusionmodel_torch.ops import fused_sampler as fs
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
 from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     UNIFORM_SCALE,
@@ -87,19 +88,27 @@ def test_ddpm_matches_jax_fused_sampler(pair):
     _close(got, ref)
 
 
-def test_padded_carry_acc_and_w_out_layout():
-    """At a data width that is not a multiple of 16 (50), the carry, acc
-    and the kernel copy of W_out have rows padded to 64 columns (16-byte
-    multiples, so K1 reads them through TMA); the sample still has 50
-    contiguous columns and still matches the TPU kernel in interpret mode
-    at the bf16-carry tolerance."""
+def test_padded_carry_acc_and_w_out_layout(monkeypatch):
+    """At a data width that is not a multiple of 16 (50), the carry and
+    the kernel copy of W_out have rows padded to 64 columns (16-byte
+    multiples, so K1 reads them through TMA); the output product's f32
+    acc is no longer a buffer (the posterior runs in its epilogue); the
+    sample still has 50 contiguous columns and still matches the TPU
+    kernel in interpret mode at the bf16-carry tolerance."""
     dims = (10, 31, 9)
     d = sum(dims)
     jmodel, params, pmodel = make_pair(num_steps=6, data_dims=dims)
     sampler = FusedSampler(pmodel, "cpu")
     buf = sampler._buffers(B)
     assert sampler.w_out.w.shape == (128, d) and sampler.w_out.w.stride(0) == 64
-    assert buf["acc"].shape == (B, d) and buf["acc"].stride(0) == 64
+    assert "acc" not in buf
+    carries, real = [], fs.gemm_bf16_posterior
+
+    def spy(a, w, x, **step):
+        carries.append((tuple(x.shape), x.stride(0)))
+        return real(a, w, x, **step)
+
+    monkeypatch.setattr(fs, "gemm_bf16_posterior", spy)
     rng = jax.random.PRNGKey(8)
     cond = _conditions(9)
     noise = np.random.default_rng(10).standard_normal((6, B, d)).astype(np.float32)
@@ -110,6 +119,7 @@ def test_padded_carry_acc_and_w_out_layout():
     x_init = np.array(jax.random.normal(init_rng, (B, d), jnp.bfloat16).astype(jnp.float32))
     got = sampler.sample(torch.from_numpy(cond), torch.Generator().manual_seed(0),
                          x_init=torch.from_numpy(x_init), noise=torch.from_numpy(noise))
+    assert carries == [((B, d), 64)] * 6
     assert got.shape == (B, d) and got.is_contiguous()
     _close(got.numpy(), ref)
 

@@ -23,8 +23,8 @@ CONDITIONS = ["a", "b", "c"]
 TILE_B = 16
 
 
-def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False):
-    cfg.model.hidden_dims = list(HIDDEN)
+def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False, hidden=HIDDEN):
+    cfg.model.hidden_dims = list(hidden)
     cfg.model.latent_dim = 32
     cfg.model.diffusion.num_steps = num_steps
     cfg.model.diffusion.discrete_mutation_head = discrete
@@ -34,11 +34,11 @@ def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False):
 
 
 def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0,
-              discrete: bool = False, data_dims=DATA_DIMS):
+              discrete: bool = False, data_dims=DATA_DIMS, hidden=HIDDEN):
     """(jax_model, flax_params as numpy, port_model) on the same weights;
     ``discrete`` turns on the D3PM mutation head on both."""
-    jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete)
-    pc = _configure(Config(), num_steps, compute_dtype, discrete)
+    jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete, hidden)
+    pc = _configure(Config(), num_steps, compute_dtype, discrete, hidden)
     jdims = jc.freeze_dims(*data_dims, CONDITIONS)
     pdims = pc.freeze_dims(*data_dims, CONDITIONS)
     jmodel = JaxDiffusion.from_config(jc, jdims)
