@@ -20,10 +20,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    and K6 under the int8 modes), each fused case also against the
    hand-written pair it replaces (K1 or K6, then K2 or K3: ``pair_ms``,
    and the posterior epilogue's carry bit for bit equal to the pair's).
-   K1, K6 and the fused kernels run each case twice and require equal
-   bits, split-K included. The step's launches by kernel and mode, for
-   bf16, D3PM and each int8 mode (12 a bf16 step, 13 / 14 / 28 under
-   int8 "out" / "io" / "all"), and its summed kernel time;
+   K6 quantizing its own A (K5's work as its prologue) at every int8
+   block and output product of the recorded steps, bit for bit equal to
+   K5 then K6 and timed beside that pair (a ``WARNING`` line where it is
+   not faster); K5 on the input product at 333 and 32,768 rows; K4 at the
+   validator's and the production MMD's shapes, with its route (f32 FMA
+   or three TF32 products) and that route's bound. K1, K6 and the fused kernels run each case
+   twice and require equal bits, split-K included. The step's launches by
+   kernel and mode, for bf16, D3PM and each int8 mode (12 a bf16 step,
+   12 / 13 / 15 under int8 "out" / "io" / "all", the standalone K5 only
+   before the input product), and its summed kernel time;
 4. the main paths at full model width (data dims 62/5054/26, hidden
    256/512/256, T = 1000, cosine schedule): the port's CLI step
    functions generate -> calibrate (copula_joint) -> validate on a
@@ -37,7 +43,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    Every launch count is set to 0 just before a path and read just
    after it; each (kernel, mode) the path runs must have launched, and
    K1's general ("unaligned") path, the standalone K2 and the standalone
-   K3 must not have;
+   K3 must not have, nor K6 from K5's codes on any product but the input
+   product;
    - "latent": the latent-tail hybrid sampler. ``scripts/bench_latent_torch.py``
      as a subprocess at 999 rows, DDPM-1000, once with the probe's head
      and once with head 100 (its launches counted in that process: K7
@@ -99,12 +106,14 @@ from osteosarcoma_diffusionmodel_torch.ops.schedules import DiffusionSchedule
 from osteosarcoma_diffusionmodel_torch.ops.pallas_kernels import (
     POSTERIOR_UPDATE,
     RBF,
+    RBF_CHUNK,
     gaussian_noise,
     posterior_update,
     posterior_update_plain,
     posterior_update_traced,
     rbf_kernel_sum,
     rbf_kernel_sum_plain,
+    rbf_plan,
 )
 from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM,
@@ -113,10 +122,14 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM_S8,
     GEMM_S8_GN,
     GEMM_S8_POSTERIOR,
+    GEMM_S8Q,
+    GEMM_S8Q_GN,
+    GEMM_S8Q_POSTERIOR,
     GROUPNORM,
     LATENT,
     POSTERIOR,
     POSTERIOR_WIDTHS,
+    QUANT_WIDTHS,
     ROWQUANT,
     gemm_bf16_f32acc,
     gemm_bf16_f32acc_plain,
@@ -127,6 +140,10 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     gemm_s8_gn_silu,
     gemm_s8_plain,
     gemm_s8_posterior,
+    gemm_s8q,
+    gemm_s8q_gn_silu,
+    gemm_s8q_plain,
+    gemm_s8q_posterior,
     gn_widths,
     groupnorm8_silu,
     groupnorm8_silu_plain,
@@ -157,9 +174,10 @@ from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 
 KERNELS = (GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8,
-           GEMM_S8_GN, GEMM_S8_POSTERIOR, LATENT, POSTERIOR_UPDATE)
+           GEMM_S8_GN, GEMM_S8_POSTERIOR, GEMM_S8Q, GEMM_S8Q_GN, GEMM_S8Q_POSTERIOR, LATENT,
+           POSTERIOR_UPDATE)
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
-STEP_LAUNCHES = {"none": 12, "out": 13, "io": 14, "all": 28}
+STEP_LAUNCHES = {"none": 12, "out": 12, "io": 13, "all": 15}
 REPO = Path(__file__).resolve().parent
 BATCH = 333  # rows per scenario: 1000 // 3
 LATENT_ROWS = 999  # the latent path's rows: three scenarios of 333, batched
@@ -172,10 +190,10 @@ MAX_BIT_MISMATCH = 1e-4  # K3's D3PM bits against the plain version
 F32_ULP2 = 2.0 ** -22  # two f32 units in the last place at 1.0
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit), the bound_ms
-# yardstick: HBM bytes/s; operations/s by type (bf16 and int8 on the tensor
-# cores, f32 on the CUDA cores).
+# yardstick: HBM bytes/s; operations/s by type (bf16, int8 and tf32 on the
+# tensor cores, f32 on the CUDA cores).
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 
 
 def roofline(bytes_moved: float, ops: float, kind: str) -> tuple:
@@ -226,11 +244,20 @@ def _with_bits(a: torch.Tensor, g) -> torch.Tensor:
 
 
 _STEP_WRAPPERS = ("gemm_bf16_f32acc", "gemm_bf16_gn_silu", "gemm_bf16_posterior", "gemm_s8",
-                  "gemm_s8_gn_silu", "gemm_s8_posterior", "rowquant_s8", "groupnorm8_silu")
+                  "gemm_s8_gn_silu", "gemm_s8_posterior", "gemm_s8q", "gemm_s8q_gn_silu",
+                  "gemm_s8q_posterior", "rowquant_s8", "groupnorm8_silu")
 
 
 def _signature(name: str, args, kw) -> tuple:
     """What a case needs of one call: shapes, row strides and options."""
+    if name.startswith("gemm_s8q"):  # (M, K, N, lda, then the output's options)
+        a, n = args[0], args[2].shape[0]
+        head = (a.shape[0], a.shape[1], n, a.stride(0))
+        if name == "gemm_s8q":
+            return head + (kw["out"].dtype, bool(kw.get("accumulate")))
+        if name == "gemm_s8q_gn_silu":
+            return head + (kw["out"].stride(0), kw.get("acc_into") is not None)
+        return head + (args[3].stride(0),)
     if not name.startswith("gemm_") or name == "gemm_s8":
         return ()
     a, b = args[0], args[1] if name.startswith("gemm_bf16") else args[2]
@@ -293,9 +320,10 @@ def record_step(dev, quantize: str = "none", head: bool = False) -> tuple:
 def check_step_launches(dev) -> dict:
     """The launches of one reverse step by kernel and mode at 333 rows:
     bf16 and D3PM 12 (w_in, 10 block products with the GN epilogue, the
-    output product with the posterior epilogue), int8 "out" 13, "io" 14,
-    "all" 28; never the standalone K2 or K3. Returns the bf16 step's
-    recorded calls and the int8 "all" step's."""
+    output product with the posterior epilogue) and int8 "out", "io" 13,
+    "all" 15; never the standalone K2 or K3, and the standalone K5 only
+    before the input product (once a step under "io" and "all"). Returns
+    every step's recorded calls by (quantize, head)."""
     recorded = {}
     for quantize, head in (("none", False), ("none", True), ("out", False), ("io", False),
                            ("all", False), ("all", True)):
@@ -304,10 +332,12 @@ def check_step_launches(dev) -> dict:
         label = f"{'d3pm ' if head else ''}{'bf16' if quantize == 'none' else 'int8-' + quantize}"
         print(f"[kernel] launches per reverse step, {label} at {BATCH} rows: {total} "
               f"{json.dumps(launches)}", flush=True)
+        k5 = sum(launches.get(ROWQUANT.name, {}).values())
         if total != STEP_LAUNCHES[quantize] or GROUPNORM.name in launches or (
-                POSTERIOR.name in launches):
+                POSTERIOR.name in launches) or k5 != (quantize in ("io", "all")):
             raise AssertionError(f"{label} step: {total} launches (want "
-                                 f"{STEP_LAUNCHES[quantize]}, no standalone K2/K3): {launches}")
+                                 f"{STEP_LAUNCHES[quantize]}, no standalone K2/K3, K5 only for "
+                                 f"the input product): {launches}")
         recorded[(quantize, head)] = calls
     return recorded
 
@@ -418,15 +448,17 @@ def check_gn_epilogue(dev, g, bf16_calls, all_calls) -> dict:
     """The block products with GroupNorm+SiLU in their epilogue, at every
     distinct product of the recorded steps, in the sampler's layout (A and
     the output as [h | skip] views where the step has them): K1's in the
-    bf16 step, K6's in the int8 "all" step (the decoders' second fc1 part
-    accumulating the first part's f32 sum). Against the plain composition
+    bf16 step, K6's at the shapes of the int8 "all" step's fused products
+    (from K5's codes: the route before K6 quantized its own A, checked
+    against that route in :func:`check_quant_prologue`; the decoders'
+    second fc1 part accumulating the first part's f32 sum). Against the plain composition
     (the product's plain version, then K2's) with K2's tolerance, 2^-7 of
     max(1, |ref|); timed beside the pair it replaces (K1 or K6 into an f32
     buffer, then K2)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {GEMM_GN.name: [], GEMM_S8_GN.name: []}
     for kind, calls, name in (("bf16", bf16_calls, "gemm_bf16_gn_silu"),
-                              ("int8", all_calls, "gemm_s8_gn_silu")):
+                              ("int8", all_calls, "gemm_s8q_gn_silu")):
         per_step = {}
         for wrapper, sig in calls:
             if wrapper == name:
@@ -443,7 +475,7 @@ def check_gn_epilogue(dev, g, bf16_calls, all_calls) -> dict:
                 plain = lambda b: gemm_bf16_f32acc_plain(a, w, b)  # noqa: E731
                 kk, moved_in = k, 2 * (m * k + k * n)
             else:
-                m, kp, n, ldo, has_acc = sig
+                m, kp, n, _, ldo, has_acc = sig
                 qa, rs = rowquant_s8_plain(3.0 * torch.randn(m, kp, generator=g).to(dev))
                 q, cs = pack_int8((torch.randn(kp, n, generator=g) / math.sqrt(kp)).numpy())
                 ops, kernel = (qa, rs, kmajor_int8(q).to(dev), cs.to(dev)), GEMM_S8_GN
@@ -573,6 +605,152 @@ def check_posterior_epilogue(dev, g) -> dict:
     return out
 
 
+def check_quant_prologue(dev, g, steps) -> dict:
+    """K6 quantizing its own A (K5's work as its prologue) at every int8
+    product of the recorded steps that takes it: the decoders' first fc1
+    parts (plain epilogue), the block products (GN epilogue, the second
+    fc1 parts accumulating) and the output product (posterior epilogue;
+    DDPM "philox" under "out", DDIM "none" under "io"/"all", and D3PM
+    "none" under "all" with the head), each in the sampler's layout. Every
+    result must equal the pair it replaces -- the standalone K5, then K6
+    from its codes, with the same plan -- bit for bit, twice; it is held to
+    the plain composition (rowquant_s8_plain, then the product's and
+    epilogue's plain versions) with that product's tolerance, and timed
+    beside the pair (``pair_ms``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {GEMM_S8Q.name: [], GEMM_S8Q_GN.name: [], GEMM_S8Q_POSTERIOR.name: []}
+    per_step = {}
+    for (quantize, head), calls in steps.items():
+        for wrapper, sig in calls:
+            if wrapper.startswith("gemm_s8q") and (quantize, head) == ("all", False):
+                per_step[(wrapper, sig)] = per_step.get((wrapper, sig), 0) + 1
+    randn = lambda r, c: torch.randn(r, c, generator=g)  # noqa: E731
+    for (wrapper, sig), count in per_step.items():
+        m, k, n, lda = sig[:4]
+        a = _strided(m, k, lda, torch.bfloat16, dev, lambda r, c: 3.0 * randn(r, c))
+        q, cs = pack_int8((randn(k, n) / math.sqrt(k)).numpy())
+        qb, cs = kmajor_int8(q).to(dev), cs.to(dev)
+        kp = qb.shape[1]
+        codes = torch.empty(m, kp, dtype=torch.int8, device=dev)
+        scales = torch.empty(m, device=dev)
+        moved = m * k * 2 + qb.numel() + 4 * n
+        view = " view" if lda != k else ""
+        if wrapper == "gemm_s8q_posterior":
+            for mode, mut in (("philox", 0), ("none", 0), ("none", MUT)):
+                out[GEMM_S8Q_POSTERIOR.name].append(_quant_posterior_case(
+                    dev, g, a, qb, cs, codes, scales, mode, mut, sms,
+                    count if mode == "philox" else 0))
+            continue
+        bias = torch.randn(n, generator=g).to(dev)
+        if wrapper == "gemm_s8q_gn_silu":
+            kernel, ldo, has_acc = GEMM_S8Q_GN, sig[4], sig[5]
+            _, scale, shift = _gn_vectors(n, g, dev)
+            acc_into = torch.randn(m, n, generator=g).to(dev) if has_acc else None
+            res = _strided(m, n, ldo, torch.bfloat16, dev, lambda r, c: torch.zeros(r, c))
+            plan = gemm_plan(m, n, kp, sms, "int8", gn_widths(n))
+
+            def run():
+                return gemm_s8q_gn_silu(a, qb, cs, bias, scale, shift, out=res, acc_into=acc_into,
+                                        plan=plan)
+
+            def pair():
+                rowquant_s8(a, out=codes, scale=scales)
+                return gemm_s8_gn_silu(codes, scales, qb, cs, bias, scale, shift, out=res,
+                                       acc_into=acc_into, plan=plan)
+
+            def plain():
+                v = gemm_s8q_plain(a, qb, cs, bias, acc_into=acc_into)
+                return groupnorm8_silu_plain(v, scale, shift).to(torch.bfloat16)
+
+            moved += 12 * n + (4 * m * n if has_acc else 0) + 2 * m * n
+            case = (f"{m}x{k}{view}.{k}x{n} +bias{' +acc' if has_acc else ''} ->GN+SiLU bf16"
+                    f"{' view' if ldo != n else ''}")
+        else:
+            kernel, out_dtype, accumulate = GEMM_S8Q, sig[4], sig[5]
+            res = _strided(m, n, n, out_dtype, dev, lambda r, c: torch.zeros(r, c))
+            plan = gemm_plan(m, n, kp, sms, "int8", QUANT_WIDTHS)
+            bias = None  # the decoders' first fc1 part: its bias joins the last part
+
+            def run():
+                return gemm_s8q(a, qb, cs, out=res, accumulate=accumulate, plan=plan)
+
+            def pair():
+                rowquant_s8(a, out=codes, scale=scales)
+                return gemm_s8(codes, scales, qb, cs, out=res, accumulate=accumulate, plan=plan)
+
+            def plain():
+                return gemm_s8q_plain(a, qb, cs).to(out_dtype)
+
+            moved += res.element_size() * m * n * (2 if accumulate else 1)
+            case = f"{m}x{k}{view}.{k}x{n} ->{'bf16' if out_dtype == torch.bfloat16 else 'f32'}"
+        got = run().clone()
+        again = run().clone()
+        paired = pair().clone()
+        ref = plain().float()
+        torch.cuda.synchronize()
+        if not torch.equal(got, paired):
+            raise AssertionError(f"{kernel.name} {case}: differs from K5 -> K6 "
+                                 f"({int((got != paired).sum())} elements)")
+        rel = F32_ULP2 if got.dtype == torch.float32 else BF16_ULP
+        tol = rel * max(1.0, float(ref.abs().max()))
+        ms, plain_ms, pair_ms = time_ms(run), time_ms(plain), time_ms(pair)
+        limit = roofline(moved, 2.0 * m * n * kp, "int8")
+        out[kernel.name].append(_fused_report(kernel, case + " (bits = K5 -> K6)", got, again, ref,
+                                              tol, ms, plain_ms, pair_ms, limit, plan, count))
+    return out
+
+
+def _quant_posterior_case(dev, g, h, qb, cs, codes, scales, mode, mut, sms, count) -> dict:
+    """One output-product case of :func:`check_quant_prologue`: the carry
+    after the fused step against K5 -> K6 with the posterior epilogue."""
+    m, k = h.shape
+    sched = DiffusionSchedule.create("cosine", 1000)
+    gains = torch.randn(1000, generator=g).numpy() * 0.3
+    coeffs = torch.from_numpy(coefficient_table(sched, gains, discrete=mut > 0)).to(dev)
+    b_out = (0.1 * torch.randn(D, generator=g)).to(dev)
+    start = _strided(m, D, pad16(D), torch.bfloat16, dev,
+                     lambda r, c: torch.randn(r, c, generator=g))
+    if mut:
+        start = _with_bits(start, g)
+    step = 17 if mode == "philox" else 999
+    kw = dict(b_out=b_out, coeffs=coeffs, step=step, mode=mode, seed=1234, mut_dim=mut)
+    plan = gemm_plan(m, D, qb.shape[1], sms, "int8", POSTERIOR_WIDTHS)
+    x = start.clone()
+
+    def run():  # timed repeats step the same carry again: the same work
+        return gemm_s8q_posterior(h, qb, cs, x, **kw, plan=plan)
+
+    def pair():
+        rowquant_s8(h, out=codes, scale=scales)
+        return gemm_s8_posterior(codes, scales, qb, cs, x, **kw, plan=plan)
+
+    def plain():
+        return x0_posterior_step_plain(gemm_s8q_plain(h, qb, cs), start, b_out, coeffs, step,
+                                       mode, seed=1234, mut_dim=mut)
+
+    got = run().clone()
+    x.copy_(start)
+    again = run().clone()
+    x.copy_(start)
+    paired = pair().clone()
+    x.copy_(start)
+    ref = plain()
+    torch.cuda.synchronize()
+    case = f"{m}x{k}.{k}x5142 {'d3pm(62) ' if mut else ''}{mode} (bits = K5 -> K6)"
+    if not torch.equal(got, paired):
+        raise AssertionError(f"{GEMM_S8Q_POSTERIOR.name} {case}: the carry differs from the "
+                             f"pair's ({int((got != paired).sum())} elements)")
+    if mut and float((got[:, :mut] != ref[:, :mut]).float().mean()) > MAX_BIT_MISMATCH:
+        raise AssertionError(f"{GEMM_S8Q_POSTERIOR.name} {case}: bits differ from the plain "
+                             "version")
+    tol = BF16_ULP * max(1.0, float(ref[:, mut:].float().abs().max()))
+    ms, plain_ms, pair_ms = time_ms(run), time_ms(plain), time_ms(pair)
+    moved = m * k * 2 + qb.numel() + 8 * D + m * D * 4
+    limit = roofline(moved, 2.0 * m * D * qb.shape[1], "int8")
+    return _fused_report(GEMM_S8Q_POSTERIOR, case, got[:, mut:], again[:, mut:],
+                         ref[:, mut:].float(), tol, ms, plain_ms, pair_ms, limit, plan, count)
+
+
 def check_groupnorm(dev, g) -> list:
     """K2 at the block widths. Tolerance: the kernel stores bf16, the
     plain version is f32 rounded to bf16 once; f32 statistics in another
@@ -680,16 +858,24 @@ def check_posterior(dev, g) -> list:
 
 
 def check_rowquant(dev, g) -> list:
-    """K5 at the shapes the int8 products give it: the 333 x 5142 carry
-    with bits on 62 columns quantized as 2b - 1 (the input product), and
-    the decoders' [h | skip] halves, 333 x 256 and 333 x 512 row-strided
-    views. Tolerance 0: the same f32 operations and round-half-even, so
-    the codes and scales equal the plain version's (the error reported is
-    the largest code difference plus the largest scale difference)."""
+    """K5 where the int8 path runs it: the input product's carry, 5142
+    columns in the padded (row stride 5152) bf16 buffer with bits on 62
+    columns quantized as 2b - 1, at 333 rows and at bench.py's 32,768; and,
+    as before K6 quantized its own A, the decoders' [h | skip] halves, 333 x
+    256 and 333 x 512 row-strided views (the pairs of
+    :func:`check_quant_prologue`). Tolerance 0: the same f32 operations and
+    round-half-even, so the codes and scales equal the plain version's (the
+    error reported is the largest code difference plus the largest scale
+    difference)."""
     out = []
     base = (3.0 * torch.randn(BATCH, 1024, generator=g)).to(dev, torch.bfloat16)
-    carry = _with_bits(torch.randn(BATCH, D, generator=g).to(dev, torch.bfloat16), g)
-    for case, a, mut in (("333x5142 (2b-1 on 62)", carry, MUT),
+    carries = {}
+    for rows in (BATCH, 32768):
+        c = _strided(rows, D, pad16(D), torch.bfloat16, dev,
+                     lambda r, k: torch.randn(r, k, generator=g))
+        carries[rows] = _with_bits(c, g)
+    for case, a, mut in ((f"{BATCH}x5142 padded (2b-1 on 62)", carries[BATCH], MUT),
+                         ("32768x5142 padded (2b-1 on 62)", carries[32768], MUT),
                          ("333x256 (view of 512)", base[:, 256:512], 0),
                          ("333x512 (view of 1024)", base[:, 512:], 0)):
         q, scale = rowquant_s8(a, mut_cols=mut)
@@ -701,6 +887,9 @@ def check_rowquant(dev, g) -> list:
         m, k = a.shape
         limit = roofline(m * k * a.element_size() + q.numel() + 4 * m, 3.0 * m * k, "f32")
         out.append(_report(ROWQUANT, case, err, 0.0, ms, plain_ms, limit))
+        print(f"[kernel] {ROWQUANT.name} {case}: {limit[0] / ms:.1%} of its bytes bound",
+              flush=True)
+        del rq, rs
     return out
 
 
@@ -770,13 +959,21 @@ def check_gemm_s8(dev, g) -> list:
 
 def check_rbf(dev, g) -> list:
     """K4 at the validate step's shapes (real n = 100, synthetic m = 999,
-    d = 5142) against the float64 plain version. Tolerance: f32 cross
-    products in the kernel against f64: 1e-5 relative to the sum."""
+    d = 5142) and the production MMD's (m = 9999) against the float64 plain
+    version. Tolerance: f32-accurate cross products in the kernel against
+    f64: 1e-5 relative to the sum. The bound follows the route the plan
+    takes: "fma" (f32 FMA on the CUDA cores) 2nmd operations at the f32
+    peak; "tf32x3" (three TF32 products on the tensor cores, never one)
+    3·2nmd at the TF32 peak; or the bytes of x and y (once where y is x),
+    whichever is larger."""
     x = torch.randn(100, D, generator=g).to(dev)
     y = (torch.randn(999, D, generator=g) * 1.05 + 0.02).to(dev)
+    z = (torch.randn(9999, D, generator=g) * 1.05 + 0.02).to(dev)
     gamma = 1.0 / D
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
-    for case, a, b in (("xx 100x100", x, x), ("yy 999x999", y, y), ("xy 100x999", x, y)):
+    for case, a, b in (("xx 100x100", x, x), ("yy 999x999", y, y), ("xy 100x999", x, y),
+                       ("zz 9999x9999", z, z), ("xz 100x9999", x, z)):
         got = float(rbf_kernel_sum(a, b, gamma))
         ref = float(rbf_kernel_sum_plain(a, b, gamma))
         again = float(rbf_kernel_sum(a, b, gamma))
@@ -787,8 +984,19 @@ def check_rbf(dev, g) -> list:
         ms = time_ms(lambda: rbf_kernel_sum(a, b, gamma))
         plain_ms = time_ms(lambda: rbf_kernel_sum_plain(a, b, gamma))
         n, m = a.shape[0], b.shape[0]
-        limit = roofline(4 * (n + m) * (D + 1) + 8, 2.0 * n * m * D + 4.0 * n * m, "f32")
-        out.append(_report(RBF, f"{case}x{D}", err, tol, ms, plain_ms, limit))
+        rows = n if a is b else n + m
+        plan = rbf_plan(n, m, D, sms)
+        fma = plan.route == "fma"
+        limit = roofline(4 * rows * D + 8, (1 if fma else 3) * 2.0 * n * m * D,
+                         "f32" if fma else "tf32")
+        row = _report(RBF, f"{case}x{D}", err, tol, ms, plain_ms, limit)
+        row.update(route=plan.route, plan=f"{plan.bm}x{plan.bm}/{plan.splits}")
+        print(f"[kernel] {RBF.name} {case}x{D}: route {plan.route}, plan "
+              f"{plan.bm}x{plan.bm} tiles, d split {plan.splits} ({RBF_CHUNK}-column chunks), "
+              f"{limit[0] / ms:.1%} of its bound, repeat bit-equal", flush=True)
+        if limit[0] > ms:
+            raise AssertionError(f"K4 {case}: {ms} ms is under its bound {limit[0]} ms")
+        out.append(row)
     return out
 
 
@@ -955,6 +1163,7 @@ def check_kernels(dev) -> dict:
         GEMM.name: check_gemm(dev, g, bf16_calls),
         **check_gn_epilogue(dev, g, bf16_calls, all_calls),
         **check_posterior_epilogue(dev, g),
+        **check_quant_prologue(dev, g, steps),
         GROUPNORM.name: check_groupnorm(dev, g),
         POSTERIOR.name: check_posterior(dev, g),
         RBF.name: check_rbf(dev, g),
@@ -1060,23 +1269,30 @@ _COMMON = {GEMM_GN: ["default"], RBF: ["default"]}
 REQUIRED = {
     "continuous": {**_COMMON, GEMM: ["bf16"], GEMM_POSTERIOR: ["philox", "none"]},
     "d3pm": {**_COMMON, GEMM: ["mut_prologue"], GEMM_POSTERIOR: ["d3pm_philox", "d3pm_none"]},
-    "int8": {**_COMMON, GEMM: ["bf16"], GEMM_S8_POSTERIOR: ["philox", "none", "d3pm_none"],
-             ROWQUANT: ["plain", "mut_transform"], GEMM_S8: ["f32_out", "bf16_out"],
-             GEMM_S8_GN: ["default", "accumulate"]},
+    "int8": {**_COMMON, GEMM: ["bf16"], GEMM_S8Q_POSTERIOR: ["philox", "none", "d3pm_none"],
+             ROWQUANT: ["plain", "mut_transform"], GEMM_S8: ["bf16_out"], GEMM_S8Q: ["f32_out"],
+             GEMM_S8Q_GN: ["default", "accumulate"]},
 }
-# Kernels that must not launch on any main path: K1's general path, and
-# K2 and K3 apart from a product (their work runs in the epilogues).
+# Kernels that must not launch on any main path: K1's general path, K2
+# and K3 apart from a product (their work runs in the epilogues), and K6
+# from K5's codes anywhere but the input product (K6 quantizes its own A).
 FORBIDDEN = {GEMM: ["unaligned"], GROUPNORM: list(GROUPNORM.modes),
-             POSTERIOR: list(POSTERIOR.modes)}
+             POSTERIOR: list(POSTERIOR.modes), GEMM_S8: ["f32_out", "accumulate"],
+             GEMM_S8_GN: list(GEMM_S8_GN.modes), GEMM_S8_POSTERIOR: list(GEMM_S8_POSTERIOR.modes)}
 
 
 def check_forbidden(path: str) -> None:
     """Every K1 launch of a main path went through TMA (the sampler's
-    buffers are laid out for it), and K2 and K3 never ran apart."""
+    buffers are laid out for it), K2 and K3 never ran apart, and the
+    standalone K5 ran only before the input product (once for each of
+    K6's bf16-out launches)."""
     ran = {f"{k.name}:{m}": k.modes[m] for k, modes in FORBIDDEN.items() for m in modes
            if k.modes[m]}
     if ran:
         raise AssertionError(f"{path}: launches that the main paths must not make: {ran}")
+    if ROWQUANT.launches != GEMM_S8.modes["bf16_out"]:
+        raise AssertionError(f"{path}: {ROWQUANT.launches} K5 launches against "
+                             f"{GEMM_S8.modes['bf16_out']} input products")
 
 
 def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
@@ -1385,7 +1601,7 @@ def check_against_plain_loop(cfg: Config, dev) -> None:
 
 
 def kernel_report(cases: dict, launches: dict) -> list:
-    """One entry per kernel; times and bounds summed over its cases,
+    """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
     single PyTorch call computes the function."""
     out = []
@@ -1401,6 +1617,7 @@ def kernel_report(cases: dict, launches: dict) -> list:
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None if None in libs else sum(libs),
+            "cases": len(rows),
         })
     return out
 

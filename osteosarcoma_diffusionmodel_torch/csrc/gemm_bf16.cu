@@ -62,8 +62,10 @@ OSDM_EXPORT int osdm_gemm_bf16_f32acc(const void* A, int lda, int a_mut_cols, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap ma{}, mb{};
   if (!tma)
-    return static_cast<int>(dispatch<__nv_bfloat16, false, kPlain, 64, 128, 256>(bn, ma, mb, a, s));
+    return static_cast<int>(
+        dispatch<__nv_bfloat16, false, kPlain, false, 64, 128, 256>(bn, ma, mb, a, s));
   const cudaError_t err = bf16_maps(&ma, &mb, A, lda, B, ldb, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<__nv_bfloat16, true, kPlain, 64, 128, 256>(bn, ma, mb, a, s));
+  return static_cast<int>(
+      dispatch<__nv_bfloat16, true, kPlain, false, 64, 128, 256>(bn, ma, mb, a, s));
 }

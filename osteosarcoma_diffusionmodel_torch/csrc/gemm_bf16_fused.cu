@@ -77,7 +77,7 @@ OSDM_EXPORT int osdm_gemm_bf16_gn_silu(const void* A, int lda, const void* B, in
   CUtensorMap ma{}, mb{};
   const cudaError_t err = bf16_maps(&ma, &mb, A, lda, B, ldb, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<__nv_bfloat16, true, kGroupNormSilu, 64, 128>(
+  return static_cast<int>(dispatch<__nv_bfloat16, true, kGroupNormSilu, false, 64, 128>(
       bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
 }
 
@@ -102,6 +102,6 @@ OSDM_EXPORT int osdm_gemm_bf16_posterior(const void* A, int lda, const void* B, 
   CUtensorMap ma{}, mb{};
   const cudaError_t err = bf16_maps(&ma, &mb, A, lda, B, ldb, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<__nv_bfloat16, true, kPosterior, 64>(
+  return static_cast<int>(dispatch<__nv_bfloat16, true, kPosterior, false, 64>(
       bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
 }

@@ -14,13 +14,19 @@
 // the first writes its f32 result to C, the last reads it back here), then
 // + bias; each rounded once, as the plain version computes it.
 // - osdm_gemm_s8_gn_silu: GroupNorm(8)+SiLU on that value, bf16 into `out`.
-//   Under "all" the next product's K5 still quantizes this output: its row
-//   amax spans tiles, so it stays a launch of its own.
+//   Its output is the next product's A: that product's block finds each
+//   row's amax over the whole K itself (osdm_gemm_s8q_*), so no K5 runs
+//   between the two.
 // - osdm_gemm_s8_posterior: K3's element step (posterior.cuh) on that
 //   value; with the same plan the carry gets the same bits as K6 -> K3.
 // TMA path only, at the widths and with the batched input loads of K1's
 // (gemm_bf16_fused.cu); K6 also loads its row and column scales, and the
 // first part's f32 sum where it accumulates, in that batch.
+// osdm_gemm_s8q_gn_silu and osdm_gemm_s8q_posterior take the bf16
+// activations in place of K5's codes and row scales and quantize them in
+// the block's prologue (gemm_sm90.cuh, kQuantA; rowquant.cuh's
+// arithmetic), the epilogue using the scales the block computed: the
+// codes, scales and int32 sums are K5 -> K6's, so the results are too.
 
 #include "gemm_sm90.cuh"
 
@@ -48,15 +54,27 @@ bool s8_operands_fit(int K, int lda, int ldb, int N, int b_rows) {
   return K % 16 == 0 && lda % 16 == 0 && ldb % 16 == 0 && N <= b_rows;
 }
 
-}  // namespace
+// The operands of either route: K5's codes (A int8, K = kp), or the bf16
+// activations that the prologue quantizes (kQuantA).
+template <bool kQuantA>
+bool fits(const void* A, int lda, int K, int ldb, int N, int b_rows) {
+  return kQuantA ? s8q_operands_fit(A, lda, K, ldb, N, b_rows)
+                 : s8_operands_fit(K, lda, ldb, N, b_rows);
+}
 
-OSDM_EXPORT int osdm_gemm_s8_gn_silu(const void* A, int lda, const void* B, int ldb, int b_rows,
-                                     const void* C, int ldc, void* out, int ldo, int M, int N,
-                                     int K, const void* row_scale, const void* col_scale,
-                                     int accumulate, const void* bias, const void* gn_scale,
-                                     const void* gn_bias, int group, float eps, int bn, int splits,
-                                     void* partials, void* tickets, void* stream) {
-  if (!s8_operands_fit(K, lda, ldb, N, b_rows) || !groupnorm_fits(group, bn, N) ||
+template <bool kQuantA>
+cudaError_t maps(CUtensorMap* ma, CUtensorMap* mb, const void* A, int lda, const void* B, int ldb,
+                 int b_rows, int M, int K, int bn) {
+  return kQuantA ? s8q_maps(ma, mb, A, lda, B, ldb, b_rows, M, K, bn)
+                 : s8_maps(ma, mb, A, lda, B, ldb, b_rows, M, K, bn);
+}
+
+template <bool kQuantA>
+int gn_silu(const void* A, int lda, const void* B, int ldb, int b_rows, const void* C, int ldc,
+            void* out, int ldo, int M, int N, int K, const void* row_scale, const void* col_scale,
+            int accumulate, const void* bias, const void* gn_scale, const void* gn_bias, int group,
+            float eps, int bn, int splits, void* partials, void* tickets, void* stream) {
+  if (!fits<kQuantA>(A, lda, K, ldb, N, b_rows) || !groupnorm_fits(group, bn, N) ||
       (accumulate && C == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = s8_args(M, N, K, row_scale, col_scale, splits, partials, tickets);
@@ -71,19 +89,19 @@ OSDM_EXPORT int osdm_gemm_s8_gn_silu(const void* A, int lda, const void* B, int 
   a.gn_bias = static_cast<const float*>(gn_bias);
   a.eps = eps;
   CUtensorMap ma{}, mb{};
-  const cudaError_t err = s8_maps(&ma, &mb, A, lda, B, ldb, b_rows, M, K, bn);
+  const cudaError_t err = maps<kQuantA>(&ma, &mb, A, lda, B, ldb, b_rows, M, K, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<int8_t, true, kGroupNormSilu, 64, 128>(
+  return static_cast<int>(dispatch<int8_t, true, kGroupNormSilu, kQuantA, 64, 128>(
       bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
 }
 
-OSDM_EXPORT int osdm_gemm_s8_posterior(const void* A, int lda, const void* B, int ldb, int b_rows,
-                                       int M, int N, int K, const void* row_scale,
-                                       const void* col_scale, void* x, int ldx, int mut_dim,
-                                       const void* b_out, const void* coeffs, int step, int mode,
-                                       const void* noise, uint32_t seed, float clip, int bn,
-                                       int splits, void* partials, void* tickets, void* stream) {
-  if (!s8_operands_fit(K, lda, ldb, N, b_rows) || mode < osdm::kNoiseNone ||
+template <bool kQuantA>
+int posterior(const void* A, int lda, const void* B, int ldb, int b_rows, int M, int N, int K,
+              const void* row_scale, const void* col_scale, void* x, int ldx, int mut_dim,
+              const void* b_out, const void* coeffs, int step, int mode, const void* noise,
+              uint32_t seed, float clip, int bn, int splits, void* partials, void* tickets,
+              void* stream) {
+  if (!fits<kQuantA>(A, lda, K, ldb, N, b_rows) || mode < osdm::kNoiseNone ||
       mode > osdm::kNoisePhilox || mut_dim < 0 || mut_dim > N)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = s8_args(M, N, K, row_scale, col_scale, splits, partials, tickets);
@@ -98,8 +116,54 @@ OSDM_EXPORT int osdm_gemm_s8_posterior(const void* A, int lda, const void* B, in
   a.seed = seed;
   a.clip = clip;
   CUtensorMap ma{}, mb{};
-  const cudaError_t err = s8_maps(&ma, &mb, A, lda, B, ldb, b_rows, M, K, bn);
+  const cudaError_t err = maps<kQuantA>(&ma, &mb, A, lda, B, ldb, b_rows, M, K, bn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch<int8_t, true, kPosterior, 64>(
+  return static_cast<int>(dispatch<int8_t, true, kPosterior, kQuantA, 64>(
       bn, ma, mb, a, static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+OSDM_EXPORT int osdm_gemm_s8_gn_silu(const void* A, int lda, const void* B, int ldb, int b_rows,
+                                     const void* C, int ldc, void* out, int ldo, int M, int N,
+                                     int K, const void* row_scale, const void* col_scale,
+                                     int accumulate, const void* bias, const void* gn_scale,
+                                     const void* gn_bias, int group, float eps, int bn, int splits,
+                                     void* partials, void* tickets, void* stream) {
+  return gn_silu<false>(A, lda, B, ldb, b_rows, C, ldc, out, ldo, M, N, K, row_scale, col_scale,
+                        accumulate, bias, gn_scale, gn_bias, group, eps, bn, splits, partials,
+                        tickets, stream);
+}
+
+OSDM_EXPORT int osdm_gemm_s8q_gn_silu(const void* A, int lda, const void* B, int ldb, int b_rows,
+                                      const void* C, int ldc, void* out, int ldo, int M, int N,
+                                      int K, const void* col_scale, int accumulate,
+                                      const void* bias, const void* gn_scale, const void* gn_bias,
+                                      int group, float eps, int bn, int splits, void* partials,
+                                      void* tickets, void* stream) {
+  return gn_silu<true>(A, lda, B, ldb, b_rows, C, ldc, out, ldo, M, N, K, nullptr, col_scale,
+                       accumulate, bias, gn_scale, gn_bias, group, eps, bn, splits, partials,
+                       tickets, stream);
+}
+
+OSDM_EXPORT int osdm_gemm_s8_posterior(const void* A, int lda, const void* B, int ldb, int b_rows,
+                                       int M, int N, int K, const void* row_scale,
+                                       const void* col_scale, void* x, int ldx, int mut_dim,
+                                       const void* b_out, const void* coeffs, int step, int mode,
+                                       const void* noise, uint32_t seed, float clip, int bn,
+                                       int splits, void* partials, void* tickets, void* stream) {
+  return posterior<false>(A, lda, B, ldb, b_rows, M, N, K, row_scale, col_scale, x, ldx, mut_dim,
+                          b_out, coeffs, step, mode, noise, seed, clip, bn, splits, partials,
+                          tickets, stream);
+}
+
+OSDM_EXPORT int osdm_gemm_s8q_posterior(const void* A, int lda, const void* B, int ldb, int b_rows,
+                                        int M, int N, int K, const void* col_scale, void* x,
+                                        int ldx, int mut_dim, const void* b_out,
+                                        const void* coeffs, int step, int mode, const void* noise,
+                                        uint32_t seed, float clip, int bn, int splits,
+                                        void* partials, void* tickets, void* stream) {
+  return posterior<true>(A, lda, B, ldb, b_rows, M, N, K, nullptr, col_scale, x, ldx, mut_dim,
+                         b_out, coeffs, step, mode, noise, seed, clip, bn, splits, partials,
+                         tickets, stream);
 }

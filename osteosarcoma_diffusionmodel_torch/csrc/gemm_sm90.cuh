@@ -40,6 +40,13 @@
 // (gemm_bf16_fused.cu, gemm_s8_fused.cu), stored as bf16 elsewhere;
 // kPosterior is K3's step on the output product (posterior.cuh), which
 // updates the bf16 carry in place and stores no product at all.
+//
+// K6's quantizing prologue (template flag kQuantA, entry points
+// osdm_gemm_s8q*): A arrives as the bf16 activations instead of K5's codes.
+// Each block loads its 64-row strip over the whole K (<= 1024) by TMA,
+// takes each row's amax and writes the int8 codes in place
+// (strip_row_stats, quantize_tile: K5's arithmetic, rowquant.cuh); the ring
+// then carries B only, and the epilogue uses the block's own row scales.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched through the runtime
@@ -50,6 +57,7 @@
 #include <type_traits>
 
 #include "posterior.cuh"
+#include "rowquant.cuh"
 
 namespace osdm {
 namespace sm90 {
@@ -73,6 +81,18 @@ __host__ __device__ constexpr int stages(int bn) {
 }
 __host__ __device__ constexpr int smem_bytes(int bn, int ring) {
   return 1024 + ring * (stage_bytes(bn) + 8) + 16;  // align slack, ring, barriers, flag
+}
+// kQuantA: A's bf16 strip (2 boxes per int8 k-tile, K <= 1024), B's ring,
+// its barriers, the strip's barriers, the flag, then inv and scale per row.
+constexpr int kQuantMaxKTiles = 8;
+__host__ __device__ constexpr int quant_smem_bytes(int bn, int ring, int k_tiles) {
+  return 1024 + 2 * k_tiles * (kBox + 8) + ring * (bn * kStageK + 8) + 8 + 2 * kBM * 4;
+}
+// kQuantA's deepest B ring: the stages that fit beside the strip.
+__host__ __device__ constexpr int quant_stages(int bn, int k_tiles) {
+  return (kRingBytes - 2 * k_tiles * kBox) / (bn * kStageK) < 16
+             ? (kRingBytes - 2 * k_tiles * kBox) / (bn * kStageK)
+             : 16;
 }
 
 // Everything a launch needs besides the two tensor maps.
@@ -393,6 +413,83 @@ __device__ __forceinline__ void issue_stage(uint8_t* sa, uint8_t* sb, uint64_t* 
   }
 }
 
+// kQuantA: thread 0 arms the stage's barrier and issues its B load only
+// (A is the block's resident strip of int8 k-tiles).
+template <int BN>
+__device__ __forceinline__ void issue_b_stage(uint8_t* sb, uint64_t* bar, const CUtensorMap* mb,
+                                              int kt, int n0) {
+  mbar_expect_tx(bar, BN * kStageK);
+  tma_load(sb, mb, bar, kt * Traits<int8_t>::kTileK, n0);
+}
+
+// K6's quantizing prologue (kQuantA): K5's work on the block's own A strip.
+// The strip -- all 64 rows of A over the whole K of the product (at most
+// 1024), as 2·k_tiles TMA boxes of 64 bf16 columns, 128-byte swizzled, box
+// j landing on bar[j] -- is read as it lands: two threads a row take its
+// max |v| over every box (the swizzle only permutes 16-byte chunks within
+// a row; packed bf16 maxima); rowquant.cuh gives inv and the scale (the
+// epilogue's row scale, kept in `q_scale`).
+__device__ __forceinline__ void strip_row_stats(const uint8_t* strip, uint64_t* bar, int k_tiles,
+                                                float* q_inv, float* q_scale) {
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  float m = 0.0f;
+  for (int j = 0; j < 2 * k_tiles; ++j) {
+    mbar_wait(&bar[j], 0);
+    const uint4* p = reinterpret_cast<const uint4*>(strip + j * kBox + r * kStageK + half * 64);
+    uint32_t w[16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 v = p[c];
+      w[4 * c] = v.x;
+      w[4 * c + 1] = v.y;
+      w[4 * c + 2] = v.z;
+      w[4 * c + 3] = v.w;
+    }
+    m = bf16_words_max_abs<16>(w, m);
+  }
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  if (half == 0) {
+    const RowQuant rq = row_quant(m);
+    q_inv[r] = rq.inv;
+    q_scale[r] = rq.scale;
+  }
+  __syncthreads();
+}
+
+// int8 k-tile t of the strip (128 columns: bf16 boxes 2t and 2t+1), written
+// in place over box t in the K-major swizzled layout TMA would have given
+// K5's codes: every thread reads its sources, the block waits, then
+// writes. Box t holds the bf16 of tile t/2, already consumed (t/2 < t, or
+// t = 0 read before the wait), and no later tile reads it (they read boxes
+// >= 2t + 2). A swizzled int8 stage rather than wgmma's A
+// register fragment: the mainloop's shared-memory descriptors and s8 wgmma
+// stay those of K6, and a fragment of the split's A would hold 8-32 more
+// registers a thread through the mainloop.
+__device__ __forceinline__ void quantize_tile(uint8_t* strip, int t, const float* q_inv) {
+  const int tid = threadIdx.x;
+  uint4 src[4][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // 64 rows x 8 chunks of 16 codes, 4 a thread
+    const int e = tid + kThreads * q, row = e >> 3, p = e & 7;
+    const uint8_t* box = strip + (2 * t + (p >> 2)) * kBox + row * kStageK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 2 * (p & 3) + h;  // the box's 16-byte bf16 chunk
+      src[q][h] = *reinterpret_cast<const uint4*>(box + (((c ^ row) & 7) << 4));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int e = tid + kThreads * q, row = e >> 3, p = e & 7;
+    const float inv = q_inv[row];
+    const uint2 lo = bf16x8_codes(src[q][0], inv), hi = bf16x8_codes(src[q][1], inv);
+    *reinterpret_cast<uint4*>(strip + t * kBox + row * kStageK + (((p ^ row) & 7) << 4)) =
+        make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+  fence_proxy_async();  // the codes, written by threads, are read by wgmma
+}
+
 // Byte offset of element (r, c) of a 128-byte-swizzled tile of 2-byte values.
 __device__ __forceinline__ int swizzled(int r, int c) {
   return r * kStageK + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
@@ -444,7 +541,7 @@ __device__ __forceinline__ void fill_stage_general(uint8_t* sa, uint8_t* sb, con
 // are read-only and never alias C, so they load through the read-only
 // path (__ldg) and the loads need not wait for earlier stores.
 // K1: + bias, then + row_add.
-__device__ __forceinline__ float epilogue(const Args& a, int r, int c, float acc) {
+__device__ __forceinline__ float epilogue(const Args& a, int r, int c, float acc, float) {
   float v = acc;
   if (a.bias != nullptr) v = __fadd_rn(v, __ldg(a.bias + c));
   if (a.row_add != nullptr) v = __fadd_rn(v, __ldg(a.row_add + (size_t)r * a.ldr + c));
@@ -453,9 +550,8 @@ __device__ __forceinline__ float epilogue(const Args& a, int r, int c, float acc
 
 // K6: float(acc)·row_scale·col_scale, then + C when accumulating, + bias,
 // + row_add, each rounded once (the plain version's f32 operations).
-__device__ __forceinline__ float epilogue(const Args& a, int r, int c, int acc) {
-  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), __ldg(a.row_scale + r)),
-                      __ldg(a.col_scale + c));
+__device__ __forceinline__ float epilogue(const Args& a, int r, int c, int acc, float row_scale) {
+  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), row_scale), __ldg(a.col_scale + c));
   if (a.accumulate) v = __fadd_rn(static_cast<const float*>(a.C)[(size_t)r * a.ldc + c], v);
   if (a.bias != nullptr) v = __fadd_rn(v, __ldg(a.bias + c));
   if (a.row_add != nullptr) v = __fadd_rn(v, __ldg(a.row_add + (size_t)r * a.ldr + c));
@@ -512,9 +608,11 @@ __device__ __forceinline__ void load_ahead(const Args& a, int m0, int n0, Ahead<
       }
       if constexpr (kInt8) in.col_scale[k] = ldg_or_zero(a.col_scale + c, ok);
     }
-  if constexpr (kInt8) {
+  if constexpr (kInt8) {  // kQuantA: the prologue's scales replace them (row_scale null)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) in.row_scale[j] = ldg_or_zero(a.row_scale + r0 + 8 * j, r0 + 8 * j < a.M);
+    for (int j = 0; j < 2; ++j)
+      in.row_scale[j] =
+          a.row_scale != nullptr ? ldg_or_zero(a.row_scale + r0 + 8 * j, r0 + 8 * j < a.M) : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
@@ -736,6 +834,14 @@ __device__ __forceinline__ void posterior_epilogue(const Args& a, const Acc (&d)
     posterior_elements<2, BN>(a, d, in, m0, n0);
 }
 
+// kQuantA: the epilogue's row scales are the prologue's, not K5's.
+template <int BN, int kEpi>
+__device__ __forceinline__ void quant_row_scales(Ahead<BN, kEpi>& in, const float* q_scale) {
+  const int lr0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  in.row_scale[0] = q_scale[lr0];
+  in.row_scale[1] = q_scale[lr0 + 8];
+}
+
 __device__ __forceinline__ void store_out(const Args& a, size_t at, float v) {
   if (a.out_bf16)
     static_cast<__nv_bfloat16*>(a.C)[at] = __float2bfloat16(v);
@@ -749,20 +855,25 @@ __device__ __forceinline__ void store_out(const Args& a, size_t at, float v) {
 // the 492 tiles at 333 rows run in one wave.
 constexpr int kPosteriorRing = 2;
 
-template <typename T, int BN, bool kTma, int kEpi>
+template <typename T, int BN, bool kTma, int kEpi, bool kQuantA>
 __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                 const __grid_constant__ Args a) {
   using Acc = typename Traits<T>::Acc;
+  static_assert(!kQuantA || (std::is_same<T, int8_t>::value && kTma), "the prologue is K6's");
   constexpr int kRegs = BN / 2;
   constexpr int kTileK = Traits<T>::kTileK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* sa = smem;
+  uint8_t* sa = smem;  // A's ring, or (kQuantA) its resident strip
   const int ring = a.ring;
-  uint8_t* sb = smem + ring * kBox;
+  uint8_t* sb = smem + (kQuantA ? 2 * a.k_tiles : ring) * kBox;
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + ring * BN * kStageK);
-  int* last = reinterpret_cast<int*>(full + ring);
+  uint64_t* strip_bar = full + ring;  // kQuantA: one a box
+  const int strip_boxes = kQuantA ? 2 * a.k_tiles : 0;
+  int* last = reinterpret_cast<int*>(full + ring + strip_boxes);
+  float* q_inv = reinterpret_cast<float*>(full + ring + strip_boxes + 1);  // [64], q_scale [64]
+  float* q_scale = q_inv + kBM;
 
   const int tid = threadIdx.x;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -788,14 +899,33 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     if (tid == 0) {
 #pragma unroll
       for (int s = 0; s < ring; ++s) mbar_init(&full[s], 1);
+      for (int j = 0; j < strip_boxes; ++j) mbar_init(&strip_bar[j], 1);
       fence_barrier_init();
     }
     __syncthreads();
-    if (tid == 0)
-      for (int i = 0; i < ring && i < n_kt; ++i)
-        issue_stage<T, BN>(sa + i * kBox, sb + i * BN * kStageK, &full[i], &map_a, &map_b, kt0 + i,
-                           m0, n0);
-    if constexpr (kAheadEarly) load_ahead<Acc>(a, m0, n0, ahead);
+    if (tid == 0) {
+      if constexpr (kQuantA) {
+        for (int j = 0; j < strip_boxes; ++j) {
+          mbar_expect_tx(&strip_bar[j], kBox);
+          tma_load(sa + j * kBox, &map_a, &strip_bar[j], 64 * j, m0);
+        }
+        for (int i = 0; i < ring && i < n_kt; ++i)
+          issue_b_stage<BN>(sb + i * BN * kStageK, &full[i], &map_b, kt0 + i, n0);
+      } else {
+        for (int i = 0; i < ring && i < n_kt; ++i)
+          issue_stage<T, BN>(sa + i * kBox, sb + i * BN * kStageK, &full[i], &map_a, &map_b,
+                             kt0 + i, m0, n0);
+      }
+    }
+    if constexpr (kQuantA) {
+      strip_row_stats(sa, strip_bar, a.k_tiles, q_inv, q_scale);
+      for (int t = kt0; t < kt0 + n_kt; ++t) quantize_tile(sa, t, q_inv);
+      __syncthreads();  // every thread's codes are in place
+    }
+    if constexpr (kAheadEarly) {
+      load_ahead<Acc>(a, m0, n0, ahead);
+      if constexpr (kQuantA) quant_row_scales(ahead, q_scale);
+    }
     for (int i = 0; i < n_kt; ++i) {
       const int s = i % ring;
       mbar_wait(&full[s], (i / ring) & 1);
@@ -806,14 +936,17 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
           __syncthreads();
         }
       }
-      mma_stage<T, BN>(d, sa + s * kBox, sb + s * BN * kStageK);
+      mma_stage<T, BN>(d, sa + (kQuantA ? kt0 + i : s) * kBox, sb + s * BN * kStageK);
       wgmma_wait<1>();  // the previous stage's group has retired ...
       __syncthreads();  // ... in every warp: refill its stage
       const int next = i - 1 + ring;
       if (tid == 0 && i >= 1 && next < n_kt) {
         const int ps = (i - 1) % ring;
-        issue_stage<T, BN>(sa + ps * kBox, sb + ps * BN * kStageK, &full[ps], &map_a, &map_b,
-                           kt0 + next, m0, n0);
+        if constexpr (kQuantA)
+          issue_b_stage<BN>(sb + ps * BN * kStageK, &full[ps], &map_b, kt0 + next, n0);
+        else
+          issue_stage<T, BN>(sa + ps * kBox, sb + ps * BN * kStageK, &full[ps], &map_a, &map_b,
+                             kt0 + next, m0, n0);
       }
     }
     wgmma_wait<0>();
@@ -860,7 +993,10 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
   // two neighbouring columns are stored together where the output allows.
   if constexpr (kEpi != kPlain) {
     static_assert(kTma, "the fused epilogues run on the TMA path only");
-    if constexpr (!kAheadEarly) load_ahead<Acc>(a, m0, n0, ahead);
+    if constexpr (!kAheadEarly) {
+      load_ahead<Acc>(a, m0, n0, ahead);
+      if constexpr (kQuantA) quant_row_scales(ahead, q_scale);
+    }
     if constexpr (kEpi == kGroupNormSilu) {
       __syncthreads();  // every warp's last wgmma has retired: the ring is free for the statistics
       groupnorm_silu_epilogue<BN>(a, d, ahead, smem, m0, n0);
@@ -874,6 +1010,14 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
   const int c0 = n0 + 2 * (lane & 3);
   const bool pairs = (a.ldc % 2 == 0) &&
                      (reinterpret_cast<uintptr_t>(a.C) % (a.out_bf16 ? 4 : 8) == 0);
+  float rs[2] = {0.0f, 0.0f};  // K6's row scales: K5's, or the prologue's
+  if constexpr (std::is_same<Acc, int>::value) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + 8 * j;
+      rs[j] = kQuantA ? q_scale[r - m0] : (r < a.M ? __ldg(a.row_scale + r) : 0.0f);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
@@ -881,9 +1025,9 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
       const int r = r0 + 8 * j, c = c0 + 8 * i;
       if (r >= a.M || c >= a.N) continue;
       const size_t at = (size_t)r * a.ldc + c;
-      const float v0 = epilogue(a, r, c, d[4 * i + 2 * j]);
+      const float v0 = epilogue(a, r, c, d[4 * i + 2 * j], rs[j]);
       if (pairs && c + 1 < a.N) {
-        const float v1 = epilogue(a, r, c + 1, d[4 * i + 2 * j + 1]);
+        const float v1 = epilogue(a, r, c + 1, d[4 * i + 2 * j + 1], rs[j]);
         if (a.out_bf16)
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.C) + at) =
               __floats2bfloat162_rn(v0, v1);
@@ -891,7 +1035,7 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
           *reinterpret_cast<float2*>(static_cast<float*>(a.C) + at) = make_float2(v0, v1);
       } else {
         store_out(a, at, v0);
-        if (c + 1 < a.N) store_out(a, at + 1, epilogue(a, r, c + 1, d[4 * i + 2 * j + 1]));
+        if (c + 1 < a.N) store_out(a, at + 1, epilogue(a, r, c + 1, d[4 * i + 2 * j + 1], rs[j]));
       }
     }
 }
@@ -953,32 +1097,38 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapData
   return cudaSuccess;
 }
 
-template <typename T, int BN, bool kTma, int kEpi>
+template <typename T, int BN, bool kTma, int kEpi, bool kQuantA>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, Args a, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<T, BN, kTma, kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(BN, stages(BN)));
+      gemm_kernel<T, BN, kTma, kEpi, kQuantA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kQuantA ? quant_smem_bytes(BN, quant_stages(BN, kQuantMaxKTiles), kQuantMaxKTiles)
+              : smem_bytes(BN, stages(BN)));
   if (attr != cudaSuccess) return attr;
+  if (kQuantA && (a.k_tiles < 1 || a.k_tiles > kQuantMaxKTiles)) return cudaErrorInvalidValue;
   // A split walks at most cdiv(k_tiles, splits) k-tiles. k-tile j >= ring
   // is issued in iteration j - ring + 1, which must come before iteration
   // j: a ring of 1 serves only single-tile splits.
   const int walk = cdiv(a.k_tiles, a.splits);
-  const int deepest = kEpi == kPosterior ? kPosteriorRing : stages(BN);
+  const int deepest = kEpi == kPosterior ? kPosteriorRing
+                      : kQuantA          ? quant_stages(BN, a.k_tiles)
+                                         : stages(BN);
   a.ring = walk <= 1 ? 1 : (walk < deepest ? walk : deepest);
+  const int bytes = kQuantA ? quant_smem_bytes(BN, a.ring, a.k_tiles) : smem_bytes(BN, a.ring);
   const dim3 grid(cdiv(a.N, BN), cdiv(a.M, kBM), a.splits);
-  gemm_kernel<T, BN, kTma, kEpi><<<grid, kThreads, smem_bytes(BN, a.ring), stream>>>(ma, mb, a);
+  gemm_kernel<T, BN, kTma, kEpi, kQuantA><<<grid, kThreads, bytes, stream>>>(ma, mb, a);
   return cudaGetLastError();
 }
 
 // The block width (= the wgmma N) the host's plan chose, among the widths
 // this epilogue is built for (each width is one kernel in the build).
-template <typename T, bool kTma, int kEpi, int... kWidths>
+template <typename T, bool kTma, int kEpi, bool kQuantA, int... kWidths>
 cudaError_t dispatch(int bn, const CUtensorMap& ma, const CUtensorMap& mb, const Args& a,
                      cudaStream_t stream) {
   if (a.splits < 1 || a.splits > (a.k_tiles > 0 ? a.k_tiles : 1)) return cudaErrorInvalidValue;
   if (a.splits > 1 && (a.partials == nullptr || a.tickets == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
-  (void)(((bn == kWidths && ((err = launch<T, kWidths, kTma, kEpi>(ma, mb, a, stream)), true))) ||
+  (void)(((bn == kWidths &&
+           ((err = launch<T, kWidths, kTma, kEpi, kQuantA>(ma, mb, a, stream)), true))) ||
          ...);
   return err;
 }
@@ -1001,6 +1151,25 @@ inline cudaError_t s8_maps(CUtensorMap* ma, CUtensorMap* mb, const void* A, int 
   return err != cudaSuccess
              ? err
              : tensor_map(mb, B, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b_rows, K, ldb, kStageK, bn);
+}
+
+// The TMA maps of K6 with its quantizing prologue: A the bf16 (M, K)
+// activations in 64 x 64 boxes, B the K-major (b_rows, kp) weight codes.
+inline cudaError_t s8q_maps(CUtensorMap* ma, CUtensorMap* mb, const void* A, int lda,
+                            const void* B, int ldb, int b_rows, int M, int K, int bn) {
+  const cudaError_t err =
+      tensor_map(ma, A, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, lda, 64, kBM);
+  return err != cudaSuccess ? err
+                            : tensor_map(mb, B, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, b_rows,
+                                         cdiv(K, 16) * 16, ldb, kStageK, bn);
+}
+
+// The prologue's operands: TMA-readable bf16 rows, K <= 1024, the codes'
+// rows (kp = pad16(K) bytes, 16-byte multiple) holding N columns.
+inline bool s8q_operands_fit(const void* A, int lda, int K, int ldb, int N, int b_rows) {
+  return reinterpret_cast<uintptr_t>(A) % 16 == 0 && (lda * 2) % 16 == 0 && K >= 1 &&
+         K <= kQuantMaxKTiles * Traits<int8_t>::kTileK && ldb >= cdiv(K, 16) * 16 &&
+         ldb % 16 == 0 && N <= b_rows;
 }
 
 // The GN epilogue's precondition: groups of a multiple of 8 columns that

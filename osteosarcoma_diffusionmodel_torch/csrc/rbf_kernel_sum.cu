@@ -5,106 +5,161 @@
 // behind the validator's MMD. Same algebra: ||x||^2 + ||y||^2 - 2 x·y,
 // clamped at 0, exp, rows past n or m masked.
 //
-// What bounds it on the card: f32 FMA throughput. The cross products
-// must be f32-accurate (no TF32): at d = 5142 the subtraction cancels,
-// so tensor-core TF32 would lose the small distances.
+// What bounds it on the card: operations where the output is large
+// (2nmd products: 1.03e12 at 9999 x 9999 x 5142), latency where it is small
+// (100 x 100 x 5142 is one 128 x 128 tile). The dots must be f32-accurate,
+// as the TPU's Precision.HIGHEST dots are: at d = 5142 the subtraction
+// cancels, and one TF32 product is off by ~1e-3 in the exponent at the
+// diagonal.
 //
-// What the design does about it: a register-blocked FMA tile (64x64
-// outputs per block, 4x4 per thread, K staged through shared memory in
-// chunks of 16, ragged n, m and d masked at the loads). The TPU grid
-// runs in order and folds every tile into one accumulator; GPU blocks
-// run in no order, so each block writes an f64 partial and the last
-// block to finish (an integer ticket) sums the partials in a fixed
-// order. No float atomics: the result is the same from run to run. The
-// caller passes a zeroed ticket for every launch.
+// What the design does about it: two routes, picked per shape by the
+// host's plan (ops/pallas_kernels.py `rbf_plan`, cached by shape).
+// - "tf32x3", wherever the output has more than one 128 x 128 tile:
+//   split-precision TF32 on the tensor cores (wgmma m64n128k8 from shared
+//   memory), three products hi·hi + hi·lo + lo·hi per pair of operands,
+//   f32 accumulation.
+//   Bound: 3·2nmd at 495 TFLOP/s (9999 x 9999: 6.2 ms; 67 TFLOP/s f32 FMA
+//   would take 15.3 ms at best).
+// - "fma", for the smallest outputs (100 x 100): 64 x 64 tiles, 4 x 4 f32
+//   FMA sums a thread, float4 reads along k. Bound: 2nmd at 67 TFLOP/s.
+// - d is split over blocks (blockIdx.z) wherever the output tiles do not
+//   fill the SMs: split s owns chunks [s·kc/S, (s+1)·kc/S) of 32 columns,
+//   writes its f32 partial dots to a workspace slot and takes an integer
+//   ticket; the tile's last split sums the S slots in split order, then
+//   applies the clamp, exp and mask. The exp is never taken of a partial
+//   dot, and no float atomics are used: two launches give equal bits.
+// - A multi-stage cp.async ring (4 stages at 64, 3 at 128) keeps the next
+//   chunks of both row blocks in flight while the products run on the
+//   landed one: one barrier a chunk, 16-byte copies where the rows allow (d
+//   a multiple of 4; else 8- or 4-byte copies), zero-filled past n, m and
+//   d. The fma route pads a stage row to 36 floats, so a quarter warp's
+//   float4 reads fall in distinct banks; the tf32x3 route writes wgmma's
+//   128-byte swizzled layout.
+// - Each tile's f64 sum goes to a slot, and the last tile (an integer
+//   ticket) adds the slots in a fixed order. The tickets reset themselves.
+// - The squared norms are this file's own pass, one warp a row (f32,
+//   lane-strided, a fixed shuffle tree), in the same call.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"  // wgmma, its descriptors and fences
 
 namespace {
 
-constexpr int kTM = 64, kTN = 64, kTK = 16, kThreads = 256;
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kChunk = 32;     // columns of d a stage holds
+constexpr int kLd = kChunk + 4;
 
-__global__ void __launch_bounds__(kThreads) rbf_kernel_sum_kernel(
-    const float* __restrict__ X, const float* __restrict__ Y, const float* __restrict__ xsq,
-    const float* __restrict__ ysq, int n, int m, int d, float gamma, double* partials,
-    unsigned int* ticket, double* out) {
-  __shared__ float Xs[kTK][kTM + 4];
-  __shared__ float Ys[kTK][kTN + 4];
-  __shared__ double red[kThreads];
-  __shared__ bool is_last;
+constexpr int kFmaStages = 4, kTf32Stages = 3;  // cp.async ring depth of each route
+constexpr int kTf32Smem = 1024 + kTf32Stages * 4 * 128 * kChunk * 4;  // align slack, ring
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kTM, col0 = blockIdx.x * kTN;
+constexpr int kFmaSmem = kFmaStages * 2 * 64 * kLd * 4;  // the fma ring of X and Y row blocks
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int src_bytes,
+                                         int copy_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (copy_bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else if (copy_bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int k0 = 0; k0 < d; k0 += kTK) {
-    for (int e = tid; e < kTM * kTK; e += kThreads) {
-      const int r = e / kTK, c = e % kTK;
-      const int gr = row0 + r, gc = k0 + c;
-      Xs[c][r] = (gr < n && gc < d) ? X[(size_t)gr * d + gc] : 0.0f;
-    }
-    for (int e = tid; e < kTN * kTK; e += kThreads) {
-      const int r = e / kTK, c = e % kTK;
-      const int gr = col0 + r, gc = k0 + c;
-      Ys[c][r] = (gr < m && gc < d) ? Y[(size_t)gr * d + gc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ys[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// Chunk c (columns 32c ..) of rows row0 .. row0 + BM of X and of Y into a
+// stage, zero-filled past the last row and past d.
+template <int kBM, int kCopy>
+__device__ __forceinline__ void load_chunk(float* stage, const float* X, const float* Y, int n,
+                                           int m, int d, int xr0, int yr0, int c) {
+  constexpr int kPer = kCopy / 4, kPieces = kChunk / kPer;
+  for (int e = threadIdx.x; e < 2 * kBM * kPieces; e += kThreads) {
+    const int side = e / (kBM * kPieces), rem = e % (kBM * kPieces);
+    const int r = rem / kPieces, p = rem % kPieces;
+    const int gr = (side ? yr0 : xr0) + r, rows = side ? m : n;
+    const int col = c * kChunk + p * kPer;
+    const int left = gr < rows ? d - col : 0;
+    const int bytes = left <= 0 ? 0 : (left >= kPer ? kCopy : 4 * left);
+    const float* base = side ? Y : X;
+    const float* src = bytes ? base + (size_t)gr * d + col : base;
+    cp_async(stage + (side * kBM + r) * kLd + p * kPer, src, bytes, kCopy);
   }
+}
 
+// The tile's last split sums the S slots of partial dots in split order
+// (the exp is never taken of a partial dot); then clamp, exp and mask on
+// each element, the block's f64 sum into its tile slot, and the last tile
+// adds the slots in a fixed order. `at(q)` gives element q's (row, col).
+template <int kR, int kBM, typename At>
+__device__ __forceinline__ void finish_tile(float (&acc)[kR], At at, const float* xsq,
+                                            const float* ysq, int n, int m, float gamma,
+                                            float* slots, int* tickets, double* tile_sums,
+                                            int* done, double* out) {
+  __shared__ double red[kThreads];
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int splits = gridDim.z, split = blockIdx.z;
+  if (splits > 1) {
+    float* tile_slots = slots + (size_t)tile * splits * (kBM * kBM);
+    float* mine = tile_slots + (size_t)split * (kBM * kBM);
+#pragma unroll
+    for (int q = 0; q < kR; ++q) mine[q * kThreads + tid] = acc[q];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int ticket = atomicAdd(&tickets[tile], 1);
+      is_last = ticket == splits - 1;
+      if (is_last) tickets[tile] = 0;  // every split has taken its ticket
+    }
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    for (int s = 0; s < splits; ++s) {
+      const float* slot = tile_slots + (size_t)s * (kBM * kBM) + tid;
+#pragma unroll
+      for (int q = 0; q < kR; ++q) {
+        const float v = __ldcg(slot + q * kThreads);
+        acc[q] = s == 0 ? v : acc[q] + v;  // split order
+      }
+    }
+  }
   double local = 0.0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = col0 + tx + 16 * j;
-      if (gr < n && gc < m) {
-        const float sq = fmaxf(xsq[gr] + ysq[gc] - 2.0f * acc[i][j], 0.0f);
-        local += (double)expf(-gamma * sq);
-      }
+  for (int q = 0; q < kR; ++q) {
+    const int2 rc = at(q);
+    if (rc.x < n && rc.y < m) {
+      const float sq = fmaxf(xsq[rc.x] + ysq[rc.y] - 2.0f * acc[q], 0.0f);
+      local += (double)expf(-gamma * sq);
     }
   }
   red[tid] = local;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+  for (int st = kThreads / 2; st > 0; st >>= 1) {
+    if (tid < st) red[tid] += red[tid + st];
     __syncthreads();
   }
-
-  const unsigned int nblocks = gridDim.x * gridDim.y;
+  const int tiles = gridDim.x * gridDim.y;
   if (tid == 0) {
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+    tile_sums[tile] = red[0];
     __threadfence();
-    is_last = (atomicAdd(ticket, 1u) == nblocks - 1);
+    is_last = atomicAdd(done, 1) == tiles - 1;
+    if (is_last) *done = 0;
   }
   __syncthreads();
   if (!is_last) return;
-
-  // Last block: fixed-order sum of every block's partial.
   __threadfence();
-  const volatile double* vp = partials;
-  double s = 0.0;
-  for (unsigned int b = tid; b < nblocks; b += kThreads) s += vp[b];
-  red[tid] = s;
+  double sum = 0.0;
+  for (int t = tid; t < tiles; t += kThreads) sum += __ldcg(tile_sums + t);  // fixed order
+  red[tid] = sum;
   __syncthreads();
   for (int st = kThreads / 2; st > 0; st >>= 1) {
     if (tid < st) red[tid] += red[tid + st];
@@ -113,19 +168,292 @@ __global__ void __launch_bounds__(kThreads) rbf_kernel_sum_kernel(
   if (tid == 0) *out = red[0];
 }
 
-}  // namespace
-
-OSDM_EXPORT int osdm_rbf_kernel_sum(const void* X, const void* Y, const void* xsq, const void* ysq,
-                                    int n, int m, int d, float gamma, void* partials,
-                                    void* ticket, void* out, void* stream) {
-  const dim3 grid(osdm::cdiv(m, kTN), osdm::cdiv(n, kTM));
-  rbf_kernel_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(Y), static_cast<const float*>(xsq),
-      static_cast<const float*>(ysq), n, m, d, gamma, static_cast<double*>(partials),
-      static_cast<unsigned int*>(ticket), static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
+// The split's chunks [c0, c0 + n_c) through the cp.async ring; `compute`
+// runs on each landed stage (X rows, then Y rows, kLd floats apart).
+template <int kBM, int kStages, int kCopy, typename Compute>
+__device__ __forceinline__ void chunk_loop(float* smem, const float* X, const float* Y, int n,
+                                           int m, int d, int xr0, int yr0, int c0, int n_c,
+                                           Compute compute) {
+  constexpr int kStageFloats = 2 * kBM * kLd;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_c) load_chunk<kBM, kCopy>(smem + s * kStageFloats, X, Y, n, m, d, xr0, yr0, c0 + s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_c; ++i) {
+    cp_async_wait<kStages - 2>();  // chunk i has landed ...
+    __syncthreads();               // ... for every thread, and chunk i - 1 is consumed
+    const int next = i + kStages - 1;
+    if (next < n_c)
+      load_chunk<kBM, kCopy>(smem + (next % kStages) * kStageFloats, X, Y, n, m, d, xr0, yr0,
+                             c0 + next);
+    cp_async_commit();
+    const float* xs = smem + (i % kStages) * kStageFloats;
+    compute(xs, xs + kBM * kLd);
+  }
+  cp_async_wait<0>();
 }
 
-OSDM_EXPORT int osdm_rbf_grid_blocks(int n, int m) {
-  return osdm::cdiv(m, kTN) * osdm::cdiv(n, kTM);
+__device__ __forceinline__ void split_range(int d, int& c0, int& n_c) {
+  const int kc = osdm::cdiv(d, kChunk);
+  c0 = (int)((long long)blockIdx.z * kc / gridDim.z);
+  n_c = (int)((long long)(blockIdx.z + 1) * kc / gridDim.z) - c0;
+}
+
+// Route "fma": 64 x 64 tiles, 4 x 4 f32 FMA sums a thread (rows ty + 16i,
+// columns tx + 16j), float4 reads along k.
+template <int kCopy>
+__global__ void __launch_bounds__(kThreads, 2) rbf_fma_kernel(
+    const float* __restrict__ X, const float* __restrict__ Y, const float* __restrict__ xsq,
+    const float* __restrict__ ysq, int n, int m, int d, float gamma, float* slots, int* tickets,
+    double* tile_sums, int* done, double* out) {
+  constexpr int TM = 4, kBM = 64;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int xr0 = blockIdx.y * kBM, yr0 = blockIdx.x * kBM;
+  int c0, n_c;
+  split_range(d, c0, n_c);
+  float acc[TM * TM];
+#pragma unroll
+  for (int q = 0; q < TM * TM; ++q) acc[q] = 0.0f;
+  chunk_loop<kBM, kFmaStages, kCopy>(smem, X, Y, n, m, d, xr0, yr0, c0, n_c,
+                                     [&](const float* xs, const float* ys) {
+#pragma unroll
+    for (int kq = 0; kq < kChunk / 4; ++kq) {
+      float4 a[TM], b[TM];
+#pragma unroll
+      for (int t = 0; t < TM; ++t) {
+        a[t] = *reinterpret_cast<const float4*>(xs + (ty + 16 * t) * kLd + 4 * kq);
+        b[t] = *reinterpret_cast<const float4*>(ys + (tx + 16 * t) * kLd + 4 * kq);
+      }
+#pragma unroll
+      for (int ii = 0; ii < TM; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < TM; ++jj) {
+          float& c = acc[ii * TM + jj];
+          c = fmaf(a[ii].x, b[jj].x, c);
+          c = fmaf(a[ii].y, b[jj].y, c);
+          c = fmaf(a[ii].z, b[jj].z, c);
+          c = fmaf(a[ii].w, b[jj].w, c);
+        }
+    }
+  });
+  finish_tile<TM * TM, kBM>(
+      acc, [&](int q) { return make_int2(xr0 + ty + 16 * (q / TM), yr0 + tx + 16 * (q % TM)); },
+      xsq, ysq, n, m, gamma, slots, tickets, tile_sums, done, out);
+}
+
+// Route "tf32x3": 128 x 128 tiles on the tensor cores, two warpgroups of
+// wgmma m64n128k8 (warpgroup w: X rows 64w .. 64w + 63 against all 128 Y
+// rows). A stage holds 32 columns of both row blocks in the 128-byte
+// swizzled K-major layout wgmma reads (cp.async writes each copy where TMA
+// would have put it: the rows of x and y are not 16-byte aligned, d =
+// 5142, so TMA cannot load them). Once it lands, the block splits it in
+// place: each value v becomes hi = tf32(v), and lo = tf32(v - hi) goes to
+// the stage's second half; the three products lo·hi, hi·lo and hi·hi then
+// accumulate in f32, which keeps the dot f32-accurate (the lo·lo term and
+// lo's own rounding are ~2^-22 of the product). One TF32 product alone
+// would not be. The split of stage i runs while stage i - 1's wgmma do.
+constexpr int kTileBytes = 128 * kChunk * 4;  // one row block of a stage: 16 KB
+constexpr int kTf32StageBytes = 4 * kTileBytes;  // X, Y, then their lo halves
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// Byte offset of column k (of 32) of row r in a 128-byte swizzled K-major tile.
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + (k & 3) * 4;
+}
+
+template <int kCopy>
+__device__ __forceinline__ void load_chunk_swizzled(uint8_t* stage, const float* X,
+                                                    const float* Y, int n, int m, int d, int xr0,
+                                                    int yr0, int c) {
+  constexpr int kPer = kCopy / 4, kPieces = kChunk / kPer;
+  for (int e = threadIdx.x; e < 2 * 128 * kPieces; e += kThreads) {
+    const int side = e / (128 * kPieces), rem = e % (128 * kPieces);
+    const int r = rem / kPieces, p = rem % kPieces;
+    const int gr = (side ? yr0 : xr0) + r, rows = side ? m : n;
+    const int col = c * kChunk + p * kPer;
+    const int left = gr < rows ? d - col : 0;
+    const int bytes = left <= 0 ? 0 : (left >= kPer ? kCopy : 4 * left);
+    const float* base = side ? Y : X;
+    const float* src = bytes ? base + (size_t)gr * d + col : base;
+    cp_async(reinterpret_cast<float*>(stage + side * kTileBytes + swz(r, p * kPer)), src, bytes,
+             kCopy);
+  }
+}
+
+// hi in place, lo into the stage's second half (position for position).
+__device__ __forceinline__ void split_stage(uint8_t* stage) {
+  for (int u = threadIdx.x; u < 2 * kTileBytes / 16; u += kThreads) {
+    uint4* hi = reinterpret_cast<uint4*>(stage) + u;
+    uint4* lo = reinterpret_cast<uint4*>(stage + 2 * kTileBytes) + u;
+    const float4 v = *reinterpret_cast<const float4*>(hi);
+    const uint4 h = make_uint4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z), to_tf32(v.w));
+    *lo = make_uint4(to_tf32(v.x - __uint_as_float(h.x)), to_tf32(v.y - __uint_as_float(h.y)),
+                     to_tf32(v.z - __uint_as_float(h.z)), to_tf32(v.w - __uint_as_float(h.w)));
+    *hi = h;
+  }
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+// The three products of one stage for this warpgroup's 64 rows, as four k-steps of 8.
+__device__ __forceinline__ void mma_stage_tf32x3(float (&d)[64], const uint8_t* stage, int wg) {
+  using osdm::sm90::desc;
+  const uint8_t* xh = stage + wg * 64 * 128;
+  const uint8_t* yh = stage + kTileBytes;
+  const uint8_t* xl = xh + 2 * kTileBytes;
+  const uint8_t* yl = yh + 2 * kTileBytes;
+  osdm::sm90::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kChunk / 8; ++s) {
+    wgmma_tf32(d, desc(xl + 32 * s, 16, 1024), desc(yh + 32 * s, 16, 1024));
+    wgmma_tf32(d, desc(xh + 32 * s, 16, 1024), desc(yl + 32 * s, 16, 1024));
+    wgmma_tf32(d, desc(xh + 32 * s, 16, 1024), desc(yh + 32 * s, 16, 1024));
+  }
+  osdm::sm90::wgmma_commit();
+}
+
+template <int kCopy>
+__global__ void __launch_bounds__(kThreads, 1) rbf_tf32x3_kernel(
+    const float* __restrict__ X, const float* __restrict__ Y, const float* __restrict__ xsq,
+    const float* __restrict__ ysq, int n, int m, int d, float gamma, float* slots, int* tickets,
+    double* tile_sums, int* done, double* out) {
+  using namespace osdm::sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int xr0 = blockIdx.y * 128, yr0 = blockIdx.x * 128;
+  int c0, n_c;
+  split_range(d, c0, n_c);
+  float acc[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) acc[q] = 0.0f;
+  fence_operand(acc);
+#pragma unroll
+  for (int s = 0; s < kTf32Stages - 1; ++s) {
+    if (s < n_c)
+      load_chunk_swizzled<kCopy>(smem + s * kTf32StageBytes, X, Y, n, m, d, xr0, yr0, c0 + s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_c; ++i) {
+    uint8_t* stage = smem + (i % kTf32Stages) * kTf32StageBytes;
+    cp_async_wait<kTf32Stages - 2>();  // chunk i has landed ...
+    __syncthreads();                   // ... for every thread
+    split_stage(stage);
+    fence_proxy_async();  // the split values, written by threads, are read by wgmma
+    __syncthreads();
+    mma_stage_tf32x3(acc, stage, wg);
+    wgmma_wait<1>();  // chunk i - 1's products have retired ...
+    __syncthreads();  // ... in both warpgroups: its stage is free
+    const int next = i + kTf32Stages - 1;
+    if (next < n_c)
+      load_chunk_swizzled<kCopy>(smem + (next % kTf32Stages) * kTf32StageBytes, X, Y, n, m, d,
+                                 xr0, yr0, c0 + next);
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  cp_async_wait<0>();
+  // m64n128 accumulators: row 16·warp + lane/4 (+8), column 8i + 2(lane%4)
+  // (+1) as acc[4i + 2j + q].
+  finish_tile<64, 128>(
+      acc,
+      [&](int q) {
+        const int i = q >> 2, j = (q >> 1) & 1, e = q & 1;
+        return make_int2(xr0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * j,
+                         yr0 + 8 * i + 2 * (lane & 3) + e);
+      },
+      xsq, ysq, n, m, gamma, slots, tickets, tile_sums, done, out);
+}
+
+// ||row||^2 of each row, one warp a row: lane-strided f32 FMAs, then a
+// fixed shuffle tree (the same bits every launch).
+constexpr int kNormRows = 8;
+__global__ void __launch_bounds__(32 * kNormRows) row_sq_norms(const float* __restrict__ X,
+                                                               int rows, int d,
+                                                               float* __restrict__ out) {
+  const int row = blockIdx.x * kNormRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* x = X + (size_t)row * d;
+  float s = 0.0f;
+  for (int c = lane; c < d; c += 32) s = fmaf(x[c], x[c], s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[row] = s;
+}
+
+template <int kCopy>
+cudaError_t launch_tiles(int bm, const float* X, const float* Y, const float* xsq,
+                         const float* ysq, int n, int m, int d, float gamma, int splits,
+                         float* slots, int* tickets, double* tile_sums, int* done, double* out,
+                         cudaStream_t s) {
+  static const cudaError_t attr_fma =
+      cudaFuncSetAttribute(rbf_fma_kernel<kCopy>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kFmaSmem);
+  static const cudaError_t attr_tf32 =
+      cudaFuncSetAttribute(rbf_tf32x3_kernel<kCopy>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kTf32Smem);
+  if (attr_fma != cudaSuccess) return attr_fma;
+  if (attr_tf32 != cudaSuccess) return attr_tf32;
+  const dim3 grid(osdm::cdiv(m, bm), osdm::cdiv(n, bm), splits);
+  if (bm == 64)
+    rbf_fma_kernel<kCopy><<<grid, kThreads, kFmaSmem, s>>>(
+        X, Y, xsq, ysq, n, m, d, gamma, slots, tickets, tile_sums, done, out);
+  else
+    rbf_tf32x3_kernel<kCopy><<<grid, kThreads, kTf32Smem, s>>>(
+        X, Y, xsq, ysq, n, m, d, gamma, slots, tickets, tile_sums, done, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One call: the squared norms (y's skipped when `same`, y being x), then
+// the tiles with their split over d: bm 64 takes the "fma" route, 128 the
+// "tf32x3" one. Workspace: xsq (n), ysq (m) f32;
+// slots (tiles x splits x bm x bm f32, when split); tickets (tiles) and
+// done (1) int32, zero before the first launch and left zero by each;
+// tile_sums (tiles) f64.
+OSDM_EXPORT int osdm_rbf_kernel_sum(const void* X, const void* Y, int n, int m, int d, float gamma,
+                                    int same, int bm, int splits, void* xsq, void* ysq,
+                                    void* slots, void* tickets, void* tile_sums, void* done,
+                                    void* out, void* stream) {
+  const int kc = osdm::cdiv(d, kChunk);
+  if (n < 1 || m < 1 || d < 1 || (bm != 64 && bm != 128) || splits < 1 || splits > kc ||
+      (splits > 1 && slots == nullptr) || (same && (X != Y || n != m)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(X);
+  const float* y = static_cast<const float*>(Y);
+  float* xn = static_cast<float*>(xsq);
+  float* yn = same ? xn : static_cast<float*>(ysq);
+  row_sq_norms<<<osdm::cdiv(n, kNormRows), 32 * kNormRows, 0, s>>>(x, n, d, xn);
+  if (!same) row_sq_norms<<<osdm::cdiv(m, kNormRows), 32 * kNormRows, 0, s>>>(y, m, d, yn);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // The widest copy that every row start allows.
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                          (static_cast<uintptr_t>(d) * 4);
+  const int copy = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : 4;
+  float* sl = static_cast<float*>(slots);
+  int* tk = static_cast<int*>(tickets);
+  double* ts = static_cast<double*>(tile_sums);
+  int* dn = static_cast<int*>(done);
+  double* o = static_cast<double*>(out);
+  auto tiles = copy == 16 ? launch_tiles<16> : copy == 8 ? launch_tiles<8> : launch_tiles<4>;
+  err = tiles(bm, x, y, xn, yn, n, m, d, gamma, splits, sl, tk, ts, dn, o, s);
+  return static_cast<int>(err);
 }

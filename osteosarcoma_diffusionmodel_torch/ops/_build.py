@@ -56,6 +56,18 @@ SIGNATURES = {
     # bias, row_add, ldr, bn, splits, partials, tickets, stream
     "osdm_gemm_s8": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                      _I, _I, _P, _P, _P],
+    # A (bf16), lda, B, ldb, b_rows, C, ldc, out_bf16, M, N, K, col_scale, accumulate, bias,
+    # row_add, ldr, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8q": [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P,
+                      _P, _P],
+    # A (bf16), lda, B, ldb, b_rows, C, ldc, out, ldo, M, N, K, col_scale, accumulate, bias,
+    # gn_scale, gn_bias, group, eps, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8q_gn_silu": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                              _I, _F, _I, _I, _P, _P, _P],
+    # A (bf16), lda, B, ldb, b_rows, M, N, K, col_scale, x, ldx, mut_dim, b_out, coeffs, step,
+    # mode, noise, seed, clip, bn, splits, partials, tickets, stream
+    "osdm_gemm_s8q_posterior": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I,
+                                _P, _U32, _F, _I, _I, _P, _P, _P],
     # A, lda, B, ldb, b_rows, C, ldc, out, ldo, M, N, K, row_scale, col_scale, accumulate,
     # bias, gn_scale, gn_bias, group, eps, bn, splits, partials, tickets, stream
     "osdm_gemm_s8_gn_silu": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P,
@@ -64,9 +76,9 @@ SIGNATURES = {
     # step, mode, noise, seed, clip, bn, splits, partials, tickets, stream
     "osdm_gemm_s8_posterior": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I,
                                _I, _P, _U32, _F, _I, _I, _P, _P, _P],
-    # X, Y, xsq, ysq, n, m, d, gamma, partials, ticket, out, stream
-    "osdm_rbf_kernel_sum": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
-    "osdm_rbf_grid_blocks": [_I, _I],
+    # X, Y, n, m, d, gamma, same, bm, splits, xsq, ysq, slots, tickets, tile_sums, done, out,
+    # stream
+    "osdm_rbf_kernel_sum": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # h, hacc, xi, zeta_bf, M, H, coeffs, step, mode, zeta, seed, stream
     "osdm_latent_draw": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _U32, _P],
     # s, o_lat, n_inj, c_proj, t_add, coeffs, step, h_in, M, H, stream

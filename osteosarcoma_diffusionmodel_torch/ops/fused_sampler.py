@@ -30,15 +30,19 @@ K1 reads them as 2b - 1 in the input product and K3 draws the binary
 posterior from the step's uniforms (columns 4-5 of the table).
 
 ``quantize`` ("out", "io", "all"; the TPU's ``_quant_flags``, :108-124)
-routes the marked products through K5 (per-row int8 activations) and K6
-(s8·s8 -> s32, dequantized with the per-column weight scales of
-:func:`sampler_kernels.pack_int8`), with the same fused epilogues. The
-decoder's fc1 is then two products over the [h | skip] halves, each with
-its own scales, summed in f32, as the TPU computes it: the first into the
-f32 pre-activation buffer, the second reading it back in its GN epilogue.
-K5 quantizes the bf16 activations that the GN epilogue stores, where the
-TPU quantizes f32 ones. A step launches 28 kernels under "all", 14 under
-"io" and 13 under "out".
+routes the marked products through K6 (per-row int8 activations times
+per-column int8 weights, s8·s8 -> s32, dequantized with the weight scales
+of :func:`sampler_kernels.pack_int8`), with the same fused epilogues. A
+product whose K is at most 1024 (every block product and the output
+product) quantizes its bf16 activations in K6's own prologue
+(:func:`sampler_kernels.gemm_s8q` and its fused forms); the input product
+(the 5142-wide carry) takes K5's codes first. The decoder's fc1 is two
+products over the [h | skip] halves, each with its own scales, summed in
+f32, as the TPU computes it: the first into the f32 pre-activation
+buffer, the second reading it back in its GN epilogue. The activations
+quantized are the bf16 ones that the GN epilogue stores, where the TPU
+quantizes f32 ones. A step launches 15 kernels under "all", 13 under
+"io" and 12 under "out".
 
 Noise: "philox" (in-kernel, the DDPM default), "buffer" (a given
 (n_loop, B, D) tensor: the parity hook) or "none" (DDIM). On CPU tensors
@@ -54,12 +58,16 @@ import torch
 
 from ..models.networks import sinusoid
 from .sampler_kernels import (
+    QUANT_PROLOGUE_MAX_K,
     gemm_bf16_f32acc,
     gemm_bf16_gn_silu,
     gemm_bf16_posterior,
     gemm_s8,
     gemm_s8_gn_silu,
     gemm_s8_posterior,
+    gemm_s8q,
+    gemm_s8q_gn_silu,
+    gemm_s8q_posterior,
     gn_widths,
     groupnorm8_silu,
     kmajor_int8,
@@ -173,26 +181,36 @@ def int8_parts(w: torch.Tensor, device, splits: Optional[Sequence[int]] = None) 
 class _Weight:
     """One product's (K, N) weight in kernel layout: for K1 bf16 with its
     rows padded to pad16(N) (a view of the first N columns; W_out's 5142),
-    or the :func:`int8_parts` for K5 + K6."""
+    or the :func:`int8_parts` for K6. ``prologue`` (the block and output
+    products, where every part's K fits): K6 takes A's bf16 part and
+    quantizes it itself; else (the input product, the carry with its D3PM
+    view) K5 quantizes each part first."""
 
     def __init__(self, w: torch.Tensor, device, quant: bool,
-                 splits: Optional[Sequence[int]] = None):
+                 splits: Optional[Sequence[int]] = None, prologue: bool = True):
         self.parts = int8_parts(w, device, splits) if quant else []
+        self.prologue = prologue and bool(self.parts) and all(
+            hi - lo <= QUANT_PROLOGUE_MAX_K for lo, hi, _, _ in self.parts)
         self.max_kp = max((q.shape[1] for _, _, q, _ in self.parts), default=0)
         if not quant:
             self.w = padded_rows(*w.shape, torch.bfloat16, device)
             self.w.copy_(w)
 
     def _quantized(self, a: torch.Tensor, scratch, mut_cols: int = 0):
-        """(i, last, K5's codes and row scales of A's part i, the part's
-        weight codes and column scales) for each int8 part in turn."""
+        """(i, last, A's operands for part i, the part's weight codes and
+        column scales) for each int8 part in turn. The operands are A's
+        bf16 part (K6's prologue quantizes it: the ``gemm_s8q`` wrappers),
+        or K5's codes and row scales of it (the ``gemm_s8`` ones)."""
         q_buf, s_buf = scratch
         m, last = a.shape[0], len(self.parts) - 1
         for i, (lo, hi, q, scale) in enumerate(self.parts):
+            if self.prologue:
+                yield i, last, (a[:, lo:hi],), q, scale
+                continue
             kp = pad16(hi - lo)
             qa, rs = rowquant_s8(a[:, lo:hi], out=q_buf[: m * kp].view(m, kp), scale=s_buf[:m],
                                  mut_cols=mut_cols if lo == 0 else 0)
-            yield i, last, qa, rs, q, scale
+            yield i, last, (qa, rs), q, scale
 
     def __call__(self, a: torch.Tensor, out: torch.Tensor, scratch, bias=None, row_add=None,
                  mut_cols: int = 0) -> None:
@@ -201,8 +219,9 @@ class _Weight:
         if not self.parts:
             gemm_bf16_f32acc(a, self.w, out=out, bias=bias, row_add=row_add, a_mut_cols=mut_cols)
             return
-        for i, last, qa, rs, q, scale in self._quantized(a, scratch, mut_cols):
-            gemm_s8(qa, rs, q, scale, out=out, bias=bias if i == last else None,
+        product = gemm_s8q if self.prologue else gemm_s8
+        for i, last, ops, q, scale in self._quantized(a, scratch, mut_cols):
+            product(*ops, q, scale, out=out, bias=bias if i == last else None,
                     row_add=row_add if i == last else None, accumulate=i > 0)
 
     def gn_silu(self, a: torch.Tensor, out: torch.Tensor, scratch, pre, bias, gn_scale,
@@ -213,12 +232,14 @@ class _Weight:
         if not self.parts:
             gemm_bf16_gn_silu(a, self.w, bias, gn_scale, gn_bias, out=out)
             return
-        for i, last, qa, rs, q, scale in self._quantized(a, scratch):
+        product, fused = ((gemm_s8q, gemm_s8q_gn_silu) if self.prologue
+                          else (gemm_s8, gemm_s8_gn_silu))
+        for i, last, ops, q, scale in self._quantized(a, scratch):
             if i < last:
-                gemm_s8(qa, rs, q, scale, out=pre, accumulate=i > 0)
+                product(*ops, q, scale, out=pre, accumulate=i > 0)
             else:
-                gemm_s8_gn_silu(qa, rs, q, scale, bias, gn_scale, gn_bias, out=out,
-                                acc_into=pre if last else None)
+                fused(*ops, q, scale, bias, gn_scale, gn_bias, out=out,
+                      acc_into=pre if last else None)
 
     def posterior(self, a: torch.Tensor, x: torch.Tensor, scratch, **step) -> None:
         """The output product with the reverse step as its epilogue, on the
@@ -227,8 +248,9 @@ class _Weight:
         if not self.parts:
             gemm_bf16_posterior(a, self.w, x, **step)
             return
-        for _, _, qa, rs, q, scale in self._quantized(a, scratch):
-            gemm_s8_posterior(qa, rs, q, scale, x, **step)
+        fused = gemm_s8q_posterior if self.prologue else gemm_s8_posterior
+        for _, _, ops, q, scale in self._quantized(a, scratch):
+            fused(*ops, q, scale, x, **step)
 
 
 class _Block:
@@ -293,7 +315,7 @@ class FusedSampler:
             coefficient_table(model.schedule, gains[:, 0], ddim_steps, self.mut_dim > 0)
         ).to(dev)
 
-        self.w_in = _Weight(sd["input_proj.weight"].T, dev, q_in)
+        self.w_in = _Weight(sd["input_proj.weight"].T, dev, q_in, prologue=False)
         self.encoders, width = [], self.hidden[0]
         for name in d.encoder_names:
             self.encoders.append(_Block(sd, name, dev, q_blk, [width]))

@@ -12,12 +12,14 @@ own tests.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from ._build import LIBRARY, check
-from .sampler_kernels import _M32, Kernel, _on_cuda, _stream, philox4x32_10
+from .sampler_kernels import _M32, Kernel, _on_cuda, _sm_count, _stream, philox4x32_10
 
 RBF = Kernel(
     "rbf_kernel_sum",
@@ -34,11 +36,69 @@ def rbf_kernel_sum_plain(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torc
     return torch.exp(-gamma * sq.clamp_min(0.0)).sum()
 
 
-def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Tensor:
+RBF_TILES = (64, 128)  # output tile sides: the "fma" and "tf32x3" routes (csrc/rbf_kernel_sum.cu)
+RBF_CHUNK = 32  # columns of d a pipeline stage holds; splits own whole chunks
+RBF_MIN_SPLIT_CHUNKS = 4  # a split walks at least this many chunks
+
+
+class RbfPlan(NamedTuple):
+    """A launch of K4: ``bm`` x ``bm`` output tiles, d cut into ``splits``
+    ranges of whole chunks. The tile sets the route: 64, f32 FMA on the CUDA
+    cores; 128, split-precision TF32 (three products) on the tensor cores."""
+    bm: int
+    splits: int
+
+    @property
+    def route(self) -> str:
+        return "fma" if self.bm == 64 else "tf32x3"
+
+
+@functools.lru_cache(maxsize=1024)
+def rbf_plan(n: int, m: int, d: int, sms: int) -> RbfPlan:
+    """K4's tile and split for x (n, d) against y (m, d) on a card with
+    ``sms`` multiprocessors, cached by shape: 128 x 128 tiles on the tensor
+    cores ("tf32x3") wherever the output spans more than one of them, else
+    64 x 64 f32 FMA tiles ("fma"); where the tiles leave SMs idle, d is
+    split so that tiles x splits comes as close to ``sms`` as it can, each
+    split keeping RBF_MIN_SPLIT_CHUNKS chunks."""
+    bm = 64 if -(-n // 128) * -(-m // 128) == 1 else 128
+    tiles = -(-n // bm) * -(-m // bm)
+    splits = 1
+    if tiles < sms:
+        splits = max(1, min(sms // tiles, -(-d // RBF_CHUNK) // RBF_MIN_SPLIT_CHUNKS))
+    return RbfPlan(bm, splits)
+
+
+class _RbfWorkspace:
+    """K4's scratch, one per device, grown as launches need: the squared
+    norms, the split slots, the per-tile tickets and done counter (zeroed
+    once: each launch leaves them zero) and the per-tile f64 sums."""
+
+    def __init__(self):
+        self._bufs = {}
+
+    def get(self, device, n: int, m: int, plan: RbfPlan):
+        tiles = -(-n // plan.bm) * -(-m // plan.bm)
+        need = {"norms": n + m, "slots": tiles * plan.splits * plan.bm ** 2 if plan.splits > 1
+                else 0, "tickets": tiles + 1, "sums": tiles}
+        bufs = self._bufs.setdefault(device, {})
+        for key, size in need.items():
+            if key not in bufs or bufs[key].numel() < size:
+                dtype = {"sums": torch.float64, "tickets": torch.int32}.get(key, torch.float32)
+                make = torch.zeros if key == "tickets" else torch.empty
+                bufs[key] = make(max(size, 1), dtype=dtype, device=device)
+        return bufs
+
+
+_RBF_WORKSPACE = _RbfWorkspace()
+
+
+def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, gamma: float,
+                   plan: Optional[RbfPlan] = None) -> torch.Tensor:
     """sum_ij exp(-gamma ||x_i - y_j||^2) for x (n, d), y (m, d) f32,
-    returned as a 0-d float64 tensor. The squared norms are plain torch,
-    as in the JAX wrapper; the cross products, exp, mask and reduction
-    run in the kernel."""
+    returned as a 0-d float64 tensor. On the card one call launches the
+    kernel's squared-norm pass (once when ``y`` is ``x``) and its tiles;
+    ``plan``: the tile and split, :func:`rbf_plan`'s when omitted."""
     for t, name in ((x, "x"), (y, "y")):
         if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
             raise ValueError(f"{name} must be a contiguous 2-D float32 tensor")
@@ -48,15 +108,19 @@ def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, gamma: float) -> torch.Tens
         raise ValueError(f"feature dims differ: {d} vs {y.shape[1]}")
     if not _on_cuda(x, y):
         return rbf_kernel_sum_plain(x, y, gamma)
-    lib = LIBRARY.get()
-    xsq = (x * x).sum(1)
-    ysq = (y * y).sum(1)
-    partials = torch.empty(lib.osdm_rbf_grid_blocks(n, m), dtype=torch.float64, device=x.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if plan is None:
+        plan = rbf_plan(n, m, d, _sm_count(x.device.index))
+    elif plan.bm not in RBF_TILES or not 1 <= plan.splits <= -(-d // RBF_CHUNK):
+        raise ValueError(f"invalid plan {plan} for d = {d}")
+    same = x.data_ptr() == y.data_ptr() and x.shape == y.shape
+    ws = _RBF_WORKSPACE.get(x.device, n, m, plan)
+    norms, tickets = ws["norms"], ws["tickets"]
     out = torch.empty((), dtype=torch.float64, device=x.device)
-    status = lib.osdm_rbf_kernel_sum(
-        x.data_ptr(), y.data_ptr(), xsq.data_ptr(), ysq.data_ptr(), n, m, d, gamma,
-        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), _stream(x),
+    status = LIBRARY.get().osdm_rbf_kernel_sum(
+        x.data_ptr(), y.data_ptr(), n, m, d, gamma, int(same), plan.bm, plan.splits,
+        norms.data_ptr(), norms[n:].data_ptr(), ws["slots"].data_ptr() if plan.splits > 1 else None,
+        tickets.data_ptr(), ws["sums"].data_ptr(), tickets[-1:].data_ptr(), out.data_ptr(),
+        _stream(x),
     )
     check(status, RBF.name)
     RBF.count()

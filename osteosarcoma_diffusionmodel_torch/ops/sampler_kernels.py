@@ -18,7 +18,11 @@ computes in one Pallas kernel, one reverse step at a time:
 - K2's and K3's work as epilogues of K1's and K6's mainloop
   (:func:`gemm_bf16_gn_silu`, :func:`gemm_bf16_posterior`,
   :func:`gemm_s8_gn_silu`, :func:`gemm_s8_posterior`): the sampler's
-  block and output products, one launch each. The standalone K2 and K3
+  block and output products, one launch each;
+- K5's work as K6's prologue (:func:`gemm_s8q`, :func:`gemm_s8q_gn_silu`,
+  :func:`gemm_s8q_posterior`): K6 quantizes the bf16 activations of a
+  product with K <= 1024 itself, so under int8 the standalone K5 runs
+  only before the input product. The standalone K2 and K3
   stay as their unfused reference and for GroupNorm widths whose groups
   no tile holds whole;
 - K7 ``latent_step`` (:func:`latent_draw`, :func:`latent_update`): the
@@ -927,6 +931,158 @@ def gemm_s8_posterior(qa: torch.Tensor, row_scale: torch.Tensor, qb: torch.Tenso
     )
     check(status, GEMM_S8_POSTERIOR.name)
     GEMM_S8_POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
+    return x
+
+
+# ----------------------------------------------------------------------
+# K6 with K5's work as its prologue
+# ----------------------------------------------------------------------
+_TPU_MM_QUANT = "osteosarcoma_diffusionmodel_tpu/ops/fused_sampler.py:336"
+GEMM_S8Q = Kernel("gemm_s8q", "osteosarcoma_diffusionmodel_torch/csrc/gemm_s8.cu", _TPU_MM_QUANT,
+                  modes=("f32_out", "bf16_out", "accumulate"))
+GEMM_S8Q_GN = Kernel("gemm_s8q_gn_silu", _FUSED_S8, _TPU_MM_QUANT, modes=("default", "accumulate"))
+GEMM_S8Q_POSTERIOR = Kernel("gemm_s8q_posterior", _FUSED_S8, _TPU_MM_QUANT, modes=_STEP_MODES)
+
+# The prologue holds A's 64-row strip over the whole K in shared memory
+# (csrc/gemm_sm90.cuh, kQuantA): K <= 8 int8 k-tiles of 128.
+QUANT_PROLOGUE_MAX_K = 1024
+QUANT_WIDTHS = (64,)  # block width of gemm_s8q's plain epilogue (csrc/gemm_s8.cu)
+
+
+def _check_quant_a(a: torch.Tensor, qb: torch.Tensor,
+                   col_scale: torch.Tensor) -> Tuple[int, int, int, int]:
+    """The prologue's A (M, K) bf16 row-major view, K <= QUANT_PROLOGUE_MAX_K,
+    and K6's codes (Np, pad16(K)) and column scales (N,); returns
+    (lda, M, K, N)."""
+    lda = _check_rows(a, "a")
+    _check_dtype(a, torch.bfloat16, "a")
+    m, k = a.shape
+    if not 0 < k <= QUANT_PROLOGUE_MAX_K:
+        raise ValueError(f"the quantizing prologue takes K in [1, {QUANT_PROLOGUE_MAX_K}], got {k}")
+    _check_dtype(qb, torch.int8, "qb")
+    if qb.dim() != 2 or not qb.is_contiguous() or qb.shape[1] != pad16(k):
+        raise ValueError(f"qb must be contiguous (Np, {pad16(k)}) int8 codes, "
+                         f"got {tuple(qb.shape)}")
+    _check_dtype(col_scale, torch.float32, "col_scale")
+    n = col_scale.shape[0] if col_scale.dim() == 1 else -1
+    if not col_scale.is_contiguous() or not 0 < n <= qb.shape[0]:
+        raise ValueError(f"col_scale must be contiguous (N,) with N <= {qb.shape[0]}")
+    return lda, m, k, n
+
+
+def _check_quant_tma(a: torch.Tensor, qb: torch.Tensor, name: str) -> None:
+    if not tma_ready(a) or qb.data_ptr() % 16:
+        raise ValueError(f"{name} reads A through TMA (16-byte-aligned base and row stride) and "
+                         "16-byte-aligned codes")
+
+
+def gemm_s8q_plain(a, qb, col_scale, bias=None, row_add=None, acc_into=None):
+    """K5 then K6, plain: :func:`rowquant_s8_plain` of ``a``, then
+    :func:`gemm_s8_plain`."""
+    qa, rs = rowquant_s8_plain(a)
+    return gemm_s8_plain(qa, rs, qb, col_scale, bias, row_add, acc_into)
+
+
+def gemm_s8q(a: torch.Tensor, qb: torch.Tensor, col_scale: torch.Tensor,
+             out: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+             row_add: Optional[torch.Tensor] = None, accumulate: bool = False,
+             plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """:func:`gemm_s8` on the bf16 activations ``a`` (M, K), a row-strided
+    view allowed, K <= QUANT_PROLOGUE_MAX_K: K6 quantizes each row itself
+    (K5's arithmetic) in one launch. ``qb`` (Np, pad16(K)) K-major codes;
+    the rest as for :func:`gemm_s8`. The result equals
+    rowquant_s8 -> gemm_s8's. ``plan``: among QUANT_WIDTHS."""
+    lda, m, k, n = _check_quant_a(a, qb, col_scale)
+    if accumulate and (out is None or out.dtype != torch.float32):
+        raise ValueError("accumulate needs an f32 out")
+    out = _check_epilogue(m, n, bias, row_add, out, a.device)
+
+    if not _on_cuda(a, qb, col_scale, bias, row_add, out):
+        out.copy_(gemm_s8q_plain(a, qb, col_scale, bias, row_add, out if accumulate else None))
+        return out
+    _check_quant_tma(a, qb, GEMM_S8Q.name)
+    plan = _launch_plan(plan, a.device, m, n, pad16(k), "int8", QUANT_WIDTHS)
+    partials, tickets = _split_pointers(a.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_s8q(
+        a.data_ptr(), lda, qb.data_ptr(), qb.shape[1], qb.shape[0], out.data_ptr(), out.stride(0),
+        int(out.dtype == torch.bfloat16), m, n, k, col_scale.data_ptr(), int(accumulate),
+        bias.data_ptr() if bias is not None else None,
+        row_add.data_ptr() if row_add is not None else None,
+        row_add.stride(0) if row_add is not None else 0,
+        plan.bn, plan.splits, partials, tickets, _stream(a),
+    )
+    check(status, GEMM_S8Q.name)
+    GEMM_S8Q.count("accumulate" if accumulate else
+                   "bf16_out" if out.dtype == torch.bfloat16 else "f32_out")
+    return out
+
+
+def gemm_s8q_gn_silu(a: torch.Tensor, qb: torch.Tensor, col_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor], gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                     out: Optional[torch.Tensor] = None, acc_into: Optional[torch.Tensor] = None,
+                     plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """:func:`gemm_s8_gn_silu` on the bf16 activations ``a`` (M, K), K <=
+    QUANT_PROLOGUE_MAX_K, quantized per row in the same launch (K5 -> K6
+    with GroupNorm+SiLU in its epilogue, one launch)."""
+    _, m, k, n = _check_quant_a(a, qb, col_scale)
+    out = _check_gn(n, bias, gn_scale, gn_bias, out, m, a.device)
+    if acc_into is not None:
+        _check_dtype(acc_into, torch.float32, "acc_into")
+        if acc_into.shape != (m, n):
+            raise ValueError(f"acc_into must be ({m}, {n}), got {tuple(acc_into.shape)}")
+        _check_rows(acc_into, "acc_into")
+
+    if not _on_cuda(a, qb, col_scale, bias, gn_scale, gn_bias, out, acc_into):
+        v = gemm_s8q_plain(a, qb, col_scale, bias, acc_into=acc_into)
+        out.copy_(groupnorm8_silu_plain(v, gn_scale, gn_bias))
+        return out
+    _check_quant_tma(a, qb, GEMM_S8Q_GN.name)
+    plan = _launch_plan(plan, a.device, m, n, pad16(k), "int8", gn_widths(n))
+    partials, tickets = _split_pointers(a.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_s8q_gn_silu(
+        a.data_ptr(), a.stride(0), qb.data_ptr(), qb.shape[1], qb.shape[0],
+        acc_into.data_ptr() if acc_into is not None else None,
+        acc_into.stride(0) if acc_into is not None else 0, out.data_ptr(), out.stride(0),
+        m, n, k, col_scale.data_ptr(), int(acc_into is not None),
+        bias.data_ptr() if bias is not None else None, gn_scale.data_ptr(), gn_bias.data_ptr(),
+        n // 8, GN_EPS, plan.bn, plan.splits, partials, tickets, _stream(a),
+    )
+    check(status, GEMM_S8Q_GN.name)
+    GEMM_S8Q_GN.count("accumulate" if acc_into is not None else "default")
+    return out
+
+
+def gemm_s8q_posterior(a: torch.Tensor, qb: torch.Tensor, col_scale: torch.Tensor,
+                       x: torch.Tensor, b_out: torch.Tensor, coeffs: torch.Tensor, step: int,
+                       mode: str, noise: Optional[torch.Tensor] = None, seed: int = 0,
+                       clip: float = 30.0, mut_dim: int = 0,
+                       plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """:func:`gemm_s8_posterior` on the bf16 activations ``a`` (B, K), K <=
+    QUANT_PROLOGUE_MAX_K, quantized per row in the same launch: the int8
+    output product and the reverse step on the carry ``x`` in place, with
+    the bits of rowquant_s8 -> gemm_s8_posterior."""
+    _, m, k, n = _check_quant_a(a, qb, col_scale)
+    _check_step(x, b_out, coeffs, step, mode, noise, seed, mut_dim)
+    if x.shape != (m, n):
+        raise ValueError(f"x must be ({m}, {n}), got {tuple(x.shape)}")
+
+    if not _on_cuda(a, qb, col_scale, x, b_out, coeffs, noise if mode == "buffer" else None):
+        acc = gemm_s8q_plain(a, qb, col_scale)
+        x.copy_(x0_posterior_step_plain(acc, x, b_out, coeffs, step, mode, noise, seed, clip,
+                                        mut_dim))
+        return x
+    _check_quant_tma(a, qb, GEMM_S8Q_POSTERIOR.name)
+    plan = _launch_plan(plan, a.device, m, n, pad16(k), "int8", POSTERIOR_WIDTHS)
+    partials, tickets = _split_pointers(a.device, m, n, plan)
+    status = LIBRARY.get().osdm_gemm_s8q_posterior(
+        a.data_ptr(), a.stride(0), qb.data_ptr(), qb.shape[1], qb.shape[0], m, n, k,
+        col_scale.data_ptr(), x.data_ptr(), x.stride(0), mut_dim, b_out.data_ptr(),
+        coeffs.data_ptr(), step, NOISE_MODES[mode],
+        noise.data_ptr() if mode == "buffer" else None, seed, clip, plan.bn, plan.splits,
+        partials, tickets, _stream(a),
+    )
+    check(status, GEMM_S8Q_POSTERIOR.name)
+    GEMM_S8Q_POSTERIOR.count(f"d3pm_{mode}" if mut_dim else mode)
     return x
 
 

@@ -1,13 +1,15 @@
 """Sampler wall time and device busy share of one checkout of the port, for
 comparing two checkouts on one card.
 
-    python scripts/ab_sampler_wall.py [--root DIR] [--rows 333] [--reps 3] [--out FILE]
+    python scripts/ab_sampler_wall.py [--root DIR] [--rows 333] [--reps 3]
+        [--quantize none|out|io|all] [--out FILE]
 
 Imports ``osteosarcoma_diffusionmodel_torch`` from ``--root`` (this
 checkout by default; an unpacked ``git archive`` of another commit to
 compare), builds the seeded full-width model (data 62/5054/26, hidden
 256/512/256, T = 1000) and times whole ``FusedSampler.sample`` calls:
-DDPM-1000 and DDIM-50, best of ``--reps`` after a warm-up call. One more
+DDPM-1000 and DDIM-50, best of ``--reps`` after a warm-up call, in bf16
+or under the int8 mode ``--quantize`` (generation.fused_quantize). One more
 DDIM-50 call runs under torch.profiler: device time, busy share (device
 time over the window's wall) and kernel launches. Run the two checkouts
 in turns in one session (A, B, B, A): the wall follows the host, which
@@ -29,6 +31,7 @@ def main(argv=None) -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--rows", type=int, default=333)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--quantize", default="none", choices=("none", "out", "io", "all"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -53,9 +56,11 @@ def main(argv=None) -> None:
     init_weights(model.denoiser, torch.Generator().manual_seed(0))
     model.denoiser.to(dev)
     cond = torch.randn(args.rows, dims.condition_dim, generator=torch.Generator().manual_seed(1))
-    report = {"root": args.root, "card": card, "rows": args.rows, "wall_s": {}}
+    quantize = None if args.quantize == "none" else args.quantize
+    report = {"root": args.root, "card": card, "rows": args.rows, "quantize": args.quantize,
+              "wall_s": {}}
     for label, steps in (("DDPM-1000", None), ("DDIM-50", 50)):
-        sampler = FusedSampler(model, dev, steps)
+        sampler = FusedSampler(model, dev, steps, quantize=quantize)
         sampler.sample(cond, torch.Generator().manual_seed(2))
         best = float("inf")
         for _ in range(args.reps):

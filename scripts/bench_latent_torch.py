@@ -56,7 +56,8 @@ DATA_DIMS = (62, 5054, 26)
 CONDITIONS = ["survival_days_norm", "event_occurred", "metastasis_at_diagnosis"]
 PROBE_ROWS = 256
 KERNELS = (sk.GEMM, sk.GEMM_GN, sk.GEMM_POSTERIOR, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT,
-           sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR, sk.LATENT)
+           sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR, sk.GEMM_S8Q, sk.GEMM_S8Q_GN,
+           sk.GEMM_S8Q_POSTERIOR, sk.LATENT)
 
 
 def build_model(steps: int, dev) -> ConditionalDiffusion:

@@ -90,14 +90,35 @@ def test_cuda_groupnorm_and_posterior_match_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_rbf_kernel_sum_matches_plain(cuda):
-    x = torch.randn(100, 5142, device=cuda)
-    y = torch.randn(999, 5142, device=cuda) * 1.05
-    for a, b in ((x, x), (x, y), (y, y)):
-        got = float(pk.rbf_kernel_sum(a, b, 1 / 5142))
-        assert got == float(pk.rbf_kernel_sum(a, b, 1 / 5142))  # run to run
-        ref = float(pk.rbf_kernel_sum_plain(a, b, 1 / 5142))
-        assert abs(got - ref) <= 1e-5 * abs(ref)
+@pytest.mark.parametrize("n,m", [(100, 100), (999, 999), (100, 999), (9999, 9999), (100, 9999)])
+def test_cuda_rbf_kernel_sum_matches_plain(cuda, n, m):
+    # The validator's shapes and the production MMD's (100 real rows, 9999
+    # synthetic): equal bits twice, 1e-5 relative of the f64 plain version
+    # (f32 FMA dots against f64).
+    g = torch.Generator(cuda).manual_seed(n + m)
+    x = torch.randn(n, 5142, device=cuda, generator=g)
+    y = x if n == m else torch.randn(m, 5142, device=cuda, generator=g) * 1.05 + 0.02
+    got = float(pk.rbf_kernel_sum(x, y, 1 / 5142))
+    assert got == float(pk.rbf_kernel_sum(x, y, 1 / 5142))  # run to run
+    ref = float(pk.rbf_kernel_sum_plain(x, y, 1 / 5142))
+    assert abs(got - ref) <= 1e-5 * abs(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 7, 30])
+@pytest.mark.parametrize("d", [5142, 1037, 1000])
+def test_cuda_rbf_kernel_sum_forced_plans(cuda, bm, splits, d):
+    # Every tile under forced split counts, with d a multiple of 4 (16-byte
+    # copies), even (8-byte) and odd (4-byte), and n below one tile.
+    g = torch.Generator(cuda).manual_seed(d + splits)
+    x = torch.randn(37, d, device=cuda, generator=g)
+    y = torch.randn(300, d, device=cuda, generator=g) * 1.1
+    ref = float(pk.rbf_kernel_sum_plain(x, y, 1 / d))
+    plan = pk.RbfPlan(bm, splits)
+    got = float(pk.rbf_kernel_sum(x, y, 1 / d, plan=plan))
+    assert got == float(pk.rbf_kernel_sum(x, y, 1 / d, plan=plan))
+    assert abs(got - ref) <= 1e-5 * abs(ref), (plan, got, ref)
 
 
 # ----------------------------------------------------------------------
@@ -147,6 +168,23 @@ def test_cuda_posterior_d3pm_matches_plain(cuda):
         assert float((bits != ref[:, :62].float()).float().mean()) <= 1e-4
         cont, cref = got[:, 62:].float(), ref[:, 62:].float()
         assert float((cont - cref).abs().max()) <= 2 ** -7 * max(1.0, float(cref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [333, 32768])
+def test_cuda_rowquant_input_product_matches_plain(cuda, rows):
+    # The input product's K5: the padded 5142-wide carry (row stride 5152)
+    # with 2b - 1 on 62 bit columns, at the sampler's 333 rows and bench.py's
+    # 32,768; and a contiguous f32 row of an odd width (element loads).
+    g = torch.Generator(cuda).manual_seed(rows)
+    carry = _padded(rows, 5142, torch.bfloat16, cuda)
+    carry.copy_(torch.randn(rows, 5142, device=cuda, generator=g))
+    carry[:, :62] = (torch.rand(rows, 62, device=cuda, generator=g) < 0.5).to(torch.bfloat16)
+    odd = 3.0 * torch.randn(rows, 1037, device=cuda, generator=g)
+    for a, mut in ((carry, 62), (odd, 0)):
+        q, scale = sk.rowquant_s8(a, mut_cols=mut)
+        rq, rs = sk.rowquant_s8_plain(a, mut)
+        assert torch.equal(q, rq) and torch.equal(scale, rs)
 
 
 @pytest.mark.cuda
@@ -404,8 +442,10 @@ def test_cuda_posterior_epilogue_equals_the_pair(cuda, kind, mode, mut, binary):
 @pytest.mark.cuda
 def test_cuda_sampler_step_launches(cuda):
     # One reverse step at the default widths (hidden 256/512/256): 12
-    # launches in bf16 (w_in, 10 fused block products, 1 fused output
-    # product), 28 under int8 "all"; K2 and K3 apart never launch.
+    # launches in bf16 and int8 "out" (w_in, 10 fused block products, 1
+    # fused output product), 13 under "io", 15 under "all" (K5 and K6 for
+    # the input product, the decoders' first fc1 parts); K2 and K3 apart
+    # never launch.
     from osteosarcoma_diffusionmodel_torch.config import Config
     from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
     from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
@@ -417,8 +457,9 @@ def test_cuda_sampler_step_launches(cuda):
     init_weights(model.denoiser, torch.Generator().manual_seed(0))
     model.denoiser.to(cuda)
     kernels = (sk.GEMM, sk.GEMM_GN, sk.GEMM_POSTERIOR, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT,
-               sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR)
-    for quantize, want in ((None, 12), ("out", 13), ("io", 14), ("all", 28)):
+               sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR, sk.GEMM_S8Q, sk.GEMM_S8Q_GN,
+               sk.GEMM_S8Q_POSTERIOR)
+    for quantize, want in ((None, 12), ("out", 12), ("io", 13), ("all", 15)):
         sampler = FusedSampler(model, cuda, quantize=quantize)
         cond = torch.zeros(7, dims.condition_dim)
         sampler.sample(cond, torch.Generator(cuda).manual_seed(0), stop_after=1)  # warm
@@ -428,4 +469,108 @@ def test_cuda_sampler_step_launches(cuda):
         delta = {k.name: k.launches - b for k, b in zip(kernels, before)}
         assert sum(delta.values()) == want, (quantize, delta)
         assert delta["groupnorm8_silu"] == delta["x0_posterior_step"] == 0
+        assert delta["rowquant_s8"] == (quantize in ("io", "all"))  # the input product's only
         assert bool(torch.isfinite(x).all())
+
+
+# ----------------------------------------------------------------------
+# K5's work as K6's prologue
+# ----------------------------------------------------------------------
+def _skip_view(rng, m, k, cuda):
+    buf = torch.zeros(m, 256 + k, dtype=torch.bfloat16, device=cuda)
+    view = buf[:, 256:]
+    view.copy_(_bf16(rng, (m, k), 3.0).to(cuda))
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["plain", "plain_bf16", "accumulate", "gn", "gn_accumulate"])
+@pytest.mark.parametrize("k", [256, 512])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_cuda_quant_prologue_equals_k5_then_k6(cuda, epilogue, k, splits):
+    # K6 quantizing its own A (a [h | skip] view, 333 rows) against K5 then
+    # K6 with the same plan: equal bits in every epilogue, split and not.
+    rng = np.random.default_rng(k + splits + len(epilogue))
+    m, n = 333, 256
+    a = _skip_view(rng, m, k, cuda)
+    q, cs = sk.pack_int8(rng.standard_normal((k, n)).astype(np.float32) / math.sqrt(k))
+    qb, cs = sk.kmajor_int8(q).to(cuda), cs.to(cuda)
+    bias = torch.randn(n, device=cuda)
+    qa, rs = sk.rowquant_s8(a)
+    start = torch.randn(m, n, device=cuda)
+    for bn in (sk.gn_widths(n) if epilogue.startswith("gn") else sk.QUANT_WIDTHS):
+        plan = sk.GemmPlan(64, bn, splits)
+        if epilogue.startswith("gn"):
+            scale = 1.0 + 0.1 * torch.randn(n, device=cuda)
+            shift = 0.1 * torch.randn(n, device=cuda)
+            acc = start if epilogue == "gn_accumulate" else None
+            got = sk.gemm_s8q_gn_silu(a, qb, cs, bias, scale, shift, acc_into=acc, plan=plan)
+            want = sk.gemm_s8_gn_silu(qa, rs, qb, cs, bias, scale, shift, acc_into=acc, plan=plan)
+        else:
+            dtype = torch.bfloat16 if epilogue == "plain_bf16" else torch.float32
+            accumulate = epilogue == "accumulate"
+            got = start.clone() if accumulate else torch.empty(m, n, dtype=dtype, device=cuda)
+            want = got.clone()
+            before = sk.GEMM_S8Q.launches
+            sk.gemm_s8q(a, qb, cs, out=got, bias=bias, accumulate=accumulate, plan=plan)
+            assert sk.GEMM_S8Q.launches == before + 1
+            sk.gemm_s8(qa, rs, qb, cs, out=want, bias=bias, accumulate=accumulate, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (epilogue, bn, splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["philox", "buffer", "none"])
+@pytest.mark.parametrize("mut", [0, 62])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_cuda_quant_prologue_posterior_equals_k5_then_k6(cuda, mode, mut, splits):
+    # The output product (333 x 256 . 256 x 5142, padded carry) with the
+    # reverse step: the carry through the prologue equals K5 -> K6's.
+    rng = np.random.default_rng(len(mode) + mut + splits)
+    m, k, d = 333, 256, 5142
+    h = _bf16(rng, (m, k), 2.0).to(cuda)
+    start = _padded(m, d, torch.bfloat16, cuda)
+    start.copy_(_bits_and_values(rng, m, d, mut).to(cuda))
+    q, cs = sk.pack_int8(rng.standard_normal((k, d)).astype(np.float32) / math.sqrt(k))
+    qb, cs = sk.kmajor_int8(q).to(cuda), cs.to(cuda)
+    coeffs = torch.from_numpy(rng.uniform(0.1, 1.0, (4, 6)).astype(np.float32)).to(cuda)
+    coeffs[:, 4:] = torch.tensor([0.05, 0.7], device=cuda)
+    step = dict(b_out=torch.randn(d, device=cuda), coeffs=coeffs, step=1, mode=mode,
+                noise=torch.randn(4, m, d, device=cuda), seed=3, mut_dim=mut)
+    plan = sk.GemmPlan(64, 64, splits)
+    fused, pair = start.clone(), start.clone()
+    sk.gemm_s8q_posterior(h, qb, cs, fused, **step, plan=plan)
+    sk.gemm_s8_posterior(*sk.rowquant_s8(h), qb, cs, pair, **step, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, pair) and not torch.equal(fused, start)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize,head", [("out", False), ("io", False), ("all", False),
+                                           ("all", True)])
+def test_cuda_int8_sampler_carry_equals_the_k5_route(cuda, quantize, head):
+    # The default widths at 333 rows, DDPM-5 with buffer noise: the carry
+    # with K6 quantizing its own A equals the carry with K5 before every
+    # int8 product, bit for bit.
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+
+    cfg = Config()
+    cfg.model.diffusion.num_steps = 5
+    cfg.model.diffusion.discrete_mutation_head = head
+    dims = cfg.freeze_dims(62, 5054, 26, list(cfg.model.condition_on))
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    model.denoiser.to(cuda)
+    cond = torch.randn(333, dims.condition_dim)
+    noise = torch.randn(5, 333, 5142)
+    fused = FusedSampler(model, cuda, quantize=quantize)
+    apart = FusedSampler(model, cuda, quantize=quantize)
+    blocks = apart.encoders + [apart.bottleneck] + apart.decoders
+    for w in [apart.w_out] + [b.fc1 for b in blocks] + [b.fc2 for b in blocks]:
+        w.prologue = False
+    got = fused.sample(cond, torch.Generator(cuda).manual_seed(1), noise=noise)
+    want = apart.sample(cond, torch.Generator(cuda).manual_seed(1), noise=noise)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())

@@ -182,7 +182,8 @@ def test_posterior_epilogue_checks_arguments():
 # The sampler's step
 # ----------------------------------------------------------------------
 _WRAPPERS = ("gemm_bf16_f32acc", "gemm_bf16_gn_silu", "gemm_bf16_posterior", "gemm_s8",
-             "gemm_s8_gn_silu", "gemm_s8_posterior", "rowquant_s8", "groupnorm8_silu")
+             "gemm_s8_gn_silu", "gemm_s8_posterior", "gemm_s8q", "gemm_s8q_gn_silu",
+             "gemm_s8q_posterior", "rowquant_s8", "groupnorm8_silu")
 
 
 def _count_calls(monkeypatch):
@@ -202,21 +203,23 @@ def _count_calls(monkeypatch):
 
 @pytest.mark.parametrize("quantize,launches", [
     (None, {"gemm_bf16_f32acc": 1, "gemm_bf16_gn_silu": 10, "gemm_bf16_posterior": 1}),
-    ("out", {"gemm_bf16_f32acc": 1, "gemm_bf16_gn_silu": 10, "rowquant_s8": 1,
-             "gemm_s8_posterior": 1}),
-    ("io", {"rowquant_s8": 2, "gemm_s8": 1, "gemm_bf16_gn_silu": 10, "gemm_s8_posterior": 1}),
-    ("all", {"rowquant_s8": 14, "gemm_s8": 3, "gemm_s8_gn_silu": 10, "gemm_s8_posterior": 1}),
+    ("out", {"gemm_bf16_f32acc": 1, "gemm_bf16_gn_silu": 10, "gemm_s8q_posterior": 1}),
+    ("io", {"rowquant_s8": 1, "gemm_s8": 1, "gemm_bf16_gn_silu": 10, "gemm_s8q_posterior": 1}),
+    ("all", {"rowquant_s8": 1, "gemm_s8": 1, "gemm_s8q": 2, "gemm_s8q_gn_silu": 10,
+             "gemm_s8q_posterior": 1}),
 ])
 def test_step_launches_by_mode(monkeypatch, quantize, launches):
     """One reverse step of the parity model (5 blocks; the decoders' fc1
-    split in two under "all"): 12 launches in bf16, 13 under "out", 14
-    under "io", 28 under "all"; the standalone K2 and K3 never run."""
+    split in two under "all"): 12 launches in bf16 and under "out", 13
+    under "io", 15 under "all". K6 quantizes its own A in every product
+    but the input product, so the standalone K5 runs only there; the
+    standalone K2 and K3 never run."""
     _, _, pmodel = make_pair(num_steps=6)
     sampler = FusedSampler(pmodel, "cpu", quantize=quantize)
     calls = _count_calls(monkeypatch)
     sampler.sample(torch.zeros(3, 3), torch.Generator().manual_seed(0), stop_after=1)
     assert {k: v for k, v in calls.items() if v} == launches
-    assert sum(launches.values()) == {None: 12, "out": 13, "io": 14, "all": 28}[quantize]
+    assert sum(launches.values()) == {None: 12, "out": 12, "io": 13, "all": 15}[quantize]
 
 
 def test_unfused_block_route_matches_jax(monkeypatch):

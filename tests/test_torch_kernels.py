@@ -241,10 +241,12 @@ def test_posterior_step_checks_arguments():
 # ----------------------------------------------------------------------
 # K4
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("n,m,d", [(20, 30, 50), (7, 130, 300)])
+@pytest.mark.parametrize("n,m,d", [(20, 30, 50), (7, 130, 300), (5, 70, 1037), (63, 200, 333)])
 def test_rbf_kernel_sum_plain_matches_pallas_interpret(n, m, d):
     """The Pallas kernel in interpret mode computes in f32 with HIGHEST
-    dots; the plain version in f64: 1e-5 relative on the sum."""
+    dots; the plain version in f64: 1e-5 relative on the sum. The last two
+    cases: d not a multiple of the kernel's 32-column chunks nor of its
+    split, and n below one 64-row tile."""
     rng = np.random.default_rng(n * m)
     x = rng.standard_normal((n, d)).astype(np.float32)
     y = (1.1 * rng.standard_normal((m, d)) + 0.1).astype(np.float32)
@@ -253,6 +255,26 @@ def test_rbf_kernel_sum_plain_matches_pallas_interpret(n, m, d):
     got = pk.rbf_kernel_sum(torch.from_numpy(x), torch.from_numpy(y), gamma)
     assert got.dtype == torch.float64 and got.dim() == 0
     np.testing.assert_allclose(float(got), ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,m,d,plan", [
+    (100, 100, 5142, (64, 33)),    # one tile: f32 FMA, d split over the 132 SMs
+    (100, 999, 5142, (128, 16)),   # 8 tiles of 128 x 128 on the tensor cores
+    (999, 999, 5142, (128, 2)),    # 64 tiles
+    (100, 9999, 5142, (128, 1)),
+    (9999, 9999, 5142, (128, 1)),
+    (100, 100, 200, (64, 1)),      # 7 chunks: too few to split
+    (5, 7, 5142, (64, 40)),        # 161 chunks, at least 4 a split
+])
+def test_rbf_plan(n, m, d, plan):
+    """K4's tile and split at the validator's and the production MMD's
+    shapes on a 132-SM card."""
+    got = pk.rbf_plan(n, m, d, 132)
+    assert tuple(got) == plan and got.route == ("fma" if plan[0] == 64 else "tf32x3")
+    bm, splits = plan
+    tiles = -(-n // bm) * -(-m // bm)
+    assert tiles * splits <= max(132, tiles)
+    assert splits == 1 or -(-d // pk.RBF_CHUNK) // splits >= pk.RBF_MIN_SPLIT_CHUNKS
 
 
 def test_mmd_matches_jax_stats():
