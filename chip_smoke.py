@@ -25,7 +25,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    K5 then K6 and timed beside that pair (a ``WARNING`` line where it is
    not faster); K5 on the input product at 333 and 32,768 rows; K4 at the
    validator's and the production MMD's shapes, with its route (f32 FMA
-   or three TF32 products) and that route's bound. K1, K6 and the fused kernels run each case
+   or three TF32 products) and that route's bound; the latent step on one
+   K1 launch (both products, K7's update, the next draw) at 333 and 999
+   rows in both draw modes, its state bit for bit equal to K1 -> K7 -> K1
+   -> K7's under the same plan, timed beside that pair and torch's two
+   products; K7's priming draw; K8 at 333 x 5142. K1, K6 and the fused kernels run each case
    twice and require equal bits, split-K included. The step's launches by
    kernel and mode, for bf16, D3PM and each int8 mode (12 a bf16 step,
    12 / 13 / 15 under int8 "out" / "io" / "all", the standalone K5 only
@@ -47,13 +51,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
    product;
    - "latent": the latent-tail hybrid sampler. ``scripts/bench_latent_torch.py``
      as a subprocess at 999 rows, DDPM-1000, once with the probe's head
-     and once with head 100 (its launches counted in that process: K7
-     once per latent step in each mode; only the kernel latent sampler's
-     launches join the path's); then in process at full width,
-     ``LatentFusedSampler`` with head 100 (899 latent steps), its counts
-     read right after the latent calls, and, where the probe says the clip
-     does not bind in the tail, its per-feature moments against the
-     data-space kernel sampler's;
+     and once with head 100 (its launches counted in that process: the
+     fused latent step once per latent step, K7's draw once per call, its
+     update never; only the kernel latent sampler's launches join the
+     path's); then in process at full width, ``LatentFusedSampler`` with
+     head 100 (899 latent steps), its counts read right after the latent
+     calls (11 launches a latent step: 10 in the stack, 1 fused; one
+     priming draw a call), and, where the probe says the clip does not
+     bind in the tail, its per-feature moments against the data-space
+     kernel sampler's;
 5. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
@@ -117,7 +123,9 @@ from osteosarcoma_diffusionmodel_torch.ops.pallas_kernels import (
 )
 from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM,
+    GEMM_BM,
     GEMM_GN,
+    GEMM_LATENT,
     GEMM_POSTERIOR,
     GEMM_S8,
     GEMM_S8_GN,
@@ -126,7 +134,9 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM_S8Q_GN,
     GEMM_S8Q_POSTERIOR,
     GROUPNORM,
+    GemmPlan,
     LATENT,
+    LATENT_WIDTHS,
     POSTERIOR,
     POSTERIOR_WIDTHS,
     QUANT_WIDTHS,
@@ -134,6 +144,8 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     gemm_bf16_f32acc,
     gemm_bf16_f32acc_plain,
     gemm_bf16_gn_silu,
+    gemm_bf16_latent_step,
+    gemm_bf16_latent_step_plain,
     gemm_bf16_posterior,
     gemm_plan,
     gemm_s8,
@@ -175,9 +187,14 @@ from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 
 KERNELS = (GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8,
            GEMM_S8_GN, GEMM_S8_POSTERIOR, GEMM_S8Q, GEMM_S8Q_GN, GEMM_S8Q_POSTERIOR, LATENT,
-           POSTERIOR_UPDATE)
+           GEMM_LATENT, POSTERIOR_UPDATE)
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
 STEP_LAUNCHES = {"none": 12, "out": 12, "io": 13, "all": 15}
+# Launches of the hidden stack (hidden 256/512/256: five blocks, two block
+# products each, GN in their epilogue) and of one latent step (the stack,
+# then both products with K7's work in one launch).
+STACK_LAUNCHES = 10
+LATENT_STEP_LAUNCHES = STACK_LAUNCHES + 1
 REPO = Path(__file__).resolve().parent
 BATCH = 333  # rows per scenario: 1000 // 3
 LATENT_ROWS = 999  # the latent path's rows: three scenarios of 333, batched
@@ -1000,43 +1017,151 @@ def check_rbf(dev, g) -> list:
     return out
 
 
-def check_latent_step(dev, g) -> list:
-    """K7 at the latent tail's shapes, 333 x 256 and 999 x 256, in both
-    draw modes and the update. Tolerances: the kernel writes the plain
-    version's f32 operations with _rn intrinsics, so s, H_acc and xi agree
-    to f32 rounding (two ulps of max(1, |ref|), expected 0) and the bf16
-    outputs (bf16(zeta), the next stack input) within one bf16 rounding.
-    The Philox zeta at 333 x 256 (read back through xi with (w, v) =
-    (0, 1) from 0) must equal the plain generator's bit for bit, repeat
-    for a repeated seed, stay within +-sqrt3 and have mean ~0 and variance
-    ~1 (|mean| < 0.02, |var - 1| < 0.02: six standard errors at 85k
-    draws)."""
-    h, n_lat = 256, 4
+def _latent_case(dev, g, m: int, h: int, mode: str, sms: int) -> dict:
+    """The fused latent step (both products and K7's work in one K1
+    launch) over a 4-step segment at m x h, against the composition it
+    replaces (K1 -> K7 draw -> K1 -> K7 update a step) under the same plan:
+    priming draw, every step, the last drawing nothing; s, h_in and H_acc
+    equal at every step, xi after the last, the next zeta as drawn. Against
+    the plain composition (cuBLAS f32 products): s, H_acc, xi within 1e-3
+    of max(1, |ref|) (f32 sums in another order), h_in within one bf16
+    rounding. Timed at step 1 (a step that draws) beside that pair, the
+    plain version and torch's two bf16 products (addmm + mm)."""
+    n_lat = 4
     coeffs = (torch.rand(n_lat, 5, generator=g) + 0.1).to(dev)
-    out = []
+    m2 = (torch.randn(h, h, generator=g) / math.sqrt(h)).to(dev, torch.bfloat16)
+    l_t = (torch.randn(h, h, generator=g) / math.sqrt(h)).to(dev, torch.bfloat16)
+    m_b, s0, c_proj = (torch.randn(*shape, generator=g).to(dev) for shape in ((h,), (m, h), (m, h)))
+    t_add = torch.randn(n_lat + 1, h, generator=g).to(dev)
+    zeta = torch.randn(n_lat, m, h, generator=g).to(dev) if mode == "buffer" else None
+    hs = [(2.0 * torch.randn(m, h, generator=g)).to(dev, torch.bfloat16) for _ in range(n_lat)]
+    plan = gemm_plan(m, h, h, sms, "bf16", LATENT_WIDTHS)
+    bf = lambda: torch.empty(m, h, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    f32 = lambda: torch.zeros(m, h, device=dev)  # noqa: E731
+    seed = 77
+
+    # the composition, on the kernels and on their plain versions; the fused loop
+    s_a, hin_a, acc_a, xi_a, z_a, o_lat, n_inj = s0.clone(), bf(), f32(), f32(), bf(), f32(), f32()
+    s_b, hin_b, acc_b, xi_b, zb = s0.clone(), bf(), f32(), f32(), [bf(), bf()]
+    s_p, acc_p = s0.clone(), f32()
+    zp, xi_p, _ = latent_draw_plain(None, None, f32(), coeffs, 0, mode, zeta, seed)
+    latent_draw(None, None, xi_b, zb[0], coeffs, 0, mode, zeta=zeta, seed=seed)
+    for k in range(n_lat):
+        gemm_bf16_f32acc(hs[k], m2, out=o_lat, bias=m_b, plan=plan)
+        latent_draw(hs[k], acc_a, xi_a, z_a, coeffs, k, mode, zeta=zeta, seed=seed)
+        gemm_bf16_f32acc(z_a, l_t, out=n_inj, plan=plan)
+        latent_update(s_a, o_lat, n_inj, c_proj, t_add, coeffs, k, hin_a)
+        gemm_bf16_latent_step(hs[k], m2, m_b, zb[k % 2], l_t, s_b, c_proj, t_add, coeffs, k,
+                              hin_b, acc_b, xi_b, zb[(k + 1) % 2], mode, zeta=zeta, seed=seed)
+        s_p, hin_p, acc_p, xi_p, zn = gemm_bf16_latent_step_plain(
+            hs[k], m2, m_b, zp, l_t, s_p, c_proj, t_add, coeffs, k, acc_p, xi_p, mode, zeta, seed)
+        torch.cuda.synchronize()
+        same = [torch.equal(s_a, s_b), torch.equal(hin_a, hin_b), torch.equal(acc_a, acc_b)]
+        if k + 1 < n_lat:
+            same.append(torch.equal(zb[(k + 1) % 2], zn))
+            zp = zn
+        else:
+            same.append(torch.equal(xi_a, xi_b))
+        if not all(same):
+            raise AssertionError(f"{GEMM_LATENT.name} {mode} {m}x{h} step {k}: the state differs "
+                                 f"from K1 -> K7 -> K1 -> K7's under plan {tuple(plan)} "
+                                 f"(s, h_in, H_acc, zeta/xi equal: {same})")
+    err = max(float((s_b - s_p).abs().max()), float((acc_b - acc_p).abs().max()),
+              float((xi_b - xi_p).abs().max()))
+    tol = 1e-3 * max(1.0, float(s_p.abs().max()), float(acc_p.abs().max()),
+                     float(xi_p.abs().max()))
+    herr = float((hin_b.float() - hin_p.float()).abs().max())
+    if herr > BF16_ULP * max(1.0, float(hin_p.float().abs().max())):
+        raise AssertionError(f"{GEMM_LATENT.name} {mode} {m}x{h}: h_in differs by {herr}")
+
+    k = 1  # a step that draws: the timed repeats update the same state again, the same work
+    ms = time_ms(lambda: gemm_bf16_latent_step(hs[k], m2, m_b, zb[0], l_t, s_b, c_proj, t_add,
+                                               coeffs, k, hin_b, acc_b, xi_b, zb[1], mode,
+                                               zeta=zeta, seed=seed))
+
+    def pair():
+        gemm_bf16_f32acc(hs[k], m2, out=o_lat, bias=m_b, plan=plan)
+        latent_draw(hs[k], acc_a, xi_a, z_a, coeffs, k, mode, zeta=zeta, seed=seed)
+        gemm_bf16_f32acc(z_a, l_t, out=n_inj, plan=plan)
+        latent_update(s_a, o_lat, n_inj, c_proj, t_add, coeffs, k, hin_a)
+
+    pair_ms = time_ms(pair)
+    plain_ms = time_ms(lambda: gemm_bf16_latent_step_plain(hs[k], m2, m_b, zp, l_t, s_p, c_proj,
+                                                           t_add, coeffs, k, acc_p, xi_p, mode,
+                                                           zeta, seed))
+    m_b_bf = m_b.to(torch.bfloat16)
+    library_ms = time_ms(lambda: (torch.addmm(m_b_bf, hs[k], m2), torch.mm(zb[0], l_t)))
+    # h, M2 and Lᵀ, m_b and t_add's row; s read and written, c_proj, h_in;
+    # H_acc and xi read and written; zeta_k read and zeta_{k+1} written as
+    # bf16 (+ zeta[k+1] read as f32 in "buffer" mode); the two products.
+    moved = m * h * (2 + 8 + 4 + 2 + 8 + 8 + 4 + (4 if mode == "buffer" else 0)) + 4 * h * h + 8 * h
+    limit = roofline(moved, 4.0 * m * h * h, "bf16")
+    case = f"{mode} {m}x{h} (state = K1 -> K7 -> K1 -> K7)"
+    row = _report(GEMM_LATENT, case, err, tol, ms, plain_ms, limit, library_ms)
+    row.update(pair_ms=pair_ms, plan=f"{plan.bm}x{plan.bn}/{plan.splits}", per_step=1)
+    split2 = GemmPlan(GEMM_BM, plan.bn, 2)
+    split_ms = time_ms(lambda: gemm_bf16_latent_step(hs[k], m2, m_b, zb[0], l_t, s_b, c_proj,
+                                                     t_add, coeffs, k, hin_b, acc_b, xi_b, zb[1],
+                                                     mode, zeta=zeta, seed=seed, plan=split2))
+    print(f"[kernel] {GEMM_LATENT.name} {case}: pair {pair_ms:.4f} ms, fused/pair "
+          f"{ms / pair_ms:.3f}; addmm + mm {library_ms:.4f} ms; plan {plan.bm}x{plan.bn}/"
+          f"{plan.splits} (split 2: {split_ms:.4f} ms); state bit-equal to the pair's; 1 launch "
+          "per latent step", flush=True)
+    if ms >= pair_ms:
+        print(f"[kernel] WARNING {GEMM_LATENT.name} {case}: fused {ms:.4f} ms not below the "
+              f"pair's {pair_ms:.4f} ms", flush=True)
+    return row
+
+
+def check_latent_step(dev, g) -> dict:
+    """K7 at the latent tail's shapes, 333 x 256 and 999 x 256: the fused
+    step on K1's mainloop (:func:`_latent_case`, both draw modes), the
+    standalone draw in both modes with and without the w·h term (without:
+    the sampler's priming draw of zeta_0) and the standalone update (no
+    caller on the paths since the fused step). Tolerances of the standalone
+    entries: the kernel writes the plain version's f32 operations with _rn
+    intrinsics, so s, H_acc and xi agree to f32 rounding (two ulps of
+    max(1, |ref|), expected 0) and the bf16 outputs (bf16(zeta), the next
+    stack input) within one bf16 rounding. The Philox zeta at 333 x 256
+    (read back through xi with (w, v) = (0, 1) from 0) must equal the plain
+    generator's bit for bit, repeat for a repeated seed, stay within +-sqrt3
+    and have mean ~0 and variance ~1 (|mean| < 0.02, |var - 1| < 0.02: six
+    standard errors at 85k draws)."""
+    h, n_lat = 256, 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    coeffs = (torch.rand(n_lat, 5, generator=g) + 0.1).to(dev)
+    out = {LATENT.name: [], GEMM_LATENT.name: []}
     for m in (BATCH, LATENT_ROWS):
+        for mode in ("philox", "buffer"):
+            out[GEMM_LATENT.name].append(_latent_case(dev, g, m, h, mode, sms))
         hid = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
         zeta = torch.randn(n_lat, m, h, generator=g).to(dev)
         zbf = torch.empty(m, h, dtype=torch.bfloat16, device=dev)
         for mode in ("philox", "buffer"):
-            hacc0 = torch.randn(m, h, generator=g).to(dev)
-            xi0 = torch.randn(m, h, generator=g).to(dev)
-            hacc, xi = hacc0.clone(), xi0.clone()
-            latent_draw(hid, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta, seed=4321)
-            rz, rxi, rhacc = latent_draw_plain(hid, hacc0, xi0, coeffs, 2, mode, zeta, 4321)
-            torch.cuda.synchronize()
-            zerr = float((zbf.float() - rz.float()).abs().max())
-            if zerr > BF16_ULP * max(1.0, float(rz.float().abs().max())):
-                raise AssertionError(f"K7 draw {mode} {m}x{h}: bf16(zeta) differs by {zerr}")
-            err = max(float((xi - rxi).abs().max()), float((hacc - rhacc).abs().max()))
-            tol = F32_ULP2 * max(1.0, float(rxi.abs().max()), float(rhacc.abs().max()))
-            ms = time_ms(lambda: latent_draw(hid, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta,
-                                             seed=4321))
-            plain_ms = time_ms(lambda: latent_draw_plain(hid, hacc0, xi0, coeffs, 2, mode, zeta,
-                                                         4321))
-            moved = m * h * (2 + 8 + 8 + 2 + (4 if mode == "buffer" else 0))
-            out.append(_report(LATENT, f"draw {mode} {m}x{h}", err, tol, ms, plain_ms,
-                               roofline(moved, 4.0 * m * h, "f32")))
+            for prime in (False, True):
+                hacc0 = None if prime else torch.randn(m, h, generator=g).to(dev)
+                xi0 = torch.randn(m, h, generator=g).to(dev)
+                hacc, xi, hv = (None if prime else hacc0.clone()), xi0.clone(), None if prime else hid
+                latent_draw(hv, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta, seed=4321)
+                rz, rxi, rhacc = latent_draw_plain(hv, hacc0, xi0, coeffs, 2, mode, zeta, 4321)
+                torch.cuda.synchronize()
+                zerr = float((zbf.float() - rz.float()).abs().max())
+                if zerr > BF16_ULP * max(1.0, float(rz.float().abs().max())):
+                    raise AssertionError(f"K7 draw {mode} {m}x{h}: bf16(zeta) differs by {zerr}")
+                err = float((xi - rxi).abs().max())
+                tol = F32_ULP2 * max(1.0, float(rxi.abs().max()))
+                if not prime:
+                    err = max(err, float((hacc - rhacc).abs().max()))
+                    tol = F32_ULP2 * max(1.0, float(rxi.abs().max()), float(rhacc.abs().max()))
+                ms = time_ms(lambda: latent_draw(hv, hacc, xi, zbf, coeffs, 2, mode, zeta=zeta,
+                                                 seed=4321))
+                plain_ms = time_ms(lambda: latent_draw_plain(hv, hacc0, xi0, coeffs, 2, mode, zeta,
+                                                             4321))
+                per = (0 if prime else 2 + 8) + 8 + 2 + (4 if mode == "buffer" else 0)
+                label = "priming draw (no w·h)" if prime else "draw"
+                out[LATENT.name].append(_report(LATENT, f"{label} {mode} {m}x{h}", err, tol, ms,
+                                                plain_ms, roofline(m * h * per, 4.0 * m * h,
+                                                                   "f32")))
 
         s0, o_lat, n_inj, c_proj = (torch.randn(m, h, generator=g).to(dev) for _ in range(4))
         t_add = torch.randn(n_lat + 1, h, generator=g).to(dev)
@@ -1051,8 +1176,10 @@ def check_latent_step(dev, g) -> list:
         tol = F32_ULP2 * max(1.0, float(rs.abs().max()))
         ms = time_ms(lambda: latent_update(s, o_lat, n_inj, c_proj, t_add, coeffs, 3, h_in))
         plain_ms = time_ms(lambda: latent_update_plain(s0, o_lat, n_inj, c_proj, t_add, coeffs, 3))
-        out.append(_report(LATENT, f"update {m}x{h}", err, tol, ms, plain_ms,
-                           roofline(m * h * (8 + 4 + 4 + 4 + 2) + 4 * h, 7.0 * m * h, "f32")))
+        out[LATENT.name].append(_report(LATENT, f"update {m}x{h} (no caller on the paths)", err,
+                                        tol, ms, plain_ms,
+                                        roofline(m * h * (8 + 4 + 4 + 4 + 2) + 4 * h, 7.0 * m * h,
+                                                 "f32")))
 
     m = BATCH
     hid = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
@@ -1080,9 +1207,10 @@ def check_latent_step(dev, g) -> list:
 def check_posterior_update(dev, g) -> list:
     """K8 at 333 x 5142, static and traced, with add_noise 1 and 0.
     Tolerance: the affine part is the plain version's f32 operations with
-    _rn intrinsics; z goes through logf/sqrtf/cosf, which may differ from
-    the plain version's by an ulp or two: 2^-19 of max(1, |ref|) (a few f32
-    ulps of the largest value). The noise alone (c0 = c1 = 0, sv = 1) must
+    _rn intrinsics; z goes through logf/sqrtf/sincospif, which may differ
+    from the plain version's (f32 log and sqrt, float64 cosine and sine) by
+    an ulp or two: 2^-19 of max(1, |ref|) (a few f32 ulps of the largest
+    value). The noise alone (c0 = c1 = 0, sv = 1) must
     match the plain Box-Muller to the same bound, repeat for a repeated
     seed, be the same through both variants and have mean ~0 and std ~1
     (|mean| < 0.005, six standard errors at 1.7M draws; |std - 1| < 0.005).
@@ -1109,8 +1237,9 @@ def check_posterior_update(dev, g) -> list:
             ms = time_ms(call)
             plain_ms = time_ms(lambda: posterior_update_plain(x, pred, 21, *coefs))
             # x0_pred read, out written, and x read only with noise; the
-            # five coefficients. Per element: the clip, and with noise
-            # Philox, Box-Muller and the affine sum (~15 operations).
+            # five coefficients. Per element: the clip, and with noise a
+            # quarter of a Philox call, half a Box-Muller pair and the
+            # affine sum (~15 operations).
             if add_noise > 0:
                 limit = roofline(BATCH * D * 12 + 20, 15.0 * BATCH * D, "f32")
             else:
@@ -1169,7 +1298,7 @@ def check_kernels(dev) -> dict:
         RBF.name: check_rbf(dev, g),
         ROWQUANT.name: check_rowquant(dev, g),
         GEMM_S8.name: check_gemm_s8(dev, g),
-        LATENT.name: check_latent_step(dev, g),
+        **check_latent_step(dev, g),
         POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
     }
     step_time(cases)
@@ -1373,9 +1502,12 @@ def run_bench_latent(tmp: Path, head) -> dict:
     entry = report["timings"][f"latent_kernel_head{report['head_steps']}"]
     want = entry["n_lat"] * entry["calls"]
     k7 = entry["launches"].get(LATENT.name, {})
-    if k7.get("draw_philox", 0) != want or k7.get("update", 0) != want:
-        raise AssertionError(f"K7 launched {k7}, want {want} per mode (n_lat {entry['n_lat']} "
-                             f"x {entry['calls']} calls)")
+    fused = entry["launches"].get(GEMM_LATENT.name, {})
+    if (k7 != ({"draw_philox": entry["calls"]} if entry["n_lat"] else {})
+            or fused.get("philox", 0) != want):
+        raise AssertionError(f"K7 launched {k7} and the fused step {fused}: want one priming draw "
+                             f"a call and {want} fused steps (n_lat {entry['n_lat']} x "
+                             f"{entry['calls']} calls), no standalone update")
     return report
 
 
@@ -1414,14 +1546,14 @@ def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
 
     for k in KERNELS:
         k.reset()
-    calls_n_lat = 0
+    calls = []  # (head, n_lat) of each LatentFusedSampler call
     sampler = LatentFusedSampler(model, LATENT_HEAD, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lat = sampler.sample(cond, torch.Generator(dev).manual_seed(11), x_init=x_init)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    calls_n_lat += sampler.n_lat
+    calls.append((LATENT_HEAD, sampler.n_lat))
     if lat.shape != (LATENT_ROWS, D) or not bool(torch.isfinite(lat).all()):
         raise AssertionError(f"latent sampler output {tuple(lat.shape)} not finite")
     print(f"[latent] LatentFusedSampler head {LATENT_HEAD} ({sampler.n_lat} latent steps) "
@@ -1430,19 +1562,32 @@ def run_latent_path(cfg: Config, dev, tmp: Path) -> dict:
     if moment_head is not None and moment_head != LATENT_HEAD:
         sampler = LatentFusedSampler(model, moment_head, dev)
         lat = sampler.sample(cond, torch.Generator(dev).manual_seed(11), x_init=x_init)
-        calls_n_lat += sampler.n_lat
+        calls.append((moment_head, sampler.n_lat))
     torch.cuda.synchronize()
     counts = {k.name: dict(k.modes) for k in KERNELS}
     print(f"[main] latent kernel launches by mode: {json.dumps(counts)}", flush=True)
     required = {GEMM: ["bf16"], GEMM_GN: ["default"], GEMM_POSTERIOR: ["philox"],
-                LATENT: ["draw_philox", "update"]}
+                LATENT: ["draw_philox"], GEMM_LATENT: ["philox"]}
     missing = [f"{k.name}:{m}" for k, modes in required.items() for m in modes
                if counts[k.name][m] == 0]
     if missing:
         raise AssertionError(f"latent: kernels never launched on the path: {missing}")
     check_forbidden("latent")
-    if not LATENT.modes["draw_philox"] == LATENT.modes["update"] == calls_n_lat:
-        raise AssertionError(f"K7 launched {LATENT.modes}, want {calls_n_lat} per mode")
+    # Each call: its head's data-space steps, one priming draw, the latent
+    # steps, the final stack (h0). What remains is the latent steps' share.
+    n_lat = sum(n for _, n in calls)
+    total = sum(k.launches for k in KERNELS)
+    head = sum(STEP_LAUNCHES["none"] * hd + 1 + STACK_LAUNCHES for hd, _ in calls)
+    per_step = (total - head) / n_lat
+    print(f"[latent] launches per latent step: {per_step:g} (want {LATENT_STEP_LAUNCHES}: "
+          f"{STACK_LAUNCHES} in the stack, 1 fused step); {len(calls)} priming draw(s), "
+          f"{GEMM_LATENT.launches} fused steps, standalone K7 update {LATENT.modes['update']}",
+          flush=True)
+    if (per_step != LATENT_STEP_LAUNCHES or LATENT.modes["update"]
+            or LATENT.modes["draw_philox"] != len(calls) or GEMM_LATENT.modes["philox"] != n_lat):
+        raise AssertionError(f"latent path launches: {counts}; want {LATENT_STEP_LAUNCHES} a "
+                             f"latent step ({n_lat}), one priming draw a call ({len(calls)}), "
+                             "no standalone K7 update")
     for k in KERNELS:
         totals[k.name] += k.launches
 

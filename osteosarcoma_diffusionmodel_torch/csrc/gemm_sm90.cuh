@@ -39,7 +39,9 @@
 // and accumulate); kGroupNormSilu is K2's GroupNorm(8)+SiLU on that value
 // (gemm_bf16_fused.cu, gemm_s8_fused.cu), stored as bf16 elsewhere;
 // kPosterior is K3's step on the output product (posterior.cuh), which
-// updates the bf16 carry in place and stores no product at all.
+// updates the bf16 carry in place and stores no product at all; kLatent is
+// the latent tail's step (gemm_bf16_fused.cu): two products of one tile,
+// each in its own accumulator, then K7's update of the f32 state.
 //
 // K6's quantizing prologue (template flag kQuantA, entry points
 // osdm_gemm_s8q*): A arrives as the bf16 activations instead of K5's codes.
@@ -68,7 +70,8 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kBox = kBM * kStageK;  // 8 KB: A's stage, or one 64x64 bf16 box of B
 constexpr int kRingBytes = 200 * 1024;  // of the 227 KB a block may use
 
-enum Epilogue { kPlain = 0, kGroupNormSilu = 1, kPosterior = 2 };
+enum Epilogue { kPlain = 0, kGroupNormSilu = 1, kPosterior = 2, kLatent = 3 };
+constexpr int kLatentCols = 5;  // kLatent's (n_lat, 5) table: A, c0, sv, w, v
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return kBox + bn * kStageK; }
 // Deepest copy ring: as many stages as fit, so an SM keeps ~200 KB of
@@ -131,6 +134,19 @@ struct Args {
   const float* noise;  // (n_loop, M, N), "buffer" mode only
   uint32_t seed;
   float clip;
+  // kLatent (N = K = H): the first product h·M2 + bias (A, B, bias above),
+  // the second bf16(zeta_k)·Lᵀ (its own two maps); coeffs is the (n_lat, 5)
+  // table, noise_mode "philox" or "buffer" (noise: zeta (n_lat, M, N) f32),
+  // step k. Every (M, N) tensor below is contiguous.
+  float* s;                  // f32 state, updated in place
+  const float* c_proj;       // f32
+  const float* t_add;        // (n_lat + 1, N) f32: row k + 1 is read
+  __nv_bfloat16* h_in;       // the next stack input
+  const __nv_bfloat16* h;    // the first product's A (row stride ldh): H_acc += w·h
+  int ldh, n_lat;
+  float* hacc;               // f32
+  float* xi;                 // f32
+  __nv_bfloat16* zeta_next;  // bf16(zeta_{k+1}), never the buffer A of this launch reads
 };
 
 template <typename T>
@@ -567,11 +583,13 @@ __device__ __forceinline__ float epilogue(const Args& a, int r, int c, int acc, 
 template <int BN, int kEpi>
 struct Ahead {
   static constexpr int kCols = BN / 4, kElems = BN / 2;
-  float vec[kEpi == kGroupNormSilu ? 3 : 1][kCols];  // GN: bias, gn_scale, gn_bias; else b_out
+  // GN: bias, gn_scale, gn_bias; posterior: b_out; latent: bias (m_b), t_add[k + 1]
+  float vec[kEpi == kGroupNormSilu ? 3 : kEpi == kLatent ? 2 : 1][kCols];
   float col_scale[kCols];                            // K6: the weight's column scales
   float row_scale[2];                                // K6: the activations' row scales
-  float elem[kElems];  // GN: K6's accumulated C; posterior: Philox u ("buffer": noise z)
+  float elem[kElems];  // GN: K6's accumulated C; posterior: Philox u ("buffer": noise z); latent: s
   uint32_t x[kEpi == kPosterior ? kElems / 2 : 1];  // posterior: the carry, bf16 pairs
+  float c_proj[kEpi == kLatent ? kElems : 1];       // latent
 };
 
 // Two bf16 of a row, as one word (low half first), where the row allows a
@@ -603,6 +621,9 @@ __device__ __forceinline__ void load_ahead(const Args& a, int m0, int n0, Ahead<
         in.vec[0][k] = ldg_or_zero(a.bias + c, ok && a.bias != nullptr);
         in.vec[1][k] = ldg_or_zero(a.gn_scale + c, ok);
         in.vec[2][k] = ldg_or_zero(a.gn_bias + c, ok);
+      } else if constexpr (kEpi == kLatent) {
+        in.vec[0][k] = ldg_or_zero(a.bias + c, ok);
+        in.vec[1][k] = ldg_or_zero(a.t_add + (size_t)(a.step + 1) * a.N + c, ok);
       } else {
         in.vec[0][k] = ldg_or_zero(a.b_out + c, ok);
       }
@@ -630,6 +651,15 @@ __device__ __forceinline__ void load_ahead(const Args& a, int m0, int n0, Ahead<
       if constexpr (kEpi == kPosterior) {
         const bool pairs = (a.ldx % 2 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 4 == 0);
         in.x[2 * i + j] = ok ? load_bf16_pair(a.x + (size_t)r * a.ldx + c, pairs, c + 1 < a.N) : 0u;
+      }
+      if constexpr (kEpi == kLatent) {  // N is a multiple of 8: both columns, 8-byte pairs
+        const size_t at = (size_t)r * a.N + c;
+        // s is written by this thread only, after this read: a plain load
+        const float2 sv = ok ? *reinterpret_cast<const float2*>(a.s + at) : make_float2(0.f, 0.f);
+        const float2 cp = ok ? __ldg(reinterpret_cast<const float2*>(a.c_proj + at))
+                             : make_float2(0.f, 0.f);
+        in.elem[4 * i + 2 * j] = sv.x, in.elem[4 * i + 2 * j + 1] = sv.y;
+        in.c_proj[4 * i + 2 * j] = cp.x, in.c_proj[4 * i + 2 * j + 1] = cp.y;
       }
     }
   if constexpr (kEpi == kPosterior) {
@@ -834,6 +864,116 @@ __device__ __forceinline__ void posterior_epilogue(const Args& a, const Acc (&d)
     posterior_elements<2, BN>(a, d, in, m0, n0);
 }
 
+// kLatent's side work: the tile's (rows, columns) slice of H_acc, xi and
+// the next zeta, which no other block touches (N = H, so the output tile
+// is that slice). H_acc += w_k·h, and unless k is the segment's last step
+// the draw of zeta_{k+1} (Philox keyed by (seed, k + 1) at counter
+// row·H + col, or zeta[k + 1] in "buffer" mode): xi += v_{k+1}·zeta_{k+1}
+// and its bf16 copy into the other ping-pong buffer. None of it reads an
+// accumulator, so it runs while the first TMA loads land. Four columns a
+// thread (16-byte f32 accesses), a tile row in BN/4 threads; the passes
+// over the tile's rows are dealt out among the splits, so each element is
+// drawn once, and loaded in batches so that their loads are in flight
+// together. Element for element latent_step.cu's draw (_rn intrinsics in
+// the plain version's order).
+template <int BN>
+__device__ __forceinline__ void latent_side_work(const Args& a, int m0, int n0, int split) {
+  constexpr int kQuads = BN / 4, kRows = kThreads / kQuads, kPasses = kBM / kRows, kBatch = 4;
+  const int c = n0 + 4 * (threadIdx.x % kQuads), rr = m0 + threadIdx.x / kQuads;
+  if (c >= a.N) return;
+  const float* cf = a.coeffs + (size_t)a.step * kLatentCols;
+  const float w = cf[3];
+  const bool draw = a.step + 1 < a.n_lat;
+  const bool buffer = a.noise_mode == kNoiseBuffer;
+  const float v = draw ? cf[kLatentCols + 4] : 0.0f;
+  const float* zeta = buffer && draw ? a.noise + (size_t)(a.step + 1) * a.M * a.N : nullptr;
+#pragma unroll
+  for (int b = 0; b < kPasses; b += kBatch) {
+    bool ok[kBatch];
+    uint2 hv[kBatch];
+    float4 hacc[kBatch], xi[kBatch], zb[kBatch];
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      const int r = rr + kRows * (b + t);
+      ok[t] = r < a.M && (b + t) % a.splits == split;
+      const size_t at = (size_t)r * a.N + c;
+      if (ok[t]) {
+        hv[t] = __ldg(reinterpret_cast<const uint2*>(a.h + (size_t)r * a.ldh + c));
+        hacc[t] = *reinterpret_cast<const float4*>(a.hacc + at);
+        if (draw) xi[t] = *reinterpret_cast<const float4*>(a.xi + at);
+        if (zeta != nullptr) zb[t] = __ldg(reinterpret_cast<const float4*>(zeta + at));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      if (!ok[t]) continue;
+      const size_t at = (size_t)(rr + kRows * (b + t)) * a.N + c;
+      const float hf[4] = {bf16_half(hv[t].x, 0), bf16_half(hv[t].x, 1), bf16_half(hv[t].y, 0),
+                           bf16_half(hv[t].y, 1)};
+      float4 ha = hacc[t];
+      ha.x = __fadd_rn(ha.x, __fmul_rn(w, hf[0]));
+      ha.y = __fadd_rn(ha.y, __fmul_rn(w, hf[1]));
+      ha.z = __fadd_rn(ha.z, __fmul_rn(w, hf[2]));
+      ha.w = __fadd_rn(ha.w, __fmul_rn(w, hf[3]));
+      *reinterpret_cast<float4*>(a.hacc + at) = ha;
+      if (!draw) continue;
+      float z[4];
+      if (zeta != nullptr) {
+        z[0] = zb[t].x, z[1] = zb[t].y, z[2] = zb[t].z, z[3] = zb[t].w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          z[q] = __fmul_rn(__fsub_rn(philox_uniform(at + q, a.seed, a.step + 1), 0.5f),
+                           kUniformScale);
+      }
+      float4 x = xi[t];
+      x.x = __fadd_rn(x.x, __fmul_rn(v, z[0]));
+      x.y = __fadd_rn(x.y, __fmul_rn(v, z[1]));
+      x.z = __fadd_rn(x.z, __fmul_rn(v, z[2]));
+      x.w = __fadd_rn(x.w, __fmul_rn(v, z[3]));
+      *reinterpret_cast<float4*>(a.xi + at) = x;
+      const __nv_bfloat162 z01 = __floats2bfloat162_rn(z[0], z[1]);
+      const __nv_bfloat162 z23 = __floats2bfloat162_rn(z[2], z[3]);
+      *reinterpret_cast<uint2*>(a.zeta_next + at) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&z01), *reinterpret_cast<const uint32_t*>(&z23));
+    }
+  }
+}
+
+// kLatent's epilogue on the two full sums: o = acc1 + m_b, then K7's
+// update s <- A·s + c0·o + sv·acc2 and h_in <- bf16(s + t_add[k+1] +
+// c_proj), the plain version's f32 operations in its order, so the state
+// gets the bits of K1 -> K7 with the same plan (K1 adds its bias to the
+// same sum the same way).
+template <int BN>
+__device__ __forceinline__ void latent_epilogue(const Args& a, const float (&d)[BN / 2],
+                                                const float (&d2)[BN / 2],
+                                                const Ahead<BN, kLatent>& in, int m0, int n0) {
+  const float* cf = a.coeffs + (size_t)a.step * kLatentCols;
+  const float A = cf[0], c0 = cf[1], sv = cf[2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = m0 + warp * 16 + (lane >> 2), cb = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = r0 + 8 * j, c = cb + 8 * i;
+      if (r >= a.M || c >= a.N) continue;
+      float sn[2], hn[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int e = 4 * i + 2 * j + q, k = 2 * i + q;
+        const float o = __fadd_rn(d[e], in.vec[0][k]);
+        sn[q] = __fadd_rn(__fadd_rn(__fmul_rn(A, in.elem[e]), __fmul_rn(c0, o)),
+                          __fmul_rn(sv, d2[e]));
+        hn[q] = __fadd_rn(__fadd_rn(sn[q], in.vec[1][k]), in.c_proj[e]);
+      }
+      const size_t at = (size_t)r * a.N + c;
+      *reinterpret_cast<float2*>(a.s + at) = make_float2(sn[0], sn[1]);
+      *reinterpret_cast<__nv_bfloat162*>(a.h_in + at) = __floats2bfloat162_rn(hn[0], hn[1]);
+    }
+}
+
 // kQuantA: the epilogue's row scales are the prologue's, not K5's.
 template <int BN, int kEpi>
 __device__ __forceinline__ void quant_row_scales(Ahead<BN, kEpi>& in, const float* q_scale) {
@@ -855,14 +995,24 @@ __device__ __forceinline__ void store_out(const Args& a, size_t at, float v) {
 // the 492 tiles at 333 rows run in one wave.
 constexpr int kPosteriorRing = 2;
 
+// One block tile: the mainloop, split-K's sum and the epilogue. The
+// kernels below take the tensor maps as grid constants and pass their
+// addresses: A and B of the product, and for kLatent a second pair
+// (map_a2, map_b2) whose product goes into a second accumulator.
 template <typename T, int BN, bool kTma, int kEpi, bool kQuantA>
-__global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
-    gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                const __grid_constant__ Args a) {
+__device__ __forceinline__ void gemm_block(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                           const CUtensorMap* map_a2, const CUtensorMap* map_b2,
+                                           const Args& a) {
   using Acc = typename Traits<T>::Acc;
   static_assert(!kQuantA || (std::is_same<T, int8_t>::value && kTma), "the prologue is K6's");
+  static_assert(kEpi != kLatent || (std::is_same<T, __nv_bfloat16>::value && kTma && !kQuantA),
+                "the latent step is K1's, on the TMA path");
   constexpr int kRegs = BN / 2;
   constexpr int kTileK = Traits<T>::kTileK;
+  // kLatent walks each split's k-tiles twice: of the first product into d,
+  // then of the second into d2 (split s owns k-tiles [s·kt/S, (s+1)·kt/S)
+  // of each, as K1 splits either product alone).
+  constexpr int kProducts = kEpi == kLatent ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sa = smem;  // A's ring, or (kQuantA) its resident strip
@@ -881,21 +1031,44 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
   const int split = blockIdx.z;
   const int kt0 = (int)((long long)split * a.k_tiles / a.splits);
   const int n_kt = (int)((long long)(split + 1) * a.k_tiles / a.splits) - kt0;
+  const int n_steps = kProducts * n_kt;  // k-tiles this block walks
 
   if (kTma && tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_a)) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map_b)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_a)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_b)) : "memory");
+    if constexpr (kEpi == kLatent) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_a2)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_b2)) : "memory");
+    }
   }
   Acc d[kRegs];
+  [[maybe_unused]] Acc d2[kEpi == kLatent ? kRegs : 1];
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) d[i] = 0;
   fence_operand(d);
+  if constexpr (kEpi == kLatent) {
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) d2[i] = 0;
+    fence_operand(d2);
+  }
   // The fused epilogues' other inputs, loaded before the mainloop at BN = 64
   // (load_ahead), while the first TMA loads are in flight.
   constexpr bool kAheadEarly = kEpi != kPlain && BN == 64;
   [[maybe_unused]] Ahead<BN, kEpi> ahead;
 
   if constexpr (kTma) {
+    // Thread 0: k-step i of the walk into stage st (kLatent: past n_kt,
+    // the second product's k-tile i - n_kt).
+    auto issue = [&](int i, int st) {
+      if constexpr (kQuantA) {
+        issue_b_stage<BN>(sb + st * BN * kStageK, &full[st], map_b, kt0 + i, n0);
+      } else {
+        const bool second = kEpi == kLatent && i >= n_kt;
+        issue_stage<T, BN>(sa + st * kBox, sb + st * BN * kStageK, &full[st],
+                           second ? map_a2 : map_a, second ? map_b2 : map_b,
+                           kt0 + (second ? i - n_kt : i), m0, n0);
+      }
+    };
     if (tid == 0) {
 #pragma unroll
       for (int s = 0; s < ring; ++s) mbar_init(&full[s], 1);
@@ -907,48 +1080,42 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
       if constexpr (kQuantA) {
         for (int j = 0; j < strip_boxes; ++j) {
           mbar_expect_tx(&strip_bar[j], kBox);
-          tma_load(sa + j * kBox, &map_a, &strip_bar[j], 64 * j, m0);
+          tma_load(sa + j * kBox, map_a, &strip_bar[j], 64 * j, m0);
         }
-        for (int i = 0; i < ring && i < n_kt; ++i)
-          issue_b_stage<BN>(sb + i * BN * kStageK, &full[i], &map_b, kt0 + i, n0);
-      } else {
-        for (int i = 0; i < ring && i < n_kt; ++i)
-          issue_stage<T, BN>(sa + i * kBox, sb + i * BN * kStageK, &full[i], &map_a, &map_b,
-                             kt0 + i, m0, n0);
       }
+      for (int i = 0; i < ring && i < n_steps; ++i) issue(i, i);
     }
     if constexpr (kQuantA) {
       strip_row_stats(sa, strip_bar, a.k_tiles, q_inv, q_scale);
       for (int t = kt0; t < kt0 + n_kt; ++t) quantize_tile(sa, t, q_inv);
       __syncthreads();  // every thread's codes are in place
     }
+    if constexpr (kEpi == kLatent) latent_side_work<BN>(a, m0, n0, split);
     if constexpr (kAheadEarly) {
       load_ahead<Acc>(a, m0, n0, ahead);
       if constexpr (kQuantA) quant_row_scales(ahead, q_scale);
     }
-    for (int i = 0; i < n_kt; ++i) {
+    // k-step i into the accumulator acc (one loop per accumulator, so no
+    // branch chooses the registers a wgmma writes).
+    auto consume = [&](int i, Acc(&acc)[kRegs]) {
       const int s = i % ring;
       mbar_wait(&full[s], (i / ring) & 1);
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value && kEpi != kLatent) {
         if ((kt0 + i) * kTileK < a.a_mut_cols) {  // uniform: only k-tiles below the bits
           mutate_stage(sa + s * kBox, (kt0 + i) * kTileK, a.a_mut_cols);
           fence_proxy_async();
           __syncthreads();
         }
       }
-      mma_stage<T, BN>(d, sa + (kQuantA ? kt0 + i : s) * kBox, sb + s * BN * kStageK);
+      mma_stage<T, BN>(acc, sa + (kQuantA ? kt0 + i : s) * kBox, sb + s * BN * kStageK);
       wgmma_wait<1>();  // the previous stage's group has retired ...
       __syncthreads();  // ... in every warp: refill its stage
       const int next = i - 1 + ring;
-      if (tid == 0 && i >= 1 && next < n_kt) {
-        const int ps = (i - 1) % ring;
-        if constexpr (kQuantA)
-          issue_b_stage<BN>(sb + ps * BN * kStageK, &full[ps], &map_b, kt0 + next, n0);
-        else
-          issue_stage<T, BN>(sa + ps * kBox, sb + ps * BN * kStageK, &full[ps], &map_a, &map_b,
-                             kt0 + next, m0, n0);
-      }
-    }
+      if (tid == 0 && i >= 1 && next < n_steps) issue(next, (i - 1) % ring);
+    };
+    for (int i = 0; i < n_kt; ++i) consume(i, d);
+    if constexpr (kEpi == kLatent)
+      for (int i = n_kt; i < n_steps; ++i) consume(i, d2);
     wgmma_wait<0>();
   } else {
     static_assert(std::is_same<T, __nv_bfloat16>::value, "the general path is K1's");
@@ -962,12 +1129,19 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     }
   }
   fence_operand(d);
+  if constexpr (kEpi == kLatent) fence_operand(d2);
 
   if (a.splits > 1) {
-    Acc* slots = static_cast<Acc*>(a.partials) + (size_t)tile * a.splits * (kBM * BN);
-    Acc* mine = slots + (size_t)split * (kBM * BN);
+    // A split's slot holds its partial of each product, kBM x BN words each.
+    constexpr int kSlot = kBM * BN;
+    Acc* slots = static_cast<Acc*>(a.partials) + (size_t)tile * a.splits * kProducts * kSlot;
+    Acc* mine = slots + (size_t)split * kProducts * kSlot;
 #pragma unroll
     for (int q = 0; q < kRegs; ++q) mine[q * kThreads + tid] = d[q];
+    if constexpr (kEpi == kLatent) {
+#pragma unroll
+      for (int q = 0; q < kRegs; ++q) mine[kSlot + q * kThreads + tid] = d2[q];
+    }
     __threadfence();
     __syncthreads();
     if (tid == 0) {
@@ -979,11 +1153,18 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     if (!*last) return;
     __threadfence();
     for (int s = 0; s < a.splits; ++s) {
-      const Acc* slot = slots + (size_t)s * (kBM * BN) + tid;
+      const Acc* slot = slots + (size_t)s * kProducts * kSlot + tid;
 #pragma unroll
       for (int q = 0; q < kRegs; ++q) {
         const Acc v = __ldcg(slot + q * kThreads);
         d[q] = s == 0 ? v : d[q] + v;  // ((p0 + p1) + p2) ...: split order
+      }
+      if constexpr (kEpi == kLatent) {
+#pragma unroll
+        for (int q = 0; q < kRegs; ++q) {
+          const Acc v = __ldcg(slot + kSlot + q * kThreads);
+          d2[q] = s == 0 ? v : d2[q] + v;
+        }
       }
     }
   }
@@ -1000,8 +1181,10 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
     if constexpr (kEpi == kGroupNormSilu) {
       __syncthreads();  // every warp's last wgmma has retired: the ring is free for the statistics
       groupnorm_silu_epilogue<BN>(a, d, ahead, smem, m0, n0);
-    } else {
+    } else if constexpr (kEpi == kPosterior) {
       posterior_epilogue<BN>(a, d, ahead, m0, n0);
+    } else {
+      latent_epilogue<BN>(a, d, d2, ahead, m0, n0);
     }
     return;
   }
@@ -1038,6 +1221,24 @@ __global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
         if (c + 1 < a.N) store_out(a, at + 1, epilogue(a, r, c + 1, d[4 * i + 2 * j + 1], rs[j]));
       }
     }
+}
+
+template <typename T, int BN, bool kTma, int kEpi, bool kQuantA>
+__global__ void __launch_bounds__(kThreads, kEpi == kPosterior ? 4 : 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                const __grid_constant__ Args a) {
+  gemm_block<T, BN, kTma, kEpi, kQuantA>(&map_a, &map_b, nullptr, nullptr, a);
+}
+
+// kLatent: both products of the latent step, h·M2 (map_a, map_b) and
+// bf16(zeta_k)·Lᵀ (map_a2, map_b2), in one launch.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_latent_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_b,
+                       const __grid_constant__ CUtensorMap map_a2,
+                       const __grid_constant__ CUtensorMap map_b2, const __grid_constant__ Args a) {
+  gemm_block<__nv_bfloat16, BN, true, kLatent, false>(&map_a, &map_b, &map_a2, &map_b2, a);
 }
 
 // ---------------------------------------------------------------- host
@@ -1098,37 +1299,50 @@ inline cudaError_t tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapData
 }
 
 template <typename T, int BN, bool kTma, int kEpi, bool kQuantA>
-cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, Args a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_kernel<T, BN, kTma, kEpi, kQuantA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kQuantA ? quant_smem_bytes(BN, quant_stages(BN, kQuantMaxKTiles), kQuantMaxKTiles)
-              : smem_bytes(BN, stages(BN)));
+cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, Args a, cudaStream_t stream,
+                   const CUtensorMap* ma2, const CUtensorMap* mb2) {
+  static const cudaError_t attr = [] {
+    const int most = kQuantA ? quant_smem_bytes(BN, quant_stages(BN, kQuantMaxKTiles),
+                                                kQuantMaxKTiles)
+                             : smem_bytes(BN, stages(BN));
+    if constexpr (kEpi == kLatent)
+      return cudaFuncSetAttribute(gemm_latent_kernel<BN>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    else
+      return cudaFuncSetAttribute(gemm_kernel<T, BN, kTma, kEpi, kQuantA>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }();
   if (attr != cudaSuccess) return attr;
   if (kQuantA && (a.k_tiles < 1 || a.k_tiles > kQuantMaxKTiles)) return cudaErrorInvalidValue;
-  // A split walks at most cdiv(k_tiles, splits) k-tiles. k-tile j >= ring
-  // is issued in iteration j - ring + 1, which must come before iteration
-  // j: a ring of 1 serves only single-tile splits.
-  const int walk = cdiv(a.k_tiles, a.splits);
+  // A split walks at most cdiv(k_tiles, splits) k-tiles of each product.
+  // k-tile j >= ring is issued in iteration j - ring + 1, which must come
+  // before iteration j: a ring of 1 serves only single-tile walks.
+  const int walk = (kEpi == kLatent ? 2 : 1) * cdiv(a.k_tiles, a.splits);
   const int deepest = kEpi == kPosterior ? kPosteriorRing
                       : kQuantA          ? quant_stages(BN, a.k_tiles)
                                          : stages(BN);
   a.ring = walk <= 1 ? 1 : (walk < deepest ? walk : deepest);
   const int bytes = kQuantA ? quant_smem_bytes(BN, a.ring, a.k_tiles) : smem_bytes(BN, a.ring);
   const dim3 grid(cdiv(a.N, BN), cdiv(a.M, kBM), a.splits);
-  gemm_kernel<T, BN, kTma, kEpi, kQuantA><<<grid, kThreads, bytes, stream>>>(ma, mb, a);
+  if constexpr (kEpi == kLatent)
+    gemm_latent_kernel<BN><<<grid, kThreads, bytes, stream>>>(ma, mb, *ma2, *mb2, a);
+  else
+    gemm_kernel<T, BN, kTma, kEpi, kQuantA><<<grid, kThreads, bytes, stream>>>(ma, mb, a);
   return cudaGetLastError();
 }
 
 // The block width (= the wgmma N) the host's plan chose, among the widths
 // this epilogue is built for (each width is one kernel in the build).
+// kLatent passes the second product's maps too.
 template <typename T, bool kTma, int kEpi, bool kQuantA, int... kWidths>
 cudaError_t dispatch(int bn, const CUtensorMap& ma, const CUtensorMap& mb, const Args& a,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, const CUtensorMap* ma2 = nullptr,
+                     const CUtensorMap* mb2 = nullptr) {
   if (a.splits < 1 || a.splits > (a.k_tiles > 0 ? a.k_tiles : 1)) return cudaErrorInvalidValue;
   if (a.splits > 1 && (a.partials == nullptr || a.tickets == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   (void)(((bn == kWidths &&
-           ((err = launch<T, kWidths, kTma, kEpi, kQuantA>(ma, mb, a, stream)), true))) ||
+           ((err = launch<T, kWidths, kTma, kEpi, kQuantA>(ma, mb, a, stream, ma2, mb2)), true))) ||
          ...);
   return err;
 }

@@ -9,20 +9,25 @@
 //   draw:    zeta_k  (philox: U(-sqrt3, sqrt3) from Philox4x32-10 keyed by
 //            (seed, k), counter = row·H + col, top 24 bits, as K3 draws its
 //            noise; buffer: read from a (n_lat, M, H) f32 tensor)
-//            zeta_bf <- bf16(zeta_k)      (the input of n_inj = zeta·Lᵀ, K1)
+//            zeta_bf <- bf16(zeta_k)      (the input of n_inj = zeta·Lᵀ)
 //            xi      <- xi + v·zeta_k
-//            H_acc   <- H_acc + w·h       (h: the step's hidden stack output)
-//   update:  s       <- A·s + c0·o_lat + sv·n_inj   (o_lat = h·M2 + m_b, K1)
+//            H_acc   <- H_acc + w·h       (h: the step's hidden stack output;
+//                                          skipped when h is null)
+//   update:  s       <- A·s + c0·o_lat + sv·n_inj   (o_lat = h·M2 + m_b)
 //            h_in    <- bf16(s + t_add[k+1] + c_proj)   (next stack input)
 //
-// The two 256-wide products (o_lat, n_inj) and the five-block hidden stack
-// run on K1/K2 between the two entry points. Two entry points, not one:
-// n_inj needs bf16(zeta_k) before the update and the update needs n_inj,
-// so a single launch per step would have to draw zeta_{k+1} at the end of
-// step k and prime zeta_0 in an extra launch; the draw/update split keeps
-// one launch of each per step, each reading only its own row of the table.
-// The TPU kernel adds its f32 h to H_acc; here h is the bf16 activation K2
-// stores (the port keeps activations in bf16 between kernels).
+// Division of work. A latent step runs the five-block hidden stack (K1
+// with the GroupNorm epilogue, ten launches) and then one launch of K1's
+// mainloop with K7's work as its epilogue (osdm_gemm_bf16_latent_step,
+// gemm_bf16_fused.cu): both 256-wide products, the update above on their
+// sums, H_acc += w_k·h, and the draw of zeta_{k+1} for the next step. So
+// the sampler launches this file's draw once per call, with h null, to
+// prime zeta_0 and xi += v_0·zeta_0 before the loop; the update has no
+// caller on the sampler's path. Both stay as the plain composition that
+// the fused launch is held to (K1 -> draw -> K1 -> update, the same bits)
+// and as the unfused reference. The TPU kernel adds its f32 h to H_acc;
+// here h is the bf16 activation the stack stores (the port keeps
+// activations in bf16 between kernels).
 //
 // Every operation is written with the _rn intrinsics in the plain
 // version's order, so nothing is contracted into a multiply-add and the
@@ -31,7 +36,9 @@
 // What bounds it on the card: bytes. Draw moves ~22 bytes per element
 // (h, H_acc and xi read and written, zeta_bf written), update ~22 (s read
 // and written, o_lat, n_inj, c_proj read, h_in written); Philox costs ten
-// multiply rounds per element, well under the memory time.
+// multiply rounds per element, well under the memory time. At 333-999 rows
+// (0.5-1.8 us of bytes) a launch takes 2.7-3.7 us: launch and single-wave
+// latency, which only folding the work into the product's launch removes.
 //
 // What the design does about it: one grid-stride pass per entry point; the
 // state and both accumulators are updated in place, so no second buffer
@@ -71,7 +78,7 @@ __global__ void __launch_bounds__(256) latent_draw_kernel(
     }
     zeta_bf[i] = __float2bfloat16(z);
     xi[i] = __fadd_rn(xi[i], __fmul_rn(v, z));
-    hacc[i] = __fadd_rn(hacc[i], __fmul_rn(w, __bfloat162float(h[i])));
+    if (h != nullptr) hacc[i] = __fadd_rn(hacc[i], __fmul_rn(w, __bfloat162float(h[i])));
   }
 }
 

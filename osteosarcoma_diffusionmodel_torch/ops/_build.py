@@ -79,6 +79,10 @@ SIGNATURES = {
     # X, Y, n, m, d, gamma, same, bm, splits, xsq, ysq, slots, tickets, tile_sums, done, out,
     # stream
     "osdm_rbf_kernel_sum": [_P, _P, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # h, ldh, m2, ldm, m_b, zeta_cur, l_t, ldl, s, c_proj, t_add, coeffs, n_lat, step, h_in, hacc,
+    # xi, zeta_next, mode, zeta, seed, M, H, bn, splits, partials, tickets, stream
+    "osdm_gemm_bf16_latent_step": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
+                                   _P, _P, _I, _P, _U32, _I, _I, _I, _I, _P, _P, _P],
     # h, hacc, xi, zeta_bf, M, H, coeffs, step, mode, zeta, seed, stream
     "osdm_latent_draw": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _U32, _P],
     # s, o_lat, n_inj, c_proj, t_add, coeffs, step, h_in, M, H, stream

@@ -28,9 +28,11 @@ clip does not bind.
 :class:`LatentTailSampler` is the plain PyTorch reference in f32 (the
 JAX "XLA reference"); :class:`LatentFusedSampler` runs the data-space
 head on the kernel sampler's step (K1, with K2's and K3's work as
-epilogues) and each latent step on K1 (the hidden stack with the GN
-epilogue, and the two 256-wide products) and K7 (``latent_draw``,
-``latent_update``). The
+epilogues) and each latent step in 11 launches: the hidden stack (K1 with
+the GN epilogue, 10) and one K1 launch that computes the step's two
+256-wide products with K7's work as its epilogue
+(``gemm_bf16_latent_step``), after one priming draw of zeta_0 a call
+(K7's ``latent_draw``). The
 one-time reconstruction is plain f32 ``torch.matmul`` in full f32 (no
 TF32: eta - (eta·K_in)·R cancels), as the JAX package leaves it to XLA.
 """
@@ -46,7 +48,7 @@ import torch
 
 from ..models.networks import sinusoid
 from .fused_sampler import FusedSampler, _bf16
-from .sampler_kernels import UNIFORM_SCALE, gemm_bf16_f32acc, latent_draw, latent_update
+from .sampler_kernels import UNIFORM_SCALE, gemm_bf16_latent_step, latent_draw
 
 
 def supports_latent(model) -> bool:
@@ -239,8 +241,9 @@ class LatentTailSampler:
 
 class LatentFusedSampler:
     """Data-space head on the kernel sampler (``FusedSampler.sample``
-    with ``stop_after``), then the latent segment, one step at a time on
-    K1 (with the GN epilogue in the stack) and K7, then the one-time wide
+    with ``stop_after``), then the latent segment, one step at a time: the
+    stack on K1 with the GN epilogue, then the step's products and K7's
+    work in one launch (``gemm_bf16_latent_step``), then the one-time wide
     reconstruction (JAX :476-697).
     Tables come from :class:`LatentTailSampler`. Runs on ``device``."""
 
@@ -293,15 +296,16 @@ class LatentFusedSampler:
         h_in.copy_(s + self.tadd_seg[0] + c_proj)
         h_acc = torch.zeros(batch, H0, device=dev)
         xi = torch.zeros(batch, H0, device=dev)
-        zeta_bf = torch.empty(batch, H0, dtype=torch.bfloat16, device=dev)
-        o_lat = torch.empty(batch, H0, device=dev)
-        n_inj = torch.empty(batch, H0, device=dev)
+        # zeta_k lives in zeta_bf[k % 2]: step k's launch reads all of it as a
+        # product's operand while it draws zeta_{k+1} into the other buffer.
+        zeta_bf = [torch.empty(batch, H0, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        if self.n_lat:  # zeta_0 and xi += v_0·zeta_0 (step 0 adds w_0·h_0)
+            latent_draw(None, None, xi, zeta_bf[0], self.coeffs, 0, mode, zeta=zeta, seed=seed)
         for k in range(self.n_lat):
             self.head.run_stack(buf)
-            gemm_bf16_f32acc(h, self.m2, out=o_lat, bias=self.m_b)
-            latent_draw(h, h_acc, xi, zeta_bf, self.coeffs, k, mode, zeta=zeta, seed=seed)
-            gemm_bf16_f32acc(zeta_bf, self.l_t, out=n_inj)
-            latent_update(s, o_lat, n_inj, c_proj, self.tadd_seg, self.coeffs, k, h_in)
+            gemm_bf16_latent_step(h, self.m2, self.m_b, zeta_bf[k % 2], self.l_t, s, c_proj,
+                                  self.tadd_seg, self.coeffs, k, h_in, h_acc, xi,
+                                  zeta_bf[(k + 1) % 2], mode, zeta=zeta, seed=seed)
         self.head.run_stack(buf)  # h0 from the last latent state and the t = 0 row
         h0 = h.float()
 

@@ -153,17 +153,24 @@ TWO_PI = 2.0 * math.pi
 
 
 def gaussian_noise(seed: int, rows: int, cols: int, device=None) -> torch.Tensor:
-    """K8's noise for a (rows, cols) array: sqrt(-2 log u1)·cos(2π u2),
-    u1 (floored at 1e-12) and u2 the top 24 bits of words 0 and 1 of
-    Philox keyed by (seed, 0) at counter row·cols + col."""
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
-    idx = r * cols + c
-    zero = torch.zeros_like(idx)
-    w0, w1, _, _ = philox4x32_10(idx & _M32, (idx >> 32) & _M32, zero, zero, seed, 0)
-    u1 = torch.clamp((w0 >> 8).to(torch.float32) * (1.0 / (1 << 24)), min=1e-12)
-    u2 = (w1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
+    """K8's noise for a (rows, cols) array, over the flat index i =
+    row·cols + col: Philox keyed by (seed, 0) at counter j gives elements
+    4j .. 4j+3. Words (0, 1) and (2, 3) are two pairs (u1, u2) of 24-bit
+    uniforms (u1 floored at 1e-12); element 4j+q takes pair q // 2 and is
+    sqrt(-2 log u1)·cos(2π u2) for even q, sqrt(-2 log u1)·sin(2π u2) for
+    odd q. The radius is f32; the angle's cosine and sine are taken in
+    float64 and rounded once (the kernel's sincospif is within an ulp)."""
+    n = rows * cols
+    j = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+    zero = torch.zeros_like(j)
+    words = philox4x32_10(j & _M32, (j >> 32) & _M32, zero, zero, seed, 0)
+    pairs = []
+    for w1, w2 in (words[:2], words[2:]):
+        u1 = torch.clamp((w1 >> 8).to(torch.float32) * (1.0 / (1 << 24)), min=1e-12)
+        angle = TWO_PI * ((w2 >> 8).to(torch.float64) * (1.0 / (1 << 24)))
+        radius = torch.sqrt(-2.0 * torch.log(u1))
+        pairs += [radius * torch.cos(angle).float(), radius * torch.sin(angle).float()]
+    return torch.stack(pairs, dim=1).reshape(-1)[:n].reshape(rows, cols)
 
 
 def posterior_update_plain(x, x0_pred, seed: int, coef_x0, coef_xt, sqrt_var, add_noise,

@@ -25,10 +25,13 @@ computes in one Pallas kernel, one reverse step at a time:
   only before the input product. The standalone K2 and K3
   stay as their unfused reference and for GroupNorm widths whose groups
   no tile holds whole;
-- K7 ``latent_step`` (:func:`latent_draw`, :func:`latent_update`): the
-  per-step elementwise work of the latent-tail sampler
+- K7 ``latent_step``: the per-step work of the latent-tail sampler
   (osteosarcoma_diffusionmodel_tpu/ops/latent_sampler.py
-  `_build_latent_kernel`), whose products and hidden stack run on K1/K2.
+  `_build_latent_kernel`) after its hidden stack, as the epilogue of one
+  K1 launch that computes both of the step's products
+  (:func:`gemm_bf16_latent_step`); the standalone draw
+  (:func:`latent_draw`) primes the first step's noise, and the standalone
+  update (:func:`latent_update`) stays as the unfused reference.
 
 A wrapper launches its kernel for CUDA tensors and counts the launch, in
 total and by mode; for CPU tensors it runs the plain PyTorch version (the
@@ -230,9 +233,12 @@ class _SplitWorkspace:
     def __init__(self):
         self._bufs = {}
 
-    def pointers(self, device, m: int, n: int, plan: GemmPlan) -> Tuple[int, int]:
+    def pointers(self, device, m: int, n: int, plan: GemmPlan,
+                 products: int = 1) -> Tuple[int, int]:
+        """``products``: partial sums a split keeps per tile (2 for the
+        latent step's two products)."""
         tiles = -(-m // plan.bm) * -(-n // plan.bn)
-        words = tiles * plan.splits * plan.bm * plan.bn
+        words = tiles * plan.splits * products * plan.bm * plan.bn
         part, tick = self._bufs.get(device, (None, None))
         if part is None or part.numel() < words:
             part = torch.empty(words, dtype=torch.int32, device=device)
@@ -269,8 +275,9 @@ def _launch_plan(plan: Optional[GemmPlan], device, m: int, n: int, k: int, kind:
     return plan
 
 
-def _split_pointers(device, m: int, n: int, plan: GemmPlan):
-    return _WORKSPACE.pointers(device, m, n, plan) if plan.splits > 1 else (None, None)
+def _split_pointers(device, m: int, n: int, plan: GemmPlan, products: int = 1):
+    return (_WORKSPACE.pointers(device, m, n, plan, products) if plan.splits > 1
+            else (None, None))
 
 
 def _check_epilogue(m: int, n: int, bias, row_add, out, device) -> torch.Tensor:
@@ -1116,37 +1123,47 @@ def _check_state(tensors, shape, dtype) -> None:
 def latent_draw_plain(h, hacc, xi, coeffs, step: int, mode: str, zeta=None, seed: int = 0):
     """Returns (bf16 zeta_k, xi + v·zeta_k, H_acc + w·h): the kernel's f32
     operations in its order. zeta_k is Philox U(-sqrt3, sqrt3) keyed by
-    (seed, step) ("philox") or ``zeta[step]`` ("buffer")."""
+    (seed, step) ("philox") or ``zeta[step]`` ("buffer"). ``h`` None (the
+    priming draw): H_acc is returned as given."""
     w, v = coeffs[step, 3], coeffs[step, 4]
     if mode == "buffer":
         z = zeta[step]
     else:
         z = philox_uniform_noise(seed, step, *xi.shape, device=xi.device)
-    return z.to(torch.bfloat16), xi + v * z, hacc + w * h.float()
+    return z.to(torch.bfloat16), xi + v * z, hacc if h is None else hacc + w * h.float()
 
 
-def latent_draw(h: torch.Tensor, hacc: torch.Tensor, xi: torch.Tensor, zeta_bf: torch.Tensor,
-                coeffs: torch.Tensor, step: int, mode: str,
-                zeta: Optional[torch.Tensor] = None, seed: int = 0) -> None:
-    """In place, for latent step ``step`` with (w, v) from row ``step`` of
-    the (n_lat, 5) f32 table: ``zeta_bf`` <- bf16(zeta_k), ``xi`` += v·zeta_k,
-    ``hacc`` += w·h. ``h`` (M, H) bf16 is the step's hidden stack output;
-    ``hacc``/``xi`` (M, H) f32, ``zeta_bf`` (M, H) bf16. ``mode``: "philox"
-    (in-kernel, keyed by (seed, step), counter = row·H + col) or "buffer"
-    (``zeta`` (n_lat, M, H) f32)."""
+def _check_zeta(zeta: Optional[torch.Tensor], mode: str, coeffs: torch.Tensor, shape) -> None:
     if mode not in ("philox", "buffer"):
         raise ValueError(f"unknown draw mode {mode!r}")
-    if h.dim() != 2:
-        raise ValueError("h must be 2-D")
-    shape = tuple(h.shape)
-    _check_state([(h, "h"), (zeta_bf, "zeta_bf")], shape, torch.bfloat16)
-    _check_state([(hacc, "hacc"), (xi, "xi")], shape, torch.float32)
-    _check_latent_table(coeffs, step)
     if mode == "buffer":
         if zeta is None or tuple(zeta.shape) != (coeffs.shape[0], *shape) or not zeta.is_contiguous():
             raise ValueError(f"buffer mode needs contiguous zeta ({coeffs.shape[0]}, {shape[0]}, "
                              f"{shape[1]})")
         _check_dtype(zeta, torch.float32, "zeta")
+
+
+def latent_draw(h: Optional[torch.Tensor], hacc: Optional[torch.Tensor], xi: torch.Tensor,
+                zeta_bf: torch.Tensor, coeffs: torch.Tensor, step: int, mode: str,
+                zeta: Optional[torch.Tensor] = None, seed: int = 0) -> None:
+    """In place, for latent step ``step`` with (w, v) from row ``step`` of
+    the (n_lat, 5) f32 table: ``zeta_bf`` <- bf16(zeta_k), ``xi`` += v·zeta_k,
+    ``hacc`` += w·h. ``h`` (M, H) bf16 is the step's hidden stack output;
+    ``hacc``/``xi`` (M, H) f32, ``zeta_bf`` (M, H) bf16. ``h`` and ``hacc``
+    None: no w·h term (the sampler's priming draw of zeta_0). ``mode``:
+    "philox" (in-kernel, keyed by (seed, step), counter = row·H + col) or
+    "buffer" (``zeta`` (n_lat, M, H) f32)."""
+    if (h is None) != (hacc is None):
+        raise ValueError("h and hacc are given together or not at all")
+    if xi.dim() != 2:
+        raise ValueError("xi must be 2-D")
+    shape = tuple(xi.shape)
+    _check_state([(zeta_bf, "zeta_bf")] + ([(h, "h")] if h is not None else []), shape,
+                 torch.bfloat16)
+    _check_state([(xi, "xi")] + ([(hacc, "hacc")] if hacc is not None else []), shape,
+                 torch.float32)
+    _check_latent_table(coeffs, step)
+    _check_zeta(zeta, mode, coeffs, shape)
     if not 0 <= seed <= _M32:
         raise ValueError("seed must fit in 32 bits")
 
@@ -1154,16 +1171,24 @@ def latent_draw(h: torch.Tensor, hacc: torch.Tensor, xi: torch.Tensor, zeta_bf: 
         z, x_new, h_new = latent_draw_plain(h, hacc, xi, coeffs, step, mode, zeta, seed)
         zeta_bf.copy_(z)
         xi.copy_(x_new)
-        hacc.copy_(h_new)
+        if hacc is not None:
+            hacc.copy_(h_new)
         return
     lib = LIBRARY.get()
     status = lib.osdm_latent_draw(
-        h.data_ptr(), hacc.data_ptr(), xi.data_ptr(), zeta_bf.data_ptr(), shape[0], shape[1],
-        coeffs.data_ptr(), step, NOISE_MODES[mode],
-        zeta.data_ptr() if mode == "buffer" else None, seed, _stream(h),
+        h.data_ptr() if h is not None else None, hacc.data_ptr() if hacc is not None else None,
+        xi.data_ptr(), zeta_bf.data_ptr(), shape[0], shape[1], coeffs.data_ptr(), step,
+        NOISE_MODES[mode], zeta.data_ptr() if mode == "buffer" else None, seed, _stream(xi),
     )
     check(status, LATENT.name)
     LATENT.count(f"draw_{mode}")
+
+
+def _check_t_add(t_add: torch.Tensor, width: int, step: int) -> None:
+    _check_dtype(t_add, torch.float32, "t_add")
+    if (t_add.dim() != 2 or t_add.shape[1] != width or t_add.shape[0] < step + 2
+            or not t_add.is_contiguous()):
+        raise ValueError(f"t_add must be contiguous with more than {step + 1} rows of {width}")
 
 
 def latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, step: int):
@@ -1189,10 +1214,7 @@ def latent_update(s: torch.Tensor, o_lat: torch.Tensor, n_inj: torch.Tensor,
                  torch.float32)
     _check_state([(h_in, "h_in")], shape, torch.bfloat16)
     _check_latent_table(coeffs, step)
-    _check_dtype(t_add, torch.float32, "t_add")
-    if (t_add.dim() != 2 or t_add.shape[1] != shape[1] or t_add.shape[0] < step + 2
-            or not t_add.is_contiguous()):
-        raise ValueError(f"t_add must be contiguous with more than {step + 1} rows of {shape[1]}")
+    _check_t_add(t_add, shape[1], step)
 
     if not _on_cuda(s, o_lat, n_inj, c_proj, t_add, coeffs, h_in):
         s_new, h_new = latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, step)
@@ -1206,3 +1228,108 @@ def latent_update(s: torch.Tensor, o_lat: torch.Tensor, n_inj: torch.Tensor,
     )
     check(status, LATENT.name)
     LATENT.count("update")
+
+
+# ----------------------------------------------------------------------
+# K7 on K1's mainloop: both products of a latent step and its update
+# ----------------------------------------------------------------------
+GEMM_LATENT = Kernel(
+    "gemm_bf16_latent_step", _FUSED_BF16,
+    "osteosarcoma_diffusionmodel_tpu/ops/latent_sampler.py:442",
+    modes=("philox", "buffer"),
+)
+# The block width the fused latent step is built at (csrc/gemm_bf16_fused.cu):
+# two accumulators of a 64-wide tile and the epilogue's inputs fit in registers.
+LATENT_WIDTHS = (64,)
+
+
+def gemm_bf16_latent_step_plain(h, m2, m_b, zeta_bf_cur, l_t, s, c_proj, t_add, coeffs,
+                                step: int, h_acc, xi, mode: str, zeta=None, seed: int = 0):
+    """Returns (s, h_in, h_acc, xi, bf16 zeta_{step+1} or None on the last
+    step): the composition the fused launch replaces, K1 -> K7 draw -> K1
+    -> K7 update, with the draw moved one step on. o_lat = h·M2 + m_b and
+    n_inj = bf16(zeta_step)·Lᵀ (:func:`gemm_bf16_f32acc_plain`), H_acc +=
+    w_step·h, then zeta_{step+1} drawn (:func:`latent_draw_plain`) with xi
+    += v_{step+1}·zeta_{step+1}, then :func:`latent_update_plain`."""
+    o_lat = gemm_bf16_f32acc_plain(h, m2, m_b)
+    n_inj = gemm_bf16_f32acc_plain(zeta_bf_cur, l_t)
+    h_acc = h_acc + coeffs[step, 3] * h.float()
+    zeta_next = None
+    if step + 1 < coeffs.shape[0]:
+        zeta_next, xi, _ = latent_draw_plain(None, None, xi, coeffs, step + 1, mode, zeta, seed)
+    s, h_in = latent_update_plain(s, o_lat, n_inj, c_proj, t_add, coeffs, step)
+    return s, h_in, h_acc, xi, zeta_next
+
+
+def gemm_bf16_latent_step(h: torch.Tensor, m2: torch.Tensor, m_b: torch.Tensor,
+                          zeta_bf_cur: torch.Tensor, l_t: torch.Tensor, s: torch.Tensor,
+                          c_proj: torch.Tensor, t_add: torch.Tensor, coeffs: torch.Tensor,
+                          step: int, h_in: torch.Tensor, h_acc: torch.Tensor, xi: torch.Tensor,
+                          zeta_bf_next: torch.Tensor, mode: str,
+                          zeta: Optional[torch.Tensor] = None, seed: int = 0,
+                          plan: Optional[GemmPlan] = None) -> None:
+    """Latent step ``step`` after its hidden stack, in one launch, in place:
+    ``s`` <- A·s + c0·(h·M2 + m_b) + sv·(bf16(zeta_step)·Lᵀ), ``h_in`` <-
+    bf16(s + t_add[step + 1] + c_proj), ``h_acc`` += w·h, and unless
+    ``step`` is the table's last row, ``zeta_bf_next`` <- bf16(zeta_{step+1})
+    and ``xi`` += v_{step+1}·zeta_{step+1} (coefficients from the (n_lat, 5)
+    table, zeta as :func:`latent_draw` draws it). ``h`` (M, H) bf16 (a
+    TMA-readable row view), ``m2`` and ``l_t`` (H, H) bf16, ``m_b`` (H,)
+    f32, ``zeta_bf_cur``/``zeta_bf_next`` (M, H) bf16 and distinct: every
+    block reads all of ``zeta_bf_cur``, so the next draw goes to the other
+    buffer; ``s``, ``c_proj``, ``h_acc``, ``xi`` (M, H) f32, ``h_in`` (M, H)
+    bf16, all contiguous with 16-byte-aligned bases; H a multiple of 8.
+    With the same ``plan`` (:func:`gemm_plan`'s among ``LATENT_WIDTHS``
+    when omitted) for the two products apart, the results equal
+    :func:`gemm_bf16_latent_step_plain`'s composition on the card bit for
+    bit."""
+    lda, ldm, m, k, n = _check_bf16_operands(h, m2)
+    ldz, ldl, mz, kz, nz = _check_bf16_operands(zeta_bf_cur, l_t)
+    if not k == n == kz == nz or mz != m or n % 8:
+        raise ValueError(f"the latent step needs h (M, H), M2 and Lᵀ (H, H) with H a multiple of "
+                         f"8: h {tuple(h.shape)} m2 {tuple(m2.shape)} zeta "
+                         f"{tuple(zeta_bf_cur.shape)} l_t {tuple(l_t.shape)}")
+    shape = (m, n)
+    _check_state([(s, "s"), (c_proj, "c_proj"), (h_acc, "h_acc"), (xi, "xi")], shape,
+                 torch.float32)
+    _check_state([(h_in, "h_in"), (zeta_bf_cur, "zeta_bf_cur"), (zeta_bf_next, "zeta_bf_next")],
+                 shape, torch.bfloat16)
+    _check_state([(m_b, "m_b")], (n,), torch.float32)
+    if zeta_bf_cur.data_ptr() == zeta_bf_next.data_ptr():
+        raise ValueError("zeta_bf_next must not be zeta_bf_cur: the launch reads all of it")
+    _check_latent_table(coeffs, step)
+    _check_t_add(t_add, n, step)
+    _check_zeta(zeta, mode, coeffs, shape)
+    if not 0 <= seed <= _M32:
+        raise ValueError("seed must fit in 32 bits")
+    buffer = zeta if mode == "buffer" else None
+
+    if not _on_cuda(h, m2, m_b, zeta_bf_cur, l_t, s, c_proj, t_add, coeffs, h_in, h_acc, xi,
+                    zeta_bf_next, buffer):
+        s_new, h_new, acc_new, xi_new, z_next = gemm_bf16_latent_step_plain(
+            h, m2, m_b, zeta_bf_cur, l_t, s, c_proj, t_add, coeffs, step, h_acc, xi, mode,
+            zeta, seed)
+        s.copy_(s_new)
+        h_in.copy_(h_new)
+        h_acc.copy_(acc_new)
+        xi.copy_(xi_new)
+        if z_next is not None:
+            zeta_bf_next.copy_(z_next)
+        return
+    _check_tma(h, m2, GEMM_LATENT.name)
+    _check_tma(zeta_bf_cur, l_t, GEMM_LATENT.name)
+    if any(t.data_ptr() % 16 for t in (s, c_proj, h_acc, xi, h_in, zeta_bf_next, buffer)
+           if t is not None):
+        raise ValueError(f"{GEMM_LATENT.name}: the state tensors need 16-byte-aligned bases")
+    plan = _launch_plan(plan, h.device, m, n, k, "bf16", LATENT_WIDTHS)
+    partials, tickets = _split_pointers(h.device, m, n, plan, products=2)
+    status = LIBRARY.get().osdm_gemm_bf16_latent_step(
+        h.data_ptr(), lda, m2.data_ptr(), ldm, m_b.data_ptr(), zeta_bf_cur.data_ptr(),
+        l_t.data_ptr(), ldl, s.data_ptr(), c_proj.data_ptr(), t_add.data_ptr(), coeffs.data_ptr(),
+        coeffs.shape[0], step, h_in.data_ptr(), h_acc.data_ptr(), xi.data_ptr(),
+        zeta_bf_next.data_ptr(), NOISE_MODES[mode],
+        buffer.data_ptr() if buffer is not None else None, seed, m, n, plan.bn, plan.splits,
+        partials, tickets, _stream(h),
+    )
+    check(status, GEMM_LATENT.name)
+    GEMM_LATENT.count(mode)

@@ -17,7 +17,8 @@ schedule, ``--steps`` DDPM steps) with weights made from seed 0, on
   port's data-space kernel sampler ``FusedSampler`` (all steps), the plain
   ``LatentTailSampler`` (the reference, as the JAX script's XLA row) and
   the kernel ``LatentFusedSampler`` (head and stack on K1 with the GN
-  and posterior epilogues, tail on K1/K7),
+  and posterior epilogues; each latent step's products and K7's work in
+  one more K1 launch, after one priming K7 draw a call),
   each with the kernel launches of its calls by kernel and mode;
 - with ``--profile``: one call of each kernel sampler under
   torch.profiler, its device time by kernel and its busy share (device
@@ -57,7 +58,7 @@ CONDITIONS = ["survival_days_norm", "event_occurred", "metastasis_at_diagnosis"]
 PROBE_ROWS = 256
 KERNELS = (sk.GEMM, sk.GEMM_GN, sk.GEMM_POSTERIOR, sk.GROUPNORM, sk.POSTERIOR, sk.ROWQUANT,
            sk.GEMM_S8, sk.GEMM_S8_GN, sk.GEMM_S8_POSTERIOR, sk.GEMM_S8Q, sk.GEMM_S8Q_GN,
-           sk.GEMM_S8Q_POSTERIOR, sk.LATENT)
+           sk.GEMM_S8Q_POSTERIOR, sk.LATENT, sk.GEMM_LATENT)
 
 
 def build_model(steps: int, dev) -> ConditionalDiffusion:

@@ -326,6 +326,77 @@ def test_cuda_latent_step_matches_plain(cuda):
     assert torch.equal(s, ref_s) and torch.equal(h_in, ref_h)
 
 
+def _latent_segment(rng, m, h, n_lat, cuda):
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    ops = dict(m2=(f(h, h) / math.sqrt(h)).bfloat16(), m_b=f(h),
+               l_t=(f(h, h) / math.sqrt(h)).bfloat16(), c_proj=f(m, h), t_add=f(n_lat + 1, h),
+               coeffs=torch.from_numpy(rng.uniform(0.1, 1.0, (n_lat, 5)).astype(np.float32)).to(cuda),
+               zeta=f(n_lat, m, h))
+    hs = [(2.0 * f(m, h)).bfloat16() for _ in range(n_lat)]  # each step's stack output
+    return ops, hs, f(m, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [333, 999])
+@pytest.mark.parametrize("mode", ["philox", "buffer"])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_cuda_latent_step_fused_equals_the_composition(cuda, m, mode, splits):
+    # Three latent steps (the last draws nothing) at the sampler's width:
+    # one fused launch a step, after the priming draw, against K1 -> K7
+    # draw -> K1 -> K7 update with the same plan: s, h_in, H_acc and the
+    # next zeta equal bit for bit at every step, xi after the last, split-K
+    # on and off. Against the
+    # plain composition (cuBLAS f32 products in another order): s, H_acc
+    # and xi within 1e-3 of max(1, |ref|), h_in within one bf16 rounding.
+    rng = np.random.default_rng(m + splits + len(mode))
+    h, n_lat = 256, 3
+    ops, hs, s0 = _latent_segment(rng, m, h, n_lat, cuda)
+    plan = sk.GemmPlan(64, 64, splits)
+    cf, t_add, c_proj = ops["coeffs"], ops["t_add"], ops["c_proj"]
+    bf = lambda: torch.empty(m, h, dtype=torch.bfloat16, device=cuda)  # noqa: E731
+
+    s_a, hin_a, acc_a, xi_a, z_a = s0.clone(), bf(), torch.zeros(m, h, device=cuda), \
+        torch.zeros(m, h, device=cuda), bf()
+    o_lat, n_inj = torch.empty(m, h, device=cuda), torch.empty(m, h, device=cuda)
+    s_b, hin_b, acc_b, xi_b, zb = s0.clone(), bf(), torch.zeros(m, h, device=cuda), \
+        torch.zeros(m, h, device=cuda), [bf(), bf()]
+    s_p, acc_p, xi_p = s0.clone(), torch.zeros(m, h, device=cuda), torch.zeros(m, h, device=cuda)
+    zp = sk.latent_draw_plain(None, None, xi_p, cf, 0, mode, ops["zeta"], 11)
+    zp, xi_p = zp[0], zp[1]
+    sk.latent_draw(None, None, xi_b, zb[0], cf, 0, mode, zeta=ops["zeta"], seed=11)
+    for k in range(n_lat):
+        sk.gemm_bf16_f32acc(hs[k], ops["m2"], out=o_lat, bias=ops["m_b"], plan=plan)
+        sk.latent_draw(hs[k], acc_a, xi_a, z_a, cf, k, mode, zeta=ops["zeta"], seed=11)
+        sk.gemm_bf16_f32acc(z_a, ops["l_t"], out=n_inj, plan=plan)
+        sk.latent_update(s_a, o_lat, n_inj, c_proj, t_add, cf, k, hin_a)
+        before = sk.GEMM_LATENT.modes[mode]
+        sk.gemm_bf16_latent_step(hs[k], ops["m2"], ops["m_b"], zb[k % 2], ops["l_t"], s_b, c_proj,
+                                 t_add, cf, k, hin_b, acc_b, xi_b, zb[(k + 1) % 2], mode,
+                                 zeta=ops["zeta"], seed=11, plan=plan)
+        assert sk.GEMM_LATENT.modes[mode] == before + 1
+        s_p, hin_p, acc_p, xi_p, zn = sk.gemm_bf16_latent_step_plain(
+            hs[k], ops["m2"], ops["m_b"], zp, ops["l_t"], s_p, c_proj, t_add, cf, k, acc_p, xi_p,
+            mode, ops["zeta"], 11)
+        torch.cuda.synchronize()
+        # xi: the fused launch of step k has already added v_{k+1}·zeta_{k+1}
+        # (drawn one step on), so the two routes meet after the last step.
+        for name, a, b in (("s", s_a, s_b), ("h_in", hin_a, hin_b), ("h_acc", acc_a, acc_b)) + (
+                (("xi", xi_a, xi_b),) if k == n_lat - 1 else ()):
+            assert torch.equal(a, b), (name, k)
+        if k + 1 < n_lat:
+            zp = zn
+            z_next = sk.latent_draw_plain(None, None, torch.zeros(m, h, device=cuda), cf, k + 1,
+                                          mode, ops["zeta"], 11)[0]
+            assert torch.equal(zb[(k + 1) % 2], z_next), k
+        for name, got, ref in (("s", s_b, s_p), ("h_acc", acc_b, acc_p), ("xi", xi_b, xi_p)):
+            assert float((got - ref).abs().max()) <= 1e-3 * max(1.0, float(ref.abs().max())), name
+        tol = 2 ** -7 * max(1.0, float(hin_p.float().abs().max()))
+        assert float((hin_b.float() - hin_p.float()).abs().max()) <= tol
+    with pytest.raises(ValueError):  # the buffer the launch reads cannot take the next draw
+        sk.gemm_bf16_latent_step(hs[0], ops["m2"], ops["m_b"], zb[0], ops["l_t"], s_b, c_proj,
+                                 t_add, cf, 0, hin_b, acc_b, xi_b, zb[0], mode, zeta=ops["zeta"])
+
+
 @pytest.mark.cuda
 def test_cuda_posterior_update_matches_plain(cuda):
     # The affine part with _rn intrinsics; z through logf/sqrtf/cosf, within
@@ -346,6 +417,35 @@ def test_cuda_posterior_update_matches_plain(cuda):
     # The plain noise is a function of (seed, row, col) with no grid: the
     # kernel's matching it shows its noise does not depend on its tiling.
     plain_z = pk.gaussian_noise(4, *x.shape, device=cuda)
+    assert float((z - plain_z).abs().max()) <= 2 ** -19 * max(1.0, float(plain_z.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(7, 5), (3, 257), (333, 5142)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_posterior_update_quads_and_tails(cuda, rows, cols, offset):
+    # K8 takes four elements a Philox call: sizes that end inside a quad
+    # (7 x 5, 3 x 257) and bases that are not 16-byte aligned (a view one
+    # float into its buffer: the scalar path) give the plain noise at the
+    # same flat index, static equal to traced, with and without noise.
+    rng = np.random.default_rng(rows + cols + offset)
+    n = rows * cols
+    bx = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(cuda)
+    bp = torch.from_numpy((40 * rng.standard_normal(n + 1)).astype(np.float32)).to(cuda)
+    x, pred = bx[offset:offset + n].view(rows, cols), bp[offset:offset + n].view(rows, cols)
+    for add_noise in (1.0, 0.0):
+        coefs = (0.3, 0.6, 0.8, add_noise, 30.0)
+        before = pk.POSTERIOR_UPDATE.modes["static"]
+        got = pk.posterior_update(x, pred, 9, *coefs)
+        assert pk.POSTERIOR_UPDATE.modes["static"] == before + 1
+        traced = pk.posterior_update_traced(x, pred, torch.tensor(coefs, device=cuda), 9)
+        ref = pk.posterior_update_plain(x, pred, 9, *coefs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, traced)
+        assert float((got - ref).abs().max()) <= 2 ** -19 * max(1.0, float(ref.abs().max()))
+    zeros = torch.zeros(rows, cols, device=cuda)
+    z = pk.posterior_update(zeros, zeros, 9, 0.0, 0.0, 1.0, 1.0)
+    plain_z = pk.gaussian_noise(9, rows, cols, device=cuda)
     assert float((z - plain_z).abs().max()) <= 2 ** -19 * max(1.0, float(plain_z.abs().max()))
 
 

@@ -52,22 +52,32 @@ def test_noise_statistics_and_seeds():
     np.testing.assert_array_equal(out, again)
 
 
-@pytest.mark.parametrize("rows,cols", [(6, 50), (3, 257)])
+@pytest.mark.parametrize("rows,cols", [(6, 50), (3, 257), (7, 5)])
 def test_noise_is_box_muller_of_philox_words(rows, cols):
-    """z = sqrt(-2 log u1)·cos(2π u2), u1 and u2 the 24-bit uniforms of
-    words 0 and 1 of Philox keyed by (seed, 0) at counter row·cols + col,
-    u1 floored at 1e-12 (pallas_kernels.py:177-186), recomputed in float64
-    numpy. The kernel's noise is held to this function on the card
-    (tests/test_torch_cuda.py)."""
+    """Element i = row·cols + col of the flat array is output i % 4 of
+    Philox keyed by (seed, 0) at counter i // 4: words (0, 1) and (2, 3)
+    are two pairs (u1, u2) of 24-bit uniforms, u1 floored at 1e-12, and
+    each pair gives sqrt(-2 log u1)·cos(2π u2), then ·sin(2π u2)
+    (pallas_kernels.py:177-186 draws one cosine an element; the port's K8
+    draws both outputs of each pair, four elements a Philox call),
+    recomputed in float64 numpy. Shapes whose size is not a multiple of 4
+    (3×257, 7×5) end inside a quad. The kernel's noise is held to this
+    function on the card (tests/test_torch_cuda.py)."""
     seed = 31
-    idx = torch.arange(rows * cols, dtype=torch.int64)
+    n = rows * cols
+    idx = torch.arange(-(-n // 4), dtype=torch.int64)
     zero = torch.zeros_like(idx)
-    w0, w1, _, _ = philox4x32_10(idx, zero, zero, zero, seed, 0)
-    u1 = np.maximum((w0.numpy() >> 8) / 2.0**24, 1e-12)
-    u2 = (w1.numpy() >> 8) / 2.0**24
-    ref = np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * np.pi * u2)
-    got = pk.gaussian_noise(seed, rows, cols).numpy().ravel()
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    words = [w.numpy() for w in philox4x32_10(idx, zero, zero, zero, seed, 0)]
+    ref = np.empty((idx.numel(), 4))
+    for p in range(2):
+        u1 = np.maximum((words[2 * p] >> 8) / 2.0**24, 1e-12)
+        u2 = (words[2 * p + 1] >> 8) / 2.0**24
+        radius = np.sqrt(-2.0 * np.log(u1))
+        ref[:, 2 * p] = radius * np.cos(2.0 * np.pi * u2)
+        ref[:, 2 * p + 1] = radius * np.sin(2.0 * np.pi * u2)
+    got = pk.gaussian_noise(seed, rows, cols)
+    assert got.shape == (rows, cols) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy().ravel(), ref.ravel()[:n], rtol=1e-5, atol=1e-5)
 
 
 def test_traced_variant_matches_reference():
