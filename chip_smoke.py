@@ -34,8 +34,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
    kernel and mode, for bf16, D3PM and each int8 mode (12 a bf16 step,
    12 / 13 / 15 under int8 "out" / "io" / "all", the standalone K5 only
    before the input product), and its summed kernel time;
-4. the main paths at full model width (data dims 62/5054/26, hidden
-   256/512/256, T = 1000, cosine schedule): the port's CLI step
+4. "[train]": the port's CLI train step at full model width (data dims
+   62/5054/26, hidden 256/512/256, T = 1000) on the seeded structured
+   cohort of 100 patients with the production settings (batch 16, AdamW
+   1e-4, weight decay 1e-5, clip 1.0, constraints on, dropout 0.2, mixup
+   0.2, pathway noise 0.05) for 100 epochs: its first and last train and
+   validation losses, steps/sec and seconds; every loss finite, the best
+   validation loss below epoch 0's, ``best_model.npz`` and a periodic
+   checkpoint written, one more epoch resumed from a copy of that
+   periodic checkpoint; then DDIM-50 generate -> calibrate -> validate at
+   3 x 333 from the trained checkpoint with the continuous path's launch
+   accounting (K1, K1+GN and K1+posterior launched; K1's general path,
+   K2 and K3 not) and the validator's overall score and MMD printed (no
+   quality gate: 100 epochs and 999 rows are not its protocol);
+5. the main paths at full model width (data dims 62/5054/26, hidden
+   256/512/256, T = 1000, cosine schedule) on seeded weights: the port's CLI step
    functions generate -> calibrate (copula_joint) -> validate on a
    temporary directory holding a seeded structured cohort of 100
    patients, 3 scenarios x 333 patients each:
@@ -60,7 +73,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      priming draw a call), and, where the probe says the clip does not
      bind in the tail, its per-feature moments against the data-space
      kernel sampler's;
-5. the kernel sampler against the plain PyTorch loop at 333 rows:
+6. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
    the same x_T, noise, zeta and eta).
@@ -76,6 +89,7 @@ CUDA device the script raises.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import logging
 import math
@@ -91,6 +105,7 @@ import torch
 
 from osteosarcoma_diffusionmodel_torch.cli import (
     generate_synthetic_patients,
+    train_model,
     validate_synthetic_patients,
 )
 from osteosarcoma_diffusionmodel_torch.config import Config
@@ -175,6 +190,7 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
 from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
     METADATA_FILE,
     data_stats_from_arrays,
+    latest_epoch,
     load_data_stats,
     load_metadata,
     load_weights,
@@ -1424,48 +1440,124 @@ def check_forbidden(path: str) -> None:
                              f"{GEMM_S8.modes['bf16_out']} input products")
 
 
-def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
+def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dict) -> dict:
     """generate -> calibrate -> validate through the port's CLI step
-    functions for every run of every main path. The launch counts are
-    set to 0 just before each path and read just after it. Returns each
-    kernel's launches summed over the paths."""
-    totals = {k.name: 0 for k in KERNELS}
+    functions for every run of one path, with its launch counts set to 0
+    just before and read just after; every (kernel, mode) of ``required``
+    must have launched and none that the main paths forbid. Returns the
+    path's launches by kernel and the last run's validation metrics."""
     n = cfg.generation.num_synthetic_samples // len(cfg.generation.scenarios) * len(
         cfg.generation.scenarios)
     root = Path(cfg.output.results_dir).parent
+    for k in KERNELS:
+        k.reset()
+    for head, quant, sampler in runs:
+        cfg.training.save_dir = ckpts[head]
+        cfg.generation.fused_quantize = quant
+        cfg.generation.sampler = sampler
+        label = " ".join(
+            ["DDPM-1000" if sampler == "ddpm" else f"DDIM-{cfg.generation.sampling_steps}"]
+            + (["d3pm"] if head else []) + ([f"int8-{quant}"] if quant != "none" else []))
+        cfg.output.synthetic_data_dir = str(
+            root / f"synthetic_{path}_{label.replace(' ', '_')}")
+        _, gen_s = run_step(generate_synthetic_patients, cfg, dev)
+        results, val_s = run_step(validate_synthetic_patients, cfg, dev)
+        mutations = check_outputs(cfg, results, label)
+        print(f"[main] {path} {label}: generate+calibrate {gen_s:.2f} s for {n} patients "
+              f"({n / gen_s:.1f} patients/sec end to end), validate {val_s:.2f} s", flush=True)
+        print(f"[main] {path} {label} metrics: " + json.dumps(
+            {k: round(v, 6) for k, v in results.items()}), flush=True)
+        if head:
+            print(f"[main] {path} {label} mutation CSVs exactly binary; per-gene "
+                  f"frequencies: {json.dumps(np.round(mutations.mean(0), 3).tolist())}",
+                  flush=True)
+    counts = {k.name: dict(k.modes) for k in KERNELS}
+    print(f"[main] {path} kernel launches by mode: {json.dumps(counts)}", flush=True)
+    missing = [f"{k.name}:{mode}" for k, modes in required.items()
+               for mode in modes if counts[k.name][mode] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched on the main path: {missing}")
+    check_forbidden(path)
+    return {k.name: k.launches for k in KERNELS}, results
+
+
+def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
+    """Every run of every main path (:func:`run_path`) on the seeded
+    weights. Returns each kernel's launches summed over the paths."""
+    totals = {k.name: 0 for k in KERNELS}
     for path, runs in MAIN_PATHS.items():
-        for k in KERNELS:
-            k.reset()
-        for head, quant, sampler in runs:
-            cfg.training.save_dir = ckpts[head]
-            cfg.generation.fused_quantize = quant
-            cfg.generation.sampler = sampler
-            label = " ".join(
-                ["DDPM-1000" if sampler == "ddpm" else f"DDIM-{cfg.generation.sampling_steps}"]
-                + (["d3pm"] if head else []) + ([f"int8-{quant}"] if quant != "none" else []))
-            cfg.output.synthetic_data_dir = str(root / f"synthetic_{label.replace(' ', '_')}")
-            _, gen_s = run_step(generate_synthetic_patients, cfg, dev)
-            results, val_s = run_step(validate_synthetic_patients, cfg, dev)
-            mutations = check_outputs(cfg, results, label)
-            print(f"[main] {path} {label}: generate+calibrate {gen_s:.2f} s for {n} patients "
-                  f"({n / gen_s:.1f} patients/sec end to end), validate {val_s:.2f} s", flush=True)
-            print(f"[main] {path} {label} metrics: " + json.dumps(
-                {k: round(v, 6) for k, v in results.items()}), flush=True)
-            if head:
-                print(f"[main] {path} {label} mutation CSVs exactly binary; per-gene "
-                      f"frequencies: {json.dumps(np.round(mutations.mean(0), 3).tolist())}",
-                      flush=True)
-        counts = {k.name: dict(k.modes) for k in KERNELS}
-        print(f"[main] {path} kernel launches by mode: {json.dumps(counts)}", flush=True)
-        missing = [f"{k.name}:{mode}" for k, modes in REQUIRED[path].items()
-                   for mode in modes if counts[k.name][mode] == 0]
-        if missing:
-            raise AssertionError(f"{path}: kernels never launched on the main path: {missing}")
-        check_forbidden(path)
-        for k in KERNELS:
-            totals[k.name] += k.launches
+        launches, _ = run_path(path, runs, REQUIRED[path], cfg, dev, ckpts)
+        for name, count in launches.items():
+            totals[name] += count
     cfg.training.save_dir, cfg.generation.fused_quantize = ckpts[False], "none"
     return totals
+
+
+# The train phase: the production settings (config/production.yaml over
+# the defaults: batch 16, AdamW 1e-4, constraints on, dropout 0.2, mixup
+# 0.2, pathway noise 0.05, 25-epoch dispatch blocks, which the port runs
+# epoch by epoch) for TRAIN_EPOCHS epochs on the seeded cohort, then
+# DDIM-50 from the trained weights on the continuous path.
+TRAIN_EPOCHS = 100
+TRAINED_RUNS = [(False, "none", "ddim")]
+TRAINED_REQUIRED = {**_COMMON, GEMM: ["bf16"], GEMM_POSTERIOR: ["none"]}
+
+
+def run_train_phase(cfg: Config, dev, root: Path) -> dict:
+    """The port's CLI train step at full width for TRAIN_EPOCHS epochs:
+    finite losses, the best validation loss below epoch 0's, the best and
+    a periodic checkpoint written, one more epoch resumed from a copy of
+    that periodic checkpoint; then generate -> validate from the trained
+    checkpoint with the continuous path's launch accounting. Returns that
+    run's launches by kernel."""
+    tcfg = copy.deepcopy(cfg)
+    tcfg.training.num_epochs = TRAIN_EPOCHS
+    tcfg.training.patience = TRAIN_EPOCHS
+    tcfg.training.epochs_per_dispatch = 25
+    tcfg.training.save_dir = str(root / "checkpoint_trained")
+    tcfg.output.results_dir = str(root / "results_trained")
+    tc = tcfg.training
+    print(f"[train] production settings: batch {tc.batch_size}, AdamW lr {tc.learning_rate} "
+          f"wd {tc.weight_decay}, clip {tc.grad_clip_norm}, dropout {tcfg.model.gnn.dropout}, "
+          f"mixup {tc.augmentation.mixup_alpha}, pathway noise {tc.augmentation.pathway_noise}, "
+          f"constraints {tcfg.model.constraints.enabled}, T {tcfg.model.diffusion.num_steps}, "
+          f"hidden {tcfg.model.hidden_dims}, {TRAIN_EPOCHS} epochs", flush=True)
+    history, train_s = run_step(train_model, tcfg, dev)
+    losses = history.train_loss + history.val_loss
+    n_train = len(history.train_loss)
+    print(f"[train] {n_train} epochs in {train_s:.2f} s ({train_s / n_train:.4f} s an epoch, "
+          f"{history.steps_per_sec:.1f} steps/sec); train loss {history.train_loss[0]:.4f} -> "
+          f"{history.train_loss[-1]:.4f}, val loss {history.val_loss[0]:.4f} -> "
+          f"{history.val_loss[-1]:.4f} (best {min(history.val_loss):.4f})", flush=True)
+    if n_train != TRAIN_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[train] {n_train} epochs, finite {np.isfinite(losses).all()}")
+    if not min(history.val_loss) < history.val_loss[0]:
+        raise AssertionError("[train] the best validation loss is not below epoch 0's")
+    save_dir = Path(tc.save_dir)
+    latest = latest_epoch(save_dir)
+    if not (save_dir / "best_model.npz").exists() or latest is None:
+        raise AssertionError(f"[train] no best_model.npz or periodic checkpoint in {save_dir}")
+
+    resumed = root / "checkpoint_resumed"
+    shutil.copytree(save_dir, resumed)
+    rcfg = copy.deepcopy(tcfg)
+    rcfg.training.save_dir = str(resumed)
+    rcfg.training.num_epochs = latest + 2
+    more, resume_s = run_step(lambda c, device: train_model(c, device=device, resume=True),
+                              rcfg, dev)
+    if len(more.train_loss) != 1 or not math.isfinite(more.train_loss[0] + more.val_loss[0]):
+        raise AssertionError(f"[train] resume from epoch {latest}: {more.as_dict()}")
+    print(f"[train] resumed from checkpoint_epoch_{latest}: epoch {latest + 2} train loss "
+          f"{more.train_loss[0]:.4f}, val loss {more.val_loss[0]:.4f} ({resume_s:.2f} s)",
+          flush=True)
+
+    gcfg = copy.deepcopy(cfg)
+    launches, results = run_path("trained", TRAINED_RUNS, TRAINED_REQUIRED, gcfg, dev,
+                                 {False: str(save_dir)})
+    print(f"[train] trained weights, DDIM-{gcfg.generation.sampling_steps} 3 x {BATCH}: overall "
+          f"{results['overall_biological_score']:.4f}, MMD {results['mmd']:.4f} (no gate: "
+          f"{TRAIN_EPOCHS} epochs and {3 * BATCH} rows are not its protocol)", flush=True)
+    return launches
 
 
 def run_bench_latent(tmp: Path, head) -> dict:
@@ -1788,9 +1880,12 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
+        trained = run_train_phase(cfg, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
+        for name, n in trained.items():
+            launches[name] += n
         for name, n in run_latent_path(cfg, dev, Path(tmp)).items():
             launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches

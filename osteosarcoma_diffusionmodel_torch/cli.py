@@ -1,20 +1,23 @@
-"""Pipeline CLI of the PyTorch port: the generate and validate steps.
+"""Pipeline CLI of the PyTorch port: the train, generate and validate steps.
 
     python -m osteosarcoma_diffusionmodel_torch.cli --config config/config.yaml \
-        --steps generate validate [--device cpu]
+        --steps train generate validate [--resume] [--device cpu]
 
-Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:280-398). It
-reads the port's checkpoint directory (``training.save_dir``: weights
-``best_model.npz``, ``metadata.json``, ``data_stats.npz``) and a processed
-directory in the JAX layout (``data.processed_dir``), and writes the JAX
-CLI's files: ``<synthetic_data_dir>/<scenario>/<scenario>_{mutations,
-expression,pathways,conditions}.csv`` and
-``<results_dir>/validation_results.csv``. The model section of the config
-always comes from the checkpoint's metadata (the JAX CLI also consults
-``config/config_updated.yaml``, which the port does not). Training and
-the other steps are not ported yet. The steps run on the CUDA card; the
-CPU runs them only when asked (``--device cpu``): without a card and
-without that flag the CLI raises before it reads or writes anything.
+Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:150-398). It
+reads a processed directory in the JAX layout (``data.processed_dir``)
+and writes the port's checkpoint directory (``training.save_dir``:
+weights ``best_model.npz``, ``metadata.json``, ``data_stats.npz`` and the
+periodic ``checkpoint_epoch_<n>/``), ``<results_dir>/training_history.csv``,
+and the JAX CLI's files: ``<synthetic_data_dir>/<scenario>/<scenario>_
+{mutations,expression,pathways,conditions}.csv`` and
+``<results_dir>/validation_results.csv``. ``--steps all`` is ``train
+generate validate``. The model section of the config always comes from
+the checkpoint's metadata: the train step does not write the JAX CLI's
+``config/config_updated.yaml``. The download, preprocess, pathways,
+report and doctor steps are not ported yet. The steps run on the CUDA
+card; the CPU runs them only when asked (``--device cpu``): without a
+card and without that flag the CLI raises before it reads or writes
+anything.
 """
 
 from __future__ import annotations
@@ -29,14 +32,19 @@ import numpy as np
 import torch
 
 from .config import Config
+from .data.dataset import OsteosarcomaArrays, prepare_arrays
+from .data.pathways import HALLMARK_GENE_SETS
 from .generation.generator import SyntheticPatientGenerator, load_trained_model
+from .models.constraints import ConstraintSpec
+from .models.diffusion import ConditionalDiffusion
 from .training.checkpoint import load_data_stats
-from .utils.io import Matrix, read_matrix_csv
+from .training.trainer import TrainLog, Trainer
+from .utils.io import Matrix, read_matrix_csv, write_matrix_csv
 from .validation.validator import BiologicalValidator
 
 logger = logging.getLogger(__name__)
 
-STEPS = ("generate", "validate")
+STEPS = ("train", "generate", "validate")
 
 
 def default_device() -> str:
@@ -46,6 +54,43 @@ def default_device() -> str:
         raise RuntimeError("no CUDA device is available; pass --device cpu (device='cpu') "
                            "to run the PyTorch port on the CPU")
     return "cuda"
+
+
+def build_constraint_spec(config: Config, arrays: OsteosarcomaArrays) -> ConstraintSpec:
+    """The constraint losses' index structures for this cohort (JAX
+    ``cli.py:136``): Hallmark gene sets, the configured exclusive pairs
+    and directional rules, the cohort's mutation correlation."""
+    return ConstraintSpec.build(
+        mutation_genes=arrays.mutation_genes,
+        expression_genes=arrays.expression_genes,
+        pathway_names=arrays.pathway_names,
+        gene_sets=dict(HALLMARK_GENE_SETS),
+        exclusive_gene_pairs=config.evaluation.mutually_exclusive_pairs,
+        correlation_rules=config.evaluation.required_correlations,
+        mutation_data=arrays.data[:, : len(arrays.mutation_genes)],
+    )
+
+
+def train_model(config: Config, device: Optional[str] = None, resume: bool = False) -> TrainLog:
+    """Train on ``data.processed_dir``, write the checkpoint directory and
+    ``<results_dir>/training_history.csv``; returns the history."""
+    device = device or default_device()
+    logger.info("STEP 4: Training model")
+    arrays, dims = prepare_arrays(config)
+    logger.info("Model configured with: Mut=%d, Expr=%d, Path=%d, Cond=%d",
+                dims.mutation_dim, dims.expression_dim, dims.pathway_dim, dims.condition_dim)
+    model = ConditionalDiffusion.from_config(config, dims, build_constraint_spec(config, arrays))
+    history = Trainer(model, arrays, dims, config, device).train(resume=resume)
+    results_dir = Path(config.output.results_dir)
+    results_dir.mkdir(parents=True, exist_ok=True)
+    n = len(history.train_loss)
+    write_matrix_csv(
+        results_dir / "training_history.csv",
+        np.column_stack([np.arange(n), history.train_loss, history.val_loss,
+                         history.epoch_seconds]),
+        ["epoch", "train_loss", "val_loss", "epoch_seconds"], fmt="%r")
+    logger.info("Training complete!")
+    return history
 
 
 def _header(path: Path) -> list:
@@ -117,6 +162,7 @@ def validate_synthetic_patients(config: Config, device: Optional[str] = None) ->
 
 
 STEP_FUNCTIONS = {
+    "train": train_model,
     "generate": generate_synthetic_patients,
     "validate": validate_synthetic_patients,
 }
@@ -124,17 +170,25 @@ STEP_FUNCTIONS = {
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Osteosarcoma synthetic-patient pipeline (PyTorch port: generate, validate)")
+        description="Osteosarcoma synthetic-patient pipeline (PyTorch port: train, generate, "
+                    "validate)")
     parser.add_argument("--config", default="config/config.yaml", help="YAML configuration")
-    parser.add_argument("--steps", nargs="+", default=list(STEPS), choices=STEPS)
+    parser.add_argument("--steps", nargs="+", default=list(STEPS), choices=STEPS + ("all",),
+                        help="steps to run in order; 'all' runs train, generate, validate")
+    parser.add_argument("--resume", action="store_true",
+                        help="train from the latest checkpoint_epoch_<n>/ of training.save_dir")
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
     device = args.device or default_device()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     config = Config.from_yaml(args.config)
-    for step in args.steps:
-        STEP_FUNCTIONS[step](config, device=device)
+    steps = list(STEPS) if "all" in args.steps else args.steps
+    for step in steps:
+        if step == "train":
+            train_model(config, device=device, resume=args.resume)
+        else:
+            STEP_FUNCTIONS[step](config, device=device)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Typed configuration: the part of the JAX package's schema that the
-generate and validate steps read.
+train, generate and validate steps read.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/config.py, under the same
 field names and defaults, so a ``metadata.json`` written by either
 package and ``config/*.yaml`` load into it: keys this schema does not
-hold (training, download, GNN, fused-kernel scheduling knobs, ...) are
+hold (download, GNN layers, fused-kernel scheduling knobs, ...) are
 ignored on load. The field comments there explain each knob. A few
 fields are kept only so :func:`models.diffusion.check_supported` can
 reject the features the port does not implement yet.
@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 CONDITION_COLUMN_MAP = {
     "survival_time": "survival_days_norm",
@@ -34,13 +34,22 @@ class DataConfig:
 
 
 @dataclass
+class GNNConfig:
+    # Only ``dropout`` is read: the denoiser blocks' dropout rate.
+    dropout: float = 0.2
+
+
+@dataclass
 class DiffusionConfig:
     num_steps: int = 1000
     beta_schedule: str = "cosine"
+    loss_type: str = "l2"  # l1 | l2 | huber
     parameterization: str = "x0"
     clip_denoised: bool = True
     denoised_clip_value: float = 30.0
+    block_loss_weighting: str = "none"  # balanced | none
     discrete_mutation_head: bool = False
+    discrete_ce_weight: float = 1.0
     # Rejected when set (check_supported).
     learn_sigma: bool = False
     latent_factor_dim: int = 0
@@ -49,10 +58,21 @@ class DiffusionConfig:
 
 
 @dataclass
+class ConstraintConfig:
+    pathway_coherence_weight: float = 1.0
+    mutation_expression_weight: float = 0.5
+    survival_prediction_weight: float = 0.3  # read by the cVAE only
+    gene_network_weight: float = 0.2  # weighs the mutual-exclusivity term
+    cooccurrence_weight: float = 0.0
+    enabled: bool = True
+
+
+@dataclass
 class ModelConfig:
     architecture: str = "diffusion"
     latent_dim: int = 128
     hidden_dims: List[int] = field(default_factory=lambda: [256, 512, 256])
+    gnn: GNNConfig = field(default_factory=GNNConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     condition_on: List[str] = field(
         default_factory=lambda: [
@@ -61,15 +81,50 @@ class ModelConfig:
             "metastasis_at_diagnosis",
         ]
     )
+    constraints: ConstraintConfig = field(default_factory=ConstraintConfig)
     compute_dtype: str = "bfloat16"
     cfg_dropout_prob: float = 0.0
     denoiser_input_skip: bool = True
 
 
 @dataclass
+class AugmentationConfig:
+    mixup_alpha: float = 0.2
+    pathway_noise: float = 0.05
+    # Rejected when set (check_supported with training=True).
+    cross_cancer_pretrain: bool = False
+    pretrain_datasets: List[str] = field(default_factory=list)
+
+
+@dataclass
+class SamplePathFinetuneConfig:
+    enabled: bool = False  # rejected when set (check_supported)
+
+
+@dataclass
 class TrainingConfig:
+    batch_size: int = 16
+    num_epochs: int = 2000
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-5
+    patience: int = 100
+    min_delta: float = 1e-4
+    augmentation: AugmentationConfig = field(default_factory=AugmentationConfig)
+    val_split: float = 0.2
     random_seed: int = 42
     save_dir: str = "./results/checkpoints"
+    save_frequency: int = 10
+    lr_plateau_factor: float = 0.5
+    lr_plateau_patience: int = 10
+    grad_clip_norm: float = 1.0
+    # One device only: more than one is rejected (check_supported).
+    num_devices: Optional[int] = None
+    # The port runs the reference per-epoch loop for any value (no fused
+    # epoch blocks); the trainer logs that once when it is above 1.
+    epochs_per_dispatch: int = 1
+    sample_path_finetune: SamplePathFinetuneConfig = field(
+        default_factory=SamplePathFinetuneConfig
+    )
 
 
 @dataclass
@@ -175,8 +230,11 @@ class Config:
     def from_dict(cls, raw: Dict[str, Any]) -> "Config":
         return cls(
             data=_build(DataConfig, raw.get("data", {}), {}),
-            model=_build(ModelConfig, raw.get("model", {}), {"diffusion": DiffusionConfig}),
-            training=_build(TrainingConfig, raw.get("training", {}), {}),
+            model=_build(ModelConfig, raw.get("model", {}), {
+                "gnn": GNNConfig, "diffusion": DiffusionConfig, "constraints": ConstraintConfig}),
+            training=_build(TrainingConfig, raw.get("training", {}), {
+                "augmentation": AugmentationConfig,
+                "sample_path_finetune": SamplePathFinetuneConfig}),
             evaluation=_build_evaluation(raw.get("evaluation", {})),
             generation=_build_generation(raw.get("generation", {})),
             output=_build(OutputConfig, raw.get("output", {}), {}),

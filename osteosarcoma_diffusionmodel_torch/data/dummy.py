@@ -20,6 +20,7 @@ import numpy as np
 
 from ..config import Config, FrozenDims
 from ..utils.io import write_matrix_csv
+from .dataset import resolve_conditions, survival_stats, zscore_columns
 from .pathways import HALLMARK_GENE_SETS, pathway_scores_from_expression
 
 DRIVERS = ["TP53", "RB1", "ATRX", "DLG2", "PTEN", "MDM2", "MYC"]
@@ -131,14 +132,12 @@ def cohort_arrays(cohort: DummyCohort, config: Config) -> Tuple[np.ndarray, np.n
     """(data, conditions, dims) as `prepare_arrays` builds them: pathway
     scores and survival z-scored (sample std), conditions resolved from
     ``config.model.condition_on``."""
-    path = cohort.pathways.astype(np.float64)
-    path = (path - path.mean(axis=0)) / (path.std(axis=0, ddof=1) + 1e-8)
-    surv = cohort.clinical["survival_days"].astype(np.float64)
-    surv_mean = float(surv.mean())
-    surv_std = float(surv.std(ddof=1) + 1e-8)
+    path = zscore_columns(cohort.pathways)
+    surv_mean, surv_std = survival_stats(cohort.clinical["survival_days"])
     columns = dict(cohort.clinical)
-    columns["survival_days_norm"] = (surv - surv_mean) / surv_std
-    names = config.resolve_condition_columns(list(columns))
+    columns["survival_days_norm"] = (
+        cohort.clinical["survival_days"].astype(np.float64) - surv_mean) / surv_std
+    names = resolve_conditions(config, list(columns))
     conditions = np.nan_to_num(
         np.stack([np.asarray(columns[c], np.float32) for c in names], axis=1), nan=0.0
     )

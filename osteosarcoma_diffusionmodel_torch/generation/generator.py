@@ -287,8 +287,7 @@ def load_trained_model(checkpoint_dir: str | Path, config: Optional[Config] = No
         config = meta_config
     else:
         config.model = meta_config.model
-    model = ConditionalDiffusion.from_config(config, dims)
+    model = ConditionalDiffusion.from_config(config, dims)  # eval mode: no dropout
     model.denoiser.load_state_dict(load_weights(checkpoint_dir))
-    model.denoiser.eval()
     logger.info("Loaded checkpoint %s", checkpoint_dir)
     return model, config, dims

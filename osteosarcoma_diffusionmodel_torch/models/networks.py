@@ -3,8 +3,8 @@
 Counterpart of osteosarcoma_diffusionmodel_tpu/models/networks.py
 (`TimeEmbedding`, `ConditionEmbedding`, `DenoiserBlock`,
 `DiffusionDenoiser` with the input-skip gain): a skip-connected MLP of
-Linear -> GroupNorm(8) -> SiLU -> Linear -> GroupNorm(8) -> SiLU blocks
-with additive time and condition injection.
+Linear -> GroupNorm(8) -> SiLU -> Dropout -> Linear -> GroupNorm(8) ->
+SiLU blocks with additive time and condition injection.
 
 Parameters are float32; ``compute_dtype`` sets the dtype of the Linear
 products as in the Flax modules (bfloat16 rounds each product's output
@@ -12,7 +12,9 @@ to bfloat16, as Flax's ``Dense(dtype=bfloat16)`` does). GroupNorm always
 runs in float32 with eps 1e-6. Submodule names follow the Flax parameter
 names (``enc_0``, ``bottleneck``, ``dec_0``, ...), so
 ``convert.flax_params_to_state_dict`` maps one tree onto the other.
-Dropout is omitted: this slice only samples.
+Dropout holds no parameters and acts only in training mode: the samplers
+run the module in eval mode (``ConditionalDiffusion.from_config`` returns
+it so), and the kernel samplers read the weights directly.
 """
 
 from __future__ import annotations
@@ -67,17 +69,20 @@ class ConditionEmbedding(nn.Module):
 
 
 class DenoiserBlock(nn.Module):
-    """Linear -> GroupNorm(8) -> SiLU -> Linear -> GroupNorm(8) -> SiLU."""
+    """Linear -> GroupNorm(8) -> SiLU -> Dropout -> Linear -> GroupNorm(8)
+    -> SiLU."""
 
-    def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype):
+    def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = _Dense(in_features, features, compute_dtype)
         self.norm1 = nn.GroupNorm(GN_GROUPS, features, eps=GN_EPS)
+        self.drop = nn.Dropout(dropout)
         self.fc2 = _Dense(features, features, compute_dtype)
         self.norm2 = nn.GroupNorm(GN_GROUPS, features, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.norm1(self.fc1(x).float()))
+        h = self.drop(F.silu(self.norm1(self.fc1(x).float())))
         return F.silu(self.norm2(self.fc2(h).float()))
 
 
@@ -98,6 +103,7 @@ class DiffusionDenoiser(nn.Module):
         hidden_dims: Sequence[int] = (256, 512, 256),
         compute_dtype: torch.dtype = torch.float32,
         input_skip: bool = True,
+        dropout: float = 0.0,
     ):
         super().__init__()
         hidden = list(hidden_dims)
@@ -123,18 +129,18 @@ class DiffusionDenoiser(nn.Module):
         enc_in = hidden[0]
         enc_feats = []
         for i, feat in enumerate(hidden[1:]):
-            self.add_module(f"enc_{i}", DenoiserBlock(enc_in, feat, cd))
+            self.add_module(f"enc_{i}", DenoiserBlock(enc_in, feat, cd, dropout))
             self.encoder_names.append(f"enc_{i}")
             enc_feats.append(feat)
             enc_in = feat
-        self.bottleneck = DenoiserBlock(enc_in, hidden[-1], cd)
+        self.bottleneck = DenoiserBlock(enc_in, hidden[-1], cd, dropout)
         self.decoder_names: List[str] = []
         dec_in = hidden[-1]
         for j, i in enumerate(range(len(hidden) - 2, -1, -1)):
             if not enc_feats:
                 break
             skip = enc_feats.pop()
-            self.add_module(f"dec_{j}", DenoiserBlock(dec_in + skip, hidden[i], cd))
+            self.add_module(f"dec_{j}", DenoiserBlock(dec_in + skip, hidden[i], cd, dropout))
             self.decoder_names.append(f"dec_{j}")
             dec_in = hidden[i]
         self.output_proj = _Dense(dec_in, data_dim, cd)
@@ -176,6 +182,27 @@ class DiffusionDenoiser(nn.Module):
         if self.input_skip:
             out = out + self.skip_gain(t_sin) * x.float()
         return out
+
+
+def init_flax(module: DiffusionDenoiser, generator: torch.Generator) -> None:
+    """The Flax module's initial weights, drawn from ``generator``: Dense
+    kernels LeCun normal (a normal truncated to +-2 std, rescaled to
+    variance 1/fan_in), biases 0, GroupNorm scale 1 and bias 0, and the
+    skip gain's kernel 0 (networks.py:186-219 in the JAX package). The
+    draws are torch's, not JAX's: the distribution is the same, the
+    values are not."""
+    std = 1.0 / 0.87962566103423978  # std of a unit normal truncated to +-2
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, nn.Linear):
+                nn.init.trunc_normal_(mod.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                mod.weight.mul_(std / math.sqrt(mod.in_features))
+                mod.bias.zero_()
+            elif isinstance(mod, nn.GroupNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        if module.input_skip:
+            module.skip_gain.weight.zero_()
 
 
 def init_weights(module: DiffusionDenoiser, generator: torch.Generator) -> None:

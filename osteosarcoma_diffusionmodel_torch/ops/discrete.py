@@ -15,6 +15,8 @@ operations in the same order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -24,13 +26,16 @@ def keep_prob(alphas_cumprod: torch.Tensor) -> torch.Tensor:
 
 
 def q_sample_bits(bits: torch.Tensor, alphas_cumprod_t: torch.Tensor,
-                  generator: torch.Generator) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x_t ~ q(x_t | x_0) by flipping bits. ``bits`` (B, M) in {0, 1};
     ``alphas_cumprod_t`` (B,) at each sample's timestep; the flip
-    uniforms come from ``generator`` (on the bits' device)."""
+    uniforms are ``uniforms`` (B, M) or come from ``generator`` (on the
+    bits' device)."""
     flip = 0.5 * (1.0 - alphas_cumprod_t)[:, None]
-    u = torch.rand(bits.shape, generator=generator, device=bits.device)
-    return torch.abs(bits - (u < flip).to(bits.dtype))
+    if uniforms is None:
+        uniforms = torch.rand(bits.shape, generator=generator, device=bits.device)
+    return torch.abs(bits - (uniforms.to(bits.device) < flip).to(bits.dtype))
 
 
 def posterior_prob_one(x_t: torch.Tensor, p1: torch.Tensor, beta_t, acp_prev) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""The port's checkpoint directory: weights, metadata and cohort statistics.
+"""The port's checkpoint directory: weights, metadata, cohort statistics
+and the trainer's periodic checkpoints.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/training/checkpoint.py
-(:28-98) without Orbax. A checkpoint directory holds
+without Orbax. A checkpoint directory holds
 
 - ``best_model.npz``: the denoiser's parameters as flat Flax paths
   (``enc_0/fc1/kernel``, ...), so the JAX side can write it without torch
@@ -11,13 +12,22 @@ Counterpart of osteosarcoma_diffusionmodel_tpu/training/checkpoint.py
   package writes it;
 - ``data_stats.npz``: the training cohort's statistics under the JAX keys
   (feature_mean, feature_std, mutation_freq, feature_sorted,
-  mutation_matrix, data_matrix, condition_mean, condition_std).
+  mutation_matrix, data_matrix, condition_mean, condition_std);
+- ``checkpoint_epoch_<n>/``: what resuming training needs after epoch n:
+  ``model.npz`` (the weights, as in ``best_model.npz``), ``optimizer.npz``
+  (AdamW's ``exp_avg/<name>`` and ``exp_avg_sq/<name>`` by ``state_dict``
+  name) and ``state.json`` (epoch, val loss, AdamW's step count and the
+  learning rate, which the plateau schedule may have lowered).
+
+The JAX package's Orbax checkpoints are not read here:
+scripts/export_jax_checkpoint.py turns one into ``best_model.npz``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
 
@@ -35,6 +45,7 @@ from ..convert import (
 METADATA_FILE = "metadata.json"
 DATA_STATS_FILE = "data_stats.npz"
 BEST_NAME = "best_model"
+EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)$")
 
 
 def data_stats_from_arrays(data: np.ndarray, conditions: np.ndarray,
@@ -90,15 +101,57 @@ def metadata_to_dims(meta: Dict[str, Any]) -> FrozenDims:
     return FrozenDims(condition_dim=len(names), condition_names=names, **d)
 
 
-def save_weights(save_dir: str | Path, state_dict: Mapping[str, torch.Tensor]) -> None:
+def save_weights(save_dir: str | Path, state_dict: Mapping[str, torch.Tensor],
+                 name: str = BEST_NAME) -> None:
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     flat = flatten_params(state_dict_to_flax_params(state_dict))
-    np.savez(save_dir / f"{BEST_NAME}.npz", **flat)
+    np.savez(save_dir / f"{name}.npz", **flat)
 
 
-def load_weights(save_dir: str | Path) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from ``best_model.npz``."""
-    with np.load(Path(save_dir) / f"{BEST_NAME}.npz") as f:
+def load_weights(save_dir: str | Path, name: str = BEST_NAME) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from ``<name>.npz`` (``best_model.npz``)."""
+    with np.load(Path(save_dir) / f"{name}.npz") as f:
         flat = {k: f[k] for k in f.files}
     return flax_params_to_state_dict(unflatten_params(flat))
+
+
+def epoch_dir(save_dir: str | Path, epoch: int) -> Path:
+    return Path(save_dir) / f"checkpoint_epoch_{epoch}"
+
+
+def latest_epoch(save_dir: str | Path) -> Optional[int]:
+    """The highest n of the ``checkpoint_epoch_<n>/`` directories, if any."""
+    save_dir = Path(save_dir)
+    if not save_dir.is_dir():
+        return None
+    epochs = [int(m.group(1)) for p in save_dir.iterdir() if (m := EPOCH_RE.search(p.name))]
+    return max(epochs) if epochs else None
+
+
+def save_training_state(save_dir: str | Path, epoch: int,
+                        state_dict: Mapping[str, torch.Tensor],
+                        moments: Mapping[str, Mapping[str, torch.Tensor]],
+                        info: Mapping[str, Any]) -> Path:
+    """Write ``checkpoint_epoch_<epoch>/``: the weights, ``moments``
+    (``{"exp_avg": {name: tensor}, "exp_avg_sq": {...}}``) and ``info``
+    (JSON: epoch, val_loss, step, lr)."""
+    path = epoch_dir(save_dir, epoch)
+    save_weights(path, state_dict, name="model")
+    np.savez(path / "optimizer.npz", **{
+        f"{kind}/{name}": t.detach().cpu().numpy()
+        for kind, tensors in moments.items() for name, t in tensors.items()})
+    (path / "state.json").write_text(json.dumps(dict(info), indent=2))
+    return path
+
+
+def load_training_state(path: str | Path) -> tuple:
+    """(state_dict, moments, info) as :func:`save_training_state` wrote them."""
+    path = Path(path)
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    with np.load(path / "optimizer.npz") as f:
+        for key in f.files:
+            kind, name = key.split("/", 1)
+            moments.setdefault(kind, {})[name] = torch.from_numpy(f[key])
+    info = json.loads((path / "state.json").read_text())
+    return load_weights(path, name="model"), moments, info

@@ -1,0 +1,340 @@
+"""Training runtime: the AdamW train step, plateau LR, early stopping,
+checkpoints and resume.
+
+Counterpart of osteosarcoma_diffusionmodel_tpu/training/trainer.py's
+per-epoch path (`train_epoch` :554, `validate` :598, `train` :768) for
+the diffusion model:
+
+- the whole cohort lives on the trainer's device; a batch is an index
+  into that copy;
+- a step applies mixup (one Beta(alpha, alpha) lambda a batch, drawn on
+  the host from a seeded numpy generator) and Gaussian jitter on the
+  pathway block, then the loss with dropout on, the global-norm clip at
+  ``grad_clip_norm`` (:func:`clip_by_global_norm`, optax's arithmetic)
+  and ``torch.optim.AdamW``, which decays every parameter as the JAX
+  trainer's mask does (it spares only low-rank sigma parameters, which
+  the port does not have);
+- each epoch takes the batches of ``np.random.default_rng(seed + 1000 +
+  epoch).permutation(train_idx)`` in order, dropping the last partial
+  one; one host sync an epoch reads its losses;
+- the plateau schedule writes the learning rate into the optimizer's
+  param group; best model, early stopping and the schedule follow the
+  validation ``sel_loss``.
+
+Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
+at the start of ``train``; ``checkpoint_epoch_<n>/`` (weights, AdamW's
+moments and step, the learning rate) every ``save_frequency`` epochs;
+``best_model.npz``, the weights of the best epoch so far, kept on the
+device and written with each periodic checkpoint and at the end.
+
+``training.epochs_per_dispatch`` fuses epochs into one XLA program in
+the JAX package; the port runs the per-epoch loop, the reference
+semantics, whatever its value.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config, FrozenDims
+from ..data.dataset import OsteosarcomaArrays, mixup, train_val_split
+from ..models.diffusion import ConditionalDiffusion, check_supported
+from ..models.networks import init_flax
+from . import checkpoint as ckpt
+
+logger = logging.getLogger(__name__)
+
+
+class EarlyStopping:
+    """Patience/min_delta counter on validation loss
+    (reference train.py:129-148)."""
+
+    def __init__(self, patience: int = 10, min_delta: float = 0.0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.counter = 0
+        self.best_loss: Optional[float] = None
+        self.early_stop = False
+
+    def __call__(self, val_loss: float) -> None:
+        if self.best_loss is None:
+            self.best_loss = val_loss
+        elif val_loss > self.best_loss - self.min_delta:
+            self.counter += 1
+            if self.counter >= self.patience:
+                self.early_stop = True
+        else:
+            self.best_loss = val_loss
+            self.counter = 0
+
+
+class PlateauLR:
+    """ReduceLROnPlateau(mode=min) equivalent (reference train.py:176-181)."""
+
+    def __init__(self, base_lr: float, factor: float = 0.5, patience: int = 10):
+        self.lr = base_lr
+        self.factor = factor
+        self.patience = patience
+        self.counter = 0
+        self.best: Optional[float] = None
+
+    def step(self, val_loss: float) -> float:
+        if self.best is None or val_loss < self.best:
+            self.best = val_loss
+            self.counter = 0
+        else:
+            self.counter += 1
+            if self.counter > self.patience:
+                self.lr *= self.factor
+                self.counter = 0
+                logger.info("Plateau: reducing lr to %.3e", self.lr)
+        return self.lr
+
+
+@dataclass
+class TrainLog:
+    train_loss: List[float] = field(default_factory=list)
+    val_loss: List[float] = field(default_factory=list)
+    epoch_seconds: List[float] = field(default_factory=list)
+    steps_per_sec: float = 0.0
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "train_loss": self.train_loss,
+            "val_loss": self.val_loss,
+            "epoch_seconds": self.epoch_seconds,
+            "steps_per_sec": self.steps_per_sec,
+        }
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: when the global norm reaches
+    ``max_norm``, every gradient becomes g / norm * max_norm (no epsilon),
+    else it is left as it is. Returns the norm before clipping; nothing is
+    read on the host, and the work is a few multi-tensor launches."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    return norm
+
+
+class Trainer:
+    """Per-epoch training loop of the diffusion model on one device."""
+
+    def __init__(self, model: ConditionalDiffusion, arrays: OsteosarcomaArrays,
+                 dims: FrozenDims, config: Config, device: str | torch.device):
+        check_supported(config, dims, training=True)
+        tc = config.training
+        if tc.epochs_per_dispatch > 1:
+            logger.info("training.epochs_per_dispatch=%d: the port runs one epoch a "
+                        "dispatch (no fused epoch blocks)", tc.epochs_per_dispatch)
+        self.model = model
+        self.arrays = arrays
+        self.dims = dims
+        self.config = config
+        self.device = torch.device(device)
+
+        denoiser = model.denoiser
+        init_flax(denoiser, torch.Generator().manual_seed(tc.random_seed))
+        denoiser.to(self.device)
+        named = list(denoiser.named_parameters())
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        # One group, decay on every parameter. capturable keeps AdamW's
+        # step counter on the card (and its update free of host reads).
+        self.optimizer = torch.optim.AdamW(
+            self.params, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=tc.weight_decay, capturable=self.device.type == "cuda",
+        )
+        self.start_epoch = 0
+
+        self.train_idx, self.val_idx = train_val_split(
+            arrays.n_samples, tc.val_split, tc.random_seed)
+        self._data = torch.from_numpy(np.ascontiguousarray(arrays.data, np.float32)).to(self.device)
+        self._cond = torch.from_numpy(
+            np.ascontiguousarray(arrays.conditions, np.float32)).to(self.device)
+        self._val_idx = torch.from_numpy(self.val_idx).to(self.device)
+        self.pathway_start = dims.mutation_dim + dims.expression_dim
+
+        # The step's draws: t, noise, bit flips, mixup's permutation and
+        # the pathway jitter on the device; mixup's lambda on the host.
+        self.generator = torch.Generator(device=self.device).manual_seed(tc.random_seed + 7)
+        self.np_rng = np.random.default_rng(tc.random_seed + 7)
+
+        self.plateau = PlateauLR(tc.learning_rate, tc.lr_plateau_factor, tc.lr_plateau_patience)
+        self.early_stopping = EarlyStopping(tc.patience, tc.min_delta)
+        self.save_dir = tc.save_dir
+        self.history = TrainLog()
+
+    # ------------------------------------------------------------------
+    def train_step(self, data: torch.Tensor, cond: torch.Tensor, *,
+                   lam: Optional[float] = None, perm: Optional[torch.Tensor] = None,
+                   pathway_noise: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   bit_uniforms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch. The keyword arguments replace
+        the step's draws (mixup's lambda and permutation, the pathway
+        jitter, then the loss's t, noise and bit uniforms). Returns the
+        loss's metrics and ``grad_norm``, the global norm before the clip,
+        as device tensors."""
+        aug = self.config.training.augmentation
+        if aug.mixup_alpha > 0:
+            data, cond = mixup(data, cond, aug.mixup_alpha, lam=lam, perm=perm,
+                               rng=self.np_rng, generator=self.generator)
+        if aug.pathway_noise > 0:
+            ps = self.pathway_start
+            if pathway_noise is None:
+                pathway_noise = torch.randn(data[:, ps:].shape, generator=self.generator,
+                                            device=data.device)
+            data = torch.cat([data[:, :ps], data[:, ps:] + aug.pathway_noise * pathway_noise],
+                             dim=1)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = self.model.loss(data, cond, self.generator, t=t, noise=noise,
+                                        bit_uniforms=bit_uniforms, train=True)
+        loss.backward()
+        grads = [p.grad for p in self.params]
+        metrics["grad_norm"] = clip_by_global_norm(grads, self.config.training.grad_clip_norm)
+        self.optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def epoch_batches(self, epoch: int) -> np.ndarray:
+        """(n_batches, batch) row indices of ``epoch``: the seeded
+        permutation of the training rows, the last partial batch dropped."""
+        tc = self.config.training
+        perm = np.random.default_rng(tc.random_seed + 1000 + epoch).permutation(self.train_idx)
+        batch_size = min(tc.batch_size, len(perm))
+        n_batches = max(len(perm) // batch_size, 1)
+        return perm[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+    def train_epoch(self, epoch: int) -> torch.Tensor:
+        """The epoch's mean train loss, as a device scalar."""
+        batches = torch.from_numpy(self.epoch_batches(epoch)).to(self.device)
+        losses = [self.train_step(self._data[idx], self._cond[idx])["loss"] for idx in batches]
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def validate(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(val loss, val sel_loss) as device scalars: per-batch means of
+        the loss in eval mode, averaged; NaN without validation rows."""
+        if len(self.val_idx) == 0:
+            nan = torch.full((), float("nan"), device=self.device)
+            return nan, nan
+        batch_size = self.config.training.batch_size
+        total, sel = [], []
+        for b in range(0, len(self.val_idx), batch_size):
+            idx = self._val_idx[b: b + batch_size]
+            _, metrics = self.model.loss(self._data[idx], self._cond[idx], self.generator,
+                                         train=False)
+            total.append(metrics["loss"])
+            sel.append(metrics["sel_loss"])
+        return torch.stack(total).mean(), torch.stack(sel).mean()
+
+    # ------------------------------------------------------------------
+    def set_learning_rate(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def save_checkpoint(self, epoch: int, val_loss: float) -> None:
+        """``checkpoint_epoch_<epoch>/``: weights, AdamW's state, the LR."""
+        state = self.optimizer.state
+        moments = {kind: {n: state[p][kind] for n, p in zip(self.param_names, self.params)}
+                   for kind in ("exp_avg", "exp_avg_sq")}
+        info = {"epoch": epoch, "val_loss": val_loss,
+                "step": int(float(state[self.params[0]]["step"])),
+                "lr": self.optimizer.param_groups[0]["lr"]}
+        ckpt.save_training_state(self.save_dir, epoch, self.model.denoiser.state_dict(),
+                                 moments, info)
+
+    def resume(self) -> bool:
+        """Restore the latest periodic checkpoint, if any: the weights,
+        AdamW's moments and step, and the learning rate (into the
+        optimizer and the plateau schedule). Training goes on from the
+        epoch after it."""
+        latest = ckpt.latest_epoch(self.save_dir)
+        if latest is None:
+            logger.info("No checkpoint to resume from")
+            return False
+        weights, moments, info = ckpt.load_training_state(ckpt.epoch_dir(self.save_dir, latest))
+        self.model.denoiser.load_state_dict(weights)
+        group = dict(self.optimizer.state_dict()["param_groups"][0], lr=info["lr"])
+        step = torch.tensor(float(info["step"]))
+        self.optimizer.load_state_dict({
+            "state": {i: {"step": step.clone(), "exp_avg": moments["exp_avg"][n],
+                          "exp_avg_sq": moments["exp_avg_sq"][n]}
+                      for i, n in enumerate(self.param_names)},
+            "param_groups": [group],
+        })
+        self.plateau.lr = float(info["lr"])
+        self.start_epoch = int(info["epoch"]) + 1
+        logger.info("Resumed from epoch %d", latest)
+        return True
+
+    def write_best(self, best: Dict[str, torch.Tensor]) -> None:
+        """``best_model.npz`` from a ``state_dict`` snapshot."""
+        ckpt.save_weights(self.save_dir, {k: v.cpu() for k, v in best.items()})
+
+    def train(self, resume: bool = False) -> TrainLog:
+        tc = self.config.training
+        if resume:
+            self.resume()
+        ckpt.save_metadata(self.save_dir, self.config, self.dims)
+        ckpt.save_data_stats(self.save_dir, ckpt.data_stats_from_arrays(
+            self.arrays.data, self.arrays.conditions, self.dims.mutation_dim))
+
+        best_val = float("inf")
+        best: Optional[Dict[str, torch.Tensor]] = None
+        best_written = True
+        total_steps = 0
+        t_start = time.perf_counter()
+        for epoch in range(self.start_epoch, tc.num_epochs):
+            t0 = time.perf_counter()
+            train_loss = self.train_epoch(epoch)
+            val_loss, val_sel = self.validate()
+            train_loss, val_loss, val_sel = torch.stack([train_loss, val_loss, val_sel]).tolist()
+            if val_loss != val_loss:  # no val samples: fall back to train loss
+                val_loss = val_sel = train_loss
+            dt = time.perf_counter() - t0
+
+            self.history.train_loss.append(train_loss)
+            self.history.val_loss.append(val_loss)
+            self.history.epoch_seconds.append(dt)
+            total_steps += max(len(self.train_idx) // tc.batch_size, 1)
+            if epoch % 25 == 0 or epoch == tc.num_epochs - 1:
+                logger.info("Epoch %d/%d  train %.4f  val %.4f  (%.2fs)",
+                            epoch + 1, tc.num_epochs, train_loss, val_loss, dt)
+
+            prev_lr = self.plateau.lr
+            new_lr = self.plateau.step(val_sel)
+            if new_lr != prev_lr:
+                self.set_learning_rate(new_lr)
+
+            if val_sel < best_val:
+                best_val = val_sel
+                best = {k: v.detach().clone() for k, v in self.model.denoiser.state_dict().items()}
+                best_written = False
+            if (epoch + 1) % tc.save_frequency == 0:
+                self.save_checkpoint(epoch, val_loss)
+                if not best_written:
+                    self.write_best(best)
+                    best_written = True
+
+            self.early_stopping(val_sel)
+            if self.early_stopping.early_stop:
+                logger.info("Early stopping at epoch %d", epoch + 1)
+                break
+
+        if not best_written:
+            self.write_best(best)
+        elapsed = time.perf_counter() - t_start
+        self.history.steps_per_sec = total_steps / max(elapsed, 1e-9)
+        logger.info("Training complete: best val %.4f, %.1f steps/sec",
+                    best_val, self.history.steps_per_sec)
+        return self.history
+

@@ -1,4 +1,5 @@
-"""The port's kernels against their plain versions, on an NVIDIA card.
+"""The port's kernels against their plain versions, and its trainer, on
+an NVIDIA card.
 
 These tests need a CUDA device and skip without one. They import no JAX,
 so they run on the card's machine, where the suite's conftest (which
@@ -674,3 +675,83 @@ def test_cuda_int8_sampler_carry_equals_the_k5_route(cuda, quantize, head):
     got = fused.sample(cond, torch.Generator(cuda).manual_seed(1), noise=noise)
     want = apart.sample(cond, torch.Generator(cuda).manual_seed(1), noise=noise)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+
+
+# ----------------------------------------------------------------------
+# The trainer on the card
+# ----------------------------------------------------------------------
+def _trainer(device, tmp_path, dropout=0.0):
+    """A trainer at the CPU tests' size (data 10/40/14, hidden
+    128/256/128, T = 20, f32 products, constraints on, lr 1e-3)."""
+    from osteosarcoma_diffusionmodel_torch.cli import build_constraint_spec
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.data.dataset import OsteosarcomaArrays
+    from osteosarcoma_diffusionmodel_torch.data.dummy import cohort_arrays, make_dummy_cohort
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer
+
+    cfg = Config()
+    cfg.model.hidden_dims = [128, 256, 128]
+    cfg.model.latent_dim = 32
+    cfg.model.compute_dtype = "float32"
+    cfg.model.gnn.dropout = dropout
+    cfg.model.diffusion.num_steps = 20
+    cfg.training.learning_rate = 1e-3
+    cfg.training.save_dir = str(tmp_path / str(device))
+    cohort = make_dummy_cohort(40, 10, 40, 14)
+    data, conditions, dims = cohort_arrays(cohort, cfg)
+    arrays = OsteosarcomaArrays(data, conditions, np.zeros(len(data), np.float32),
+                                cohort.sample_ids, cohort.mutation_genes,
+                                cohort.expression_genes, cohort.pathway_names,
+                                dims.condition_names)
+    model = ConditionalDiffusion.from_config(cfg, dims, build_constraint_spec(cfg, arrays))
+    return Trainer(model, arrays, dims, cfg, device)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_equals_cpu_step(cuda, tmp_path):
+    """One AdamW step from the same seeded weights and the same draws on
+    the card and on the CPU (f32 products, TF32 off): the loss within
+    rtol 1e-5, the gradient norm within rtol 1e-4, all but 1e-3 of the
+    parameters within 2e-6 and every one within 2 lr (Adam's g / (|g| +
+    eps) moves a parameter whose gradient is near eps by up to lr)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _trainer("cpu", tmp_path), _trainer(cuda, tmp_path)
+    rng = np.random.default_rng(0)
+    rows = cpu.epoch_batches(0)[0]
+    draws = dict(lam=0.37, perm=rng.permutation(16),
+                 pathway_noise=rng.standard_normal((16, 14), np.float32),
+                 t=rng.integers(0, 20, 16), noise=rng.standard_normal((16, 64), np.float32))
+    out = []
+    for tr in (cpu, card):
+        kw = {k: v if k == "lam" else torch.as_tensor(v, device=tr.device)
+              for k, v in draws.items()}
+        idx = torch.as_tensor(rows, device=tr.device)
+        out.append(tr.train_step(tr._data[idx], tr._cond[idx], **kw))
+    assert float(out[1]["loss"]) == pytest.approx(float(out[0]["loss"]), rel=1e-5)
+    assert float(out[1]["grad_norm"]) == pytest.approx(float(out[0]["grad_norm"]), rel=1e-4)
+    want, got = cpu.model.denoiser.state_dict(), card.model.denoiser.state_dict()
+    diffs = {k: (got[k].cpu() - want[k]).abs() for k in want}
+    wide = sum(int((d > 2e-6).sum()) for d in diffs.values())
+    assert wide <= 1e-3 * sum(d.numel() for d in diffs.values()), wide
+    assert max(float(d.max()) for d in diffs.values()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_train_keeps_every_tensor_on_the_card(cuda, tmp_path):
+    """Three epochs on the card: parameters, gradients, AdamW's moments
+    and step, the cohort copy and the generator stay on the card; the
+    checkpoints are written."""
+    tr = _trainer(cuda, tmp_path, dropout=0.2)
+    tr.config.training.num_epochs = 3
+    tr.config.training.save_frequency = 2
+    log = tr.train()
+    assert len(log.train_loss) == 3 and np.isfinite(log.train_loss + log.val_loss).all()
+    on_card = [tr._data, tr._cond, tr._val_idx]
+    for p in tr.params:
+        on_card += [p, p.grad, *(v for v in tr.optimizer.state[p].values()
+                                 if isinstance(v, torch.Tensor))]
+    assert all(t.device.type == "cuda" for t in on_card)
+    assert tr.generator.device.type == "cuda"
+    assert (tmp_path / str(cuda) / "best_model.npz").exists()
+    assert (tmp_path / str(cuda) / "checkpoint_epoch_1" / "optimizer.npz").exists()

@@ -3,8 +3,9 @@
 The card's machine has PyTorch, numpy and scipy but no JAX and no
 promise of pandas or PyYAML. A fresh interpreter (without the test
 suite's JAX environment) imports every module of the port and
-``chip_smoke.py``, runs a tiny CPU generate, and must not have any of
-them in ``sys.modules``. The kernel modules import without nvcc and
+``chip_smoke.py``, runs a tiny CPU generate and a one-epoch CPU train
+through the trainer and its checkpoints, and must not have any of them
+in ``sys.modules``. The kernel modules import without nvcc and
 without Triton: the kernels build at first launch, never at import.
 """
 
@@ -41,6 +42,24 @@ model = ConditionalDiffusion.from_config(cfg, dims)
 init_weights(model.denoiser, torch.Generator().manual_seed(0))
 out = SyntheticPatientGenerator(model, cfg, dims, device="cpu").generate(8, {"survival_time": 500})
 assert out["expression"].shape == (8, 20) and np.isfinite(out["expression"]).all()
+
+import tempfile
+from pathlib import Path
+from osteosarcoma_diffusionmodel_torch.cli import build_constraint_spec
+from osteosarcoma_diffusionmodel_torch.data.dataset import prepare_arrays
+from osteosarcoma_diffusionmodel_torch.data.dummy import make_dummy_cohort, write_processed
+from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer
+with tempfile.TemporaryDirectory() as tmp:
+    write_processed(make_dummy_cohort(24, 6, 20, 6), Path(tmp) / "processed")
+    cfg.data.processed_dir = str(Path(tmp) / "processed")
+    cfg.training.save_dir = str(Path(tmp) / "ckpt")
+    cfg.training.num_epochs = 1
+    cfg.training.save_frequency = 1
+    arrays, tdims = prepare_arrays(cfg)
+    model = ConditionalDiffusion.from_config(cfg, tdims, build_constraint_spec(cfg, arrays))
+    log = Trainer(model, arrays, tdims, cfg, "cpu").train()
+    assert len(log.train_loss) == 1 and np.isfinite(log.train_loss).all()
+    assert (Path(tmp) / "ckpt" / "checkpoint_epoch_0" / "optimizer.npz").exists()
 assert _build.LIBRARY._lib is None  # nothing was built or loaded
 bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "osteosarcoma_diffusionmodel_tpu")
              if m in sys.modules)

@@ -52,3 +52,49 @@ def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0
     pmodel = ConditionalDiffusion.from_config(pc, pdims)
     pmodel.denoiser.load_state_dict(flax_params_to_state_dict(params))
     return jmodel, params, pmodel
+
+
+# The training tests' tiny structured cohort and model (tests/test_torch_train.py,
+# tests/test_torch_dataset.py).
+TRAIN_DUMMY = dict(n_samples=40, n_mutation_genes=10, n_expression_genes=40, n_pathways=14)
+TRAIN_HIDDEN = [128, 256, 128]
+BATCH = 16
+
+
+def train_config(cfg, compute_dtype="float32", discrete=False, loss_type="l2",
+                 balanced=False, constraints=True, dropout=0.0, num_steps=20):
+    """A JAX or port ``Config`` at the training tests' size (20 steps,
+    hidden 128/256/128, batch 16, the co-occurrence term weighted 0.3)."""
+    cfg.model.hidden_dims = list(TRAIN_HIDDEN)
+    cfg.model.latent_dim = 32
+    cfg.model.compute_dtype = compute_dtype
+    cfg.model.gnn.dropout = dropout
+    cfg.model.diffusion.num_steps = num_steps
+    cfg.model.diffusion.discrete_mutation_head = discrete
+    cfg.model.diffusion.loss_type = loss_type
+    cfg.model.diffusion.block_loss_weighting = "balanced" if balanced else "none"
+    cfg.model.constraints.enabled = constraints
+    cfg.model.constraints.cooccurrence_weight = 0.3
+    cfg.training.batch_size = BATCH
+    return cfg
+
+
+def constraint_specs(cohort, data):
+    """The JAX and the port's ConstraintSpec of a dummy cohort: Hallmark
+    sets, two exclusive pairs, the two directional rules, the cohort's
+    mutation correlation."""
+    from osteosarcoma_diffusionmodel_tpu.models import constraints as jcons
+    from osteosarcoma_diffusionmodel_torch.data.pathways import HALLMARK_GENE_SETS
+    from osteosarcoma_diffusionmodel_torch.models import constraints as pcons
+
+    kw = dict(
+        mutation_genes=cohort.mutation_genes, expression_genes=cohort.expression_genes,
+        pathway_names=cohort.pathway_names, gene_sets=dict(HALLMARK_GENE_SETS),
+        exclusive_gene_pairs=[["TP53", "MDM2"], ["RB1", "MYC"]],
+        correlation_rules=[{"mutation": "TP53", "pathway": "HALLMARK_P53_PATHWAY",
+                            "direction": "negative"},
+                           {"mutation": "MYC", "pathway": "HALLMARK_MYC_TARGETS_V1",
+                            "direction": "positive"}],
+        mutation_data=data[:, : len(cohort.mutation_genes)],
+    )
+    return jcons.ConstraintSpec.build(**kw), pcons.ConstraintSpec.build(**kw)
