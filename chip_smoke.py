@@ -33,8 +33,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
    twice and require equal bits, split-K included. The step's launches by
    kernel and mode, for bf16, D3PM and each int8 mode (12 a bf16 step,
    12 / 13 / 15 under int8 "out" / "io" / "all", the standalone K5 only
-   before the input product), and its summed kernel time;
-4. "[train]": the port's CLI train step at full model width (data dims
+   before the input product), and its summed kernel time. K1, K1+GN and
+   K1+posterior also at the serving buckets' rows, 1, 64 and 1,024 (the
+   products of a bf16 step recorded at each size: one 64-row tile with
+   one valid row and the largest split-K at 1 row), each against its
+   plain version at the same tolerances, timed with its bound;
+4. "[calib]": the device calibration (``ops/copula_device.py``) against
+   the host numpy path on the seeded structured cohort's data statistics
+   at full width, on the kernel sampler's DDIM-50 output from the seeded
+   weights: at 333 and 1,024 rows (the dual N x N whitening) and 10,002
+   (the primal D x D one), per-gene bit counts equal, the sorted
+   continuous columns' max |diff| (within 1e-4) and the correlation
+   pattern of the two cohorts (> 0.95, max |Δ| < 0.25); device seconds
+   (warm, median of 3) against host seconds (median of 3 at 333 and
+   1,024 rows, one run at 10,002), the float64 ``eigh``'s share of the
+   device time, and the device path's peak memory;
+5. "[train]": the port's CLI train step at full model width (data dims
    62/5054/26, hidden 256/512/256, T = 1000) on the seeded structured
    cohort of 100 patients with the production settings (batch 16, AdamW
    1e-4, weight decay 1e-5, clip 1.0, constraints on, dropout 0.2, mixup
@@ -58,7 +72,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    - "int8": fused_quantize "out" with DDPM-1000, "io" and "all" with
      DDIM-50, and "all" with the D3PM head at DDIM-50.
    Every launch count is set to 0 just before a path and read just
-   after it; each (kernel, mode) the path runs must have launched, and
+   after it; each cohort's calibration backend is printed, and on the
+   card every 333-row cohort must have been calibrated on the device
+   ("auto"); each (kernel, mode) the path runs must have launched, and
    K1's general ("unaligned") path, the standalone K2 and the standalone
    K3 must not have, nor K6 from K5's codes on any product but the input
    product;
@@ -73,10 +89,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      priming draw a call), and, where the probe says the clip does not
      bind in the tail, its per-feature moments against the data-space
      kernel sampler's;
-6. the kernel sampler against the plain PyTorch loop at 333 rows:
+7. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
+   checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
+   warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
+   HTTP requests a pair (JSON at 1 and 64 rows, npz at 1,024), each
+   pair's p50, p95, max and payload size; /health must name the card and
+   /metrics count the requests; the launches of the timed requests
+   (counted in that process, set to 0 after the warmup): K1, K1+GN and
+   K1+posterior launched, K1's general path and K2/K3 apart not; the
+   1,024-row requests calibrated on the device;
+8. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
-   the same x_T, noise, zeta and eta).
+   the same x_T, noise, zeta and eta); then at serving's small batches,
+   1 and 64 rows, continuous DDPM-20 and DDIM-10.
 
 K8 (``posterior_update``) has no caller in either package: its launches
 are those of its own check in phase 3.
@@ -109,11 +135,8 @@ from osteosarcoma_diffusionmodel_torch.cli import (
     validate_synthetic_patients,
 )
 from osteosarcoma_diffusionmodel_torch.config import Config
-from osteosarcoma_diffusionmodel_torch.data.dummy import (
-    cohort_arrays,
-    make_dummy_cohort,
-    write_processed,
-)
+from osteosarcoma_diffusionmodel_torch.data.dummy import make_dummy_cohort, write_processed
+from osteosarcoma_diffusionmodel_torch.generation import generator as gen_module
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
 from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler
@@ -189,21 +212,20 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
 )
 from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
     METADATA_FILE,
-    data_stats_from_arrays,
     latest_epoch,
     load_data_stats,
     load_metadata,
     load_weights,
     metadata_to_dims,
-    save_data_stats,
-    save_metadata,
-    save_weights,
+)
+from osteosarcoma_diffusionmodel_torch.utils.card import (
+    KERNELS,
+    SERVE_BUCKETS,
+    card_line,
+    seeded_checkpoint,
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 
-KERNELS = (GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8,
-           GEMM_S8_GN, GEMM_S8_POSTERIOR, GEMM_S8Q, GEMM_S8Q_GN, GEMM_S8Q_POSTERIOR, LATENT,
-           GEMM_LATENT, POSTERIOR_UPDATE)
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
 STEP_LAUNCHES = {"none": 12, "out": 12, "io": 13, "all": 15}
 # Launches of the hidden stack (hidden 256/512/256: five blocks, two block
@@ -311,10 +333,10 @@ def _signature(name: str, args, kw) -> tuple:
     return ()
 
 
-def record_step(dev, quantize: str = "none", head: bool = False) -> tuple:
+def record_step(dev, quantize: str = "none", head: bool = False, rows: int = BATCH) -> tuple:
     """One reverse step of the main path as the sampler makes it: a seeded
     model at full width (data 62/5054/26, hidden 256/512/256), one step of
-    ``FusedSampler.sample`` at 333 rows (``stop_after=1``) with its kernel
+    ``FusedSampler.sample`` at ``rows`` rows (``stop_after=1``) with its kernel
     wrapper calls recorded (each call goes through). Returns the calls as
     (wrapper, :func:`_signature`) and the step's launches by kernel and
     mode (counts read before and after the step)."""
@@ -325,7 +347,7 @@ def record_step(dev, quantize: str = "none", head: bool = False) -> tuple:
     init_weights(model.denoiser, torch.Generator().manual_seed(0))
     model.denoiser.to(dev)
     sampler = FusedSampler(model, dev, quantize=None if quantize == "none" else quantize)
-    cond = torch.zeros(BATCH, dims.condition_dim, device=dev)
+    cond = torch.zeros(rows, dims.condition_dim, device=dev)
     sampler.sample(cond, torch.Generator(dev).manual_seed(0), stop_after=1)  # plans, maps
     torch.cuda.synchronize()
     calls, real = [], {n: getattr(fused_sampler, n) for n in _STEP_WRAPPERS}
@@ -383,12 +405,13 @@ def _strided(rows: int, cols: int, ld: int, dtype, dev, fill) -> torch.Tensor:
     return view
 
 
-def check_gemm(dev, g, calls) -> list:
+def check_gemm(dev, g, calls, extras: bool = True) -> list:
     """K1 at the products of the main path's bf16 step that it runs
     without a fused epilogue (``calls``, recorded by :func:`record_step`:
     the input product, with the t_add row as bias, c_proj as the row add,
-    bf16 out), plus that product with the D3PM prologue on the first 62
-    columns and the latent step's two 256-wide products at 999 rows. Each
+    bf16 out), plus, with ``extras``, that product with the D3PM prologue
+    on the first 62 columns and the latent step's two 256-wide products at
+    999 rows. Each
     case runs twice and the two outputs must be equal bit for bit (split-K
     sums in a fixed order). No case may take the general ("unaligned")
     path. Tolerance: both sides sum bf16-exact products in f32, in
@@ -401,11 +424,12 @@ def check_gemm(dev, g, calls) -> list:
         if name == "gemm_bf16_f32acc":
             per_step[sig] = per_step.get(sig, 0) + 1
     cases = list(per_step.items())
-    first = cases[0][0]
-    cases.insert(1, (first[:9] + (MUT,), 0))  # the D3PM step's input product
-    # The latent step's products at 999 rows: o_lat = h·M2 + m_b, n_inj = bf16(zeta)·Lᵀ.
-    cases += [((LATENT_ROWS, 256, 256, 256, 256, True, False, torch.float32, 256, 0), 0),
-              ((LATENT_ROWS, 256, 256, 256, 256, False, False, torch.float32, 256, 0), 0)]
+    if extras:
+        first = cases[0][0]
+        cases.insert(1, (first[:9] + (MUT,), 0))  # the D3PM step's input product
+        # The latent step's products at 999 rows: o_lat = h·M2 + m_b, n_inj = bf16(zeta)·Lᵀ.
+        cases += [((LATENT_ROWS, 256, 256, 256, 256, True, False, torch.float32, 256, 0), 0),
+                  ((LATENT_ROWS, 256, 256, 256, 256, False, False, torch.float32, 256, 0), 0)]
     out = []
     randn = lambda r, c: torch.randn(r, c, generator=g)  # noqa: E731
     for (m, k, n, lda, ldb, has_bias, has_row_add, out_dtype, ldc, mut), count in cases:
@@ -554,19 +578,20 @@ def check_gn_epilogue(dev, g, bf16_calls, all_calls) -> dict:
     return out
 
 
-def check_posterior_epilogue(dev, g) -> dict:
+def check_posterior_epilogue(dev, g, m: int = BATCH, kinds=("bf16", "int8"),
+                             muts=(0, MUT)) -> dict:
     """The output product with the reverse step in its epilogue, at the
-    path's shape (333 x 256 · 256 x 5142, the padded W_out and carry): K1
-    (bf16) and K6 (int8, from K5's codes of h), in every noise mode,
-    without and with the D3PM head (62 bit columns, the discrete DDPM
-    table). The carry must equal the pair's (the product into the padded
+    path's shape (m x 256 · 256 x 5142, the padded W_out and carry; m = 333
+    on the main paths): ``kinds`` of K1 (bf16) and K6 (int8, from K5's
+    codes of h), in every noise mode, without and with the D3PM head (62
+    bit columns, the discrete DDPM table) as ``muts`` has them. The carry must equal the pair's (the product into the padded
     f32 acc, then K3, with the same plan) bit for bit. Against the plain
     composition as K3 is held: 2^-7 of max(1, |ref|) on the continuous
     columns, at most a 1e-4 share of differing bits. Timed beside the pair."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sched = DiffusionSchedule.create("cosine", 1000)
     gains = torch.randn(1000, generator=g).numpy() * 0.3
-    m, k = BATCH, 256
+    k = 256
     h = (2.0 * torch.randn(m, k, generator=g)).to(dev, torch.bfloat16)
     w = _strided(k, D, pad16(D), torch.bfloat16, dev,
                  lambda r, c: torch.randn(r, c, generator=g) / math.sqrt(k))
@@ -578,7 +603,7 @@ def check_posterior_epilogue(dev, g) -> dict:
     xb0 = _with_bits(x0.clone(), g)
     acc = _strided(m, D, pad16(D), torch.float32, dev, lambda r, c: torch.zeros(r, c))
     out = {GEMM_POSTERIOR.name: [], GEMM_S8_POSTERIOR.name: []}
-    for kind in ("bf16", "int8"):
+    for kind in kinds:
         if kind == "bf16":
             ops, kernel, fused, product = (h, w), GEMM_POSTERIOR, gemm_bf16_posterior, \
                 gemm_bf16_f32acc
@@ -589,7 +614,7 @@ def check_posterior_epilogue(dev, g) -> dict:
             plain_acc = lambda: gemm_s8_plain(*s8_ops)  # noqa: E731
             moved_in, kk = qa.numel() + s8_ops[2].numel() + 4 * (m + D), qa.shape[1]
         plan = gemm_plan(m, D, kk, sms, kind, POSTERIOR_WIDTHS)
-        for mut in (0, MUT):
+        for mut in muts:
             coeffs = torch.from_numpy(coefficient_table(sched, gains, discrete=mut > 0)).to(dev)
             start = xb0 if mut else x0
             for mode, step in (("philox", 17), ("buffer", 0), ("none", 999)):
@@ -631,7 +656,7 @@ def check_posterior_epilogue(dev, g) -> dict:
                 # A, B, b_out, the carry read and written, the noise slab in buffer mode.
                 moved = (moved_in + 4 * D + m * D * (2 + 2 + (4 if mode == "buffer" else 0)))
                 limit = roofline(moved, 2.0 * m * D * kk, kind)
-                case = f"333x{kk}.{kk}x5142 {'d3pm(62) ' if mut else ''}{mode} (bits = pair)"
+                case = f"{m}x{kk}.{kk}x5142 {'d3pm(62) ' if mut else ''}{mode} (bits = pair)"
                 out[kernel.name].append(_fused_report(
                     kernel, case, got[:, mut:], again[:, mut:], ref[:, mut:].float(), tol, ms,
                     plain_ms, pair_ms, limit, plan, 1))
@@ -1286,10 +1311,11 @@ def check_posterior_update(dev, g) -> list:
 def step_time(cases: dict) -> None:
     """The bf16 step's summed kernel time at 333 rows, fused, and with each
     fused product replaced by the pair it replaces."""
-    rows = [r for r in cases[GEMM.name] if r["per_step"]]
-    rows += [r for r in cases[GEMM_GN.name] if r["per_step"]]
+    at_batch = lambda r: r["case"].startswith(f"{BATCH}x")  # noqa: E731
+    rows = [r for r in cases[GEMM.name] if r["per_step"] and at_batch(r)]
+    rows += [r for r in cases[GEMM_GN.name] if r["per_step"] and at_batch(r)]
     rows += [r for r in cases[GEMM_POSTERIOR.name]
-             if r["case"].endswith("x5142 philox (bits = pair)")]
+             if at_batch(r) and r["case"].endswith("x5142 philox (bits = pair)")]
     launches = sum(r["per_step"] for r in rows)
     fused_launches = sum(r["per_step"] for r in rows if "pair_ms" in r)
     fused = sum(r["per_step"] * r["ms"] for r in rows)
@@ -1297,6 +1323,33 @@ def step_time(cases: dict) -> None:
     print(f"[kernel] per bf16 DDPM step at {BATCH} rows: {launches} launches, {fused:.4f} ms "
           f"summed; with K2 and K3 apart: {launches + fused_launches} launches, {unfused:.4f} ms",
           flush=True)
+
+
+def check_serve_shapes(dev, g) -> dict:
+    """K1, K1+GN and K1+posterior at the rows of the serving buckets that
+    [serve] drives (``SERVE_BUCKETS``: one 64-row tile with one valid row
+    and the largest split-K at 1 row, one full tile at 64, 16 tile rows at
+    1,024): every product of a bf16 step recorded at that size (12
+    launches), each wrapper against its plain version on the same inputs
+    with the 333-row checks' tolerances (K1 repeat bit-equal, the
+    posterior carry bit-equal to the pair's), timed with its bound. The
+    posterior epilogue in every noise mode, without the D3PM head (the
+    server's checkpoints are continuous)."""
+    out = {GEMM.name: [], GEMM_GN.name: [], GEMM_POSTERIOR.name: []}
+    for rows in SERVE_BUCKETS:
+        calls, launches = record_step(dev, rows=rows)
+        total = sum(sum(m.values()) for m in launches.values())
+        print(f"[kernel] launches per reverse step, bf16 at {rows} rows: {total} "
+              f"{json.dumps(launches)}", flush=True)
+        if total != STEP_LAUNCHES["none"] or set(launches) != set(out):
+            raise AssertionError(f"bf16 step at {rows} rows: {total} launches (want "
+                                 f"{STEP_LAUNCHES['none']}, K1, K1+GN, K1+posterior only): "
+                                 f"{launches}")
+        out[GEMM.name] += check_gemm(dev, g, calls, extras=False)
+        out[GEMM_GN.name] += check_gn_epilogue(dev, g, calls, [])[GEMM_GN.name]
+        out[GEMM_POSTERIOR.name] += check_posterior_epilogue(
+            dev, g, rows, kinds=("bf16",), muts=(0,))[GEMM_POSTERIOR.name]
+    return out
 
 
 def check_kernels(dev) -> dict:
@@ -1317,15 +1370,10 @@ def check_kernels(dev) -> dict:
         **check_latent_step(dev, g),
         POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
     }
+    for name, rows in check_serve_shapes(dev, g).items():
+        cases[name] += rows
     step_time(cases)
     return cases
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def prepare_workdir(root: Path, weights: str | None) -> Config:
@@ -1335,7 +1383,6 @@ def prepare_workdir(root: Path, weights: str | None) -> Config:
     cfg = Config()
     cohort = make_dummy_cohort(100, *DATA_DIMS, seed=0)
     write_processed(cohort, root / "processed")
-    data, conditions, dims = cohort_arrays(cohort, cfg)
     cfg.data.processed_dir = str(root / "processed")
     cfg.output.results_dir = str(root / "results")
     cfg.output.synthetic_data_dir = str(root / "synthetic")
@@ -1345,13 +1392,7 @@ def prepare_workdir(root: Path, weights: str | None) -> Config:
             raise ValueError(f"{weights} holds no checkpoint with data dim {D}")
         cfg.training.save_dir = str(weights)
         return cfg
-    ckpt = root / "checkpoint"
-    model = ConditionalDiffusion.from_config(cfg, dims)
-    init_weights(model.denoiser, torch.Generator().manual_seed(0))
-    save_weights(ckpt, model.denoiser.state_dict())
-    save_metadata(ckpt, cfg, dims)
-    save_data_stats(ckpt, data_stats_from_arrays(data, conditions, dims.mutation_dim))
-    cfg.training.save_dir = str(ckpt)
+    cfg.training.save_dir = str(seeded_checkpoint(root / "checkpoint", cfg, cohort))
     return cfg
 
 
@@ -1460,11 +1501,15 @@ def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dic
             + (["d3pm"] if head else []) + ([f"int8-{quant}"] if quant != "none" else []))
         cfg.output.synthetic_data_dir = str(
             root / f"synthetic_{path}_{label.replace(' ', '_')}")
+        gen_module.CALIBRATIONS.clear()
         _, gen_s = run_step(generate_synthetic_patients, cfg, dev)
+        calibrations = dict(gen_module.CALIBRATIONS)
         results, val_s = run_step(validate_synthetic_patients, cfg, dev)
         mutations = check_outputs(cfg, results, label)
         print(f"[main] {path} {label}: generate+calibrate {gen_s:.2f} s for {n} patients "
-              f"({n / gen_s:.1f} patients/sec end to end), validate {val_s:.2f} s", flush=True)
+              f"({n / gen_s:.1f} patients/sec end to end), validate {val_s:.2f} s; calibration "
+              f"backend by cohort: {json.dumps(calibrations)}", flush=True)
+        check_calibrated_on_device(cfg, calibrations, f"{path} {label}")
         print(f"[main] {path} {label} metrics: " + json.dumps(
             {k: round(v, 6) for k, v in results.items()}), flush=True)
         if head:
@@ -1479,6 +1524,16 @@ def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dic
         raise AssertionError(f"{path}: kernels never launched on the main path: {missing}")
     check_forbidden(path)
     return {k.name: k.launches for k in KERNELS}, results
+
+
+def check_calibrated_on_device(cfg: Config, calibrations: dict, label: str) -> None:
+    """Under "auto" on the card every cohort of 256 rows or more (here each
+    scenario's 333, or the batched 999) is calibrated on the device."""
+    cohorts = 1 if cfg.generation.batch_scenarios else len(cfg.generation.scenarios)
+    if cfg.generation.calibration_backend != "auto" or calibrations != {"device": cohorts}:
+        raise AssertionError(f"{label}: calibrations {calibrations} under "
+                             f"{cfg.generation.calibration_backend!r}; want {cohorts} on the "
+                             "device under 'auto'")
 
 
 def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
@@ -1509,7 +1564,7 @@ def run_train_phase(cfg: Config, dev, root: Path) -> dict:
     a periodic checkpoint written, one more epoch resumed from a copy of
     that periodic checkpoint; then generate -> validate from the trained
     checkpoint with the continuous path's launch accounting. Returns that
-    run's launches by kernel."""
+    run's launches by kernel and the trained checkpoint's directory."""
     tcfg = copy.deepcopy(cfg)
     tcfg.training.num_epochs = TRAIN_EPOCHS
     tcfg.training.patience = TRAIN_EPOCHS
@@ -1557,7 +1612,7 @@ def run_train_phase(cfg: Config, dev, root: Path) -> dict:
     print(f"[train] trained weights, DDIM-{gcfg.generation.sampling_steps} 3 x {BATCH}: overall "
           f"{results['overall_biological_score']:.4f}, MMD {results['mmd']:.4f} (no gate: "
           f"{TRAIN_EPOCHS} epochs and {3 * BATCH} rows are not its protocol)", flush=True)
-    return launches
+    return launches, save_dir
 
 
 def run_bench_latent(tmp: Path, head) -> dict:
@@ -1735,7 +1790,8 @@ def check_latent_against_plain(cfg: Config, dev) -> None:
 
 def check_d3pm_calibration(cfg: Config, ckpt: str, dev) -> None:
     """With the head on, calibration (copula_joint) returns the sampler's
-    bits unchanged: one scenario of 333 patients at DDIM-50."""
+    bits unchanged and calibrates the continuous block on the device: one
+    scenario of 333 patients at DDIM-50."""
     from osteosarcoma_diffusionmodel_torch.generation.generator import (
         SyntheticPatientGenerator,
         load_trained_model,
@@ -1747,13 +1803,16 @@ def check_d3pm_calibration(cfg: Config, ckpt: str, dev) -> None:
     gen = SyntheticPatientGenerator(model, gcfg, dims, data_stats=load_data_stats(ckpt), device=dev)
     g = seeded_generator(gcfg.training.random_seed, 0)
     cond = gen.create_conditions(BATCH, gcfg.generation.scenarios[0].conditions, g)
-    raw = gen.sample_raw(cond, g)
+    raw = gen.sample_raw(cond, g)  # on the card
+    bits = raw[:, :MUT].cpu().numpy()
+    gen_module.CALIBRATIONS.clear()
     out = gen._postprocess(raw, cond)
-    kept = bool(np.array_equal(out["mutations"], raw[:, :MUT]))
-    binary = bool(np.isin(raw[:, :MUT], (0.0, 1.0)).all())
-    print(f"[main] d3pm calibration ({gcfg.generation.calibrate_marginals}): sampler bits binary "
-          f"{binary}, kept unchanged {kept}", flush=True)
-    if not (kept and binary):
+    kept = bool(np.array_equal(out["mutations"], bits))
+    binary = bool(np.isin(bits, (0.0, 1.0)).all())
+    print(f"[main] d3pm calibration ({gcfg.generation.calibrate_marginals}, backend "
+          f"{json.dumps(dict(gen_module.CALIBRATIONS))}): sampler bits binary {binary}, kept "
+          f"unchanged {kept}", flush=True)
+    if not (kept and binary) or dict(gen_module.CALIBRATIONS) != {"device": 1}:
         raise AssertionError("calibration changed the D3PM head's bits")
 
 
@@ -1837,6 +1896,183 @@ def check_against_plain_loop(cfg: Config, dev) -> None:
             raise AssertionError(f"int8-{mode}: kernel sampler disagrees with the plain loop")
 
 
+SMALL_ROWS = SERVE_BUCKETS[:2]  # serving's small buckets: 1 and 64 rows
+
+
+def check_small_batches_against_plain(cfg: Config, dev) -> None:
+    """The kernel sampler against the plain loop at serving's small
+    batches, 1 and 64 rows (one 64-row tile with 1 or 64 valid rows; the
+    largest split-K at one row): continuous DDPM-20 with the same noise and
+    DDIM-10, the same x_T, at the bf16-carry tolerance atol 0.15 / rtol
+    0.05."""
+    model = _reference_model(cfg, dev)
+    g = torch.Generator().manual_seed(17)
+    cdim = metadata_to_dims(load_metadata(cfg.training.save_dir)).condition_dim
+    for rows in SMALL_ROWS:
+        cond = torch.randn(rows, cdim, generator=g)
+        x_init = torch.randn(rows, D, generator=g)
+        noise = torch.randn(20, rows, D, generator=g)
+        for label, ddim in (("DDPM-20", None), ("DDIM-10", 10)):
+            got = FusedSampler(model, dev, ddim_steps=ddim).sample(
+                cond, g, x_init=x_init, noise=None if ddim else noise)
+            if ddim:
+                ref = model.sample_ddim(cond, g, 10, x_init=x_init)
+            else:
+                ref = model.sample(cond, g, x_init=x_init, noise=noise)
+            err = (got - ref).abs()
+            ok = bool((err <= 0.15 + 0.05 * ref.abs()).all()) and bool(torch.isfinite(got).all())
+            print(f"[reference] {label} {rows}x{D}: kernel sampler vs plain loop max|diff| "
+                  f"{float(err.max()):.4f}, within atol 0.15 / rtol 0.05: {ok}; std "
+                  f"{float(ref.std()):.3f}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label} at {rows} rows: kernel sampler disagrees with the "
+                                     "plain loop")
+
+
+CALIB_ROWS = (BATCH, 1024, 10002)  # dual, dual, primal (D = 5142)
+HOST_TIMED_ROWS = (BATCH, 1024)
+
+
+def _seconds(fn, dev, reps: int = 3) -> tuple:
+    """(median seconds of ``reps`` calls after one warm-up call, the last
+    result), each call ended by a synchronize."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def _corr(blocks, dev) -> torch.Tensor:
+    x = torch.from_numpy(np.concatenate(blocks, axis=1)).to(dev, torch.float64)
+    return torch.corrcoef(x.T)
+
+
+def check_calibration(cfg: Config, dev) -> list:
+    """[calib]: the generator's device calibration (copula_joint, the
+    ``DeviceCalibrator``) against its host numpy path on the same raw
+    cohorts, the kernel sampler's DDIM-50 output from the seeded weights
+    at ``CALIB_ROWS`` rows (kept on the card for the device path, read
+    back for the host's). Returns one record per size."""
+    from osteosarcoma_diffusionmodel_torch.generation.generator import (
+        SyntheticPatientGenerator,
+        load_trained_model,
+    )
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import _normal_scores, _unit_std
+
+    model, gcfg, dims = load_trained_model(cfg.training.save_dir, copy.deepcopy(cfg))
+    gen = SyntheticPatientGenerator(model, gcfg, dims,
+                                    data_stats=load_data_stats(cfg.training.save_dir), device=dev)
+    gen._joint_fit(MUT)  # the host fit of the target, once per checkpoint, outside the timings
+    sampler = FusedSampler(model, dev, ddim_steps=50)
+    seed = gen._tie_seed()
+    records = []
+    for n in CALIB_ROWS:
+        g = torch.Generator().manual_seed(n)
+        raw = sampler.sample(torch.randn(n, dims.condition_dim, generator=g), g)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        device_s, (bits, cont) = _seconds(
+            lambda: gen._calibrate_device(raw, MUT, "copula_joint"), dev)
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        host_raw = raw.cpu().numpy()
+        if n in HOST_TIMED_ROWS:
+            host_s, (bits_h, cont_h) = _seconds(
+                lambda: gen._calibrate(host_raw, MUT, "copula_joint"), dev)
+            host_label = "median of 3"
+        else:
+            t0 = time.perf_counter()
+            bits_h, cont_h = gen._calibrate(host_raw, MUT, "copula_joint")
+            host_s, host_label = time.perf_counter() - t0, "one run"
+
+        u = _unit_std(_normal_scores(raw, torch.Generator(dev).manual_seed(seed)))
+        u64 = u.double()
+        gram = u64 @ u64.T / n if n < D else u64.T @ u64 / n
+        del u, u64
+        eigh_s, _ = _seconds(lambda: torch.linalg.eigh(gram), dev)
+        del gram
+
+        counts_equal = bool(np.array_equal(bits.sum(0), bits_h.sum(0)))
+        sorted_d, sorted_h = np.sort(cont, axis=0), np.sort(cont_h, axis=0)
+        sorted_err = float(np.abs(sorted_d - sorted_h).max())
+        sorted_ok = bool((np.abs(sorted_d - sorted_h) <= 1e-4 + 1e-4 * np.abs(sorted_h)).all())
+        a, b = _corr([bits, cont], dev), _corr([bits_h, cont_h], dev)
+        iu = torch.triu_indices(a.shape[0], a.shape[0], 1, device=dev)
+        a, b = a[iu[0], iu[1]], b[iu[0], iu[1]]
+        keep = torch.isfinite(a) & torch.isfinite(b)
+        a, b = a[keep], b[keep]
+        pattern = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        delta = float((a - b).abs().max())
+        del a, b, iu, keep
+        branch = "dual N x N" if n < D else "primal D x D"
+        rec = {"rows": n, "branch": branch, "device_s": device_s, "host_s": host_s,
+               "eigh_s": eigh_s, "eigh_share": eigh_s / device_s, "peak_gb": peak_gb}
+        records.append(rec)
+        print(f"[calib] {n} rows ({branch} whitening): counts equal {counts_equal}, sorted "
+              f"columns max|diff| {sorted_err:.2e} (within 1e-4: {sorted_ok}), correlation "
+              f"pattern {pattern:.4f} (max|d| {delta:.4f}); device {device_s:.4f} s (warm, "
+              f"median of 3) vs host {host_s:.4f} s ({host_label}), {host_s / device_s:.1f}x; "
+              f"float64 eigh {eigh_s:.4f} s ({100 * eigh_s / device_s:.1f}% of the device "
+              f"time); device peak {peak_gb:.2f} GB", flush=True)
+        if not (counts_equal and sorted_ok and pattern > 0.95 and delta < 0.25):
+            raise AssertionError(f"[calib] {n} rows: the device calibration disagrees with the "
+                                 "host path")
+        del raw
+    return records
+
+
+def run_serve_phase(ckpt: Path, tmp: Path) -> dict:
+    """[serve]: scripts/bench_serving_torch.py on the trained checkpoint
+    (buckets 1, 64, 1,024 under DDPM and DDIM, ten requests a pair). Its
+    launches are counted in its own process over the timed requests, and
+    checked as a main path's: K1, K1+GN and K1+posterior (philox and none)
+    launched, none that the main paths forbid. Returns them by kernel."""
+    out = tmp / "serve.json"
+    cmd = [sys.executable, str(REPO / "scripts" / "bench_serving_torch.py"), "--checkpoint-dir",
+           str(ckpt), "--requests", "10", "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_serving_torch.py failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    print(f"[serve] bench_serving_torch.py ({time.perf_counter() - t0:.1f} s): server ready in "
+          f"{report['startup_seconds']:.1f} s (kernels loaded, 6 pairs warmed); /health devices "
+          f"{report['health']['devices']}", flush=True)
+    for key, pair in report["pairs"].items():
+        print(f"[serve]   {key} ({pair['format']}): p50 {pair['p50_seconds']:.4f} s, p95 "
+              f"{pair['p95_seconds']:.4f} s, max {pair['max_seconds']:.4f} s, payload "
+              f"{pair['payload_mb']:.3f} MB; calibrations {json.dumps(pair['calibrations'])}",
+              flush=True)
+    kind = torch.cuda.get_device_name(0)
+    metrics = report["service_metrics"]
+    if not any(kind in d for d in report["health"]["devices"]):
+        raise AssertionError(f"[serve] /health devices {report['health']['devices']} do not name "
+                             f"{kind}")
+    if metrics["requests"] != 10 * len(report["pairs"]) or len(report["pairs"]) != 6:
+        raise AssertionError(f"[serve] /metrics counts {metrics['requests']} requests over "
+                             f"{len(report['pairs'])} pairs; want 60 over 6")
+    for key in ("ddpm_b1024", "ddim_b1024"):
+        if report["pairs"][key]["calibrations"] != {"device": 10}:
+            raise AssertionError(f"[serve] {key} calibrations {report['pairs'][key]['calibrations']}")
+    counts = report["launches"]
+    print(f"[serve] kernel launches by mode over the timed requests: {json.dumps(counts)}; "
+          f"/metrics p50 {metrics['p50_seconds']:.4f} s, p95 {metrics['p95_seconds']:.4f} s, "
+          f"p99 {metrics['p99_seconds']:.4f} s", flush=True)
+    required = {GEMM: ["bf16"], GEMM_GN: ["default"], GEMM_POSTERIOR: ["philox", "none"]}
+    missing = [f"{k.name}:{m}" for k, modes in required.items() for m in modes
+               if not counts.get(k.name, {}).get(m)]
+    ran = {f"{k.name}:{m}": counts.get(k.name, {}).get(m) for k, modes in FORBIDDEN.items()
+           for m in modes if counts.get(k.name, {}).get(m)}
+    if missing or ran or counts.get(ROWQUANT.name):
+        raise AssertionError(f"[serve] never launched {missing}; launched but forbidden {ran}")
+    return {k.name: sum(counts.get(k.name, {}).values()) for k in KERNELS}
+
+
 def kernel_report(cases: dict, launches: dict) -> list:
     """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
@@ -1880,19 +2116,21 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
-        trained = run_train_phase(cfg, dev, Path(tmp))
+        check_calibration(cfg, dev)
+        trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
-        for name, n in trained.items():
-            launches[name] += n
-        for name, n in run_latent_path(cfg, dev, Path(tmp)).items():
-            launches[name] += n
+        for counts in (trained, run_serve_phase(trained_ckpt, Path(tmp)),
+                       run_latent_path(cfg, dev, Path(tmp))):
+            for name, n in counts.items():
+                launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
         report = kernel_report(cases, launches)
         check_d3pm_calibration(cfg, ckpts[True], dev)
         check_against_plain_loop(cfg, dev)
+        check_small_batches_against_plain(cfg, dev)
         check_latent_against_plain(cfg, dev)
 
     print(json.dumps({"kernels": report}), flush=True)

@@ -13,17 +13,22 @@ the int8 products of ``generation.fused_quantize`` ("none", "out", "io",
 come out of the sampler, and calibration reshapes the continuous block
 only (the JAX `_calibrate`, :481-489, :523-532, :557-586). The
 JAX package's 4096/8192-row thresholds choose between two TPU programs;
-here there is one sampler at every batch size. Calibration runs the
-float64 numpy path of ``ops/copula.py`` (``calibration_backend`` "auto"
-and "numpy"; "device" is not ported yet). Random streams come from
+here there is one sampler at every batch size. Calibration takes the JAX
+package's decision (``_device_calibration_enabled``, JAX :595-632):
+``ops/copula_device.py`` on the sampler's device ("auto" on the card at
+256 rows or more, "device" always, up to ``DeviceCalibrator.MAX_ROWS``),
+with the raw cohort kept on the card until it is calibrated; otherwise
+the float64 numpy path of ``ops/copula.py``. A device calibration that
+fails raises; it never falls back to the host. Random streams come from
 explicit ``torch.Generator``s seeded from ``training.random_seed``.
 """
 
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -38,11 +43,17 @@ from ..ops.copula import (
     gaussian_transplant,
     joint_transplant,
 )
+from ..ops.copula_device import DeviceCalibrator
 from ..ops.fused_sampler import FusedSampler
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
 from ..utils.io import write_matrix_csv
 
 logger = logging.getLogger(__name__)
+
+# Calibrations by backend ("device", "host") since the last reset: which
+# path each cohort took, for callers that drive the generator through the
+# CLI (chip_smoke.py reads it as it reads the kernels' launch counts).
+CALIBRATIONS: Counter = Counter()
 
 
 def seeded_generator(*entropy: int) -> torch.Generator:
@@ -68,13 +79,8 @@ class SyntheticPatientGenerator:
         self._copula = None
         self._cont_chol = None
         self._joint = None
-        backend = config.generation.calibration_backend
-        if backend == "device":
-            raise NotImplementedError(
-                "calibration_backend 'device' (ops/copula_device.py) is not ported yet")
-        if backend == "auto":
-            logger.info("calibration_backend 'auto': the PyTorch port calibrates "
-                        "on the host (float64 numpy, ops/copula.py)")
+        self._device_joint_cal: Optional[DeviceCalibrator] = None
+        self._device_cont_cal: Optional[DeviceCalibrator] = None
 
     # ------------------------------------------------------------------
     def create_conditions(self, num_samples: int, scenario: Optional[Dict] = None,
@@ -112,9 +118,9 @@ class SyntheticPatientGenerator:
                 self.model, self.device, ddim_steps=steps, quantize=quantize)
         return self._samplers[steps, quantize]
 
-    def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> np.ndarray:
-        out = self.sampler().sample(torch.from_numpy(conditions), generator)
-        return out.cpu().numpy()
+    def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> torch.Tensor:
+        """The sampler's (N, D) float32 output, on the sampler's device."""
+        return self.sampler().sample(torch.from_numpy(conditions), generator)
 
     def generate(self, num_samples: int, scenario: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
@@ -126,15 +132,26 @@ class SyntheticPatientGenerator:
         samples = self.sample_raw(conditions, generator)
         return self._postprocess(samples, conditions)
 
-    def _postprocess(self, samples: np.ndarray, conditions: np.ndarray) -> Dict[str, np.ndarray]:
-        """Calibrate (per config) and split a raw sample matrix."""
-        samples = np.asarray(samples, np.float32)
+    def _postprocess(self, samples: Union[torch.Tensor, np.ndarray],
+                     conditions: np.ndarray) -> Dict[str, np.ndarray]:
+        """Calibrate (per config) and split a raw sample matrix, a host array
+        or a tensor on the device. It goes to where calibration reads it,
+        once: to the device when the device path calibrates it, else to the
+        host."""
+        on_device = self._device_calibration_enabled(samples.shape[0])
+        if on_device:
+            samples = torch.as_tensor(samples, dtype=torch.float32).to(self.device)
+        elif torch.is_tensor(samples):
+            samples = samples.cpu().numpy()
+        else:
+            samples = np.asarray(samples, np.float32)
         m, e = self.dims.mutation_dim, self.dims.expression_dim
         mode = self.config.generation.calibrate_marginals
         if mode is True:
             mode = "copula_joint"
         if bool(mode) and self.data_stats is not None and samples.shape[0] > 1:
-            mutations, continuous = self._calibrate(samples, m, str(mode))
+            calibrate = self._calibrate_device if on_device else self._calibrate
+            mutations, continuous = calibrate(samples, m, str(mode))
         else:
             mutations = (samples[:, :m] > 0.5).astype(np.float32)
             continuous = samples[:, m:]
@@ -147,47 +164,124 @@ class SyntheticPatientGenerator:
 
     def _calibrate(self, samples: np.ndarray, m: int, mode: str):
         """Marginal (and joint, for the copula modes) calibration against
-        the training cohort; see the JAX `_calibrate` for each mode. With
-        the D3PM head the model owns the bits: they pass through
-        (``raw > 0.5`` of exact 0/1 values), "copula_joint" takes the
-        "copula_full" route for the continuous block."""
-        stats = self.data_stats
-        raw_mut = samples[:, :m]
-        discrete = self.model.discrete_head
-        if (mode == "copula_joint" and not discrete and "mutation_matrix" in stats
-                and "data_matrix" in stats and samples.shape[0] > 2 and m > 1):
-            if self._joint is None:
-                real = np.asarray(stats["data_matrix"])
-                self._joint = fit_joint_copula(real[:, :m], real[:, m:])
-                logger.info("Joint copula fitted (shrink=%.3g)", self._joint[3])
-            freq, chol, tetra, _ = self._joint
+        the training cohort on the host; see the JAX `_calibrate` for each
+        mode. With the D3PM head the model owns the bits: they pass through
+        (``raw > 0.5`` of exact 0/1 values, on the host), and "copula_joint"
+        takes the "copula_full" route for the continuous block."""
+        CALIBRATIONS["host"] += 1
+        if self._joint_branch(mode, samples.shape[0], m):
+            freq, chol, tetra, _ = self._joint_fit(m)
             mutations, cont = joint_transplant(
                 samples, chol, freq, m, tetra=tetra,
                 tie_rng=np.random.default_rng(self._tie_seed()),
             )
             return mutations, self._quantile_map_continuous(cont, m)
-        if discrete:
-            mutations = (raw_mut > 0.5).astype(np.float32)
-        elif (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
+        mutations = self._host_mutations(samples[:, :m], m, mode)
+        cont = samples[:, m:]
+        if self._cont_branch(mode, cont.shape):
+            cont = gaussian_transplant(
+                cont, self._cont_fit(m), tie_rng=np.random.default_rng(self._tie_seed()))
+        return mutations, self._quantile_map_continuous(np.asarray(cont), m, mode)
+
+    def _calibrate_device(self, samples: torch.Tensor, m: int, mode: str):
+        """The device path (JAX :510-517, :575-578): ``samples`` on the
+        device; only the calibrated cohort (and, outside the joint branch,
+        the m mutation columns) comes back to the host. A failure raises:
+        nothing falls back to numpy."""
+        CALIBRATIONS["device"] += 1
+        if self._joint_branch(mode, samples.shape[0], m):
+            return self._get_device_joint_cal(m).joint(samples, self._tie_seed())
+        mutations = self._host_mutations(samples[:, :m].cpu().numpy(), m, mode)
+        cont = samples[:, m:]
+        if self._cont_branch(mode, cont.shape):
+            return mutations, self._get_device_cont_cal(m).continuous(cont, self._tie_seed())
+        return mutations, self._quantile_map_continuous(cont.cpu().numpy(), m, mode)
+
+    def _joint_branch(self, mode: str, n: int, m: int) -> bool:
+        """Every precondition of the joint copula: no D3PM head, more than
+        one gene, the real mutation block and cohort, more than two rows."""
+        stats = self.data_stats
+        return (mode == "copula_joint" and not self.model.discrete_head
+                and "mutation_matrix" in stats and "data_matrix" in stats and n > 2 and m > 1)
+
+    def _cont_branch(self, mode: str, shape) -> bool:
+        return (mode in ("copula_full", "copula_joint") and "data_matrix" in self.data_stats
+                and shape[0] > 2 and shape[1] > 1)
+
+    def _joint_fit(self, m: int):
+        if self._joint is None:
+            real = np.asarray(self.data_stats["data_matrix"])
+            self._joint = fit_joint_copula(real[:, :m], real[:, m:])
+            logger.info("Joint copula fitted (shrink=%.3g)", self._joint[3])
+        return self._joint
+
+    def _cont_fit(self, m: int) -> np.ndarray:
+        if self._cont_chol is None:
+            self._cont_chol = fit_continuous_copula_chol(
+                np.asarray(self.data_stats["data_matrix"])[:, m:])
+        return self._cont_chol
+
+    def _host_mutations(self, raw_mut: np.ndarray, m: int, mode: str) -> np.ndarray:
+        """The mutation block outside the joint copula, on the host: the
+        D3PM head's bits as they are, the tetrachoric transplant, or
+        per-gene quantile thresholds."""
+        stats = self.data_stats
+        if self.model.discrete_head:
+            return (raw_mut > 0.5).astype(np.float32)
+        if (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
                 and raw_mut.shape[0] > 2 and m > 1):
             if self._copula is None:
                 self._copula = fit_binary_copula(np.asarray(stats["mutation_matrix"]))
             freq, corr = self._copula
-            mutations = correlation_transplant(
+            return correlation_transplant(
                 raw_mut, corr, freq, rng=np.random.default_rng(self._tie_seed()))
-        else:
-            freq = np.clip(np.asarray(stats["mutation_freq"], np.float64), 0.0, 1.0)
-            thresholds = np.quantile(raw_mut, 1.0 - freq, axis=0).diagonal()
-            mutations = (raw_mut > thresholds[None, :]).astype(np.float32)
+        freq = np.clip(np.asarray(stats["mutation_freq"], np.float64), 0.0, 1.0)
+        thresholds = np.quantile(raw_mut, 1.0 - freq, axis=0).diagonal()
+        return (raw_mut > thresholds[None, :]).astype(np.float32)
 
-        cont = samples[:, m:]
-        if (mode in ("copula_full", "copula_joint") and "data_matrix" in stats
-                and cont.shape[0] > 2 and cont.shape[1] > 1):
-            if self._cont_chol is None:
-                self._cont_chol = fit_continuous_copula_chol(np.asarray(stats["data_matrix"])[:, m:])
-            cont = gaussian_transplant(
-                cont, self._cont_chol, tie_rng=np.random.default_rng(self._tie_seed()))
-        return np.asarray(mutations), self._quantile_map_continuous(np.asarray(cont), m, mode)
+    def _device_calibration_enabled(self, n: int) -> bool:
+        """True when an n-row cohort is calibrated on the device
+        (``ops/copula_device.py``; JAX :595-632). ``calibration_backend``:
+        "numpy" never; "device" always (on the CPU too, as the tests use
+        it); "auto" on the card from 256 rows. Only the copula_joint and
+        copula_full modes, with the quantile grid and the real cohort in
+        ``data_stats``, more than two rows and at most
+        ``DeviceCalibrator.MAX_ROWS``."""
+        mode = self.config.generation.calibrate_marginals
+        if mode is True:
+            mode = "copula_joint"
+        stats = self.data_stats
+        if not mode or stats is None or n <= 2:
+            return False
+        if str(mode) not in ("copula_joint", "copula_full"):
+            return False
+        if "feature_sorted" not in stats or "data_matrix" not in stats:
+            return False
+        backend = self.config.generation.calibration_backend
+        if backend == "numpy" or not DeviceCalibrator.accepts(n):
+            return False
+        if backend == "device":
+            return True
+        return self.device.type == "cuda" and n >= 256
+
+    def _sorted_real_cont(self, m: int) -> np.ndarray:
+        return np.asarray(self.data_stats["feature_sorted"], np.float32)[:, m:]
+
+    def _get_device_joint_cal(self, m: int) -> DeviceCalibrator:
+        if self._device_joint_cal is None:
+            freq, chol, tetra, _ = self._joint_fit(m)
+            self._device_joint_cal = DeviceCalibrator(
+                m, self._sorted_real_cont(m), freq=freq, joint_chol=chol, tetra=tetra,
+                device=self.device)
+            logger.info("Joint calibration on %s", self.device)
+        return self._device_joint_cal
+
+    def _get_device_cont_cal(self, m: int) -> DeviceCalibrator:
+        if self._device_cont_cal is None:
+            self._device_cont_cal = DeviceCalibrator(
+                m, self._sorted_real_cont(m), cont_chol=self._cont_fit(m), device=self.device)
+            logger.info("Continuous calibration on %s", self.device)
+        return self._device_cont_cal
 
     def _tie_seed(self) -> int:
         """Seed for random rank tie-breaking (same as the JAX package)."""
@@ -199,7 +293,7 @@ class SyntheticPatientGenerator:
         moment matching when the sorted grid is unavailable."""
         stats = self.data_stats
         if mode in ("quantile", "copula", "copula_full", "copula_joint") and "feature_sorted" in stats:
-            sorted_real = np.asarray(stats["feature_sorted"], np.float32)[:, m:]
+            sorted_real = self._sorted_real_cont(m)
             n_real = sorted_real.shape[0]
             order = np.argsort(cont, axis=0)
             ranks = np.empty_like(order)

@@ -39,7 +39,6 @@ TF32: eta - (eta·K_in)·R cancels), as the JAX package leaves it to XLA.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -48,6 +47,7 @@ import torch
 
 from ..models.networks import sinusoid
 from .fused_sampler import FusedSampler, _bf16
+from .precision import full_f32_matmul  # the projection eta - (eta·K_in)·R cancels
 from .sampler_kernels import UNIFORM_SCALE, gemm_bf16_latent_step, latent_draw
 
 
@@ -57,18 +57,6 @@ def supports_latent(model) -> bool:
     clipped x0 (``check_supported``); the tail further needs the input-skip
     gain and no D3PM mutation head."""
     return bool(model.denoiser.input_skip) and not (model.discrete_head and model.mutation_dim)
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """f32 products in full f32 on the card: TF32 off for the duration
-    (the reconstruction's projection eta - (eta·K_in)·R cancels)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _uniform_noise(shape, generator: torch.Generator, device) -> torch.Tensor:

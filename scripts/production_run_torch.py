@@ -16,8 +16,9 @@ report step is not ported and not run.
 
 It writes one JSON object: the validator's metrics, the training history
 (epochs, first and last losses, steps/sec, seconds an epoch), the seconds
-of each step, and the card's name and power limit as nvidia-smi reports
-them. ``--assert`` exits 1 unless overall_biological_score >= 0.85 and
+of each step, the backend of generate's calibration (the card, under
+"auto", for the batched cohort of 10,002 rows), and the card's name and
+power limit as nvidia-smi reports them. ``--assert`` exits 1 unless overall_biological_score >= 0.85 and
 mmd < 0.15, the gate of scripts/demo_full_scale.py. The steps run on the
 card; ``--device cpu`` runs them on the CPU.
 """
@@ -54,6 +55,7 @@ from osteosarcoma_diffusionmodel_torch.data.pathways import (  # noqa: E402
     HALLMARK_GENE_SETS,
     pathway_scores_from_expression,
 )
+from osteosarcoma_diffusionmodel_torch.generation.generator import CALIBRATIONS  # noqa: E402
 from osteosarcoma_diffusionmodel_torch.utils.io import (  # noqa: E402
     read_matrix_csv,
     write_matrix_csv,
@@ -115,7 +117,9 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
 
     t_start = time.perf_counter()
     history, train_s = _timed(lambda: train_model(cfg, device=device), device)
+    CALIBRATIONS.clear()
     _, generate_s = _timed(lambda: generate_synthetic_patients(cfg, device=device), device)
+    calibrations = dict(CALIBRATIONS)
     results, validate_s = _timed(lambda: validate_synthetic_patients(cfg, device=device), device)
     wall = time.perf_counter() - t_start
 
@@ -140,6 +144,7 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
                                          min(history.val_loss)],
         },
         "step_seconds": {"train": train_s, "generate": generate_s, "validate": validate_s},
+        "generate_calibrations": calibrations,
         "pipeline_wall_clock_sec": wall,
         "validation": {k: float(v) for k, v in results.items()},
     }

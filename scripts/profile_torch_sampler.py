@@ -10,7 +10,10 @@ int8 ``quantize`` mode), a torch.profiler trace of one DDIM-50 call per
 variant (device time by kernel), the MMD of 100 real against 9999
 synthetic rows through kernel K4, and the DDPM-1000 generate and validate
 steps of ``chip_smoke.py``'s workload split by layer (sampler,
-calibration, CSV, validator parts). Needs a CUDA device; prints one JSON
+calibration on the card as "auto" takes it at 333 rows, CSV, validator
+parts), with the host calibration of the same cohorts beside it
+(``generate.calibrate_host``, not part of the step) and the target's
+one-time host fit apart (``generate.fit_target``). Needs a CUDA device; prints one JSON
 object and writes it to ``--out``.
 """
 
@@ -84,11 +87,17 @@ def step_breakdown(dev) -> dict:
                  "expression_genes": _header(proc / "expression_matrix_aligned.csv"),
                  "pathway_names": _header(proc / "pathway_scores.csv")}
         parts = {"mutations": [], "expression": [], "pathways": []}
+        # The target's host fit, once per checkpoint, apart from the
+        # cohorts' calibrations on either backend.
+        timed("generate.fit_target", lambda: gen._joint_fit(dims.mutation_dim))
         for i, scenario in enumerate(cfg.generation.scenarios):
             g = seeded_generator(cfg.training.random_seed, i)
             cond = gen.create_conditions(333, scenario.conditions, g)
-            raw = timed("generate.sampler", lambda: gen.sample_raw(cond, g))
+            raw = timed("generate.sampler", lambda: gen.sample_raw(cond, g))  # on the card
             out = timed("generate.calibrate", lambda: gen._postprocess(raw, cond))
+            cfg.generation.calibration_backend = "numpy"  # the host path, for comparison
+            timed("generate.calibrate_host", lambda: gen._postprocess(raw, cond))
+            cfg.generation.calibration_backend = "auto"
             timed("generate.write_csv", lambda: gen.save_synthetic_data(
                 out, Path(tmp) / "synthetic" / scenario.name, names, prefix=scenario.name))
             for key in parts:

@@ -755,3 +755,160 @@ def test_cuda_train_keeps_every_tensor_on_the_card(cuda, tmp_path):
     assert tr.generator.device.type == "cuda"
     assert (tmp_path / str(cuda) / "best_model.npz").exists()
     assert (tmp_path / str(cuda) / "checkpoint_epoch_1" / "optimizer.npz").exists()
+
+
+# ----------------------------------------------------------------------
+# The device calibration, and the sampler at serving's small batches
+# ----------------------------------------------------------------------
+def _calibration_case(n, seed=7):
+    """The fitted joint target of a two-factor cohort (m 10, 40 continuous
+    columns, 200 real rows), its sorted grid, the continuous target, and a
+    raw cohort of n rows without ties (so both runs order it alike)."""
+    from osteosarcoma_diffusionmodel_torch.ops import copula as C
+
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(200, 2))
+    bits = ((z @ rng.normal(size=(2, 10)) * 1.2 + rng.normal(size=(200, 10))) > 0.3).astype(float)
+    cont = z @ rng.normal(size=(2, 40)) + rng.normal(size=(200, 40)) * 0.7
+    freq, chol, tetra, _ = C.fit_joint_copula(bits, cont)
+    raw = rng.normal(size=(n, 50)).astype(np.float32)
+    return (freq, chol, tetra), np.sort(cont, axis=0).astype(np.float32), \
+        C.fit_continuous_copula_chol(cont), raw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30, 300])  # the dual and the primal whitening (D = 50)
+def test_cuda_device_calibration_matches_its_cpu_run(cuda, n):
+    """The calibrator on the card against the same calibrator on the CPU:
+    equal per-gene counts, sorted continuous columns within 1e-4, and (no
+    ties in the input) the same cohort up to float rounding: at least 99%
+    of the bits and of the continuous values equal within 1e-4."""
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import DeviceCalibrator
+
+    (freq, chol, tetra), sorted_real, cont_chol, raw = _calibration_case(n)
+    kw = dict(freq=freq, joint_chol=chol, tetra=tetra, cont_chol=cont_chol)
+    cpu = DeviceCalibrator(10, sorted_real, device="cpu", **kw)
+    card = DeviceCalibrator(10, sorted_real, device=cuda, **kw)
+    with pytest.raises(ValueError):
+        card.joint(torch.from_numpy(raw), seed=1)  # a host tensor is refused
+    for (b_cpu, c_cpu), (b_card, c_card) in (
+            (cpu.joint(torch.from_numpy(raw), 1), card.joint(torch.from_numpy(raw).to(cuda), 1)),
+            ((None, cpu.continuous(torch.from_numpy(raw[:, 10:]), 2)),
+             (None, card.continuous(torch.from_numpy(raw).to(cuda)[:, 10:], 2)))):
+        assert isinstance(c_card, np.ndarray) and c_card.dtype == np.float32
+        if b_cpu is not None:
+            np.testing.assert_array_equal(b_card.sum(0), b_cpu.sum(0))
+            assert float(np.mean(b_card == b_cpu)) >= 0.99
+        np.testing.assert_allclose(np.sort(c_card, 0), np.sort(c_cpu, 0), rtol=1e-4, atol=1e-4)
+        assert float(np.mean(np.abs(c_card - c_cpu) <= 1e-4 + 1e-4 * np.abs(c_cpu))) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_generator_calibrates_on_the_card_under_auto(cuda):
+    """Under "auto" the generator on the card calibrates a 300-row cohort
+    on the device and a 100-row one on the host (the 256-row threshold),
+    with the same marginals."""
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.data.dummy import cohort_arrays, make_dummy_cohort
+    from osteosarcoma_diffusionmodel_torch.generation import generator as pg
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+    from osteosarcoma_diffusionmodel_torch.training.checkpoint import data_stats_from_arrays
+
+    cfg = Config()
+    cfg.model.diffusion.num_steps = 20
+    data, conditions, dims = cohort_arrays(make_dummy_cohort(40, 10, 40, 14), cfg)
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    gen = pg.SyntheticPatientGenerator(model, cfg, dims, device=cuda,
+                                       data_stats=data_stats_from_arrays(data, conditions, 10))
+    for rows, backend in ((300, "device"), (100, "host")):
+        before = pg.CALIBRATIONS[backend]
+        out = gen.generate(rows, {"survival_time": 500}, pg.seeded_generator(0, rows))
+        assert pg.CALIBRATIONS[backend] == before + 1
+        assert out["expression"].shape == (rows, 40) and np.isfinite(out["expression"]).all()
+        assert set(np.unique(out["mutations"])) <= {0.0, 1.0}
+    assert gen._device_joint_cal.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 64])
+@pytest.mark.parametrize("ddim", [None, 10], ids=["ddpm20", "ddim10"])
+def test_cuda_sampler_small_batches_match_plain_loop(cuda, rows, ddim):
+    """Serving's small buckets at full width (62/5054/26, hidden
+    256/512/256): one 64-row tile with 1 or 64 valid rows. The kernel
+    sampler against the plain loop (f32 products) with the same x_T and
+    noise, at the bf16-carry tolerance atol 0.15 / rtol 0.05."""
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+
+    cfg = Config()
+    cfg.model.diffusion.num_steps = 20
+    cfg.model.compute_dtype = "float32"
+    dims = cfg.freeze_dims(62, 5054, 26, list(cfg.model.condition_on))
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    model.denoiser.to(cuda)
+    g = torch.Generator().manual_seed(rows)
+    cond = torch.randn(rows, dims.condition_dim, generator=g)
+    x_init = torch.randn(rows, dims.data_dim, generator=g)
+    noise = torch.randn(20, rows, dims.data_dim, generator=g)
+    got = FusedSampler(model, cuda, ddim_steps=ddim).sample(cond, g, x_init=x_init,
+                                                          noise=None if ddim else noise)
+    if ddim:
+        ref = model.sample_ddim(cond, g, ddim, x_init=x_init)
+    else:
+        ref = model.sample(cond, g, x_init=x_init, noise=noise)
+    assert got.shape == (rows, dims.data_dim) and bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= 0.15 + 0.05 * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 64, 1024])
+def test_cuda_step_products_at_serving_rows(cuda, rows):
+    # The serving buckets' rows under the plans the sampler takes (at one
+    # row: one 64-row tile with one valid row and the largest split-K):
+    # K1 against its plain version (f32 rounding of the sum), the GN
+    # epilogue against the plain product then K2's plain version (2^-7 of
+    # max(1, |ref|)), the posterior epilogue bit-equal to K1 then K3 under
+    # the same plan, in every noise mode.
+    rng = np.random.default_rng(rows)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    k, f, d = 256, 512, 5142
+    a = _bf16(rng, (rows, k), 3.0).to(cuda)
+    w = _bf16(rng, (k, f), 1 / math.sqrt(k)).to(cuda)
+    bias = torch.randn(f, device=cuda)
+    out = torch.empty(rows, f, device=cuda)
+    unaligned = sk.GEMM.modes["unaligned"]
+    sk.gemm_bf16_f32acc(a, w, out=out, bias=bias)
+    assert sk.GEMM.modes["unaligned"] == unaligned
+    ref = sk.gemm_bf16_f32acc_plain(a, w, bias)
+    assert float((out - ref).abs().max()) <= 1e-3 * max(1.0, float(ref.abs().max()))
+
+    scale = 1.0 + 0.1 * torch.randn(f, device=cuda)
+    shift = 0.1 * torch.randn(f, device=cuda)
+    res = torch.empty(rows, f, dtype=torch.bfloat16, device=cuda)
+    sk.gemm_bf16_gn_silu(a, w, bias, scale, shift, out=res)
+    ref = sk.groupnorm8_silu_plain(sk.gemm_bf16_f32acc_plain(a, w, bias), scale, shift)
+    ref = ref.to(torch.bfloat16).float()
+    assert float((res.float() - ref).abs().max()) <= 2 ** -7 * max(1.0, float(ref.abs().max()))
+
+    w_out = _padded(k, d, torch.bfloat16, cuda)
+    w_out.copy_(_bf16(rng, (k, d), 1 / math.sqrt(k)).to(cuda))
+    start = _padded(rows, d, torch.bfloat16, cuda)
+    start.copy_(_bf16(rng, (rows, d)).to(cuda))
+    coeffs = torch.from_numpy(rng.uniform(0.1, 1.0, (4, 6)).astype(np.float32)).to(cuda)
+    coeffs[:, 4:] = torch.tensor([0.05, 0.7], device=cuda)
+    plan = sk.gemm_plan(rows, d, k, sms, "bf16", sk.POSTERIOR_WIDTHS)
+    for mode in ("philox", "buffer", "none"):
+        step = dict(b_out=torch.randn(d, device=cuda), coeffs=coeffs, step=1, mode=mode,
+                    noise=torch.randn(4, rows, d, device=cuda), seed=3, mut_dim=0)
+        acc = _padded(rows, d, torch.float32, cuda)
+        pair, fused = start.clone(), start.clone()
+        sk.gemm_bf16_f32acc(a, w_out, out=acc, plan=plan)
+        sk.gemm_bf16_posterior(a, w_out, fused, **step, plan=plan)
+        sk.x0_posterior_step(acc, pair, **step)
+        assert torch.equal(fused, pair), mode
+        assert not torch.equal(fused, start)

@@ -3,8 +3,9 @@ package's host path, on identical raw samples.
 
 Both sides run the same float64 numpy copula code (the port's
 ops/copula.py is a copy) with the same tie-break seed, so the calibrated
-cohorts are equal; the JAX generator takes its numpy path on the CPU
-backend (calibration_backend "auto").
+cohorts are equal; both generators take their numpy path on the CPU
+(calibration_backend "auto"). The device path has its own file,
+tests/test_torch_copula_device.py.
 """
 
 import numpy as np
@@ -187,10 +188,25 @@ def test_unknown_config_keys_are_ignored_on_load():
 
 
 def test_device_calibration_backend_is_rejected(setup):
-    _, _, _, _, pc, pdims, pmodel, stats, _, _ = setup
-    pc.generation.calibration_backend = "device"
+    """Once rejected, "device" now calibrates on the port's
+    DeviceCalibrator (on the CPU here) and returns the numpy path's
+    marginals: equal per-gene counts, sorted continuous columns within
+    1e-4."""
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import DeviceCalibrator
+
+    _, _, _, _, pc, pdims, pmodel, stats, samples, conds = setup
+    pc.generation.calibrate_marginals = "copula_joint"
     try:
-        with pytest.raises(NotImplementedError):
-            SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")
+        pc.generation.calibration_backend = "numpy"
+        want = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats,
+                                         device="cpu")._postprocess(samples, conds)
+        pc.generation.calibration_backend = "device"
+        gen = SyntheticPatientGenerator(pmodel, pc, pdims, data_stats=stats, device="cpu")
+        got = gen._postprocess(torch.from_numpy(samples), conds)
     finally:
         pc.generation.calibration_backend = "auto"
+    assert isinstance(gen._device_joint_cal, DeviceCalibrator)
+    np.testing.assert_array_equal(got["mutations"].sum(0), want["mutations"].sum(0))
+    for key in ("expression", "pathways"):
+        np.testing.assert_allclose(np.sort(got[key], axis=0), np.sort(want[key], axis=0),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)

@@ -82,6 +82,24 @@ def test_port_imports_no_jax_pandas_or_yaml():
     assert int(proc.stdout.split()[-1]) >= 20  # every module was walked
 
 
+@pytest.mark.parametrize("module", [
+    "osteosarcoma_diffusionmodel_torch.ops.copula_device",
+    "osteosarcoma_diffusionmodel_torch.serving.monitoring",
+    "osteosarcoma_diffusionmodel_torch.serving.server",
+])
+def test_calibration_and_serving_modules_import_no_jax(module):
+    """The device calibration and the serving modules, each imported alone
+    in a fresh interpreter: no JAX, Flax, pandas or PyYAML (yaml only
+    lazily, inside ``Config.from_yaml``), nothing of the JAX package."""
+    script = (f"import sys, importlib; importlib.import_module({module!r}); "
+              "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', "
+              "'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
+              "assert not bad, bad; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_clean_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_refuses_without_a_card(where, tmp_path):
     """No CUDA device here: chip_smoke.py exits non-zero and prints no
