@@ -89,6 +89,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
      priming draw a call), and, where the probe says the clip does not
      bind in the tail, its per-feature moments against the data-space
      kernel sampler's;
+6. "[variants]" (after ``[train]``): three models of the JAX package's
+   variants trained through the CLI with the production settings for 30
+   epochs each, then 3 x 333 generate -> calibrate -> validate on the
+   route the JAX rule gives them: (a) the AR head with k = 8 latent
+   factors, DDPM-1000 and DDIM-50 on the kernels (12 launches a step,
+   never the scan loop); (b) v + learned sigma + cfg_dropout_prob 0.1 at
+   guidance 7.5 (DDPM-1000) and 1.0 (DDIM-50), (c) epsilon + low-rank
+   sigma k = 4 at DDIM-50, both on the scan loop (no sampler kernel);
+   every cohort calibrated on the card, the AR cohort with the continuous
+   calibrator only and binary bits; overall / MMD / co-occurrence printed
+   (no gate); (a)'s kernel sampler on its widened conditions against the
+   plain loop at 333 rows, and the scan loop on the card against its CPU
+   run on the same draws;
 7. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
    checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
    warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
@@ -137,6 +150,11 @@ from osteosarcoma_diffusionmodel_torch.cli import (
 from osteosarcoma_diffusionmodel_torch.config import Config
 from osteosarcoma_diffusionmodel_torch.data.dummy import make_dummy_cohort, write_processed
 from osteosarcoma_diffusionmodel_torch.generation import generator as gen_module
+from osteosarcoma_diffusionmodel_torch.generation.generator import (
+    SyntheticPatientGenerator,
+    load_trained_model,
+    seeded_generator,
+)
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
 from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler
@@ -1615,6 +1633,229 @@ def run_train_phase(cfg: Config, dev, root: Path) -> dict:
     return launches, save_dir
 
 
+# The variants phase: three models of the JAX package's variants, each
+# trained through the CLI with the production settings for VARIANT_EPOCHS
+# epochs, then generated 3 x 333 -> calibrated -> validated on the route
+# the JAX package's rule gives it: (a) on the kernels, (b) and (c) on the
+# scan loop (learned sigma keeps (b) there at guidance 1 too).
+VARIANT_EPOCHS = 30
+GUIDANCE = 7.5
+VARIANTS = {
+    "ar-latent": ({"ar_mutation_head": True, "latent_factor_dim": 8}, 0.0,
+                  [("ddpm", 1.0), ("ddim", 1.0)], "kernel"),
+    "v-sigma-cfg": ({"parameterization": "v", "learn_sigma": True}, 0.1,
+                    [("ddpm", GUIDANCE), ("ddim", 1.0)], "scan"),
+    "eps-low-rank": ({"parameterization": "epsilon", "low_rank_sigma_dim": 4}, 0.0,
+                     [("ddim", 1.0)], "scan"),
+}
+# The kernel sampler's kernels (every mode): a scan-loop run launches none.
+SAMPLER_KERNELS = [GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, ROWQUANT, GEMM_S8,
+                   GEMM_S8_GN, GEMM_S8_POSTERIOR, GEMM_S8Q, GEMM_S8Q_GN, GEMM_S8Q_POSTERIOR,
+                   GEMM_LATENT, LATENT]
+SCAN_TOL = 1e-3  # the scan loop on the card against its CPU run (f32 both)
+
+
+def _check_variant_launches(label: str, route: str, n_steps: int, cohorts: int) -> None:
+    """The kernel route: 12 launches a step (K1, 10 K1+GN, K1+posterior)
+    for every step of every cohort and nothing else of the sampler; the
+    scan route: no sampler kernel at all."""
+    counts = {k.name: k.launches for k in SAMPLER_KERNELS}
+    if route == "kernel":
+        want = {k.name: 0 for k in SAMPLER_KERNELS}
+        want.update({GEMM.name: n_steps * cohorts, GEMM_GN.name: 10 * n_steps * cohorts,
+                     GEMM_POSTERIOR.name: n_steps * cohorts})
+        if counts != want or GEMM.modes["bf16"] != n_steps * cohorts:
+            raise AssertionError(f"[variants] {label}: launches {counts}, want {want} "
+                                 f"({STEP_LAUNCHES['none']} a step)")
+    elif any(counts.values()):
+        raise AssertionError(f"[variants] {label}: the scan loop launched sampler kernels "
+                             f"{counts}")
+
+
+def run_variant(name: str, cfg: Config, dev, root: Path) -> dict:
+    """Train one variant through the CLI, then generate -> calibrate ->
+    validate each of its runs with the counts set to 0 just before and read
+    just after. Returns its launches by kernel and its checkpoint dir."""
+    overrides, cfg_drop, runs, route = VARIANTS[name]
+    tcfg = copy.deepcopy(cfg)
+    for key, value in overrides.items():
+        setattr(tcfg.model.diffusion, key, value)
+    tcfg.model.cfg_dropout_prob = cfg_drop
+    tcfg.training.num_epochs = tcfg.training.patience = VARIANT_EPOCHS
+    tcfg.training.save_dir = str(root / f"checkpoint_{name}")
+    tcfg.output.results_dir = str(root / f"results_{name}")
+    history, train_s = run_step(train_model, tcfg, dev)
+    losses = history.train_loss + history.val_loss
+    if len(history.train_loss) != VARIANT_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[variants] {name}: {len(history.train_loss)} epochs, losses "
+                             f"finite {all(math.isfinite(v) for v in losses)}")
+    print(f"[variants] {name} ({json.dumps(overrides)}, cfg_dropout_prob {cfg_drop}): "
+          f"{VARIANT_EPOCHS} epochs in {train_s:.2f} s ({history.steps_per_sec:.1f} steps/sec); "
+          f"train loss {history.train_loss[0]:.4f} -> {history.train_loss[-1]:.4f}, val "
+          f"{history.val_loss[0]:.4f} -> {history.val_loss[-1]:.4f}", flush=True)
+    totals = {k.name: 0 for k in KERNELS}
+    cohorts = len(cfg.generation.scenarios)
+    for sampler, guidance in runs:
+        gcfg = copy.deepcopy(cfg)
+        gcfg.training.save_dir = tcfg.training.save_dir
+        gcfg.generation.sampler = sampler
+        gcfg.generation.guidance_scale = guidance
+        n_steps = cfg.model.diffusion.num_steps if sampler == "ddpm" else (
+            gcfg.generation.sampling_steps)
+        label = f"{name} {sampler.upper()}-{n_steps} guidance {guidance}"
+        gcfg.output.synthetic_data_dir = str(root / f"synthetic_{name}_{sampler}_{guidance}")
+        for k in KERNELS:
+            k.reset()
+        gen_module.CALIBRATIONS.clear()
+        gen_module.SAMPLERS.clear()
+        _, gen_s = run_step(generate_synthetic_patients, gcfg, dev)
+        _check_variant_launches(label, route, n_steps, cohorts)
+        samplers, calibrations = dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS)
+        results, val_s = run_step(validate_synthetic_patients, gcfg, dev)
+        for k in KERNELS:
+            totals[k.name] += k.launches
+        check_outputs(gcfg, results, label)
+        if samplers != {route: cohorts}:
+            raise AssertionError(f"[variants] {label}: sampler routes {samplers}, want "
+                                 f"{{'{route}': {cohorts}}}")
+        check_calibrated_on_device(gcfg, calibrations, f"[variants] {label}")
+        print(f"[variants] {label}: route {samplers}, generate+calibrate {gen_s:.2f} s, "
+              f"validate {val_s:.2f} s; calibrations {json.dumps(calibrations)}; overall "
+              f"{results['overall_biological_score']:.4f}, MMD {results['mmd']:.4f}, "
+              f"co-occurrence pattern {results['cooccurrence_pattern_correlation']:.4f} (no gate)",
+              flush=True)
+        time_variant_parts(label, gcfg, dev)
+    return totals, tcfg.training.save_dir
+
+
+def time_variant_parts(label: str, gcfg: Config, dev) -> None:
+    """The parts of one 333-row cohort in process, on the CLI's settings:
+    the latent prior's fit (first use), the sampler (warm: the second of
+    two calls), calibration with the AR draw, and the AR draw alone."""
+    save_dir = gcfg.training.save_dir
+    model, mcfg, dims = load_trained_model(save_dir, copy.deepcopy(gcfg))
+    gen = SyntheticPatientGenerator(model, mcfg, dims, data_stats=load_data_stats(save_dir),
+                                    device=dev)
+    cond = gen.create_conditions(BATCH, mcfg.generation.scenarios[0].conditions)
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    if model.latent_factor_dim:
+        timed("latent prior fit + draw", lambda: gen._latent_prior_draw(BATCH, seeded_generator(1)))
+    for rep in range(2):
+        raw = timed("sampler", lambda: gen.sample_raw(cond, seeded_generator(2, rep)))
+    out = timed("calibrate (+ AR draw)", lambda: gen._postprocess(raw, cond, seeded_generator(3)))
+    if model.ar_head:
+        pathways = torch.as_tensor(out["pathways"], device=dev)
+        timed("AR draw", lambda: model.ar_sample(pathways, torch.as_tensor(cond, device=dev),
+                                                 seeded_generator(4)))
+    print(f"[variants] {label} at {BATCH} rows in process: " + ", ".join(
+        f"{name} {sec:.4f} s" for name, sec in parts.items()), flush=True)
+
+
+def check_ar_calibration(cfg: Config, save_dir: str, dev) -> None:
+    """The AR cohort skips the joint copula (JAX :484): under "auto" at 333
+    rows the generator calibrates on the card with the continuous
+    calibrator only, and the bits are the AR draw's."""
+    gcfg = copy.deepcopy(cfg)
+    gcfg.generation.sampler = "ddim"
+    model, gcfg, dims = load_trained_model(save_dir, gcfg)
+    gen = SyntheticPatientGenerator(model, gcfg, dims, data_stats=load_data_stats(save_dir),
+                                    device=dev)
+    out = gen.generate(BATCH, gcfg.generation.scenarios[0].conditions, seeded_generator(0, 0))
+    ok = (gen._device_cont_cal is not None and gen._device_joint_cal is None
+          and np.isin(out["mutations"], (0.0, 1.0)).all())
+    print(f"[variants] ar-latent calibration: continuous calibrator on {gen.device} "
+          f"{gen._device_cont_cal is not None}, joint calibrator "
+          f"{gen._device_joint_cal is not None}; AR bits binary, per-gene frequency "
+          f"{float(out['mutations'].mean()):.4f}: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("[variants] the AR cohort did not take the continuous calibrator")
+
+
+def check_variants_against_plain(cfg: Config, ckpts: dict, dev) -> None:
+    """(a)'s kernel sampler on its widened [clinical | factors] conditions
+    against the plain loop at 333 rows (the bf16-carry tolerance atol 0.15 /
+    rtol 0.05), DDPM-20 with the same noise and DDIM-10; the scan loop on the
+    card against its own CPU run on the same injected draws at 333 rows
+    (f32 compute and carry both sides: 1e-3 of max(1, |ref|)): (b) DDIM-10
+    at guidance 1, (c) DDPM-20 with every draw."""
+    model = _reference_model(cfg, dev, save_dir=ckpts["ar-latent"])
+    g = torch.Generator().manual_seed(23)
+    cond = torch.randn(BATCH, model.denoiser.condition_dim, generator=g)
+    x_init = torch.randn(BATCH, D, generator=g)
+    noise = torch.randn(20, BATCH, D, generator=g)
+    for label, ddim in (("DDPM-20", None), ("DDIM-10", 10)):
+        got = FusedSampler(model, dev, ddim_steps=ddim).sample(
+            cond, g, x_init=x_init, noise=None if ddim else noise)
+        ref = (model.sample_ddim(cond, g, 10, x_init=x_init) if ddim
+               else model.sample(cond, g, x_init=x_init, noise=noise))
+        err = (got - ref).abs()
+        ok = bool((err <= 0.15 + 0.05 * ref.abs()).all()) and bool(torch.isfinite(got).all())
+        print(f"[reference] ar-latent {label} {BATCH}x{D}, conditions {cond.shape[1]} wide: "
+              f"kernel sampler vs plain loop max|diff| {float(err.max()):.4f}, within atol "
+              f"0.15 / rtol 0.05: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"ar-latent {label}: kernel sampler disagrees with the plain loop")
+    for name, ddim in (("v-sigma-cfg", 10), ("eps-low-rank", None)):
+        card = _reference_model(cfg, dev, save_dir=ckpts[name])
+        host = _reference_model(cfg, torch.device("cpu"), save_dir=ckpts[name])
+        k = card.low_rank_sigma_dim
+        draws = {"x_T": torch.randn(BATCH, D, generator=g),
+                 "z": torch.randn(19, BATCH, D, generator=g).to(torch.bfloat16).float(),
+                 "final_z": torch.randn(BATCH, D, generator=g)}
+        if k:
+            draws.update(lr_eps=torch.randn(19, BATCH, D, generator=g),
+                         lr_epsk=torch.randn(19, BATCH, k, generator=g),
+                         final_lr_eps=torch.randn(BATCH, D, generator=g),
+                         final_lr_epsk=torch.randn(BATCH, k, generator=g))
+        results = []
+        # An f32 carry on both sides: a bf16 carry rounds the two runs'
+        # 1e-6 differences apart by whole bf16 ulps, which epsilon's
+        # 1/sqrt(acp) then amplifies at large t.
+        card.sample_dtype = host.sample_dtype = "float32"
+        for model in (card, host):
+            if ddim:
+                results.append(model.scan_sample_ddim(cond[:, :3], num_sampling_steps=ddim,
+                                                      draws=draws).cpu())
+            else:
+                results.append(model.scan_sample(cond[:, :3], draws=draws).cpu())
+        got, ref = results
+        err = float((got - ref).abs().max())
+        bound = SCAN_TOL * max(1.0, float(ref.abs().max()))
+        ok = err <= bound and bool(torch.isfinite(got).all())
+        print(f"[reference] {name} scan {'DDIM-%d' % ddim if ddim else 'DDPM-20'} {BATCH}x{D}: "
+              f"card vs CPU max|diff| {err:.3e} (bound {bound:.3e}): {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: the scan loop on the card disagrees with its CPU run")
+
+
+def run_variants_phase(cfg: Config, dev, root: Path) -> dict:
+    """[variants]: every model of VARIANTS trained, generated, calibrated
+    and validated (:func:`run_variant`), the AR cohort's calibration route,
+    and the checks against the plain loop and the CPU. Returns the phase's
+    launches by kernel (the checks' launches left out)."""
+    t0 = time.perf_counter()
+    totals = {k.name: 0 for k in KERNELS}
+    ckpts = {}
+    for name in VARIANTS:
+        launches, ckpts[name] = run_variant(name, cfg, dev, root)
+        for key, n in launches.items():
+            totals[key] += n
+    print(f"[variants] kernel launches over the variants' runs: {json.dumps(totals)}", flush=True)
+    check_ar_calibration(cfg, ckpts["ar-latent"], dev)
+    check_variants_against_plain(cfg, ckpts, dev)
+    print(f"[variants] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
+
+
 def run_bench_latent(tmp: Path, head) -> dict:
     """scripts/bench_latent_torch.py as a user runs it (999 rows,
     DDPM-1000, one timed call after a warm-up), with the probe's head
@@ -1816,15 +2057,23 @@ def check_d3pm_calibration(cfg: Config, ckpt: str, dev) -> None:
         raise AssertionError("calibration changed the D3PM head's bits")
 
 
-def _reference_model(cfg: Config, dev, discrete: bool = False) -> ConditionalDiffusion:
-    """The checkpoint's weights in a 20-step f32-compute model on ``dev``."""
-    meta = load_metadata(cfg.training.save_dir)
+def _reference_model(cfg: Config, dev, discrete: bool = False,
+                     save_dir: str | None = None) -> ConditionalDiffusion:
+    """The weights of the checkpoint in ``save_dir`` (default the config's)
+    in a 20-step f32-compute model on ``dev`` (low-rank sigma's per-step
+    log-scales taken at 20 evenly spaced steps)."""
+    save_dir = save_dir or cfg.training.save_dir
+    meta = load_metadata(save_dir)
     small = Config.from_dict(meta["config"])
     small.model.diffusion.num_steps = 20
     small.model.diffusion.discrete_mutation_head = discrete
     small.model.compute_dtype = "float32"
     model = ConditionalDiffusion.from_config(small, metadata_to_dims(meta))
-    model.denoiser.load_state_dict(load_weights(cfg.training.save_dir))
+    weights = load_weights(save_dir)
+    if "lowrank_logs" in weights:
+        logs = weights["lowrank_logs"]
+        weights["lowrank_logs"] = logs[torch.linspace(0, len(logs) - 1, 20).round().long()]
+    model.denoiser.load_state_dict(weights)
     model.denoiser.to(dev)
     return model
 
@@ -2118,10 +2367,11 @@ def main(argv=None) -> int:
         cfg = prepare_workdir(Path(tmp), args.weights)
         check_calibration(cfg, dev)
         trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
+        variants = run_variants_phase(cfg, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
-        for counts in (trained, run_serve_phase(trained_ckpt, Path(tmp)),
+        for counts in (trained, variants, run_serve_phase(trained_ckpt, Path(tmp)),
                        run_latent_path(cfg, dev, Path(tmp))):
             for name, n in counts.items():
                 launches[name] += n

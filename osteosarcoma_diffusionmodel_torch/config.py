@@ -7,7 +7,8 @@ package and ``config/*.yaml`` load into it: keys this schema does not
 hold (download, GNN layers, fused-kernel scheduling knobs, ...) are
 ignored on load. The field comments there explain each knob. A few
 fields are kept only so :func:`models.diffusion.check_supported` can
-reject the features the port does not implement yet.
+reject the features the port does not implement yet (cross-cancer
+pretraining, sample-path fine-tuning, several devices).
 
 YAML is read by :meth:`Config.from_yaml`, which imports ``yaml`` only
 when called.
@@ -44,17 +45,33 @@ class DiffusionConfig:
     num_steps: int = 1000
     beta_schedule: str = "cosine"
     loss_type: str = "l2"  # l1 | l2 | huber
-    parameterization: str = "x0"
+    parameterization: str = "x0"  # x0 | epsilon | v
+    # Learned per-feature residual sigma of x0 (a second output head).
+    learn_sigma: bool = False
+    sigma_loss_weight: float = 1.0
+    # Latent-factor conditioning: k factors of an x0 encoder appended to
+    # the conditions; generation draws them from a fitted Gaussian prior.
+    latent_factor_dim: int = 0
+    latent_encoder_input: str = "full"  # full | mutations
+    # Low-rank correlated residual sigma s(t)^2 (diag(d) + U U^T).
+    low_rank_sigma_dim: int = 0
+    low_rank_sigma_weight: float = 1.0
+    low_rank_sigma_scope: str = "full"  # full | mutations
     clip_denoised: bool = True
     denoised_clip_value: float = 30.0
     block_loss_weighting: str = "none"  # balanced | none
     discrete_mutation_head: bool = False
     discrete_ce_weight: float = 1.0
-    # Rejected when set (check_supported).
-    learn_sigma: bool = False
-    latent_factor_dim: int = 0
-    low_rank_sigma_dim: int = 0
+    # Autoregressive (FVSBN) mutation head, trained by teacher-forced CE
+    # under its own constant-rate Adam (ar_lr), drawn bit by bit at
+    # generation.
     ar_mutation_head: bool = False
+    ar_ce_weight: float = 1.0
+    ar_context: str = "pathways"  # pathways | continuous | none
+    ar_context_hidden: int = 64
+    ar_l2: float = 1e-5
+    ar_lr: float = 1e-2
+    ar_ctx_l2: float = 1e-2
 
 
 @dataclass
@@ -83,6 +100,9 @@ class ModelConfig:
     )
     constraints: ConstraintConfig = field(default_factory=ConstraintConfig)
     compute_dtype: str = "bfloat16"
+    # Classifier-free guidance: the share of training rows whose
+    # condition vector is zeroed; > 0 makes generation honor
+    # generation.guidance_scale.
     cfg_dropout_prob: float = 0.0
     denoiser_input_skip: bool = True
 
@@ -165,15 +185,16 @@ class Scenario:
 @dataclass
 class GenerationConfig:
     num_synthetic_samples: int = 1000
+    guidance_scale: float = 7.5
     sampling_steps: int = 50
     sampler: str = "ddpm"  # ddpm | ddim
     condition_normalization: str = "train_stats"  # train_stats | fixed
     batch_scenarios: bool = False
-    noise_type: str = "uniform"
+    noise_type: str = "uniform"  # uniform | normal (the scan sampler's step noise)
     calibrate_marginals: Any = "copula_joint"
     calibration_backend: str = "auto"
     fused_quantize: str = "none"  # none | out | io | all
-    # Rejected when set away from the default (check_supported).
+    # The scan sampler's carry; the kernel sampler's carry is bf16 always.
     sample_dtype: str = "bfloat16"
     scenarios: List[Scenario] = field(
         default_factory=lambda: [

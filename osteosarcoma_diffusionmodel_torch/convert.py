@@ -7,10 +7,14 @@ models/networks.py, names at :186-219) maps one to one onto
 - a Dense ``kernel`` (in, out) is a Linear ``weight`` (out, in); ``bias``
   stays ``bias``;
 - a GroupNorm ``scale``/``bias`` is ``weight``/``bias``;
-- module paths keep their names (``enc_0/fc1`` -> ``enc_0.fc1``).
+- module paths keep their names (``enc_0/fc1`` -> ``enc_0.fc1``), the
+  heads' Dense layers too (``sigma_proj``, ``latent_enc_fc1/2``,
+  ``ar_ctx_fc1/2``);
+- the raw arrays of the AR head and of low-rank sigma (``ar_coupling``,
+  ``ar_bias``, ``lowrank_U``, ``lowrank_logdiag``, ``lowrank_logs``) keep
+  their names and layout (no transpose).
 
-Parameters of heads the port does not implement yet (low-rank sigma, AR
-head, latent encoder, learned sigma) are rejected, never dropped.
+A parameter of any other module or leaf is rejected, never dropped.
 """
 
 from __future__ import annotations
@@ -22,16 +26,17 @@ import torch
 
 _TOP_LEVEL = {
     "time_proj", "skip_gain", "condition_embed", "cond_proj", "input_proj",
-    "bottleneck", "output_proj",
+    "bottleneck", "output_proj", "sigma_proj", "latent_enc_fc1", "latent_enc_fc2",
+    "ar_ctx_fc1", "ar_ctx_fc2",
 }
+RAW_ARRAYS = {"ar_coupling", "ar_bias", "lowrank_U", "lowrank_logdiag", "lowrank_logs"}
 
 
 def _check_module(name: str) -> None:
     if name in _TOP_LEVEL or name.startswith(("enc_", "dec_")):
         return
     raise NotImplementedError(
-        f"Flax parameter {name!r} belongs to a head the PyTorch port does not "
-        "implement yet"
+        f"Flax parameter {name!r} belongs to no module of the PyTorch port's denoiser"
     )
 
 
@@ -62,6 +67,9 @@ def flax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     """Flax params (nested dict of arrays) -> the port's ``state_dict``."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in flatten_params(params).items():
+        if path in RAW_ARRAYS:
+            state[path] = torch.from_numpy(np.array(value, np.float32))
+            continue
         parts = path.split("/")
         _check_module(parts[0])
         module, leaf = ".".join(parts[:-1]), parts[-1]
@@ -82,9 +90,12 @@ def state_dict_to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, An
     recognized by their 1-D weight)."""
     flat: Dict[str, np.ndarray] = {}
     for key, value in state.items():
+        arr = value.detach().cpu().float().numpy()
+        if key in RAW_ARRAYS:
+            flat[key] = arr
+            continue
         module, leaf = key.rsplit(".", 1)
         _check_module(module.split(".")[0])
-        arr = value.detach().cpu().float().numpy()
         path = module.replace(".", "/")
         if leaf == "weight" and arr.ndim == 2:
             flat[f"{path}/kernel"] = np.ascontiguousarray(arr.T)

@@ -6,14 +6,29 @@ for the diffusion model: scenario conditions (:90-134), sampling
 numpy path), the per-scenario and batched loops (:705-768), the
 modality split and the CSV export (:771-820), and checkpoint loading.
 
-Sampling always runs the kernel sampler (``ops/fused_sampler.py``): DDPM
-over all T steps, or eta = 0 DDIM over ``generation.sampling_steps``, with
-the int8 products of ``generation.fused_quantize`` ("none", "out", "io",
-"all"). With the D3PM mutation head the model's bits are kept as they
-come out of the sampler, and calibration reshapes the continuous block
-only (the JAX `_calibrate`, :481-489, :523-532, :557-586). The
-JAX package's 4096/8192-row thresholds choose between two TPU programs;
-here there is one sampler at every batch size. Calibration takes the JAX
+Sampling (:235-298) takes the kernel sampler (``ops/fused_sampler.py``)
+for every model that :func:`~..ops.fused_sampler.supports_fused` accepts
+at guidance 1, with guidance ``generation.guidance_scale`` where the model
+was trained with condition dropout (``cfg_dropout_prob`` > 0) and 1
+otherwise: DDPM over all T steps, or eta = 0 DDIM over
+``generation.sampling_steps``, with the int8 products of
+``generation.fused_quantize``, and a bf16 carry whatever ``sample_dtype``
+says. Every other model (v/epsilon, learned or low-rank sigma, no clip, no
+input skip, normal noise, CFG at guidance != 1) takes the scan sampler
+(``ConditionalDiffusion.scan_sample``/``scan_sample_ddim``) on the same
+device, as the JAX package takes its ``lax.scan`` sampler where it has no
+Pallas kernel. The JAX package's 4096/8192-row thresholds and
+``generation.fused_sampler`` are crossovers measured on a TPU; the port
+decides by configuration alone. ``SAMPLERS`` counts cohorts by route.
+
+A latent-factor model's conditions are widened with draws from a
+Gaussian prior fitted once on the training cohort's encoded latents
+(:165-210). With the D3PM mutation head the model's bits are kept as they
+come out of the sampler; with the AR head the mutation block is drawn by
+``ConditionalDiffusion.ar_sample`` after calibration, conditioned on the
+calibrated continuous block (:376-437), from a generator seeded apart from
+the sampler's. Calibration then reshapes the continuous block only (the
+JAX `_calibrate`, :481-489, :523-532, :557-586). Calibration takes the JAX
 package's decision (``_device_calibration_enabled``, JAX :595-632):
 ``ops/copula_device.py`` on the sampler's device ("auto" on the card at
 256 rows or more, "device" always, up to ``DeviceCalibrator.MAX_ROWS``),
@@ -44,7 +59,7 @@ from ..ops.copula import (
     joint_transplant,
 )
 from ..ops.copula_device import DeviceCalibrator
-from ..ops.fused_sampler import FusedSampler
+from ..ops.fused_sampler import FusedSampler, supports_fused
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
 from ..utils.io import write_matrix_csv
 
@@ -54,6 +69,8 @@ logger = logging.getLogger(__name__)
 # path each cohort took, for callers that drive the generator through the
 # CLI (chip_smoke.py reads it as it reads the kernels' launch counts).
 CALIBRATIONS: Counter = Counter()
+# Cohorts by sampler route ("kernel", "scan") since the last reset.
+SAMPLERS: Counter = Counter()
 
 
 def seeded_generator(*entropy: int) -> torch.Generator:
@@ -81,6 +98,7 @@ class SyntheticPatientGenerator:
         self._joint = None
         self._device_joint_cal: Optional[DeviceCalibrator] = None
         self._device_cont_cal: Optional[DeviceCalibrator] = None
+        self._latent_prior: Optional[tuple] = None
 
     # ------------------------------------------------------------------
     def create_conditions(self, num_samples: int, scenario: Optional[Dict] = None,
@@ -118,9 +136,61 @@ class SyntheticPatientGenerator:
                 self.model, self.device, ddim_steps=steps, quantize=quantize)
         return self._samplers[steps, quantize]
 
+    def guidance(self) -> float:
+        """``generation.guidance_scale`` for a model trained with condition
+        dropout, else 1 (JAX :241-243)."""
+        if self.model.cfg_dropout_prob > 0:
+            return float(self.config.generation.guidance_scale)
+        return 1.0
+
+    def uses_kernels(self) -> bool:
+        """True when cohorts take the kernel sampler: the JAX package's
+        ``supports_fused`` and guidance 1."""
+        return supports_fused(self.model) and self.guidance() == 1.0
+
+    def _latent_prior_draw(self, num_samples: int, generator: torch.Generator) -> torch.Tensor:
+        """(num_samples, k) latent factors on the device from the Gaussian
+        prior fitted once on the training cohort's encoded latents (JAX
+        :165-187): their mean, the biased covariance + 1e-6·I, its Cholesky
+        factor."""
+        if self._latent_prior is None:
+            stats = self.data_stats
+            if stats is None or "data_matrix" not in stats:
+                raise ValueError(
+                    f"This checkpoint was trained with latent_factor_dim="
+                    f"{self.model.latent_factor_dim} but the generator has no "
+                    "data_stats['data_matrix'] to fit the latent prior on. Pass the training "
+                    "cohort stats (saved next to the checkpoint as data_stats.npz) to the "
+                    "generator.")
+            real = torch.as_tensor(np.asarray(stats["data_matrix"], np.float32),
+                                   device=self.device)
+            with torch.no_grad():
+                h = self.model.encode_latents(real).cpu().numpy()
+            mu = h.mean(axis=0)
+            cov = np.atleast_2d(np.cov(h, rowvar=False, bias=True)) + 1e-6 * np.eye(h.shape[1])
+            self._latent_prior = tuple(
+                torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                for a in (mu, np.linalg.cholesky(cov)))
+            logger.info("Latent-factor prior fitted on %d cohort latents (k=%d)", *h.shape)
+        mu, chol = self._latent_prior
+        z = torch.randn((num_samples, mu.shape[0]), generator=generator, device=generator.device)
+        return mu[None, :] + z.to(self.device) @ chol.T
+
     def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> torch.Tensor:
         """The sampler's (N, D) float32 output, on the sampler's device."""
-        return self.sampler().sample(torch.from_numpy(conditions), generator)
+        cond = torch.from_numpy(conditions)
+        if self.model.latent_factor_dim > 0:
+            cond = torch.cat([cond.to(self.device),
+                              self._latent_prior_draw(cond.shape[0], generator)], dim=1)
+        if self.uses_kernels():
+            SAMPLERS["kernel"] += 1
+            return self.sampler().sample(cond, generator)
+        SAMPLERS["scan"] += 1
+        gen = self.config.generation
+        if gen.sampler == "ddim":
+            return self.model.scan_sample_ddim(cond, generator, gen.sampling_steps,
+                                               self.guidance())
+        return self.model.scan_sample(cond, generator, self.guidance())
 
     def generate(self, num_samples: int, scenario: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
@@ -129,15 +199,20 @@ class SyntheticPatientGenerator:
             generator = torch.Generator().manual_seed(self.config.training.random_seed)
         logger.info("Generating %d synthetic patients...", num_samples)
         conditions = self.create_conditions(num_samples, scenario, generator)
+        ar_generator = None
+        if self.model.ar_head:
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+            ar_generator = seeded_generator(seed, 424_243)
         samples = self.sample_raw(conditions, generator)
-        return self._postprocess(samples, conditions)
+        return self._postprocess(samples, conditions, ar_generator)
 
-    def _postprocess(self, samples: Union[torch.Tensor, np.ndarray],
-                     conditions: np.ndarray) -> Dict[str, np.ndarray]:
+    def _postprocess(self, samples: Union[torch.Tensor, np.ndarray], conditions: np.ndarray,
+                     ar_generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
         """Calibrate (per config) and split a raw sample matrix, a host array
         or a tensor on the device. It goes to where calibration reads it,
         once: to the device when the device path calibrates it, else to the
-        host."""
+        host. With the AR head the mutation block is then drawn from
+        ``ar_generator`` (JAX :376-386)."""
         on_device = self._device_calibration_enabled(samples.shape[0])
         if on_device:
             samples = torch.as_tensor(samples, dtype=torch.float32).to(self.device)
@@ -155,12 +230,33 @@ class SyntheticPatientGenerator:
         else:
             mutations = (samples[:, :m] > 0.5).astype(np.float32)
             continuous = samples[:, m:]
+        if self.model.ar_head and m > 0 and samples.shape[0] > 0:
+            mutations = self._ar_bits(continuous, conditions, ar_generator)
         return {
             "mutations": mutations,
             "expression": continuous[:, :e],
             "pathways": continuous[:, e:],
             "conditions": np.asarray(conditions),
         }
+
+    def _ar_bits(self, continuous: np.ndarray, conditions: np.ndarray,
+                 generator: Optional[torch.Generator]) -> np.ndarray:
+        """The AR head's bits on the device, conditioned on the columns of
+        the continuous block its context reads (JAX :396-437); without a
+        ``generator``, from one seeded by ``training.random_seed``."""
+        model = self.model
+        if model.ar_context == "pathways" and model.pathway_dim > 0:
+            ctx = continuous[:, -model.pathway_dim:]
+        elif model.ar_context == "none":
+            ctx = continuous[:, :0]
+        else:
+            ctx = continuous
+        if generator is None:
+            generator = seeded_generator(self.config.training.random_seed, 424_243)
+        bits = model.ar_sample(
+            torch.as_tensor(np.ascontiguousarray(ctx, np.float32), device=self.device),
+            torch.as_tensor(np.asarray(conditions, np.float32), device=self.device), generator)
+        return bits.cpu().numpy()
 
     def _calibrate(self, samples: np.ndarray, m: int, mode: str):
         """Marginal (and joint, for the copula modes) calibration against
@@ -198,11 +294,13 @@ class SyntheticPatientGenerator:
         return mutations, self._quantile_map_continuous(cont.cpu().numpy(), m, mode)
 
     def _joint_branch(self, mode: str, n: int, m: int) -> bool:
-        """Every precondition of the joint copula: no D3PM head, more than
-        one gene, the real mutation block and cohort, more than two rows."""
+        """Every precondition of the joint copula: no D3PM or AR head, more
+        than one gene, the real mutation block and cohort, more than two
+        rows."""
         stats = self.data_stats
         return (mode == "copula_joint" and not self.model.discrete_head
-                and "mutation_matrix" in stats and "data_matrix" in stats and n > 2 and m > 1)
+                and not self.model.ar_head and "mutation_matrix" in stats
+                and "data_matrix" in stats and n > 2 and m > 1)
 
     def _cont_branch(self, mode: str, shape) -> bool:
         return (mode in ("copula_full", "copula_joint") and "data_matrix" in self.data_stats
@@ -223,10 +321,11 @@ class SyntheticPatientGenerator:
 
     def _host_mutations(self, raw_mut: np.ndarray, m: int, mode: str) -> np.ndarray:
         """The mutation block outside the joint copula, on the host: the
-        D3PM head's bits as they are, the tetrachoric transplant, or
-        per-gene quantile thresholds."""
+        D3PM head's bits as they are, the thresholded scores that the AR
+        head's draw replaces, the tetrachoric transplant, or per-gene
+        quantile thresholds."""
         stats = self.data_stats
-        if self.model.discrete_head:
+        if self.model.discrete_head or self.model.ar_head:
             return (raw_mut > 0.5).astype(np.float32)
         if (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
                 and raw_mut.shape[0] > 2 and m > 1):
@@ -338,7 +437,7 @@ class SyntheticPatientGenerator:
         logger.info("Generating %d synthetic patients (%d scenarios in one batch)...",
                     conds.shape[0], len(scenarios))
         samples = self.sample_raw(conds, seeded_generator(seed, 10_000))
-        combined = self._postprocess(samples, conds)
+        combined = self._postprocess(samples, conds, seeded_generator(seed, 10_001))
         results = {}
         for i, scenario in enumerate(scenarios):
             sl = slice(i * samples_per_scenario, (i + 1) * samples_per_scenario)

@@ -1,36 +1,46 @@
-"""Conditional DDPM over the flat patient vector (the slice's model).
+"""Conditional DDPM over the flat patient vector.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/models/diffusion.py
-`ConditionalDiffusion` for the configurations the port trains and
-samples: x0 parameterization, predicted x0 clipped to +-30, uniform
-U(-sqrt3, sqrt3) in-loop noise (`_step_noise`, :451), a bf16 carry, DDPM
-(`sample`, :752) and eta = 0 DDIM (`sample_ddim`, :942), with or without
-the binary D3PM mutation head (`discrete_head`, :151, :308-311).
+`ConditionalDiffusion`, with every variant of the diffusion architecture:
+the x0, epsilon and v parameterizations, learned and low-rank sigma,
+latent-factor conditioning, classifier-free guidance, the binary D3PM
+mutation head (`discrete_head`, :151, :308-311) and the AR (FVSBN)
+mutation head (`ar_sample`, :373-408).
 
 :meth:`ConditionalDiffusion.loss` is the training objective (`loss`,
-:481-705): the l1/l2/huber x0 loss on the continuous block (optionally
-block-balanced), the D3PM head's BCE on the mutation bits, and the four
-constraint losses on the predicted x0. Its random draws (t, the Gaussian
-noise, the bit-flip uniforms) come from a ``torch.Generator`` or are
+:481-705): the l1/l2/huber loss on the continuous block against the
+parameterization's target (optionally block-balanced), the D3PM head's
+BCE, the AR head's teacher-forced CE with its two L2 terms, the
+learned-sigma and low-rank-sigma NLLs on a detached mean, the latent
+factors' pull, CFG condition dropout, and the four constraint losses on
+the predicted x0. Its random draws (t, the Gaussian noise, the bit-flip
+uniforms, the CFG keep uniforms) come from a ``torch.Generator`` or are
 passed in, so a test can feed it the JAX key's draws.
 
-:meth:`ConditionalDiffusion.sample` and :meth:`sample_ddim` are plain
-PyTorch loops over the ``nn.Module`` denoiser: the plain version of the
-whole kernel sampler (``ops/fused_sampler.py``), with the same tables,
-the same bf16 carry (f32 arithmetic, one bf16 rounding per step), the
-same D3PM algebra (denoiser input 2b - 1 on the mutation columns, the
-clip on the continuous columns only, bits drawn from the step's
-uniforms) and the same ``x_init``/``noise`` seams. ``quantize`` routes
-the products that the mode marks through the plain versions of K5/K6,
-the TPU's int8 ``mm`` (:327-350). Other configurations raise
-NotImplementedError.
+Two families of samplers:
+
+- :meth:`sample` and :meth:`sample_ddim` are plain PyTorch loops over the
+  ``nn.Module`` denoiser: the plain version of the whole kernel sampler
+  (``ops/fused_sampler.py``), for the models it accepts
+  (:func:`~..ops.fused_sampler.supports_fused`): x0, the x0 clip, the
+  input skip, uniform U(-sqrt3, sqrt3) noise, no sigma head. Same tables,
+  same bf16 carry (f32 arithmetic, one bf16 rounding per step), same
+  D3PM algebra, same ``x_init``/``noise`` seams; ``quantize`` routes the
+  marked products through the plain versions of K5/K6.
+- :meth:`scan_sample` and :meth:`scan_sample_ddim` follow the JAX
+  package's ``lax.scan`` samplers (`sample`, :752-937; `sample_ddim`,
+  :942-1063) step by step, for every configuration: the JAX package runs
+  them where it runs no Pallas kernel (v/epsilon, learned or low-rank
+  sigma, no clip, no input skip, normal noise, CFG at guidance != 1), and
+  so does the port's generator. They are ordinary PyTorch ops on the
+  model's device; every draw can be passed in (``draws``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -43,16 +53,19 @@ from ..ops.fused_sampler import (
     int8_parts,
     quant_flags,
     reverse_timesteps,
+    supports_fused,
     x_prior,
 )
 from ..ops.sampler_kernels import gemm_s8_plain, mutation_transform, rowquant_s8_plain
-from ..ops.schedules import DiffusionSchedule
+from ..ops.schedules import DiffusionSchedule, ddim_timesteps
 from .constraints import ConstraintSpec, SpecTensors, constraint_losses
 from .networks import DiffusionDenoiser, sinusoid
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANTIZE_MODES = ("none", "out", "io", "all")
 LOSS_TYPES = ("l1", "l2", "huber")
+AR_CONTEXTS = ("pathways", "continuous", "none")
+UNIFORM_SCALE = math.sqrt(3.0)
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -62,10 +75,21 @@ def _unsupported(what: str) -> NotImplementedError:
     )
 
 
+def finetune_skipped(config: Config, dims: FrozenDims) -> bool:
+    """True where the JAX CLI skips an enabled sample-path fine-tuning
+    (cli.py:195-225 there): the D3PM, latent-factor and AR heads."""
+    dc, m = config.model.diffusion, dims.mutation_dim
+    return bool((dc.discrete_mutation_head and m) or dc.latent_factor_dim > 0
+                or (dc.ar_mutation_head and m))
+
+
 def check_supported(config: Config, dims: FrozenDims, training: bool = False) -> None:
-    """Raise for every configuration outside the slice the port implements,
-    and ValueError for an unknown ``generation.fused_quantize``, loss type
-    or block weighting. ``training`` adds the training section's checks."""
+    """Raise NotImplementedError for the configurations the port does not
+    implement (the cVAE, flow and GNN architectures, samplers other than
+    ddpm/ddim; with ``training``, cross-cancer pretraining, sample-path
+    fine-tuning where the JAX CLI would run it, several devices), and
+    ValueError for an unknown ``generation.fused_quantize``, loss type,
+    block weighting, compute dtype or carry dtype."""
     mc, dc, gen = config.model, config.model.diffusion, config.generation
     if gen.fused_quantize not in QUANTIZE_MODES + (None,):
         raise ValueError(f"generation.fused_quantize must be one of {QUANTIZE_MODES}, "
@@ -80,32 +104,47 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False) ->
         for bad, what in [
             (aug.cross_cancer_pretrain and bool(aug.pretrain_datasets),
              "cross-cancer pretraining"),
-            (tc.sample_path_finetune.enabled, "sample-path fine-tuning"),
+            (tc.sample_path_finetune.enabled and not finetune_skipped(config, dims),
+             "sample-path fine-tuning"),
             ((tc.num_devices or 1) > 1, "data-parallel training over several devices"),
         ]:
             if bad:
                 raise _unsupported(what)
     if mc.architecture != "diffusion":
         raise _unsupported(f"architecture {mc.architecture!r}")
-    if dc.parameterization != "x0":
-        raise _unsupported(f"parameterization {dc.parameterization!r}")
-    checks = [
-        (dc.learn_sigma, "learned sigma"),
-        (dc.low_rank_sigma_dim > 0, "low-rank sigma"),
-        (dc.latent_factor_dim > 0, "latent-factor conditioning"),
-        (dc.ar_mutation_head and dims.mutation_dim > 0, "the AR mutation head"),
-        (mc.cfg_dropout_prob > 0, "classifier-free guidance"),
-        (not dc.clip_denoised, "sampling without the x0 clip"),
-        (not mc.denoiser_input_skip, "a denoiser without the input skip"),
-        (gen.noise_type != "uniform", f"noise_type {gen.noise_type!r}"),
-        (gen.sampler not in ("ddpm", "ddim"), f"sampler {gen.sampler!r}"),
-        (gen.sample_dtype != "bfloat16", f"a {gen.sample_dtype!r} sampler carry"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise _unsupported(what)
-    if mc.compute_dtype not in _DTYPES:
-        raise ValueError(f"unknown compute_dtype {mc.compute_dtype!r}")
+    if gen.sampler not in ("ddpm", "ddim"):
+        raise _unsupported(f"sampler {gen.sampler!r}")
+    for what, value in (("compute_dtype", mc.compute_dtype),
+                        ("generation.sample_dtype", gen.sample_dtype)):
+        if value not in _DTYPES:
+            raise ValueError(f"unknown {what} {value!r}")
+
+
+def check_variants(config: Config, dims: FrozenDims) -> None:
+    """The JAX package's conflicts between heads (`from_config`, :192-240
+    there), each a ValueError."""
+    dc, m = config.model.diffusion, dims.mutation_dim
+    if dc.parameterization not in ("x0", "epsilon", "v"):
+        raise ValueError(f"Unknown diffusion.parameterization {dc.parameterization!r}; "
+                         "expected x0|epsilon|v")
+    if dc.low_rank_sigma_dim > 0 and dc.learn_sigma:
+        raise ValueError("low_rank_sigma_dim and learn_sigma are mutually exclusive "
+                         "residual-sigma channels")
+    mutation_scoped = dc.low_rank_sigma_dim > 0 and dc.low_rank_sigma_scope == "mutations"
+    if mutation_scoped and dc.discrete_mutation_head and m > 0:
+        raise ValueError("low_rank_sigma_scope='mutations' is incompatible with "
+                         "discrete_mutation_head: the discrete head removes the mutation "
+                         "rows from the Gaussian residual channel")
+    if dc.ar_mutation_head and dc.discrete_mutation_head:
+        raise ValueError("ar_mutation_head and discrete_mutation_head are mutually exclusive "
+                         "owners of the mutation block")
+    if mutation_scoped and dc.ar_mutation_head and m > 0:
+        raise ValueError("low_rank_sigma_scope='mutations' is incompatible with "
+                         "ar_mutation_head: the AR head replaces the sampled mutation scores, "
+                         "voiding the correlated-noise channel")
+    if dc.ar_context not in AR_CONTEXTS:
+        raise ValueError(f"Unknown diffusion.ar_context {dc.ar_context!r}; "
+                         "expected pathways|continuous|none")
 
 
 def _int8_product(x: torch.Tensor, parts: List[tuple], bias: torch.Tensor) -> torch.Tensor:
@@ -129,6 +168,43 @@ def _elementwise_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str) 
         err = torch.abs(pred - target)
         return torch.where(err <= 1.0, 0.5 * err**2, err - 0.5)
     raise ValueError(f"Unknown loss_type: {loss_type}")
+
+
+def _f32_table(values, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(values, np.float32), device=device)
+
+
+class _Draws:
+    """The scan samplers' random draws: the tensor under a name in
+    ``given`` (a whole array, or its row ``step``), else a fresh draw on
+    ``device``. A ``generator`` on another device seeds one there, so the
+    per-step draws never cross from the host."""
+
+    def __init__(self, given: Optional[Mapping[str, torch.Tensor]],
+                 generator: Optional[torch.Generator], device):
+        self.given = dict(given or {})
+        self.device = torch.device(device)
+        if generator is not None and generator.device != self.device:
+            seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = generator
+
+    def __call__(self, name: str, kind: str, shape, dtype=torch.float32,
+                 step: Optional[int] = None) -> torch.Tensor:
+        """``kind``: "normal", "uniform" (U(-sqrt3, sqrt3)) or "unit" (U[0, 1))."""
+        if name in self.given:
+            value = self.given[name] if step is None else self.given[name][step]
+            return value.to(self.device, dtype)
+        if self.generator is None:
+            raise ValueError(f"no generator and no {name!r} draws given")
+        g = self.generator
+        if kind == "normal":
+            value = torch.randn(shape, generator=g, device=self.device)
+        else:
+            value = torch.rand(shape, generator=g, device=self.device)
+            if kind == "uniform":
+                value = (value * 2.0 - 1.0) * UNIFORM_SCALE
+        return value.to(dtype)
 
 
 @dataclass
@@ -159,6 +235,27 @@ class ConditionalDiffusion:
     mutation_expression_weight: float = 0.0
     mutual_exclusivity_weight: float = 0.0
     cooccurrence_weight: float = 0.0
+    # The variants (see DiffusionConfig and the JAX dataclass).
+    parameterization: str = "x0"
+    clip_denoised: bool = True
+    learn_sigma: bool = False
+    sigma_loss_weight: float = 1.0
+    low_rank_sigma_dim: int = 0
+    low_rank_sigma_weight: float = 1.0
+    latent_factor_dim: int = 0
+    latent_encoder_input: str = "full"
+    cfg_dropout_prob: float = 0.0
+    # The scan samplers' carry dtype and step noise (the kernel sampler's
+    # carry is bf16 and its noise uniform whatever these say).
+    sample_dtype: str = "bfloat16"
+    noise_type: str = "uniform"
+    ar_head: bool = False
+    ar_context: str = "pathways"
+    ar_ce_weight: float = 1.0
+    ar_l2: float = 1e-5
+    ar_ctx_l2: float = 1e-2
+    ar_lr: float = 1e-2
+    pathway_dim: int = 0
 
     @staticmethod
     def from_config(config: Config, dims: FrozenDims,
@@ -166,20 +263,37 @@ class ConditionalDiffusion:
         """The model of ``config``; its denoiser is in eval mode (no
         dropout), the mode every sampler runs it in."""
         check_supported(config, dims)
-        mc = config.model
+        check_variants(config, dims)
+        mc, dc = config.model, config.model.diffusion
+        m = dims.mutation_dim
+        ar_on = bool(dc.ar_mutation_head and m > 0)
+        if dc.ar_context == "pathways":
+            ar_context_dim = dims.pathway_dim + dims.condition_dim
+        elif dc.ar_context == "continuous":
+            ar_context_dim = dims.data_dim - m + dims.condition_dim
+        else:
+            ar_context_dim = dims.condition_dim
         denoiser = DiffusionDenoiser(
             data_dim=dims.data_dim,
-            condition_dim=dims.condition_dim,
+            condition_dim=dims.condition_dim + dc.latent_factor_dim,
             time_dim=mc.latent_dim,
             condition_embed_dim=mc.latent_dim // 2,
             hidden_dims=tuple(mc.hidden_dims),
             compute_dtype=_DTYPES[mc.compute_dtype],
             input_skip=mc.denoiser_input_skip,
             dropout=mc.gnn.dropout,
+            learn_sigma=dc.learn_sigma,
+            latent_factor_dim=dc.latent_factor_dim,
+            latent_input_dim=m if dc.latent_encoder_input == "mutations" and m else 0,
+            low_rank_sigma_dim=dc.low_rank_sigma_dim,
+            low_rank_sigma_steps=dc.num_steps,
+            low_rank_sigma_rows=m if dc.low_rank_sigma_scope == "mutations" else 0,
+            ar_head_dim=m if ar_on else 0,
+            ar_context_dim=ar_context_dim,
+            ar_context_hidden=dc.ar_context_hidden,
         ).eval()
-        schedule = DiffusionSchedule.create(mc.diffusion.beta_schedule, mc.diffusion.num_steps)
         feature_weights = None
-        if mc.diffusion.block_loss_weighting == "balanced":
+        if dc.block_loss_weighting == "balanced":
             blocks = [dims.mutation_dim, dims.expression_dim, dims.pathway_dim]
             feature_weights = np.concatenate([
                 np.full(b, dims.data_dim / (len(blocks) * b), np.float32) for b in blocks if b > 0
@@ -191,18 +305,105 @@ class ConditionalDiffusion:
             return float(w) if use_constraints else 0.0
 
         return ConditionalDiffusion(
-            denoiser, schedule, float(mc.diffusion.denoised_clip_value),
-            discrete_head=bool(mc.diffusion.discrete_mutation_head and dims.mutation_dim > 0),
-            mutation_dim=dims.mutation_dim,
-            loss_type=mc.diffusion.loss_type,
-            discrete_ce_weight=float(mc.diffusion.discrete_ce_weight),
+            denoiser, DiffusionSchedule.create(dc.beta_schedule, dc.num_steps),
+            float(dc.denoised_clip_value),
+            discrete_head=bool(dc.discrete_mutation_head and m > 0),
+            mutation_dim=m,
+            loss_type=dc.loss_type,
+            discrete_ce_weight=float(dc.discrete_ce_weight),
             feature_loss_weights=feature_weights,
             constraint_spec=constraint_spec if use_constraints else None,
             pathway_coherence_weight=weight(cc.pathway_coherence_weight),
             mutation_expression_weight=weight(cc.mutation_expression_weight),
             mutual_exclusivity_weight=weight(cc.gene_network_weight),
             cooccurrence_weight=weight(cc.cooccurrence_weight),
+            parameterization=dc.parameterization,
+            clip_denoised=bool(dc.clip_denoised),
+            learn_sigma=bool(dc.learn_sigma),
+            sigma_loss_weight=float(dc.sigma_loss_weight),
+            low_rank_sigma_dim=int(dc.low_rank_sigma_dim),
+            low_rank_sigma_weight=float(dc.low_rank_sigma_weight),
+            latent_factor_dim=int(dc.latent_factor_dim),
+            latent_encoder_input=dc.latent_encoder_input,
+            cfg_dropout_prob=float(mc.cfg_dropout_prob),
+            sample_dtype=config.generation.sample_dtype,
+            noise_type=config.generation.noise_type,
+            ar_head=ar_on,
+            ar_context=dc.ar_context,
+            ar_ce_weight=float(dc.ar_ce_weight),
+            ar_l2=float(dc.ar_l2),
+            ar_ctx_l2=float(dc.ar_ctx_l2),
+            ar_lr=float(dc.ar_lr),
+            pathway_dim=dims.pathway_dim,
         )
+
+    # ------------------------------------------------------------------
+    # Heads
+    # ------------------------------------------------------------------
+    def _latent_encoder_view(self, x0: torch.Tensor) -> torch.Tensor:
+        if self.latent_encoder_input == "mutations" and self.mutation_dim:
+            return x0[:, : self.mutation_dim]
+        return x0
+
+    def encode_latents(self, x0: torch.Tensor) -> torch.Tensor:
+        """Full patient vectors (B, D) -> latent factors (B, k), through the
+        configured encoder view (whole vector or mutation block)."""
+        return self.denoiser.encode_latent(self._latent_encoder_view(x0))
+
+    def _ar_context_view(self, continuous: torch.Tensor, conditions: torch.Tensor) -> torch.Tensor:
+        """What the AR head conditions on: the pathway block (or the whole
+        continuous block, or nothing) beside the clinical conditions.
+        ``continuous`` is the (B, D - M) block, or just its last columns
+        where only the pathways are read."""
+        if self.ar_context == "pathways" and self.pathway_dim > 0:
+            view = continuous[:, -self.pathway_dim:]
+        elif self.ar_context == "continuous":
+            view = continuous
+        else:
+            return conditions.float()
+        return torch.cat([view.float(), conditions.float()], dim=1)
+
+    @torch.no_grad()
+    def ar_sample(self, continuous: torch.Tensor, conditions: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sequential FVSBN draw of the (B, M) mutation bits on the
+        denoiser's device, conditioned on ``continuous`` (the calibrated
+        continuous block, or its pathway columns) and the clinical
+        ``conditions``. Gene i's bits are ``u[:, i] < sigmoid(logit_i)``
+        with ``uniforms`` (B, M), or uniforms drawn from ``generator``; the
+        loop-invariant context logits are computed once."""
+        d = self.denoiser
+        dev = d.ar_bias.device
+        ctx = self._ar_context_view(continuous.to(dev), conditions.to(dev))
+        ctx_logits = d.ar_context_logits(ctx)
+        w = torch.tril(d.ar_coupling, -1)
+        batch, M = ctx.shape[0], self.mutation_dim
+        if uniforms is None:
+            uniforms = torch.rand((batch, M), generator=generator, device=generator.device)
+        u = uniforms.to(dev, torch.float32)
+        bits = torch.zeros((batch, M), dtype=torch.float32, device=dev)
+        base = ctx_logits + d.ar_bias
+        for i in range(M):
+            logit = bits @ w[i] + base[:, i]
+            bits[:, i] = (u[:, i] < torch.sigmoid(logit)).float()
+        return bits
+
+    def _lowrank_params(self):
+        """(U, log_diag, log_s); U zero-padded to the full width when the
+        loadings are scoped to the mutation block."""
+        U, logdiag, logs = self.denoiser.lowrank_sigma()
+        D = self.denoiser.data_dim
+        if U.shape[0] < D:
+            U = torch.cat([U, U.new_zeros(D - U.shape[0], U.shape[1])], dim=0)
+        return U, logdiag, logs
+
+    def _split_sigma(self, pred: torch.Tensor):
+        """(prediction, log-variance or None)."""
+        if not self.learn_sigma:
+            return pred, None
+        D = self.denoiser.data_dim
+        return pred[:, :D], pred[:, D:]
 
     # ------------------------------------------------------------------
     # Training
@@ -211,14 +412,12 @@ class ConditionalDiffusion:
         cached = getattr(self, "_tables", None)
         if cached is None or cached.sqrt_acp.device != device:
             sch = self.schedule
-
-            def f32(a):
-                return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
             cached = _LossTables(
-                f32(sch.sqrt_alphas_cumprod), f32(sch.sqrt_one_minus_alphas_cumprod),
-                f32(sch.alphas_cumprod),
-                None if self.feature_loss_weights is None else f32(self.feature_loss_weights),
+                _f32_table(sch.sqrt_alphas_cumprod, device),
+                _f32_table(sch.sqrt_one_minus_alphas_cumprod, device),
+                _f32_table(sch.alphas_cumprod, device),
+                None if self.feature_loss_weights is None
+                else _f32_table(self.feature_loss_weights, device),
                 None if self.constraint_spec is None else self.constraint_spec.tensors(device),
             )
             self._tables = cached
@@ -229,30 +428,53 @@ class ConditionalDiffusion:
         tables = self._loss_tables(x0.device)
         return tables.sqrt_acp[t][:, None] * x0 + tables.sqrt_om[t][:, None] * noise
 
+    def _predict_x0(self, pred, x_t, sqrt_acp, sqrt_om, inv_sqrt_acp=None):
+        """x0 from the prediction under the parameterization (epsilon's
+        1/sqrt(acp) as a product with ``inv_sqrt_acp`` where given, as the
+        JAX DDPM scan computes it)."""
+        if self.parameterization == "x0":
+            return pred
+        if self.parameterization == "v":
+            return sqrt_acp * x_t - sqrt_om * pred
+        if inv_sqrt_acp is not None:
+            return (x_t - sqrt_om * pred) * inv_sqrt_acp
+        return (x_t - sqrt_om * pred) / sqrt_acp
+
     def loss(self, x0: torch.Tensor, conditions: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-             bit_uniforms: Optional[torch.Tensor] = None, train: bool = False):
+             bit_uniforms: Optional[torch.Tensor] = None,
+             cfg_uniforms: Optional[torch.Tensor] = None,
+             ar_x0: Optional[torch.Tensor] = None,
+             ar_conditions: Optional[torch.Tensor] = None, train: bool = False):
         """(total loss, metrics) on a clean batch ``x0`` (B, D) under
-        ``conditions`` (B, C). ``t`` (B,) int, ``noise`` (B, D - M) and
-        ``bit_uniforms`` (B, M) replace the draws from ``generator``
-        (on ``x0``'s device); ``train`` turns dropout on for this call.
-        The metrics are 0-dim tensors: ``diffusion_loss``, ``mutation_ce``
-        (D3PM head), the four constraint terms (with a spec), ``loss``
-        and ``sel_loss`` (the selection loss; equal to ``loss`` here, as
-        the port has no AR head)."""
+        ``conditions`` (B, C). ``t`` (B,) int, ``noise`` (B, D - M),
+        ``bit_uniforms`` (B, M) and ``cfg_uniforms`` (B, 1) (CFG keeps a
+        row's conditions where its uniform is >= ``cfg_dropout_prob``)
+        replace the draws from ``generator`` (on ``x0``'s device); ``train``
+        turns dropout on for this call. ``ar_x0``/``ar_conditions``: the
+        rows the AR head's CE reads (the batch before augmentation; default
+        ``x0``/``conditions``). The metrics are 0-dim tensors:
+        ``diffusion_loss``, ``latent_sq``, ``mutation_ce`` (D3PM head),
+        ``ar_ce``, ``sigma_nll``, ``lowrank_sigma_nll``, the four constraint
+        terms (with a spec), ``loss`` and ``sel_loss`` (the loss without the
+        AR head's terms, which best model, early stopping and the plateau
+        schedule follow)."""
         tables = self._loss_tables(x0.device)
         batch = x0.shape[0]
         M = self.mutation_dim if self.discrete_head else 0
         T = self.schedule.num_steps
         dev = x0.device
+        d = self.denoiser
+        clin_conditions = conditions
         if t is None:
             t = torch.randint(0, T, (batch,), generator=generator, device=dev)
         t = t.to(dev, torch.int64)
         mut0, cont0 = x0[:, :M], x0[:, M:]
         if noise is None:
             noise = torch.randn(cont0.shape, generator=generator, device=dev)
-        cont_t = self.q_sample(cont0, t, noise.to(dev, torch.float32))
+        noise = noise.to(dev, torch.float32)
+        cont_t = self.q_sample(cont0, t, noise)
         if M:
             mut_t = q_sample_bits(mut0, tables.acp[t], generator, bit_uniforms)
             x_t = torch.cat([2.0 * mut_t - 1.0, cont_t], dim=1)
@@ -260,29 +482,98 @@ class ConditionalDiffusion:
             x_t = cont_t
         t_norm = t.to(torch.float32) / T
 
-        d = self.denoiser
         was_training = d.training
         d.train(train)
         try:
+            if self.latent_factor_dim > 0:
+                # Factors of the clean vector, appended before the CFG
+                # dropout so the unconditional score drops them too.
+                h = self.encode_latents(x0)
+                latent_sq = torch.mean(h * h)
+                conditions = torch.cat([conditions, h], dim=1)
+            if self.cfg_dropout_prob > 0:
+                if cfg_uniforms is None:
+                    cfg_uniforms = torch.rand((batch, 1), generator=generator, device=dev)
+                keep = (cfg_uniforms.to(dev) >= self.cfg_dropout_prob).to(conditions.dtype)
+                conditions = conditions * keep
             pred = d(x_t, t_norm, conditions=conditions)
         finally:
             d.train(was_training)
+        pred, logvar = self._split_sigma(pred)
         mut_logits = pred[:, :M]
         cont_pred = pred[:, M:] if M else pred
 
-        err = _elementwise_loss(cont_pred, cont0, self.loss_type)
+        sqrt_acp = tables.sqrt_acp[t][:, None]
+        sqrt_om = tables.sqrt_om[t][:, None]
+        if self.parameterization == "x0":
+            target = cont0
+        elif self.parameterization == "v":
+            target = sqrt_acp * noise - sqrt_om * cont0
+        else:
+            target = noise
+        err = _elementwise_loss(cont_pred, target, self.loss_type)
         if tables.feature_weights is not None:
             err = err * tables.feature_weights[None, M:]
         mse = err.mean()
         metrics: Dict[str, torch.Tensor] = {"diffusion_loss": mse}
         total = mse
+        if self.latent_factor_dim > 0:
+            metrics["latent_sq"] = latent_sq
+            total = total + 1e-3 * latent_sq
         if M:
             ce = bernoulli_cross_entropy(mut_logits, mut0).mean()
             metrics["mutation_ce"] = ce
             total = total + self.discrete_ce_weight * ce
+        ar_term = None
+        if self.ar_head and self.mutation_dim > 0:
+            Ma = self.mutation_dim
+            src = x0 if ar_x0 is None else ar_x0.to(dev)
+            cond = clin_conditions if ar_conditions is None else ar_conditions.to(dev)
+            logits = d.ar_logits(src[:, :Ma], self._ar_context_view(src[:, Ma:], cond))
+            ar_ce = bernoulli_cross_entropy(logits, src[:, :Ma]).mean()
+            metrics["ar_ce"] = ar_ce
+            ar_term = self.ar_ce_weight * ar_ce
+            if self.ar_l2 > 0:
+                ar_term = ar_term + self.ar_l2 * torch.sum(torch.tril(d.ar_coupling, -1) ** 2)
+            if self.ar_ctx_l2 > 0:
+                ar_term = ar_term + self.ar_ctx_l2 * (
+                    torch.sum(d.ar_ctx_fc1.weight ** 2) + torch.sum(d.ar_ctx_fc2.weight ** 2))
+            total = total + ar_term
+
+        x0_pred = cont_x0_pred = None
+        if self.constraint_spec is not None or logvar is not None or self.low_rank_sigma_dim:
+            cont_x0_pred = self._predict_x0(cont_pred, cont_t, sqrt_acp, sqrt_om)
+            x0_pred = (torch.cat([torch.sigmoid(mut_logits), cont_x0_pred], dim=1) if M
+                       else cont_x0_pred)
+        if logvar is not None:
+            # Gaussian NLL of the x0 residual against a detached mean.
+            logvar_c = logvar[:, M:]
+            resid = cont0 - cont_x0_pred.detach()
+            nll = 0.5 * torch.mean(logvar_c + resid**2 * torch.exp(-logvar_c))
+            metrics["sigma_nll"] = nll
+            total = total + self.sigma_loss_weight * nll
+        if self.low_rank_sigma_dim:
+            # Woodbury NLL under s(t)^2 (diag(d) + U U^T), detached mean;
+            # logged per feature, added at the joint scale.
+            U, logdiag, logs = self._lowrank_params()
+            k = self.low_rank_sigma_dim
+            Uc = U[M:] if M else U
+            dg = torch.exp(logdiag[M:] if M else logdiag)
+            resid = cont0 - cont_x0_pred.detach()
+            r = resid / torch.exp(logs[t])[:, None]
+            w = r / dg
+            p = w @ Uc
+            cap = torch.eye(k, device=dev) + (Uc / dg[:, None]).T @ Uc
+            chol = torch.linalg.cholesky(cap)
+            sol = torch.cholesky_solve(p.T, chol).T
+            quad = torch.sum(r * w, dim=1) - torch.sum(p * sol, dim=1)
+            Dc = r.shape[1]
+            logdet = (torch.sum(torch.log(dg)) + 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+                      + 2.0 * Dc * logs[t])
+            nll = 0.5 * torch.mean(logdet + quad)
+            metrics["lowrank_sigma_nll"] = nll / Dc
+            total = total + self.low_rank_sigma_weight * nll
         if self.constraint_spec is not None:
-            # x0 parameterization: the continuous prediction is x0.
-            x0_pred = torch.cat([torch.sigmoid(mut_logits), cont_pred], dim=1) if M else cont_pred
             terms = constraint_losses(x0_pred, self.constraint_spec, tables.spec)
             metrics.update(terms)
             total = (total
@@ -291,7 +582,7 @@ class ConditionalDiffusion:
                      + self.mutual_exclusivity_weight * terms["mutual_exclusivity"]
                      + self.cooccurrence_weight * terms["cooccurrence"])
         metrics["loss"] = total
-        metrics["sel_loss"] = total
+        metrics["sel_loss"] = total if ar_term is None else total - ar_term
         return total, metrics
 
     # ------------------------------------------------------------------
@@ -354,6 +645,9 @@ class ConditionalDiffusion:
 
     def _loop(self, conditions, generator, ddim_steps, x_init, noise,
               bit_uniforms=None, quantize=None) -> torch.Tensor:
+        if not supports_fused(self):
+            raise ValueError("the kernel sampler's plain loop does not take this model; "
+                             "use scan_sample / scan_sample_ddim")
         d = self.denoiser
         dev = next(d.parameters()).device
         T = self.schedule.num_steps
@@ -419,3 +713,197 @@ class ConditionalDiffusion:
         (n_steps, B, M) replaces the draws from ``generator``."""
         return self._loop(conditions, generator, num_sampling_steps, x_init, None,
                           bit_uniforms, quantize)
+
+    # ------------------------------------------------------------------
+    # The scan samplers (the JAX package's lax.scan samplers)
+    # ------------------------------------------------------------------
+    def _denoise_fn(self, conditions: torch.Tensor, guidance_scale: float) -> Callable:
+        """The per-step denoiser with the condition projection hoisted; CFG
+        runs the conditional and the unconditional pass as one doubled
+        batch and guides the prediction only (a learned log-variance is
+        the conditional branch's)."""
+        d = self.denoiser
+        c_proj = d.embed_conditions(conditions)
+        if guidance_scale == 1.0:
+            return lambda x, t: d(x, t, c_proj=c_proj)
+        both = torch.cat([c_proj, d.embed_conditions(torch.zeros_like(conditions))])
+        D = d.data_dim
+
+        def denoise_cfg(x, t):
+            cond, uncond = d(torch.cat([x, x]), torch.cat([t, t]), c_proj=both).chunk(2)
+            if self.learn_sigma:
+                mean_u = uncond[:, :D]
+                return torch.cat([mean_u + guidance_scale * (cond[:, :D] - mean_u), cond[:, D:]],
+                                 dim=-1)
+            return uncond + guidance_scale * (cond - uncond)
+
+        return denoise_cfg
+
+    def _x_prior(self, draw: _Draws, batch: int, M: int, dtype) -> torch.Tensor:
+        """x_T (``draws["x_T"]``, (B, D)): Gaussian in ``dtype``, with
+        Bernoulli(1/2) bits on the first M columns."""
+        if "x_T" in draw.given:
+            return draw.given["x_T"].to(draw.device, dtype)
+        x = draw("x_T", "normal", (batch, self.denoiser.data_dim - M), dtype)
+        if not M:
+            return x
+        bits = (draw("x_T_bits", "unit", (batch, M)) < 0.5).to(dtype)
+        return torch.cat([bits, x], dim=1)
+
+    def _clip(self, x0: torch.Tensor) -> torch.Tensor:
+        if self.clip_denoised:
+            return torch.clamp(x0, -self.clip_value, self.clip_value)
+        return x0
+
+    @torch.no_grad()
+    def scan_sample(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None,
+                    guidance_scale: float = 1.0,
+                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Ancestral DDPM over all T steps, as JAX ``sample`` (:752-937): steps
+        T-1 .. 1 in a loop with transition noise, then t = 0 outside it
+        (the clipped x0 prediction, plus learned sigma's residual or low-rank
+        sigma's draw, and the D3PM bits from the predicted x0). The carry is
+        stored in ``sample_dtype`` and each step's arithmetic runs in f32
+        (one rounding of the carry a step, as in the kernel sampler); the
+        step noise is ``noise_type`` (uniform U(-sqrt3, sqrt3), else
+        normal), drawn in the carry dtype. Returns (B, D) float32 on the
+        denoiser's device.
+
+        ``draws`` replaces draws from ``generator``: "x_T" (B, D); per loop
+        step s (rows in reverse-time order, T - 1 of them) "z" (T-1, B, D-M),
+        "lr_eps" (T-1, B, D-M) and "lr_epsk" (T-1, B, k) (low-rank sigma),
+        "bits" (T-1, B, M) (D3PM uniforms); at t = 0 "final_z" (B, D-M)
+        (learned sigma), "final_lr_eps" and "final_lr_epsk", "final_bits"
+        (B, M)."""
+        d = self.denoiser
+        dev = next(d.parameters()).device
+        sched = self.schedule
+        T = sched.num_steps
+        M = self.mutation_dim if self.discrete_head else 0
+        cd = _DTYPES[self.sample_dtype]
+        batch = conditions.shape[0]
+        Dc = d.data_dim - M
+        draw = _Draws(draws, generator, dev)
+        x = self._x_prior(draw, batch, M, cd)
+        denoise = self._denoise_fn(conditions.to(dev, torch.float32), guidance_scale)
+
+        ts = np.arange(T - 1, 0, -1)
+
+        def f32(a):
+            return np.asarray(a, np.float32)
+
+        sqrt_acp = f32(sched.sqrt_alphas_cumprod)
+        sqrt_om = f32(sched.sqrt_one_minus_alphas_cumprod)
+        inv_sqrt_acp = np.float32(1.0) / sqrt_acp
+        rows = np.stack([sqrt_acp[ts], inv_sqrt_acp[ts], sqrt_om[ts],
+                         f32(sched.posterior_coef_x0)[ts], f32(sched.posterior_coef_xt)[ts],
+                         np.sqrt(f32(sched.posterior_variance)[ts]),
+                         f32(sched.betas)[ts], f32(sched.alphas_cumprod)[ts - 1]], axis=1)
+        t_norm = ts.astype(np.float32) / np.float32(T)
+        LR = self.low_rank_sigma_dim
+        if LR:
+            U, logdiag, logs = self._lowrank_params()
+            Uc = U[M:] if M else U
+            dsqrt = torch.exp(0.5 * (logdiag[M:] if M else logdiag))
+            lr_scale = f32(sched.posterior_coef_x0)[ts] * torch.exp(logs).cpu().numpy()[ts]
+
+        def predict_x0(xc, pred, sa, isa, so):
+            return self._clip(self._predict_x0(pred, xc, float(sa), float(so), float(isa)))
+
+        def split(x):
+            if not M:
+                return None, x, x
+            xm, xc = x[:, :M], x[:, M:]
+            return xm, xc, torch.cat([2.0 * xm - 1.0, xc], dim=1)
+
+        for s in range(len(ts)):
+            sa, isa, so, c0, c1, sv, beta, acp_prev = rows[s]
+            xm, xc, x_in = split(x.float())
+            pred, _ = self._split_sigma(denoise(x_in, torch.full((batch,), t_norm[s], device=dev)))
+            x0 = predict_x0(xc, pred[:, M:], sa, isa, so)
+            z = draw("z", "uniform" if self.noise_type == "uniform" else "normal",
+                     (batch, Dc), cd, step=s)
+            xc = float(c0) * x0 + float(c1) * xc + float(sv) * z.float()
+            if LR:
+                eps = draw("lr_eps", "normal", (batch, Dc), step=s)
+                epsk = draw("lr_epsk", "normal", (batch, LR), step=s)
+                xc = xc + float(lr_scale[s]) * (dsqrt * eps + epsk @ Uc.T)
+            if M:
+                p_prev = posterior_prob_one(xm, torch.sigmoid(pred[:, :M]),
+                                            _scalar(beta), _scalar(acp_prev))
+                u = draw("bits", "unit", (batch, M), step=s)
+                xc = torch.cat([(u < p_prev).float(), xc], dim=1)
+            x = xc.to(cd)
+
+        xm, xc, x_in = split(x.float())
+        pred, logvar = self._split_sigma(denoise(x_in, torch.zeros(batch, device=dev)))
+        x0 = predict_x0(xc, pred[:, M:], sqrt_acp[0], inv_sqrt_acp[0], sqrt_om[0])
+        if logvar is not None:
+            z = draw("final_z", "normal", (batch, Dc))
+            x0 = x0 + torch.exp(0.5 * logvar[:, M:]) * z
+        if LR:
+            eps = draw("final_lr_eps", "normal", (batch, Dc))
+            epsk = draw("final_lr_epsk", "normal", (batch, LR))
+            x0 = x0 + torch.exp(logs[0]) * (dsqrt * eps + epsk @ Uc.T)
+        if M:
+            u = draw("final_bits", "unit", (batch, M))
+            bits = (u < torch.sigmoid(pred[:, :M])).float()
+            x0 = torch.cat([bits, x0], dim=1)
+        return x0
+
+    @torch.no_grad()
+    def scan_sample_ddim(self, conditions: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         num_sampling_steps: int = 50, guidance_scale: float = 1.0,
+                         draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Deterministic (eta = 0) DDIM over ``num_sampling_steps`` strided
+        timesteps, as JAX ``sample_ddim`` (:942-1063): an f32 carry, x0 from
+        the parameterization (clipped when ``clip_denoised``), eps consistent
+        with it, learned sigma's residual on the last step only, and the
+        D3PM bits over the same strided steps. ``draws``: "x_T" (B, D),
+        "final_z" (B, D-M) (learned sigma), "bits" (n_steps, B, M)."""
+        d = self.denoiser
+        dev = next(d.parameters()).device
+        T = self.schedule.num_steps
+        M = self.mutation_dim if self.discrete_head else 0
+        batch = conditions.shape[0]
+        Dc = d.data_dim - M
+        draw = _Draws(draws, generator, dev)
+        x = self._x_prior(draw, batch, M, torch.float32)
+        denoise = self._denoise_fn(conditions.to(dev, torch.float32), guidance_scale)
+
+        ts = ddim_timesteps(T, num_sampling_steps)[::-1].copy()
+        prev = np.concatenate([ts[1:], [-1]])
+        acp = np.asarray(self.schedule.alphas_cumprod, np.float32)
+        acp_t = acp[ts]
+        acp_prev = np.where(prev >= 0, acp[np.maximum(prev, 0)], np.float32(1.0))
+        one = np.float32(1.0)
+        rows = np.stack([np.sqrt(acp_t), np.sqrt(one - acp_t), np.sqrt(acp_prev),
+                         np.sqrt(np.maximum(one - acp_prev, np.float32(0.0))),
+                         one - acp_t / acp_prev, acp_prev], axis=1).astype(np.float32)
+        t_norm = ts.astype(np.float32) / np.float32(T)
+        for s in range(len(ts)):
+            sa, so, sap, dir_coef, beta_eff, a_prev = (float(v) for v in rows[s])
+            xm, xc = (x[:, :M], x[:, M:]) if M else (None, x)
+            x_in = torch.cat([2.0 * xm - 1.0, xc], dim=1) if M else x
+            pred, logvar = self._split_sigma(
+                denoise(x_in, torch.full((batch,), t_norm[s], device=dev)))
+            x0 = self._clip(self._predict_x0(pred[:, M:], xc, sa, so))
+            eps = (xc - sa * x0) / max(so, 1e-8)
+            x_prev = sap * x0 + dir_coef * eps
+            if logvar is not None and s == len(ts) - 1:
+                z = draw("final_z", "normal", (batch, Dc))
+                x_prev = x_prev + torch.exp(0.5 * logvar[:, M:]) * z
+            if M:
+                p_prev = posterior_prob_one(xm, torch.sigmoid(pred[:, :M]),
+                                            _scalar(beta_eff), _scalar(a_prev))
+                u = draw("bits", "unit", (batch, M), step=s)
+                x_prev = torch.cat([(u < p_prev).float(), x_prev], dim=1)
+            x = x_prev
+        return x
+
+
+def _scalar(value) -> torch.Tensor:
+    """An f32 table entry as a 0-dim f32 tensor, so the D3PM posterior's
+    arithmetic on it stays in f32 as in the JAX scan."""
+    return torch.tensor(float(value), dtype=torch.float32)

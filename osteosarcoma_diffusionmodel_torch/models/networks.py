@@ -1,17 +1,20 @@
-"""The diffusion denoiser as PyTorch modules (main-path parts).
+"""The diffusion denoiser as PyTorch modules.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/models/networks.py
 (`TimeEmbedding`, `ConditionEmbedding`, `DenoiserBlock`,
-`DiffusionDenoiser` with the input-skip gain): a skip-connected MLP of
-Linear -> GroupNorm(8) -> SiLU -> Dropout -> Linear -> GroupNorm(8) ->
-SiLU blocks with additive time and condition injection.
+`DiffusionDenoiser`): a skip-connected MLP of Linear -> GroupNorm(8) ->
+SiLU -> Dropout -> Linear -> GroupNorm(8) -> SiLU blocks with additive
+time and condition injection, the input-skip gain, and the optional
+heads of :137-250 there: the learned-sigma projection, the latent-factor
+encoder, the AR (FVSBN) mutation head and the low-rank sigma parameters.
 
 Parameters are float32; ``compute_dtype`` sets the dtype of the Linear
 products as in the Flax modules (bfloat16 rounds each product's output
 to bfloat16, as Flax's ``Dense(dtype=bfloat16)`` does). GroupNorm always
 runs in float32 with eps 1e-6. Submodule names follow the Flax parameter
-names (``enc_0``, ``bottleneck``, ``dec_0``, ...), so
-``convert.flax_params_to_state_dict`` maps one tree onto the other.
+names (``enc_0``, ``bottleneck``, ``dec_0``, ``sigma_proj``,
+``ar_coupling``, ...), so ``convert.flax_params_to_state_dict`` maps one
+tree onto the other.
 Dropout holds no parameters and acts only in training mode: the samplers
 run the module in eval mode (``ConditionalDiffusion.from_config`` returns
 it so), and the kernel samplers read the weights directly.
@@ -92,6 +95,16 @@ class DiffusionDenoiser(nn.Module):
     Encoder blocks over ``hidden_dims[1:]`` push their outputs onto a skip
     stack; decoder blocks pop it LIFO and take ``[h | skip]``. With
     ``input_skip`` a learned scalar gain g(t) adds g(t)·x to the output.
+
+    Optional heads (each off at 0 / False): ``learn_sigma`` appends the
+    clipped per-feature log-variance of x0 to the output;
+    ``latent_factor_dim`` adds the x0 encoder (input width
+    ``latent_input_dim``, 0 = ``data_dim``) whose factors the caller
+    appends to the conditions (``condition_dim`` counts them);
+    ``ar_head_dim`` adds the FVSBN couplings, biases and the f32 context
+    MLP over ``ar_context_dim`` inputs; ``low_rank_sigma_dim`` adds U
+    (``low_rank_sigma_rows`` rows, 0 = ``data_dim``), the log-diagonal and
+    the per-step log-scales (``low_rank_sigma_steps``).
     """
 
     def __init__(
@@ -104,6 +117,15 @@ class DiffusionDenoiser(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         input_skip: bool = True,
         dropout: float = 0.0,
+        learn_sigma: bool = False,
+        latent_factor_dim: int = 0,
+        latent_input_dim: int = 0,
+        low_rank_sigma_dim: int = 0,
+        low_rank_sigma_steps: int = 0,
+        low_rank_sigma_rows: int = 0,
+        ar_head_dim: int = 0,
+        ar_context_dim: int = 0,
+        ar_context_hidden: int = 64,
     ):
         super().__init__()
         hidden = list(hidden_dims)
@@ -115,8 +137,26 @@ class DiffusionDenoiser(nn.Module):
         self.hidden_dims = hidden
         self.compute_dtype = compute_dtype
         self.input_skip = input_skip
+        self.learn_sigma = learn_sigma
+        self.latent_factor_dim = latent_factor_dim
+        self.low_rank_sigma_dim = low_rank_sigma_dim
+        self.ar_head_dim = ar_head_dim
         cd = compute_dtype
 
+        if low_rank_sigma_dim > 0:
+            rows = low_rank_sigma_rows or data_dim
+            self.lowrank_U = nn.Parameter(torch.zeros(rows, low_rank_sigma_dim))
+            self.lowrank_logdiag = nn.Parameter(torch.zeros(data_dim))
+            self.lowrank_logs = nn.Parameter(torch.zeros(low_rank_sigma_steps))
+        if ar_head_dim > 0:
+            self.ar_coupling = nn.Parameter(torch.zeros(ar_head_dim, ar_head_dim))
+            self.ar_bias = nn.Parameter(torch.zeros(ar_head_dim))
+            # f32, as in Flax: the outputs sit on the logit scale.
+            self.ar_ctx_fc1 = nn.Linear(ar_context_dim, ar_context_hidden)
+            self.ar_ctx_fc2 = nn.Linear(ar_context_hidden, ar_head_dim)
+        if latent_factor_dim > 0:
+            self.latent_enc_fc1 = _Dense(latent_input_dim or data_dim, 128, cd)
+            self.latent_enc_fc2 = nn.Linear(128, latent_factor_dim)  # f32
         self.time_proj = _Dense(time_dim, hidden[0], cd)
         if input_skip:
             # f32 like the Flax module, zero-initialized there.
@@ -144,11 +184,34 @@ class DiffusionDenoiser(nn.Module):
             self.decoder_names.append(f"dec_{j}")
             dec_in = hidden[i]
         self.output_proj = _Dense(dec_in, data_dim, cd)
+        if learn_sigma:
+            self.sigma_proj = nn.Linear(dec_in, data_dim)  # f32
 
     # ------------------------------------------------------------------
     def embed_conditions(self, conditions: torch.Tensor) -> torch.Tensor:
-        """Condition projection, loop-invariant during sampling."""
+        """Condition projection, loop-invariant during sampling (with latent
+        factors, of the widened [clinical | factors] vector)."""
         return self.cond_proj(self.condition_embed(conditions))
+
+    def encode_latent(self, x0: torch.Tensor) -> torch.Tensor:
+        """The encoder's view of clean patient vectors -> latent factors
+        (f32): fc1 in the compute dtype, fc2 in f32."""
+        h = F.silu(self.latent_enc_fc1(x0))
+        return self.latent_enc_fc2(h.float())
+
+    def lowrank_sigma(self):
+        """(U, log_diag, log_s) of the low-rank residual covariance."""
+        return self.lowrank_U, self.lowrank_logdiag, self.lowrank_logs
+
+    def ar_context_logits(self, context: torch.Tensor) -> torch.Tensor:
+        """Per-gene logit contribution of the AR head's context (f32)."""
+        return self.ar_ctx_fc2(F.silu(self.ar_ctx_fc1(context.float())))
+
+    def ar_logits(self, bits: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced FVSBN logits: gene i sees bits j < i only (strict
+        lower-triangular mask) plus the context term."""
+        w = torch.tril(self.ar_coupling, -1)
+        return bits.float() @ w.T + self.ar_bias + self.ar_context_logits(context)
 
     def hidden_forward(self, h: torch.Tensor) -> torch.Tensor:
         """Encoder/bottleneck/decoder stack from the post-input-projection
@@ -169,7 +232,8 @@ class DiffusionDenoiser(nn.Module):
         conditions: Optional[torch.Tensor] = None,
         c_proj: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """x0 prediction (B, data_dim) in float32; ``t_norm`` = t / T."""
+        """The prediction (B, data_dim) in float32, with the log-variance
+        (B, data_dim) appended under ``learn_sigma``; ``t_norm`` = t / T."""
         if c_proj is None:
             if conditions is None:
                 raise ValueError("provide `conditions` or precomputed `c_proj`")
@@ -181,16 +245,22 @@ class DiffusionDenoiser(nn.Module):
         out = self.output_proj(h).float()
         if self.input_skip:
             out = out + self.skip_gain(t_sin) * x.float()
+        if self.learn_sigma:
+            logvar = torch.clamp(self.sigma_proj(h.float()), -12.0, 4.0)
+            return torch.cat([out, logvar], dim=-1)
         return out
 
 
 def init_flax(module: DiffusionDenoiser, generator: torch.Generator) -> None:
     """The Flax module's initial weights, drawn from ``generator``: Dense
     kernels LeCun normal (a normal truncated to +-2 std, rescaled to
-    variance 1/fan_in), biases 0, GroupNorm scale 1 and bias 0, and the
-    skip gain's kernel 0 (networks.py:186-219 in the JAX package). The
-    draws are torch's, not JAX's: the distribution is the same, the
-    values are not."""
+    variance 1/fan_in), biases 0, GroupNorm scale 1 and bias 0; a zero
+    kernel for the skip gain and the AR context's output layer; a zero
+    kernel and a -6 bias for the sigma projection; normal(0.01) for the AR
+    couplings and U; zeros for the AR biases and the low-rank log-diagonal
+    and log-scales (networks.py:137-250 in the JAX package). The draws are
+    torch's, not JAX's: the distribution is the same, the values are
+    not."""
     std = 1.0 / 0.87962566103423978  # std of a unit normal truncated to +-2
     with torch.no_grad():
         for mod in module.modules():
@@ -203,12 +273,32 @@ def init_flax(module: DiffusionDenoiser, generator: torch.Generator) -> None:
                 mod.bias.zero_()
         if module.input_skip:
             module.skip_gain.weight.zero_()
+        if module.learn_sigma:
+            module.sigma_proj.weight.zero_()
+            module.sigma_proj.bias.fill_(-6.0)
+        _init_raw_heads(module, generator, 0.01)
+        if module.ar_head_dim:
+            module.ar_ctx_fc2.weight.zero_()
+
+
+def _init_raw_heads(module: DiffusionDenoiser, generator: torch.Generator, scale: float) -> None:
+    """normal(``scale``) AR couplings and U; zero AR biases, log-diagonal
+    and log-scales."""
+    if module.ar_head_dim:
+        module.ar_coupling.copy_(scale * torch.randn(module.ar_coupling.shape, generator=generator))
+        module.ar_bias.zero_()
+    if module.low_rank_sigma_dim:
+        module.lowrank_U.copy_(scale * torch.randn(module.lowrank_U.shape, generator=generator))
+        module.lowrank_logdiag.zero_()
+        module.lowrank_logs.zero_()
 
 
 def init_weights(module: DiffusionDenoiser, generator: torch.Generator) -> None:
     """Seeded random weights: Linear weights and biases ~ U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)), GroupNorm scale 1 and bias 0, and a small nonzero
-    skip gain so that the g(t)·x path carries signal."""
+    1/sqrt(fan_in)), GroupNorm scale 1 and bias 0, a small nonzero skip
+    gain so that the g(t)·x path carries signal, the sigma projection's
+    bias at -6 (a residual sigma near e^-3), normal(0.1) AR couplings and
+    U, and zero AR biases and low-rank log-diagonal and log-scales."""
     with torch.no_grad():
         for mod in module.modules():
             if isinstance(mod, nn.Linear):
@@ -220,3 +310,6 @@ def init_weights(module: DiffusionDenoiser, generator: torch.Generator) -> None:
                 mod.bias.zero_()
         if module.input_skip:
             module.skip_gain.weight.mul_(0.1)
+        if module.learn_sigma:
+            module.sigma_proj.bias.fill_(-6.0)
+        _init_raw_heads(module, generator, 0.1)

@@ -60,5 +60,8 @@ def posterior_prob_one(x_t: torch.Tensor, p1: torch.Tensor, beta_t, acp_prev) ->
 
 
 def bernoulli_cross_entropy(logits: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Elementwise stable BCE between x0 logits and true bits (B, M)."""
-    return torch.clamp(logits, min=0.0) - logits * bits + torch.log1p(torch.exp(-logits.abs()))
+    """Elementwise stable BCE between x0 logits and true bits (B, M). At a
+    logit of exactly 0 (an AR head's gene with no set predecessor and a
+    zero context) its gradient is -bit, as the JAX formula's is: relu and
+    abs both take a zero derivative there."""
+    return torch.relu(logits) - logits * bits + torch.log1p(torch.exp(-logits.abs()))

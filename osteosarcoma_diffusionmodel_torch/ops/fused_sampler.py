@@ -47,6 +47,13 @@ quantizes f32 ones. A step launches 15 kernels under "all", 13 under
 Noise: "philox" (in-kernel, the DDPM default), "buffer" (a given
 (n_loop, B, D) tensor: the parity hook) or "none" (DDIM). On CPU tensors
 the same loop runs the kernels' plain versions.
+
+The sampler takes the models of :func:`supports_fused` (the JAX
+package's predicate, :50-66): x0, the x0 clip, the input skip, uniform
+noise, no sigma head. The AR head and latent factors do not change its
+loop: a latent-factor model's conditions arrive widened with the prior's
+draws, and their ``c_proj`` is computed outside the kernels, as the JAX
+sampler does (:890); the AR head draws the bits after calibration.
 """
 
 from __future__ import annotations
@@ -76,6 +83,27 @@ from .sampler_kernels import (
     rowquant_s8,
 )
 from .schedules import DiffusionSchedule, ddim_timesteps
+
+NUM_GROUPS = 8
+
+
+def supports_fused(model) -> bool:
+    """The configurations the kernel sampler implements (the JAX package's
+    ``supports_fused``, fused_sampler.py:50-66): it reads neither the AR
+    head, latent factors nor CFG training, and keeps its bf16 carry
+    whatever ``sample_dtype`` says."""
+    d = model.denoiser
+    return (
+        model.parameterization == "x0"
+        and not model.learn_sigma
+        and model.low_rank_sigma_dim == 0
+        and d.input_skip
+        and model.noise_type == "uniform"
+        and model.clip_denoised
+        and all(h % NUM_GROUPS == 0 for h in d.hidden_dims)
+        and d.hidden_dims[0] % 128 == 0
+    )
+
 
 _QUANT_FLAGS = {
     None: (False, False, False),
@@ -289,6 +317,9 @@ class FusedSampler:
 
     def __init__(self, model, device, ddim_steps: Optional[int] = None,
                  quantize: Optional[str] = None):
+        if not supports_fused(model):
+            raise ValueError("the kernel sampler does not take this model configuration "
+                             "(supports_fused); the scan sampler runs it")
         q_in, q_blk, q_out = quant_flags(quantize)
         d = model.denoiser
         self.model = model

@@ -52,11 +52,16 @@ from .sampler_kernels import UNIFORM_SCALE, gemm_bf16_latent_step, latent_draw
 
 
 def supports_latent(model) -> bool:
-    """The configurations the latent tail implements (JAX :72-82). The
-    port's model is always x0-parameterized with a fixed variance and a
-    clipped x0 (``check_supported``); the tail further needs the input-skip
-    gain and no D3PM mutation head."""
-    return bool(model.denoiser.input_skip) and not (model.discrete_head and model.mutation_dim)
+    """The configurations the latent tail implements (JAX :72-82): x0, no
+    sigma head, the input-skip gain, the x0 clip, no D3PM mutation head."""
+    return (
+        model.parameterization == "x0"
+        and not model.learn_sigma
+        and model.low_rank_sigma_dim == 0
+        and bool(model.denoiser.input_skip)
+        and model.clip_denoised
+        and not (model.discrete_head and model.mutation_dim)
+    )
 
 
 def _uniform_noise(shape, generator: torch.Generator, device) -> torch.Tensor:

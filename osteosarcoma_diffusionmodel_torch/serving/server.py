@@ -13,9 +13,12 @@ standard library's HTTP server:
     GET  /dashboard  -> the monitoring page (HTML)
 
 A request runs ``SyntheticPatientGenerator.generate`` on its batch bucket
-(the next power of two): conditions, the kernel sampler, then the
+(the next power of two): conditions (widened by the latent prior's draws
+for a latent-factor checkpoint), the kernel sampler (the scan sampler for
+the variants that the JAX package samples without its kernel), then the
 calibration, on the card for buckets of 256 rows or more under the
-shipped "auto" backend. The service runs on the CUDA card; the CPU serves
+shipped "auto" backend, and the AR head's draw of the mutation bits for
+an AR checkpoint. The service runs on the CUDA card; the CPU serves
 only when asked (``--device cpu``): without a card and without that flag
 the service raises. The kernels are built in :func:`serve`, before the
 socket opens, so no request runs nvcc. One lock serializes every

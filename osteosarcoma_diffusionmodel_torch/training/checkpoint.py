@@ -15,9 +15,11 @@ without Orbax. A checkpoint directory holds
   mutation_matrix, data_matrix, condition_mean, condition_std);
 - ``checkpoint_epoch_<n>/``: what resuming training needs after epoch n:
   ``model.npz`` (the weights, as in ``best_model.npz``), ``optimizer.npz``
-  (AdamW's ``exp_avg/<name>`` and ``exp_avg_sq/<name>`` by ``state_dict``
-  name) and ``state.json`` (epoch, val loss, AdamW's step count and the
-  learning rate, which the plateau schedule may have lowered).
+  (``exp_avg/<name>`` and ``exp_avg_sq/<name>`` by ``state_dict`` name,
+  from AdamW or, for the AR head's ``ar_*`` parameters, from their Adam)
+  and ``state.json`` (epoch, val loss, AdamW's step count, the AR Adam's
+  ``ar_step`` where the model has the head, and the learning rate, which
+  the plateau schedule may have lowered).
 
 The JAX package's Orbax checkpoints are not read here:
 scripts/export_jax_checkpoint.py turns one into ``best_model.npz``.
@@ -135,7 +137,7 @@ def save_training_state(save_dir: str | Path, epoch: int,
                         info: Mapping[str, Any]) -> Path:
     """Write ``checkpoint_epoch_<epoch>/``: the weights, ``moments``
     (``{"exp_avg": {name: tensor}, "exp_avg_sq": {...}}``) and ``info``
-    (JSON: epoch, val_loss, step, lr)."""
+    (JSON: epoch, val_loss, step, lr, and ar_step with an AR head)."""
     path = epoch_dir(save_dir, epoch)
     save_weights(path, state_dict, name="model")
     np.savez(path / "optimizer.npz", **{

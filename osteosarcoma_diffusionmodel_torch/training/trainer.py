@@ -9,21 +9,24 @@ the diffusion model:
   into that copy;
 - a step applies mixup (one Beta(alpha, alpha) lambda a batch, drawn on
   the host from a seeded numpy generator) and Gaussian jitter on the
-  pathway block, then the loss with dropout on, the global-norm clip at
-  ``grad_clip_norm`` (:func:`clip_by_global_norm`, optax's arithmetic)
-  and ``torch.optim.AdamW``, which decays every parameter as the JAX
-  trainer's mask does (it spares only low-rank sigma parameters, which
-  the port does not have);
+  pathway block, then the loss with dropout on (the AR head's CE on the
+  rows before both augmentations), one global-norm clip over every
+  parameter at ``grad_clip_norm`` (:func:`clip_by_global_norm`, optax's
+  arithmetic), and the optimizers of the JAX trainer's layout (:200-250):
+  ``torch.optim.AdamW`` over the denoiser, with the low-rank sigma
+  parameters (``lowrank_*``) in a group without weight decay, and the AR
+  head's parameters (``ar_*``) in a plain ``torch.optim.Adam`` of their
+  own at the constant ``ar_lr``;
 - each epoch takes the batches of ``np.random.default_rng(seed + 1000 +
   epoch).permutation(train_idx)`` in order, dropping the last partial
   one; one host sync an epoch reads its losses;
-- the plateau schedule writes the learning rate into the optimizer's
-  param group; best model, early stopping and the schedule follow the
-  validation ``sel_loss``.
+- the plateau schedule writes the learning rate into AdamW's groups
+  only; best model, early stopping and the schedule follow the
+  validation ``sel_loss`` (the loss without the AR head's terms).
 
 Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
-at the start of ``train``; ``checkpoint_epoch_<n>/`` (weights, AdamW's
-moments and step, the learning rate) every ``save_frequency`` epochs;
+at the start of ``train``; ``checkpoint_epoch_<n>/`` (weights, the optimizers'
+moments and steps, the learning rate) every ``save_frequency`` epochs;
 ``best_model.npz``, the weights of the best epoch so far, kept on the
 device and written with each periodic checkpoint and at the end.
 
@@ -147,12 +150,22 @@ class Trainer:
         named = list(denoiser.named_parameters())
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        # One group, decay on every parameter. capturable keeps AdamW's
-        # step counter on the card (and its update free of host reads).
+        # capturable keeps the step counters on the card (and the updates
+        # free of host reads).
+        capturable = self.device.type == "cuda"
+        decay = [p for n, p in named if not n.startswith(("ar_", "lowrank"))]
+        no_decay = [p for n, p in named if n.startswith("lowrank")]
+        ar_params = [p for n, p in named if n.startswith("ar_")]
+        groups = [{"params": decay}] + (
+            [{"params": no_decay, "weight_decay": 0.0}] if no_decay else [])
         self.optimizer = torch.optim.AdamW(
-            self.params, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=tc.weight_decay, capturable=self.device.type == "cuda",
+            groups, lr=tc.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=tc.weight_decay, capturable=capturable,
         )
+        self.ar_optimizer = torch.optim.Adam(
+            ar_params, lr=model.ar_lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=capturable) if ar_params else None
+        self.optimizers = [o for o in (self.optimizer, self.ar_optimizer) if o is not None]
         self.start_epoch = 0
 
         self.train_idx, self.val_idx = train_val_split(
@@ -178,13 +191,15 @@ class Trainer:
                    lam: Optional[float] = None, perm: Optional[torch.Tensor] = None,
                    pathway_noise: Optional[torch.Tensor] = None,
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                   bit_uniforms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   bit_uniforms: Optional[torch.Tensor] = None,
+                   cfg_uniforms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch. The keyword arguments replace
         the step's draws (mixup's lambda and permutation, the pathway
-        jitter, then the loss's t, noise and bit uniforms). Returns the
-        loss's metrics and ``grad_norm``, the global norm before the clip,
-        as device tensors."""
+        jitter, then the loss's t, noise, bit uniforms and CFG keep
+        uniforms). Returns the loss's metrics and ``grad_norm``, the global
+        norm before the clip, as device tensors."""
         aug = self.config.training.augmentation
+        raw_data, raw_cond = data, cond
         if aug.mixup_alpha > 0:
             data, cond = mixup(data, cond, aug.mixup_alpha, lam=lam, perm=perm,
                                rng=self.np_rng, generator=self.generator)
@@ -195,13 +210,16 @@ class Trainer:
                                             device=data.device)
             data = torch.cat([data[:, :ps], data[:, ps:] + aug.pathway_noise * pathway_noise],
                              dim=1)
-        self.optimizer.zero_grad(set_to_none=True)
+        for opt in self.optimizers:
+            opt.zero_grad(set_to_none=True)
         loss, metrics = self.model.loss(data, cond, self.generator, t=t, noise=noise,
-                                        bit_uniforms=bit_uniforms, train=True)
+                                        bit_uniforms=bit_uniforms, cfg_uniforms=cfg_uniforms,
+                                        ar_x0=raw_data, ar_conditions=raw_cond, train=True)
         loss.backward()
         grads = [p.grad for p in self.params]
         metrics["grad_norm"] = clip_by_global_norm(grads, self.config.training.grad_clip_norm)
-        self.optimizer.step()
+        for opt in self.optimizers:
+            opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     def epoch_batches(self, epoch: int) -> np.ndarray:
@@ -238,39 +256,57 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def set_learning_rate(self, lr: float) -> None:
+        """The plateau schedule's rate, into AdamW's groups (the AR head's
+        Adam keeps ``ar_lr``)."""
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    def _named(self, opt: torch.optim.Optimizer) -> List[Tuple[str, torch.Tensor]]:
+        """(name, parameter) of ``opt`` in its ``state_dict`` order."""
+        by_id = {id(p): n for n, p in zip(self.param_names, self.params)}
+        return [(by_id[id(p)], p) for group in opt.param_groups for p in group["params"]]
+
     def save_checkpoint(self, epoch: int, val_loss: float) -> None:
-        """``checkpoint_epoch_<epoch>/``: weights, AdamW's state, the LR."""
-        state = self.optimizer.state
-        moments = {kind: {n: state[p][kind] for n, p in zip(self.param_names, self.params)}
-                   for kind in ("exp_avg", "exp_avg_sq")}
-        info = {"epoch": epoch, "val_loss": val_loss,
-                "step": int(float(state[self.params[0]]["step"])),
+        """``checkpoint_epoch_<epoch>/``: weights, the optimizers' moments
+        (by parameter name) and steps, the LR."""
+        moments = {"exp_avg": {}, "exp_avg_sq": {}}
+        steps = []
+        for opt in self.optimizers:
+            named = self._named(opt)
+            for name, p in named:
+                for kind in moments:
+                    moments[kind][name] = opt.state[p][kind]
+            steps.append(int(float(opt.state[named[0][1]]["step"])))
+        info = {"epoch": epoch, "val_loss": val_loss, "step": steps[0],
                 "lr": self.optimizer.param_groups[0]["lr"]}
+        if self.ar_optimizer is not None:
+            info["ar_step"] = steps[1]
         ckpt.save_training_state(self.save_dir, epoch, self.model.denoiser.state_dict(),
                                  moments, info)
 
     def resume(self) -> bool:
-        """Restore the latest periodic checkpoint, if any: the weights,
-        AdamW's moments and step, and the learning rate (into the
-        optimizer and the plateau schedule). Training goes on from the
-        epoch after it."""
+        """Restore the latest periodic checkpoint, if any: the weights, the
+        optimizers' moments and steps, and the learning rate (into AdamW and
+        the plateau schedule). Training goes on from the epoch after it."""
         latest = ckpt.latest_epoch(self.save_dir)
         if latest is None:
             logger.info("No checkpoint to resume from")
             return False
         weights, moments, info = ckpt.load_training_state(ckpt.epoch_dir(self.save_dir, latest))
         self.model.denoiser.load_state_dict(weights)
-        group = dict(self.optimizer.state_dict()["param_groups"][0], lr=info["lr"])
-        step = torch.tensor(float(info["step"]))
-        self.optimizer.load_state_dict({
-            "state": {i: {"step": step.clone(), "exp_avg": moments["exp_avg"][n],
-                          "exp_avg_sq": moments["exp_avg_sq"][n]}
-                      for i, n in enumerate(self.param_names)},
-            "param_groups": [group],
-        })
+        for opt, step_key in ((self.optimizer, "step"), (self.ar_optimizer, "ar_step")):
+            if opt is None:
+                continue
+            groups = opt.state_dict()["param_groups"]
+            if opt is self.optimizer:
+                groups = [dict(g, lr=info["lr"]) for g in groups]
+            step = torch.tensor(float(info[step_key]))
+            opt.load_state_dict({
+                "state": {i: {"step": step.clone(), "exp_avg": moments["exp_avg"][n],
+                              "exp_avg_sq": moments["exp_avg_sq"][n]}
+                          for i, (n, _) in enumerate(self._named(opt))},
+                "param_groups": groups,
+            })
         self.plateau.lr = float(info["lr"])
         self.start_epoch = int(info["epoch"]) + 1
         logger.info("Resumed from epoch %d", latest)

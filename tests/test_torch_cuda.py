@@ -912,3 +912,132 @@ def test_cuda_step_products_at_serving_rows(cuda, rows):
         sk.x0_posterior_step(acc, pair, **step)
         assert torch.equal(fused, pair), mode
         assert not torch.equal(fused, start)
+
+
+# ----------------------------------------------------------------------
+# The diffusion model's variants: the scan samplers, the AR draw and the
+# kernel sampler on a latent-factor model's widened conditions
+# ----------------------------------------------------------------------
+def _variant_model(overrides, dims=(10, 40, 14), steps=12, hidden=(128, 256, 128)):
+    from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+
+    cfg = Config()
+    cfg.model.hidden_dims = list(hidden)
+    cfg.model.latent_dim = 32
+    cfg.model.compute_dtype = "float32"
+    cfg.model.diffusion.num_steps = steps
+    cfg.generation.sample_dtype = "float32"
+    for path, value in overrides.items():
+        *parents, leaf = path.split(".")
+        node = cfg
+        for name in parents:
+            node = getattr(node, name)
+        setattr(node, leaf, value)
+    dims = cfg.freeze_dims(*dims, ["a", "b", "c"])
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    init_weights(model.denoiser, torch.Generator().manual_seed(0))
+    return model
+
+
+def _scan_draws(model, batch, n_loop, g):
+    """Every draw of scan_sample (DDPM) on the CPU."""
+    d = model.denoiser.data_dim
+    k = model.low_rank_sigma_dim
+    draws = {"x_T": torch.randn(batch, d, generator=g),
+             "z": torch.randn(n_loop, batch, d, generator=g).to(torch.bfloat16).float(),
+             "final_z": torch.randn(batch, d, generator=g)}
+    if k:
+        draws.update(lr_eps=torch.randn(n_loop, batch, d, generator=g),
+                     lr_epsk=torch.randn(n_loop, batch, k, generator=g),
+                     final_lr_eps=torch.randn(batch, d, generator=g),
+                     final_lr_epsk=torch.randn(batch, k, generator=g))
+    return draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["v-learned-sigma", "epsilon-low-rank", "cfg-ddim"])
+def test_cuda_scan_sampler_matches_its_cpu_run(cuda, case):
+    # The same model (f32 compute and carry) and draws on the card and on
+    # the CPU: f32 on both sides in another summation order, 1e-3 of
+    # max(1, |ref|) (the guided case 1 + 2g = 16 times that).
+    import copy
+
+    overrides = {
+        "v-learned-sigma": {"model.diffusion.parameterization": "v",
+                            "model.diffusion.learn_sigma": True},
+        "epsilon-low-rank": {"model.diffusion.parameterization": "epsilon",
+                             "model.diffusion.low_rank_sigma_dim": 3,
+                             "generation.noise_type": "normal"},
+        "cfg-ddim": {"model.cfg_dropout_prob": 0.1, "model.diffusion.learn_sigma": True},
+    }[case]
+    model = _variant_model(overrides)
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn(32, 3, generator=g)
+    draws = _scan_draws(model, 32, 11, g)
+    card = copy.deepcopy(model)
+    card.denoiser.to(cuda)
+    if case == "cfg-ddim":
+        ref = model.scan_sample_ddim(cond, num_sampling_steps=6, guidance_scale=7.5, draws=draws)
+        got = card.scan_sample_ddim(cond, num_sampling_steps=6, guidance_scale=7.5, draws=draws)
+        tol = 16e-3
+    else:
+        ref = model.scan_sample(cond, draws=draws)
+        got = card.scan_sample(cond, draws=draws)
+        tol = 1e-3
+    assert got.device.type == "cuda" and bool(torch.isfinite(got).all())
+    err = (got.cpu() - ref).abs()
+    assert float(err.max()) <= tol * max(1.0, float(ref.abs().max())), float(err.max())
+
+
+@pytest.mark.cuda
+def test_cuda_ar_sample_matches_its_cpu_run(cuda):
+    # The same uniforms: equal bits, but after a gene whose uniform lies
+    # within 1e-5 of its probability (the f32 products differ in order).
+    import copy
+
+    model = _variant_model({"model.diffusion.ar_mutation_head": True,
+                            "model.diffusion.ar_context": "continuous"}, dims=(62, 200, 26))
+    g = torch.Generator().manual_seed(2)
+    cont, cond = torch.randn(333, 226, generator=g), torch.randn(333, 3, generator=g)
+    u = torch.rand(333, 62, generator=g)
+    ref = model.ar_sample(cont, cond, uniforms=u)
+    card = copy.deepcopy(model)
+    card.denoiser.to(cuda)
+    got = card.ar_sample(cont, cond, uniforms=u).cpu()
+    assert set(got.unique().tolist()) <= {0.0, 1.0}
+    with torch.no_grad():
+        p = torch.sigmoid(model.denoiser.ar_logits(ref, model._ar_context_view(cont, cond)))
+    for row in torch.nonzero((got != ref).any(dim=1)).flatten().tolist():
+        first = int(torch.nonzero(got[row] != ref[row])[0])
+        assert abs(float(u[row, first] - p[row, first])) < 1e-5, (row, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ddim", [None, 10], ids=["ddpm20", "ddim10"])
+def test_cuda_kernel_sampler_takes_widened_conditions(cuda, ddim):
+    # A latent-factor model (k = 8) at full width, 333 rows: the kernel
+    # sampler on the [clinical | factors] conditions against the plain
+    # loop (f32 products), the same x_T and noise, at the bf16-carry
+    # tolerance atol 0.15 / rtol 0.05.
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+
+    model = _variant_model({"model.diffusion.latent_factor_dim": 8,
+                            "model.diffusion.ar_mutation_head": True},
+                           dims=(62, 5054, 26), steps=20, hidden=(256, 512, 256))
+    model.denoiser.to(cuda)
+    g = torch.Generator().manual_seed(3)
+    cond = torch.randn(333, 11, generator=g)
+    x_init = torch.randn(333, 5142, generator=g)
+    noise = torch.randn(20, 333, 5142, generator=g)
+    before = sk.GEMM.launches
+    got = FusedSampler(model, cuda, ddim_steps=ddim).sample(cond, g, x_init=x_init,
+                                                          noise=None if ddim else noise)
+    assert sk.GEMM.launches == before + (ddim or 20)
+    if ddim:
+        ref = model.sample_ddim(cond, g, ddim, x_init=x_init)
+    else:
+        ref = model.sample(cond, g, x_init=x_init, noise=noise)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - ref).abs() <= 0.15 + 0.05 * ref.abs()).all())

@@ -99,7 +99,7 @@ def test_seeded_generators_are_independent():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("architecture", "cvae"), ("cfg_dropout_prob", 0.1),
+    ("architecture", "cvae"), ("architecture", "flow"), ("architecture", "gnn"),
 ])
 def test_unported_features_raise(field, value):
     from osteosarcoma_diffusionmodel_torch.config import Config
@@ -112,24 +112,47 @@ def test_unported_features_raise(field, value):
         ConditionalDiffusion.from_config(cfg, dims)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("ar_mutation_head", True), ("learn_sigma", True),
-    ("low_rank_sigma_dim", 2), ("latent_factor_dim", 2), ("parameterization", "v"),
-])
-def test_unported_diffusion_heads_raise(field, value):
+# The variants the port once rejected: each builds, routes as the JAX
+# package's supports_fused && guidance == 1 rule says, and generates.
+VARIANTS = [
+    ("model", "cfg_dropout_prob", 0.1), ("diffusion", "ar_mutation_head", True),
+    ("diffusion", "learn_sigma", True), ("diffusion", "low_rank_sigma_dim", 2),
+    ("diffusion", "latent_factor_dim", 2), ("diffusion", "parameterization", "v"),
+    ("generation", "sample_dtype", "float32"), ("generation", "noise_type", "normal"),
+]
+
+
+@pytest.mark.parametrize("section,field,value", VARIANTS)
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim"])
+def test_ported_variants_generate(section, field, value, sampler):
+    """Each variant builds and generates a cohort through the generator on
+    its route (the kernel sampler's plain loop only where the JAX package
+    takes its kernel: the AR and latent heads, the float32 carry, which
+    the kernel ignores), with binary mutations and finite values."""
     from osteosarcoma_diffusionmodel_torch.config import Config
     from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.training.checkpoint import data_stats_from_arrays
 
-    cfg = Config()
-    setattr(cfg.model.diffusion, field, value)
+    cfg = _configure(Config(), 4, "bfloat16")
+    cfg.generation.sampler = sampler
+    cfg.generation.sampling_steps = 3
+    target = {"model": cfg.model, "diffusion": cfg.model.diffusion,
+              "generation": cfg.generation}[section]
+    setattr(target, field, value)
     dims = cfg.freeze_dims(4, 8, 4, ["a"])
-    with pytest.raises(NotImplementedError):
-        ConditionalDiffusion.from_config(cfg, dims)
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    data = np.random.default_rng(0).standard_normal((12, 16)).astype(np.float32)
+    data[:, :4] = data[:, :4] > 0
+    stats = data_stats_from_arrays(data, np.zeros((12, 1), np.float32), 4)
+    gen = SyntheticPatientGenerator(model, cfg, dims, data_stats=stats, device="cpu")
+    assert gen.uses_kernels() == (field in ("ar_mutation_head", "latent_factor_dim",
+                                            "sample_dtype"))
+    out = gen.generate(6, {"survival_time": 500})
+    assert out["mutations"].shape == (6, 4) and np.isfinite(out["expression"]).all()
+    assert set(np.unique(out["mutations"])) <= {0.0, 1.0}
 
 
-@pytest.mark.parametrize("field,value", [
-    ("sample_dtype", "float32"), ("noise_type", "gaussian"), ("sampler", "dpm"),
-])
+@pytest.mark.parametrize("field,value", [("sampler", "dpm"), ("sampler", "euler")])
 def test_unported_generation_settings_raise(field, value):
     from osteosarcoma_diffusionmodel_torch.config import Config
     from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion

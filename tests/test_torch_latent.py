@@ -82,8 +82,8 @@ def _np(t):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("change", ["parameterization", "learn_sigma", "clip_denoised"])
 def test_configs_jax_refuses_are_refused(change):
-    """Each configuration the JAX gate refuses cannot reach the port's
-    latent sampler: the port's model refuses it at construction."""
+    """Each configuration the JAX gate refuses, the port's gate refuses,
+    and the latent sampler will not take it (the model itself builds)."""
     jc, pc = JaxConfig(), Config()
     for cfg in (jc, pc):
         cfg.model.hidden_dims = [128, 256, 128]
@@ -94,8 +94,10 @@ def test_configs_jax_refuses_are_refused(change):
     bad = {"parameterization": "epsilon", "learn_sigma": True, "clip_denoised": False}[change]
     assert not jax_supports_latent(dataclasses.replace(jmodel, **{change: bad}))
     setattr(pc.model.diffusion, change, bad)
-    with pytest.raises(NotImplementedError):
-        ConditionalDiffusion.from_config(pc, pc.freeze_dims(*DATA_DIMS, CONDITIONS))
+    pmodel = ConditionalDiffusion.from_config(pc, pc.freeze_dims(*DATA_DIMS, CONDITIONS))
+    assert not supports_latent(pmodel)
+    with pytest.raises(ValueError, match="latent-tail"):
+        LatentTailSampler(pmodel, 1, "cpu")
 
 
 def test_supports_latent_gates(f32_pair):

@@ -85,9 +85,19 @@ def _flat(tree, prefix=""):
             yield path, np.asarray(value)
 
 
-def test_unported_heads_are_rejected():
+@pytest.mark.parametrize("name,value", [
+    ("ar_coupling", np.zeros((4, 4), np.float32)),
+    ("gnn_0", {"kernel": np.zeros((4, 4), np.float32)}),
+    ("lowrank_V", np.zeros((4, 2), np.float32)),
+])
+def test_unported_heads_are_rejected(name, value):
+    """The heads' parameters map (``ar_coupling`` is a raw array of the AR
+    head), a leaf of no module of the port's denoiser is rejected."""
     _, params, _ = make_pair()
     params = dict(params)
-    params["ar_coupling"] = np.zeros((4, 4), np.float32)
+    params[name] = value
+    if name == "ar_coupling":
+        assert np.array_equal(flax_params_to_state_dict(params)[name].numpy(), value)
+        return
     with pytest.raises(NotImplementedError):
         flax_params_to_state_dict(params)

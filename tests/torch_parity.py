@@ -23,22 +23,69 @@ CONDITIONS = ["a", "b", "c"]
 TILE_B = 16
 
 
-def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False, hidden=HIDDEN):
+def _configure(cfg, num_steps: int, compute_dtype: str, discrete: bool = False, hidden=HIDDEN,
+               overrides=None):
     cfg.model.hidden_dims = list(hidden)
     cfg.model.latent_dim = 32
     cfg.model.diffusion.num_steps = num_steps
     cfg.model.diffusion.discrete_mutation_head = discrete
     cfg.model.compute_dtype = compute_dtype
     cfg.generation.noise_type = "uniform"
+    return override(cfg, overrides)
+
+
+def override(cfg, overrides=None):
+    """``cfg`` with each ``{"model.diffusion.learn_sigma": True, ...}``
+    entry set (dotted attribute paths)."""
+    for path, value in (overrides or {}).items():
+        *parents, leaf = path.split(".")
+        node = cfg
+        for name in parents:
+            node = getattr(node, name)
+        if not hasattr(node, leaf):
+            raise AttributeError(f"{type(node).__name__} has no field {leaf!r}")
+        setattr(node, leaf, value)
     return cfg
 
 
+def perturb_heads(params, seed: int = 0):
+    """Seeded values in place of the heads' zero or constant Flax inits
+    (the sigma projection's kernel and bias, the AR context's output
+    layer, the low-rank log-diagonal and log-scales), so each head's path
+    carries signal."""
+    rng = np.random.default_rng(seed + 200)
+
+    def normal(shape, scale):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    if "sigma_proj" in params:
+        sp = params["sigma_proj"]
+        sp["kernel"] = normal(sp["kernel"].shape, 0.05)
+        sp["bias"] = normal(sp["bias"].shape, 0.5) - 2.0
+    if "ar_ctx_fc2" in params:
+        params["ar_ctx_fc2"]["kernel"] = normal(params["ar_ctx_fc2"]["kernel"].shape, 0.3)
+        params["ar_bias"] = normal(params["ar_bias"].shape, 0.5)
+        params["ar_coupling"] = normal(params["ar_coupling"].shape, 0.5)
+    if "lowrank_U" in params:
+        params["lowrank_U"] = normal(params["lowrank_U"].shape, 0.3)
+        params["lowrank_logdiag"] = normal(params["lowrank_logdiag"].shape, 0.3) - 1.0
+        params["lowrank_logs"] = normal(params["lowrank_logs"].shape, 0.2) - 0.5
+    return params
+
+
 def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0,
-              discrete: bool = False, data_dims=DATA_DIMS, hidden=HIDDEN):
+              discrete: bool = False, data_dims=DATA_DIMS, hidden=HIDDEN, overrides=None,
+              rng_impl=None):
     """(jax_model, flax_params as numpy, port_model) on the same weights;
-    ``discrete`` turns on the D3PM mutation head on both."""
-    jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete, hidden)
-    pc = _configure(Config(), num_steps, compute_dtype, discrete, hidden)
+    ``discrete`` turns on the D3PM mutation head on both; ``overrides``
+    (dotted config paths) set the variants on both, the heads'
+    zero-initialized parameters perturbed (:func:`perturb_heads`).
+    ``rng_impl="threefry"`` makes the JAX samplers split their keys with
+    threefry, so a test can rebuild their draws."""
+    jc = _configure(JaxConfig(), num_steps, compute_dtype, discrete, hidden, overrides)
+    pc = _configure(Config(), num_steps, compute_dtype, discrete, hidden, overrides)
+    if rng_impl is not None:
+        jc.generation.rng_impl = rng_impl
     jdims = jc.freeze_dims(*data_dims, CONDITIONS)
     pdims = pc.freeze_dims(*data_dims, CONDITIONS)
     jmodel = JaxDiffusion.from_config(jc, jdims)
@@ -46,9 +93,12 @@ def make_pair(num_steps: int = 6, compute_dtype: str = "bfloat16", seed: int = 0
         np.asarray, jmodel.init_params(jax.random.PRNGKey(seed), len(CONDITIONS))
     )
     rng = np.random.default_rng(seed + 100)
-    gain = params["skip_gain"]
-    gain["kernel"] = (0.3 * rng.standard_normal(gain["kernel"].shape)).astype(np.float32)
-    gain["bias"] = np.full(gain["bias"].shape, 0.1, np.float32)
+    if "skip_gain" in params:
+        gain = params["skip_gain"]
+        gain["kernel"] = (0.3 * rng.standard_normal(gain["kernel"].shape)).astype(np.float32)
+        gain["bias"] = np.full(gain["bias"].shape, 0.1, np.float32)
+    if overrides:
+        perturb_heads(params, seed)
     pmodel = ConditionalDiffusion.from_config(pc, pdims)
     pmodel.denoiser.load_state_dict(flax_params_to_state_dict(params))
     return jmodel, params, pmodel
