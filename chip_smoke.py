@@ -102,7 +102,24 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (no gate); (a)'s kernel sampler on its widened conditions against the
    plain loop at 333 rows, and the scan loop on the card against its CPU
    run on the same draws;
-7. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
+7. "[arch]" (after ``[variants]``): the two other architectures of
+   ``model.architecture``, the cVAE and the flow, at the full width of
+   config/config.yaml (hidden 256/512/256, latent 128, bf16 products,
+   dropout 0.2, constraints on; the flow six couplings of width 512),
+   each trained through the CLI with the production settings for 30
+   epochs (finite losses, the best validation loss below epoch 0's, the
+   cVAE's BatchNorm statistics in ``best_model.npz``, one epoch resumed
+   from a copy), the train step's steps/sec and launches a step
+   (``scripts/profile_torch_train.py``'s ``run``), then 3 x 333 generate
+   -> calibrate -> validate through the CLI: the route ("cvae" /
+   "plain"), no kernel launched while generating, every cohort
+   calibrated on the card, K4 launched by the validation; the sampler at
+   333 and 999 rows and the calibration timed in process; the card's
+   sample against the CPU's on the same z (within 0.05 of max(1,
+   max|CPU|)) and the flow's inverse(forward(x)) on the card (2e-3); the
+   server on 127.0.0.1 answering five requests of 64 rows, no kernel
+   launched;
+8. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
    checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
    warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
    HTTP requests a pair (JSON at 1 and 64 rows, npz at 1,024), each
@@ -111,7 +128,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (counted in that process, set to 0 after the warmup): K1, K1+GN and
    K1+posterior launched, K1's general path and K2/K3 apart not; the
    1,024-row requests calibrated on the device;
-8. the kernel sampler against the plain PyTorch loop at 333 rows:
+9. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
    the same x_T, noise, zeta and eta); then at serving's small batches,
@@ -129,6 +146,8 @@ from __future__ import annotations
 
 import argparse
 import copy
+import http.client
+import importlib.util
 import json
 import logging
 import math
@@ -136,6 +155,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -165,6 +185,7 @@ from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
     calibrate_head_steps,
 )
 from osteosarcoma_diffusionmodel_torch.ops.schedules import DiffusionSchedule
+from osteosarcoma_diffusionmodel_torch.serving.server import serve
 from osteosarcoma_diffusionmodel_torch.ops.pallas_kernels import (
     POSTERIOR_UPDATE,
     RBF,
@@ -1856,6 +1877,247 @@ def run_variants_phase(cfg: Config, dev, root: Path) -> dict:
     return totals
 
 
+# The architectures phase: the cVAE and the flow (model.architecture) at
+# the full width of config/config.yaml (hidden 256/512/256, latent 128,
+# bf16 products, dropout 0.2, constraints on), each trained through the
+# CLI with the production settings for ARCH_EPOCHS epochs, then 3 x 333
+# generate -> calibrate (on the card) -> validate, held card against CPU
+# and served. Neither samples through a kernel; validation runs K4.
+ARCH_EPOCHS = 30
+ARCH_ROUTES = {"cvae": "cvae", "flow": "plain"}
+ARCH_SAMPLE_TOL = 0.05  # card vs CPU sample (bf16 products): of max(1, max|CPU|)
+# The flow's inverse(forward(x)) on the card, of max(1, max|x|): half a bf16
+# ulp. Each coupling's net reads its input rounded to bf16, and the inverse
+# hands it the previous coupling's reconstruction, whose f32 rounding can
+# move that input by one bf16 ulp.
+ARCH_ROUND_TRIP_TOL = 2e-3
+ARCH_SERVE_REQUESTS = 5
+
+
+def _profile_train_script():
+    """scripts/profile_torch_train.py as a module (its ``make_trainer`` and
+    ``run``: steps/sec, launches and device ms a step)."""
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_train", REPO / "scripts" / "profile_torch_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _arch_train(arch: str, cfg: Config, dev, root: Path) -> Path:
+    """The CLI's train step for ARCH_EPOCHS epochs: finite losses, the best
+    validation loss below epoch 0's, the cVAE's BatchNorm statistics in
+    ``best_model.npz``, one more epoch resumed from a copy of the periodic
+    checkpoint; then the train step's steps/sec and launches under the
+    profile script. Returns the checkpoint directory."""
+    tcfg = copy.deepcopy(cfg)
+    tcfg.model.architecture = arch
+    tcfg.training.num_epochs = tcfg.training.patience = ARCH_EPOCHS
+    tcfg.training.epochs_per_dispatch = 25
+    tcfg.training.save_dir = str(root / f"checkpoint_{arch}")
+    tcfg.output.results_dir = str(root / f"results_{arch}")
+    history, train_s = run_step(train_model, tcfg, dev)
+    losses = history.train_loss + history.val_loss
+    if len(history.train_loss) != ARCH_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[arch] {arch}: {len(history.train_loss)} epochs, losses finite "
+                             f"{all(math.isfinite(v) for v in losses)}")
+    if not min(history.val_loss) < history.val_loss[0]:
+        raise AssertionError(f"[arch] {arch}: the best validation loss is not below epoch 0's")
+    save_dir = Path(tcfg.training.save_dir)
+    with np.load(save_dir / "best_model.npz") as f:
+        keys = list(f.files)
+    stats = [k for k in keys if k.startswith("batch_stats/")]
+    want = 4 * len(cfg.model.hidden_dims) if arch == "cvae" else 0
+    if len(stats) != want or any("num_batches_tracked" in k for k in keys):
+        raise AssertionError(f"[arch] {arch}: best_model.npz holds {len(stats)} BatchNorm "
+                             f"statistics, want {want}")
+    print(f"[arch] {arch}: {ARCH_EPOCHS} epochs in {train_s:.2f} s ({train_s / ARCH_EPOCHS:.4f} s "
+          f"an epoch, {history.steps_per_sec:.1f} steps/sec); train loss "
+          f"{history.train_loss[0]:.4f} -> {history.train_loss[-1]:.4f}, val "
+          f"{history.val_loss[0]:.4f} -> {history.val_loss[-1]:.4f} (best "
+          f"{min(history.val_loss):.4f}); best_model.npz {len(keys)} arrays, {len(stats)} "
+          f"BatchNorm statistics", flush=True)
+
+    latest = latest_epoch(save_dir)
+    resumed = root / f"checkpoint_{arch}_resumed"
+    shutil.copytree(save_dir, resumed)
+    rcfg = copy.deepcopy(tcfg)
+    rcfg.training.save_dir = str(resumed)
+    rcfg.training.num_epochs = latest + 2
+    more, resume_s = run_step(lambda c, device: train_model(c, device=device, resume=True),
+                              rcfg, dev)
+    if len(more.train_loss) != 1 or not math.isfinite(more.train_loss[0] + more.val_loss[0]):
+        raise AssertionError(f"[arch] {arch}: resume from epoch {latest}: {more.as_dict()}")
+    print(f"[arch] {arch}: resumed from checkpoint_epoch_{latest}: epoch {latest + 2} train loss "
+          f"{more.train_loss[0]:.4f}, val loss {more.val_loss[0]:.4f} ({resume_s:.2f} s)",
+          flush=True)
+
+    profile = _profile_train_script()
+    pcfg = copy.deepcopy(tcfg)
+    t0 = time.perf_counter()
+    prof = profile.run(profile.make_trainer(root / f"profile_{arch}", dev, config=pcfg), epochs=3)
+    print(f"[arch] {arch} train step (profile_torch_train.run, {time.perf_counter() - t0:.1f} s): "
+          f"{prof['train_steps_per_sec']:.1f} steps/sec, {prof['seconds_per_epoch_median']:.4f} s "
+          f"an epoch, {prof['kernel_launches_per_step']:.0f} launches and "
+          f"{prof['aten_ops_per_step']:.0f} operator calls a step, device "
+          f"{prof['step_device_ms']:.3f} ms of {prof['step_wall_ms']:.3f} ms a step (busy "
+          f"{prof['device_busy_share']:.3f}); checkpoint write {prof['checkpoint_write_s']:.2f} s",
+          flush=True)
+    return save_dir
+
+
+def _arch_generate(arch: str, cfg: Config, dev, root: Path, save_dir: Path) -> dict:
+    """3 x 333 generate -> calibrate -> validate through the CLI with every
+    count set to 0 just before generate: the route, no kernel launched
+    while generating, every cohort calibrated on the card, K4 launched by
+    the validation. Returns the launches by kernel."""
+    gcfg = copy.deepcopy(cfg)
+    gcfg.training.save_dir = str(save_dir)
+    gcfg.output.synthetic_data_dir = str(root / f"synthetic_{arch}")
+    gcfg.output.results_dir = str(root / f"results_{arch}")
+    label = f"[arch] {arch} 3 x {BATCH}"
+    for k in KERNELS:
+        k.reset()
+    gen_module.CALIBRATIONS.clear()
+    gen_module.SAMPLERS.clear()
+    _, gen_s = run_step(generate_synthetic_patients, gcfg, dev)
+    launched = {k.name: k.launches for k in KERNELS if k.launches}
+    samplers, calibrations = dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS)
+    cohorts = len(gcfg.generation.scenarios)
+    if launched or samplers != {ARCH_ROUTES[arch]: cohorts}:
+        raise AssertionError(f"{label}: routes {samplers}, kernels launched while generating "
+                             f"{launched}")
+    check_calibrated_on_device(gcfg, calibrations, label)
+    results, val_s = run_step(validate_synthetic_patients, gcfg, dev)
+    if RBF.launches == 0:
+        raise AssertionError(f"{label}: the validation launched no K4")
+    check_outputs(gcfg, results, label)
+    print(f"{label}: route {samplers}, generate+calibrate {gen_s:.2f} s, validate {val_s:.2f} s "
+          f"(K4 {RBF.launches} launches, no other kernel: "
+          f"{sum(k.launches for k in KERNELS) == RBF.launches}); calibrations "
+          f"{json.dumps(calibrations)}; overall {results['overall_biological_score']:.4f}, MMD "
+          f"{results['mmd']:.4f}, co-occurrence pattern "
+          f"{results['cooccurrence_pattern_correlation']:.4f} (no gate)", flush=True)
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _arch_parts(arch: str, cfg: Config, dev, save_dir: Path) -> None:
+    """In process from the trained checkpoint: the sampler at 333 (warm,
+    the second of two calls) and 999 rows, the calibration of the 333-row
+    cohort; then the card's sample against the CPU's on the same z and
+    conditions, and the flow's inverse(forward(x)) on the card."""
+    model, mcfg, dims = load_trained_model(save_dir, copy.deepcopy(cfg))
+    gen = SyntheticPatientGenerator(model, mcfg, dims, data_stats=load_data_stats(save_dir),
+                                    device=dev)
+    scenarios = mcfg.generation.scenarios
+    cond = gen.create_conditions(BATCH, scenarios[0].conditions)
+    cond999 = np.concatenate([gen.create_conditions(BATCH, s.conditions) for s in scenarios])
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    for rep in range(2):
+        raw = timed(f"sampler {BATCH}", lambda: gen.sample_raw(cond, seeded_generator(2, rep)))
+    timed(f"sampler {3 * BATCH}", lambda: gen.sample_raw(cond999, seeded_generator(3)))
+    timed(f"calibrate {BATCH}", lambda: gen._postprocess(raw, cond))
+    print(f"[arch] {arch} in process: " + ", ".join(f"{name} {sec:.4f} s"
+                                                    for name, sec in parts.items()), flush=True)
+
+    host, _, _ = load_trained_model(save_dir, copy.deepcopy(cfg))
+    g = torch.Generator().manual_seed(31)
+    width = model.latent_dim if arch == "cvae" else D
+    z = torch.randn(BATCH, width, generator=g)
+    c = torch.from_numpy(cond)
+    card, ref = model.sample(c, z=z).cpu(), host.sample(c, z=z)
+    err = float((card - ref).abs().max())
+    bound = ARCH_SAMPLE_TOL * max(1.0, float(ref.abs().max()))
+    ok = err <= bound and bool(torch.isfinite(card).all())
+    line = (f"[reference] {arch} sample {BATCH}x{D}, z injected: card vs CPU max|diff| "
+            f"{err:.4e} (bound {bound:.4e})")
+    if arch == "flow":
+        x = model.sample(c, z=z)
+        cd = c.to(dev)
+        with torch.no_grad():
+            back = model.module.inverse(model.module(x, cd)[0], cd)
+        rt = float((back - x).abs().max())
+        rt_bound = ARCH_ROUND_TRIP_TOL * max(1.0, float(x.abs().max()))
+        ok = ok and rt <= rt_bound
+        line += f"; inverse(forward(x)) on the card max|diff| {rt:.3e} (bound {rt_bound:.3e})"
+    print(f"{line}: {ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"[arch] {arch}: the card disagrees with the CPU")
+
+
+def _arch_serve(arch: str, save_dir: Path, dev) -> None:
+    """The port's server on 127.0.0.1 from the checkpoint (warmed at 64
+    rows), ARCH_SERVE_REQUESTS requests of 64 rows (JSON), the sampler
+    named per request (ignored by these families): p50, no kernel
+    launched."""
+    t0 = time.perf_counter()
+    server = serve(save_dir, host="127.0.0.1", port=0, warmup=(64,), device=str(dev))
+    startup = time.perf_counter() - t0
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    for k in KERNELS:
+        k.reset()
+    seconds = []
+    try:
+        for i in range(ARCH_SERVE_REQUESTS):
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+            body = {"num_samples": 64, "scenario": {"survival_time": 400 + 100 * i},
+                    "sampler": "ddim" if i % 2 else "ddpm"}
+            t0 = time.perf_counter()
+            conn.request("POST", "/generate", body=json.dumps(body))
+            resp = conn.getresponse()
+            out = json.loads(resp.read())
+            seconds.append(time.perf_counter() - t0)
+            conn.close()
+            if resp.status != 200 or np.asarray(out["expression"]).shape != (64, DATA_DIMS[1]):
+                raise AssertionError(f"[arch] {arch} /generate: status {resp.status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    launched = {k.name: k.launches for k in KERNELS if k.launches}
+    print(f"[arch] {arch} served: startup {startup:.2f} s (warmup at 64 rows), "
+          f"{ARCH_SERVE_REQUESTS} requests of 64 rows p50 {float(np.median(seconds)):.4f} s, max "
+          f"{max(seconds):.4f} s; kernels launched {launched}", flush=True)
+    if launched:
+        raise AssertionError(f"[arch] {arch}: serving launched kernels {launched}")
+
+
+def run_arch_phase(cfg: Config, dev, root: Path) -> dict:
+    """[arch]: the cVAE and the flow trained, generated, calibrated,
+    validated, held card against CPU and served. Returns the launches of
+    their generate -> validate runs by kernel (K4's)."""
+    t0 = time.perf_counter()
+    totals = {k.name: 0 for k in KERNELS}
+    for arch in ARCH_ROUTES:
+        stages = {}
+        t = time.perf_counter()
+        save_dir = _arch_train(arch, cfg, dev, root)
+        stages["train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for name, n in _arch_generate(arch, cfg, dev, root, save_dir).items():
+            totals[name] += n
+        stages["generate+validate"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _arch_parts(arch, cfg, dev, save_dir)
+        stages["parts+reference"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _arch_serve(arch, save_dir, dev)
+        stages["serve"] = time.perf_counter() - t
+        print(f"[arch] {arch} seconds by stage: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in stages.items()), flush=True)
+    print(f"[arch] phase {time.perf_counter() - t0:.1f} s; kernel launches {json.dumps(totals)}",
+          flush=True)
+    return totals
+
+
 def run_bench_latent(tmp: Path, head) -> dict:
     """scripts/bench_latent_torch.py as a user runs it (999 rows,
     DDPM-1000, one timed call after a warm-up), with the probe's head
@@ -2368,10 +2630,11 @@ def main(argv=None) -> int:
         check_calibration(cfg, dev)
         trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
         variants = run_variants_phase(cfg, dev, Path(tmp))
+        archs = run_arch_phase(cfg, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
-        for counts in (trained, variants, run_serve_phase(trained_ckpt, Path(tmp)),
+        for counts in (trained, variants, archs, run_serve_phase(trained_ckpt, Path(tmp)),
                        run_latent_path(cfg, dev, Path(tmp))):
             for name, n in counts.items():
                 launches[name] += n

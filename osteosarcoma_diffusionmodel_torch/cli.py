@@ -13,11 +13,13 @@ and the JAX CLI's files: ``<synthetic_data_dir>/<scenario>/<scenario>_
 ``<results_dir>/validation_results.csv``. ``--steps all`` is ``train
 generate validate``. The model section of the config always comes from
 the checkpoint's metadata: the train step does not write the JAX CLI's
-``config/config_updated.yaml``. Every variant of the diffusion model
-trains, generates and validates (the AR and latent-factor heads, CFG, the
-parameterizations, learned and low-rank sigma); sample-path fine-tuning
-is not ported and is rejected before training, except for the heads the
-JAX CLI skips it for. The download, preprocess, pathways,
+``config/config_updated.yaml``. The three architectures of
+``model.architecture`` (diffusion, cvae, flow) and every variant of the
+diffusion model train, generate and validate (the AR and latent-factor
+heads, CFG, the parameterizations, learned and low-rank sigma);
+sample-path fine-tuning is not ported and is rejected before training,
+except where the JAX CLI skips it with a warning (the cVAE, the flow, the
+D3PM, latent-factor and AR heads). The download, preprocess, pathways,
 report and doctor steps are not ported yet. The steps run on the CUDA
 card; the CPU runs them only when asked (``--device cpu``): without a
 card and without that flag the CLI raises before it reads or writes
@@ -40,9 +42,9 @@ from .data.dataset import OsteosarcomaArrays, prepare_arrays
 from .data.pathways import HALLMARK_GENE_SETS
 from .generation.generator import SyntheticPatientGenerator, load_trained_model
 from .models.constraints import ConstraintSpec
-from .models.diffusion import ConditionalDiffusion, finetune_skipped
+from .models.diffusion import finetune_skip_reason
 from .training.checkpoint import load_data_stats
-from .training.trainer import TrainLog, Trainer
+from .training.trainer import TrainLog, Trainer, build_model
 from .utils.io import Matrix, read_matrix_csv, write_matrix_csv
 from .validation.validator import BiologicalValidator
 
@@ -83,13 +85,13 @@ def train_model(config: Config, device: Optional[str] = None, resume: bool = Fal
     arrays, dims = prepare_arrays(config)
     logger.info("Model configured with: Mut=%d, Expr=%d, Path=%d, Cond=%d",
                 dims.mutation_dim, dims.expression_dim, dims.pathway_dim, dims.condition_dim)
-    model = ConditionalDiffusion.from_config(config, dims, build_constraint_spec(config, arrays))
+    model = build_model(config, dims, build_constraint_spec(config, arrays))
     history = Trainer(model, arrays, dims, config, device).train(resume=resume)
-    if config.training.sample_path_finetune.enabled and finetune_skipped(config, dims):
-        # The JAX CLI skips it for these heads (cli.py:195-225); elsewhere
-        # the trainer has already rejected it as unported.
-        logger.warning("sample_path_finetune does not apply to the D3PM, latent-factor or AR "
-                       "heads; skipping")
+    skip = finetune_skip_reason(config, dims)
+    if config.training.sample_path_finetune.enabled and skip:
+        # The JAX CLI skips it there (cli.py:193-225); elsewhere the trainer
+        # has already rejected it as unported.
+        logger.warning(skip)
     results_dir = Path(config.output.results_dir)
     results_dir.mkdir(parents=True, exist_ok=True)
     n = len(history.train_loss)

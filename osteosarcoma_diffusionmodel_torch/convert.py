@@ -1,12 +1,20 @@
-"""Carry weights between the JAX package's Flax parameters and the port.
+"""Carry weights between the JAX package's Flax variables and the port.
 
-The Flax denoiser's parameter tree (osteosarcoma_diffusionmodel_tpu/
-models/networks.py, names at :186-219) maps one to one onto
-:class:`~.models.networks.DiffusionDenoiser`:
+The Flax parameter trees of the three architectures map one to one onto
+the port's modules: the denoiser's (osteosarcoma_diffusionmodel_tpu/
+models/networks.py, names at :186-219) onto
+:class:`~.models.networks.DiffusionDenoiser`, the cVAE's (``encoder/fc_i``,
+``encoder/bn_i``, ``encoder/fc_mu``, ``encoder/fc_logvar``,
+``decoder/fc_i``, ``decoder/bn_i``, ``decoder/output``,
+``survival_head/fc1``, ``survival_head/fc2``) onto
+:class:`~.models.cvae.ConditionalVAEModule`, and the flow's
+(``coupling_k/{fc1,fc2,out}``) onto :class:`~.models.flow.ConditionalRealNVP`:
 
 - a Dense ``kernel`` (in, out) is a Linear ``weight`` (out, in); ``bias``
   stays ``bias``;
-- a GroupNorm ``scale``/``bias`` is ``weight``/``bias``;
+- a GroupNorm or BatchNorm ``scale``/``bias`` is ``weight``/``bias``;
+- the cVAE's ``batch_stats`` tree (``encoder/bn_0/mean``, ``.../var``) is
+  the port's BatchNorm buffers of the same names (``encoder.bn_0.mean``);
 - module paths keep their names (``enc_0/fc1`` -> ``enc_0.fc1``), the
   heads' Dense layers too (``sigma_proj``, ``latent_enc_fc1/2``,
   ``ar_ctx_fc1/2``);
@@ -14,12 +22,14 @@ models/networks.py, names at :186-219) maps one to one onto
   ``ar_bias``, ``lowrank_U``, ``lowrank_logdiag``, ``lowrank_logs``) keep
   their names and layout (no transpose).
 
-A parameter of any other module or leaf is rejected, never dropped.
+A parameter or statistic of any other module or leaf is rejected, never
+dropped.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +42,21 @@ _TOP_LEVEL = {
 RAW_ARRAYS = {"ar_coupling", "ar_bias", "lowrank_U", "lowrank_logdiag", "lowrank_logs"}
 
 
-def _check_module(name: str) -> None:
-    if name in _TOP_LEVEL or name.startswith(("enc_", "dec_")):
+# The cVAE's and the flow's module paths, whole.
+_FAMILY_MODULES = re.compile(
+    r"(encoder/(fc_\d+|bn_\d+|fc_mu|fc_logvar)|decoder/(fc_\d+|bn_\d+|output)"
+    r"|survival_head/fc[12]|coupling_\d+/(fc1|fc2|out))$")
+BATCH_STATS = ("mean", "var")
+
+
+def _check_module(path: str) -> None:
+    """``path``: a module path with "/" or "." between its names."""
+    path = path.replace(".", "/")
+    top = path.split("/")[0]
+    if top in _TOP_LEVEL or top.startswith(("enc_", "dec_")) or _FAMILY_MODULES.match(path):
         return
     raise NotImplementedError(
-        f"Flax parameter {name!r} belongs to no module of the PyTorch port's denoiser"
+        f"Flax variable {path!r} belongs to no module of the PyTorch port's models"
     )
 
 
@@ -63,16 +83,19 @@ def unflatten_params(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def flax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax params (nested dict of arrays) -> the port's ``state_dict``."""
+def flax_params_to_state_dict(params: Mapping[str, Any],
+                              batch_stats: Optional[Mapping[str, Any]] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """Flax params (nested dict of arrays), and the cVAE's ``batch_stats``
+    where given, -> the port's ``state_dict``."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in flatten_params(params).items():
         if path in RAW_ARRAYS:
             state[path] = torch.from_numpy(np.array(value, np.float32))
             continue
-        parts = path.split("/")
-        _check_module(parts[0])
-        module, leaf = ".".join(parts[:-1]), parts[-1]
+        module, _, leaf = path.rpartition("/")
+        _check_module(module or path)
+        module = module.replace("/", ".")
         arr = np.asarray(value, np.float32)
         if leaf == "kernel":
             state[f"{module}.weight"] = torch.from_numpy(np.array(arr.T, order="C"))
@@ -82,20 +105,30 @@ def flax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             state[f"{module}.bias"] = torch.from_numpy(arr.copy())
         else:
             raise NotImplementedError(f"unknown Flax parameter leaf {path!r}")
+    for path, value in flatten_params(batch_stats or {}).items():
+        module, _, leaf = path.rpartition("/")
+        _check_module(module or path)
+        if leaf not in BATCH_STATS:
+            raise NotImplementedError(f"unknown Flax batch_stats leaf {path!r}")
+        state[f"{module.replace('/', '.')}.{leaf}"] = torch.from_numpy(
+            np.array(value, np.float32))
     return state
 
 
-def state_dict_to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`flax_params_to_state_dict` (GroupNorm modules are
-    recognized by their 1-D weight)."""
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of :func:`flax_params_to_state_dict`: (params, batch_stats),
+    the latter empty without BatchNorm. GroupNorm and BatchNorm modules are
+    recognized by their 1-D weight, BatchNorm's statistics by their
+    ``mean``/``var`` names."""
     flat: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         arr = value.detach().cpu().float().numpy()
         if key in RAW_ARRAYS:
             flat[key] = arr
             continue
         module, leaf = key.rsplit(".", 1)
-        _check_module(module.split(".")[0])
+        _check_module(module)
         path = module.replace(".", "/")
         if leaf == "weight" and arr.ndim == 2:
             flat[f"{path}/kernel"] = np.ascontiguousarray(arr.T)
@@ -103,6 +136,13 @@ def state_dict_to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, An
             flat[f"{path}/scale"] = arr
         elif leaf == "bias":
             flat[f"{path}/bias"] = arr
+        elif leaf in BATCH_STATS:
+            stats[f"{path}/{leaf}"] = arr
         else:
             raise ValueError(f"unexpected state_dict entry {key!r}")
-    return unflatten_params(flat)
+    return unflatten_params(flat), unflatten_params(stats)
+
+
+def state_dict_to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The params half of :func:`state_dict_to_flax`."""
+    return state_dict_to_flax(state)[0]

@@ -160,12 +160,16 @@ def train_val_split(n_samples: int, val_split: float, seed: int) -> Tuple[np.nda
 def mixup(data: torch.Tensor, conditions: torch.Tensor, alpha: float = 0.0,
           lam: Optional[float] = None, perm: Optional[torch.Tensor] = None,
           rng: Optional[np.random.Generator] = None,
-          generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+          generator: Optional[torch.Generator] = None,
+          survival: Optional[torch.Tensor] = None) -> tuple:
     """Mixup with one lambda for the whole batch: lam * x + (1 - lam) *
     x[perm]. ``lam`` ~ Beta(alpha, alpha) is drawn from the numpy ``rng``
     and ``perm`` from ``generator`` (on the data's device) unless given.
     lambda and 1 - lambda are float32 values passed as scalars, so the
-    step reads nothing from and copies nothing to the device for them."""
+    step reads nothing from and copies nothing to the device for them.
+    Returns (data, conditions), and the ``survival`` (B,) mixed with the
+    same lambda and permutation third where it is given (the cVAE's
+    target, JAX :290-308)."""
     if lam is None:
         lam = rng.beta(alpha, alpha)
     if perm is None:
@@ -173,4 +177,7 @@ def mixup(data: torch.Tensor, conditions: torch.Tensor, alpha: float = 0.0,
     lam = np.float32(lam)
     keep = float(np.float32(1.0) - lam)
     lam = float(lam)
-    return (lam * data + keep * data[perm], lam * conditions + keep * conditions[perm])
+    mixed = (lam * data + keep * data[perm], lam * conditions + keep * conditions[perm])
+    if survival is None:
+        return mixed
+    return mixed + (lam * survival + keep * survival[perm],)

@@ -1,10 +1,17 @@
 """Synthetic patient generation: scenarios -> conditions -> cohorts.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/generation/generator.py
-for the diffusion model: scenario conditions (:90-134), sampling
-(:189-331), calibration against the training cohort (:333-704, host
-numpy path), the per-scenario and batched loops (:705-768), the
-modality split and the CSV export (:771-820), and checkpoint loading.
+for the three model families: scenario conditions (:90-134), sampling
+(:189-331), calibration against the training cohort (:333-704), the
+per-scenario and batched loops (:705-768), the modality split and the CSV
+export (:771-820), and checkpoint loading (:825-874, through
+:func:`~..training.trainer.build_model`).
+
+The cVAE and the flow sample in one pass on the generator's device, before
+anything of the diffusion model is read (JAX :217-233): the cVAE decodes
+z ~ N(0, I) (route "cvae"), the flow inverts it (route "plain"); no
+sampler kernel runs. Their cohorts are calibrated as the diffusion
+model's are. The rest of this note is the diffusion model's.
 
 Sampling (:235-298) takes the kernel sampler (``ops/fused_sampler.py``)
 for every model that :func:`~..ops.fused_sampler.supports_fused` accepts
@@ -17,9 +24,11 @@ says. Every other model (v/epsilon, learned or low-rank sigma, no clip, no
 input skip, normal noise, CFG at guidance != 1) takes the scan sampler
 (``ConditionalDiffusion.scan_sample``/``scan_sample_ddim``) on the same
 device, as the JAX package takes its ``lax.scan`` sampler where it has no
-Pallas kernel. The JAX package's 4096/8192-row thresholds and
-``generation.fused_sampler`` are crossovers measured on a TPU; the port
-decides by configuration alone. ``SAMPLERS`` counts cohorts by route.
+Pallas kernel. Any ``generation.sampler`` other than "ddim" is DDPM, as in
+the JAX generator (:242, :266). The JAX package's 4096/8192-row
+thresholds and ``generation.fused_sampler`` are crossovers measured on a
+TPU; the port decides by configuration alone. ``SAMPLERS`` counts cohorts
+by route.
 
 A latent-factor model's conditions are widened with draws from a
 Gaussian prior fitted once on the training cohort's encoded latents
@@ -49,6 +58,7 @@ import numpy as np
 import torch
 
 from ..config import Config, FrozenDims, Scenario
+from ..models.cvae import BiologyConstrainedVAE
 from ..models.diffusion import ConditionalDiffusion
 from ..ops.copula import (
     correlation_transplant,
@@ -61,6 +71,7 @@ from ..ops.copula import (
 from ..ops.copula_device import DeviceCalibrator
 from ..ops.fused_sampler import FusedSampler, supports_fused
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
+from ..training.trainer import build_model
 from ..utils.io import write_matrix_csv
 
 logger = logging.getLogger(__name__)
@@ -69,7 +80,8 @@ logger = logging.getLogger(__name__)
 # path each cohort took, for callers that drive the generator through the
 # CLI (chip_smoke.py reads it as it reads the kernels' launch counts).
 CALIBRATIONS: Counter = Counter()
-# Cohorts by sampler route ("kernel", "scan") since the last reset.
+# Cohorts by sampler route since the last reset: "kernel", "scan" (the
+# diffusion model), "cvae", "plain" (the flow).
 SAMPLERS: Counter = Counter()
 
 
@@ -84,14 +96,17 @@ class SyntheticPatientGenerator:
     """Generate synthetic patient cohorts from a trained model on ``device``
     (the card unless the caller passes the CPU)."""
 
-    def __init__(self, model: ConditionalDiffusion, config: Config, dims: FrozenDims,
+    def __init__(self, model, config: Config, dims: FrozenDims,
                  data_stats: Optional[Dict[str, np.ndarray]] = None, device="cuda"):
+        """``model``: a ConditionalDiffusion, BiologyConstrainedVAE or
+        ConditionalFlow."""
         self.model = model
         self.config = config
         self.dims = dims
         self.data_stats = data_stats
         self.device = torch.device(device)
-        model.denoiser.to(self.device)
+        self.is_diffusion = isinstance(model, ConditionalDiffusion)
+        model.module.to(self.device)
         self._samplers: Dict[tuple, FusedSampler] = {}
         self._copula = None
         self._cont_chol = None
@@ -144,9 +159,16 @@ class SyntheticPatientGenerator:
         return 1.0
 
     def uses_kernels(self) -> bool:
-        """True when cohorts take the kernel sampler: the JAX package's
-        ``supports_fused`` and guidance 1."""
-        return supports_fused(self.model) and self.guidance() == 1.0
+        """True when cohorts take the kernel sampler: a diffusion model that
+        the JAX package's ``supports_fused`` accepts, at guidance 1."""
+        return (self.is_diffusion and supports_fused(self.model)
+                and self.guidance() == 1.0)
+
+    def _head(self, name: str):
+        """A diffusion model's head flag (``ar_head``, ``discrete_head``,
+        ``latent_factor_dim``); off for the other families, as the JAX
+        generator's ``getattr(self.model, name, False)``."""
+        return getattr(self.model, name) if self.is_diffusion else 0
 
     def _latent_prior_draw(self, num_samples: int, generator: torch.Generator) -> torch.Tensor:
         """(num_samples, k) latent factors on the device from the Gaussian
@@ -179,6 +201,9 @@ class SyntheticPatientGenerator:
     def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> torch.Tensor:
         """The sampler's (N, D) float32 output, on the sampler's device."""
         cond = torch.from_numpy(conditions)
+        if not self.is_diffusion:
+            SAMPLERS["cvae" if isinstance(self.model, BiologyConstrainedVAE) else "plain"] += 1
+            return self.model.sample(cond.to(self.device), generator)
         if self.model.latent_factor_dim > 0:
             cond = torch.cat([cond.to(self.device),
                               self._latent_prior_draw(cond.shape[0], generator)], dim=1)
@@ -200,7 +225,7 @@ class SyntheticPatientGenerator:
         logger.info("Generating %d synthetic patients...", num_samples)
         conditions = self.create_conditions(num_samples, scenario, generator)
         ar_generator = None
-        if self.model.ar_head:
+        if self._head("ar_head"):
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
             ar_generator = seeded_generator(seed, 424_243)
         samples = self.sample_raw(conditions, generator)
@@ -230,7 +255,7 @@ class SyntheticPatientGenerator:
         else:
             mutations = (samples[:, :m] > 0.5).astype(np.float32)
             continuous = samples[:, m:]
-        if self.model.ar_head and m > 0 and samples.shape[0] > 0:
+        if self._head("ar_head") and m > 0 and samples.shape[0] > 0:
             mutations = self._ar_bits(continuous, conditions, ar_generator)
         return {
             "mutations": mutations,
@@ -298,8 +323,8 @@ class SyntheticPatientGenerator:
         than one gene, the real mutation block and cohort, more than two
         rows."""
         stats = self.data_stats
-        return (mode == "copula_joint" and not self.model.discrete_head
-                and not self.model.ar_head and "mutation_matrix" in stats
+        return (mode == "copula_joint" and not self._head("discrete_head")
+                and not self._head("ar_head") and "mutation_matrix" in stats
                 and "data_matrix" in stats and n > 2 and m > 1)
 
     def _cont_branch(self, mode: str, shape) -> bool:
@@ -325,7 +350,7 @@ class SyntheticPatientGenerator:
         head's draw replaces, the tetrachoric transplant, or per-gene
         quantile thresholds."""
         stats = self.data_stats
-        if self.model.discrete_head or self.model.ar_head:
+        if self._head("discrete_head") or self._head("ar_head"):
             return (raw_mut > 0.5).astype(np.float32)
         if (mode in ("copula", "copula_full", "copula_joint") and "mutation_matrix" in stats
                 and raw_mut.shape[0] > 2 and m > 1):
@@ -467,9 +492,11 @@ class SyntheticPatientGenerator:
 
 
 def load_trained_model(checkpoint_dir: str | Path, config: Optional[Config] = None):
-    """Rebuild the model from ``metadata.json`` and load ``best_model.npz``.
-    The model section of the config comes from the checkpoint; the other
-    sections from ``config`` when given. Returns (model, config, dims)."""
+    """Rebuild the model from ``metadata.json`` (any of the three
+    architectures, through ``build_model``) and load ``best_model.npz``,
+    the cVAE's BatchNorm statistics included. The model section of the
+    config comes from the checkpoint; the other sections from ``config``
+    when given. Returns (model, config, dims); the module is in eval mode."""
     checkpoint_dir = Path(checkpoint_dir)
     meta = load_metadata(checkpoint_dir)
     if meta is None:
@@ -480,7 +507,7 @@ def load_trained_model(checkpoint_dir: str | Path, config: Optional[Config] = No
         config = meta_config
     else:
         config.model = meta_config.model
-    model = ConditionalDiffusion.from_config(config, dims)  # eval mode: no dropout
-    model.denoiser.load_state_dict(load_weights(checkpoint_dir))
+    model = build_model(config, dims)
+    model.module.load_state_dict(load_weights(checkpoint_dir))
     logger.info("Loaded checkpoint %s", checkpoint_dir)
     return model, config, dims

@@ -161,17 +161,25 @@ class ConstraintSpec:
         return x[..., :m], x[..., m : m + e], x[..., m + e :]
 
     def tensors(self, device) -> SpecTensors:
+        """The arrays on ``device``, copied there once (the spec is
+        immutable)."""
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_tensors", {})
+        if device in cache:
+            return cache[device]
+
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-        return SpecTensors(
+        cache[device] = SpecTensors(
             f32(self.pathway_mask), idx(self.exclusive_pairs).reshape(-1, 2),
             idx(self.rule_mutation_idx), idx(self.rule_pathway_idx), f32(self.rule_sign),
             f32(self.mutation_corr_target),
         )
+        return cache[device]
 
 
 def _standardize_over_batch(x: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ Two families of samplers:
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional
@@ -59,13 +60,13 @@ from ..ops.fused_sampler import (
 from ..ops.sampler_kernels import gemm_s8_plain, mutation_transform, rowquant_s8_plain
 from ..ops.schedules import DiffusionSchedule, ddim_timesteps
 from .constraints import ConstraintSpec, SpecTensors, constraint_losses
-from .networks import DiffusionDenoiser, sinusoid
+from .networks import DTYPES, DiffusionDenoiser, generator_on, sinusoid
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANTIZE_MODES = ("none", "out", "io", "all")
 LOSS_TYPES = ("l1", "l2", "huber")
 AR_CONTEXTS = ("pathways", "continuous", "none")
 UNIFORM_SCALE = math.sqrt(3.0)
+logger = logging.getLogger(__name__)
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -75,21 +76,38 @@ def _unsupported(what: str) -> NotImplementedError:
     )
 
 
-def finetune_skipped(config: Config, dims: FrozenDims) -> bool:
-    """True where the JAX CLI skips an enabled sample-path fine-tuning
-    (cli.py:195-225 there): the D3PM, latent-factor and AR heads."""
+def finetune_skip_reason(config: Config, dims: FrozenDims) -> Optional[str]:
+    """The JAX CLI's warning where it skips an enabled sample-path
+    fine-tuning (cli.py:193-225 there): another architecture than the
+    diffusion model, the D3PM, latent-factor or AR heads; None where it
+    would run it."""
     dc, m = config.model.diffusion, dims.mutation_dim
-    return bool((dc.discrete_mutation_head and m) or dc.latent_factor_dim > 0
-                or (dc.ar_mutation_head and m))
+    if config.model.architecture != "diffusion":
+        return ("sample_path_finetune only applies to the diffusion architecture; skipping "
+                f"(architecture={config.model.architecture})")
+    if dc.discrete_mutation_head and m:
+        return ("sample_path_finetune is incompatible with the discrete mutation head (no "
+                "pathwise gradient through bit draws); skipping")
+    if dc.latent_factor_dim > 0:
+        return ("sample_path_finetune does not support latent-factor conditioning (the DDIM "
+                "chain would need prior draws threaded through the loss); skipping")
+    if dc.ar_mutation_head and m:
+        return ("sample_path_finetune is pointless with the AR mutation head: generation "
+                "replaces the mutation scores its co-occurrence objective tunes with the "
+                "sequential AR draw; skipping")
+    return None
 
 
 def check_supported(config: Config, dims: FrozenDims, training: bool = False) -> None:
     """Raise NotImplementedError for the configurations the port does not
-    implement (the cVAE, flow and GNN architectures, samplers other than
-    ddpm/ddim; with ``training``, cross-cancer pretraining, sample-path
+    implement (with ``training``: cross-cancer pretraining, sample-path
     fine-tuning where the JAX CLI would run it, several devices), and
     ValueError for an unknown ``generation.fused_quantize``, loss type,
-    block weighting, compute dtype or carry dtype."""
+    block weighting, compute dtype or carry dtype. Every architecture
+    passes: :func:`~..training.trainer.build_model` refuses an unknown one.
+    A ``generation.sampler`` other than "ddim" samples with DDPM, as in the
+    JAX package (its generator tests for "ddim" only); one warning says
+    so."""
     mc, dc, gen = config.model, config.model.diffusion, config.generation
     if gen.fused_quantize not in QUANTIZE_MODES + (None,):
         raise ValueError(f"generation.fused_quantize must be one of {QUANTIZE_MODES}, "
@@ -104,19 +122,18 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False) ->
         for bad, what in [
             (aug.cross_cancer_pretrain and bool(aug.pretrain_datasets),
              "cross-cancer pretraining"),
-            (tc.sample_path_finetune.enabled and not finetune_skipped(config, dims),
+            (tc.sample_path_finetune.enabled and finetune_skip_reason(config, dims) is None,
              "sample-path fine-tuning"),
             ((tc.num_devices or 1) > 1, "data-parallel training over several devices"),
         ]:
             if bad:
                 raise _unsupported(what)
-    if mc.architecture != "diffusion":
-        raise _unsupported(f"architecture {mc.architecture!r}")
     if gen.sampler not in ("ddpm", "ddim"):
-        raise _unsupported(f"sampler {gen.sampler!r}")
+        logger.warning("generation.sampler %r is not 'ddim': sampling with DDPM, as the JAX "
+                       "package does", gen.sampler)
     for what, value in (("compute_dtype", mc.compute_dtype),
                         ("generation.sample_dtype", gen.sample_dtype)):
-        if value not in _DTYPES:
+        if value not in DTYPES:
             raise ValueError(f"unknown {what} {value!r}")
 
 
@@ -184,10 +201,7 @@ class _Draws:
                  generator: Optional[torch.Generator], device):
         self.given = dict(given or {})
         self.device = torch.device(device)
-        if generator is not None and generator.device != self.device:
-            seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.generator = generator
+        self.generator = generator_on(generator, self.device)
 
     def __call__(self, name: str, kind: str, shape, dtype=torch.float32,
                  step: Optional[int] = None) -> torch.Tensor:
@@ -257,6 +271,12 @@ class ConditionalDiffusion:
     ar_lr: float = 1e-2
     pathway_dim: int = 0
 
+    @property
+    def module(self) -> DiffusionDenoiser:
+        """The ``nn.Module`` that holds every parameter (the trainer's and
+        the generator's handle, as for the cVAE and the flow)."""
+        return self.denoiser
+
     @staticmethod
     def from_config(config: Config, dims: FrozenDims,
                     constraint_spec: Optional[ConstraintSpec] = None) -> "ConditionalDiffusion":
@@ -279,7 +299,7 @@ class ConditionalDiffusion:
             time_dim=mc.latent_dim,
             condition_embed_dim=mc.latent_dim // 2,
             hidden_dims=tuple(mc.hidden_dims),
-            compute_dtype=_DTYPES[mc.compute_dtype],
+            compute_dtype=DTYPES[mc.compute_dtype],
             input_skip=mc.denoiser_input_skip,
             dropout=mc.gnn.dropout,
             learn_sigma=dc.learn_sigma,
@@ -780,7 +800,7 @@ class ConditionalDiffusion:
         sched = self.schedule
         T = sched.num_steps
         M = self.mutation_dim if self.discrete_head else 0
-        cd = _DTYPES[self.sample_dtype]
+        cd = DTYPES[self.sample_dtype]
         batch = conditions.shape[0]
         Dc = d.data_dim - M
         draw = _Draws(draws, generator, dev)

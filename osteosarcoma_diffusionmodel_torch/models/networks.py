@@ -1,12 +1,16 @@
-"""The diffusion denoiser as PyTorch modules.
+"""The diffusion denoiser and the layers the model families share, as
+PyTorch modules.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/models/networks.py
 (`TimeEmbedding`, `ConditionEmbedding`, `DenoiserBlock`,
-`DiffusionDenoiser`): a skip-connected MLP of Linear -> GroupNorm(8) ->
-SiLU -> Dropout -> Linear -> GroupNorm(8) -> SiLU blocks with additive
-time and condition injection, the input-skip gain, and the optional
-heads of :137-250 there: the learned-sigma projection, the latent-factor
-encoder, the AR (FVSBN) mutation head and the low-rank sigma parameters.
+`DiffusionDenoiser`, `SurvivalHead`), with Flax's BatchNorm written out
+for the cVAE (:class:`BatchNorm`) and :func:`init_flax`, the Flax
+initializers of every family. The denoiser is a skip-connected MLP of
+Linear -> GroupNorm(8) -> SiLU -> Dropout -> Linear -> GroupNorm(8) ->
+SiLU blocks with additive time and condition injection, the input-skip
+gain, and the optional heads of :137-250 there: the learned-sigma
+projection, the latent-factor encoder, the AR (FVSBN) mutation head and
+the low-rank sigma parameters.
 
 Parameters are float32; ``compute_dtype`` sets the dtype of the Linear
 products as in the Flax modules (bfloat16 rounds each product's output
@@ -31,6 +35,14 @@ from torch import nn
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``model.compute_dtype`` as a torch dtype; ValueError when unknown."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return DTYPES[name]
 
 
 def sinusoid(t_norm: torch.Tensor, dim: int) -> torch.Tensor:
@@ -57,6 +69,68 @@ class _Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         return F.linear(x.to(cd), self.weight.to(cd), self.bias.to(cd))
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over the batch axis (momentum 0.99, epsilon
+    1e-5, ``dtype=float32``), not ``nn.BatchNorm1d``: in training mode the
+    statistics are float32 over the (bf16) input, the variance E[x^2] -
+    E[x]^2 clipped at 0 and biased, and it normalizes with that variance
+    and updates ``mean <- 0.99 mean + 0.01 mu`` and ``var <- 0.99 var +
+    0.01 sigma^2`` in place; in eval mode it normalizes with the running
+    statistics. The output is float32: (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, in Flax's order. The buffers carry Flax's
+    ``batch_stats`` names, ``mean`` and ``var``; ``weight``/``bias`` are
+    its ``scale``/``bias``."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            mu = x.mean(dim=0)
+            var = torch.clamp_min((x * x).mean(dim=0) - mu * mu, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mu)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mu, var = self.mean, self.var
+        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class SurvivalHead(nn.Module):
+    """Auxiliary survival-time regressor over a latent vector (JAX
+    `SurvivalHead`, networks.py:328-344): Dense(128) -> ReLU ->
+    Dropout(0.2) -> Dense(1), squeezed to (B,) float32. The rate is fixed,
+    not taken from the config, as there."""
+
+    def __init__(self, in_features: int, compute_dtype: torch.dtype,
+                 hidden_dim: int = 128, dropout: float = 0.2):
+        super().__init__()
+        self.fc1 = _Dense(in_features, hidden_dim, compute_dtype)
+        self.drop = nn.Dropout(dropout)
+        self.fc2 = _Dense(hidden_dim, 1, compute_dtype)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.drop(F.relu(self.fc1(z)))).float().squeeze(-1)
+
+
+def generator_on(generator: Optional[torch.Generator], device) -> Optional[torch.Generator]:
+    """``generator`` where it lies on ``device``, else a generator there
+    seeded once from it, so that a model's draws stay on its device."""
+    device = torch.device(device)
+    if generator is None or generator.device == device:
+        return generator
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 class ConditionEmbedding(nn.Module):
@@ -187,6 +261,23 @@ class DiffusionDenoiser(nn.Module):
         if learn_sigma:
             self.sigma_proj = nn.Linear(dec_in, data_dim)  # f32
 
+    def flax_init(self, generator: torch.Generator) -> None:
+        """The Flax inits of the heads (networks.py:137-250 in the JAX
+        package), after :func:`init_flax`'s defaults: a zero kernel for the
+        skip gain and the AR context's output layer; a zero kernel and a -6
+        bias for the sigma projection; normal(0.01) for the AR couplings
+        and U; zeros for the AR biases and the low-rank log-diagonal and
+        log-scales."""
+        with torch.no_grad():
+            if self.input_skip:
+                self.skip_gain.weight.zero_()
+            if self.learn_sigma:
+                self.sigma_proj.weight.zero_()
+                self.sigma_proj.bias.fill_(-6.0)
+            _init_raw_heads(self, generator, 0.01)
+            if self.ar_head_dim:
+                self.ar_ctx_fc2.weight.zero_()
+
     # ------------------------------------------------------------------
     def embed_conditions(self, conditions: torch.Tensor) -> torch.Tensor:
         """Condition projection, loop-invariant during sampling (with latent
@@ -251,15 +342,14 @@ class DiffusionDenoiser(nn.Module):
         return out
 
 
-def init_flax(module: DiffusionDenoiser, generator: torch.Generator) -> None:
+def init_flax(module: nn.Module, generator: torch.Generator) -> None:
     """The Flax module's initial weights, drawn from ``generator``: Dense
     kernels LeCun normal (a normal truncated to +-2 std, rescaled to
-    variance 1/fan_in), biases 0, GroupNorm scale 1 and bias 0; a zero
-    kernel for the skip gain and the AR context's output layer; a zero
-    kernel and a -6 bias for the sigma projection; normal(0.01) for the AR
-    couplings and U; zeros for the AR biases and the low-rank log-diagonal
-    and log-scales (networks.py:137-250 in the JAX package). The draws are
-    torch's, not JAX's: the distribution is the same, the values are
+    variance 1/fan_in), biases 0, GroupNorm and BatchNorm scale 1 and bias
+    0, BatchNorm's running mean 0 and variance 1; then each submodule's
+    ``flax_init`` hook, in module order, for the inits that differ from
+    these (the denoiser's heads, the flow's zero output kernels). The draws
+    are torch's, not JAX's: the distribution is the same, the values are
     not."""
     std = 1.0 / 0.87962566103423978  # std of a unit normal truncated to +-2
     with torch.no_grad():
@@ -268,17 +358,16 @@ def init_flax(module: DiffusionDenoiser, generator: torch.Generator) -> None:
                 nn.init.trunc_normal_(mod.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
                 mod.weight.mul_(std / math.sqrt(mod.in_features))
                 mod.bias.zero_()
-            elif isinstance(mod, nn.GroupNorm):
+            elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-        if module.input_skip:
-            module.skip_gain.weight.zero_()
-        if module.learn_sigma:
-            module.sigma_proj.weight.zero_()
-            module.sigma_proj.bias.fill_(-6.0)
-        _init_raw_heads(module, generator, 0.01)
-        if module.ar_head_dim:
-            module.ar_ctx_fc2.weight.zero_()
+                if isinstance(mod, BatchNorm):
+                    mod.mean.zero_()
+                    mod.var.fill_(1.0)
+        for mod in module.modules():
+            hook = getattr(mod, "flax_init", None)
+            if hook is not None:
+                hook(generator)
 
 
 def _init_raw_heads(module: DiffusionDenoiser, generator: torch.Generator, scale: float) -> None:

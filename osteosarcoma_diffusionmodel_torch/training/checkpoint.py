@@ -4,10 +4,12 @@ and the trainer's periodic checkpoints.
 Counterpart of osteosarcoma_diffusionmodel_tpu/training/checkpoint.py
 without Orbax. A checkpoint directory holds
 
-- ``best_model.npz``: the denoiser's parameters as flat Flax paths
-  (``enc_0/fc1/kernel``, ...), so the JAX side can write it without torch
-  (scripts/export_jax_checkpoint.py) and :mod:`..convert` maps it onto the
-  port's modules;
+- ``best_model.npz``: the model's parameters as flat Flax paths
+  (``enc_0/fc1/kernel``, ``encoder/bn_0/scale``, ``coupling_0/out/kernel``,
+  ...) and, for the cVAE, its BatchNorm statistics under a ``batch_stats/``
+  prefix (``batch_stats/encoder/bn_0/mean``), so the JAX side can write it
+  without torch (scripts/export_jax_checkpoint.py) and :mod:`..convert` maps
+  it onto the port's modules;
 - ``metadata.json``: ``{"dims": ..., "config": ...}`` exactly as the JAX
   package writes it;
 - ``data_stats.npz``: the training cohort's statistics under the JAX keys
@@ -40,7 +42,7 @@ from ..config import Config, FrozenDims
 from ..convert import (
     flatten_params,
     flax_params_to_state_dict,
-    state_dict_to_flax_params,
+    state_dict_to_flax,
     unflatten_params,
 )
 
@@ -48,6 +50,7 @@ METADATA_FILE = "metadata.json"
 DATA_STATS_FILE = "data_stats.npz"
 BEST_NAME = "best_model"
 EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)$")
+BATCH_STATS_PREFIX = "batch_stats/"
 
 
 def data_stats_from_arrays(data: np.ndarray, conditions: np.ndarray,
@@ -105,17 +108,23 @@ def metadata_to_dims(meta: Dict[str, Any]) -> FrozenDims:
 
 def save_weights(save_dir: str | Path, state_dict: Mapping[str, torch.Tensor],
                  name: str = BEST_NAME) -> None:
+    """``<name>.npz``: the parameters and any BatchNorm statistics."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    flat = flatten_params(state_dict_to_flax_params(state_dict))
+    params, batch_stats = state_dict_to_flax(state_dict)
+    flat = flatten_params(params)
+    flat.update({BATCH_STATS_PREFIX + k: v for k, v in flatten_params(batch_stats).items()})
     np.savez(save_dir / f"{name}.npz", **flat)
 
 
 def load_weights(save_dir: str | Path, name: str = BEST_NAME) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from ``<name>.npz`` (``best_model.npz``)."""
+    """The port's ``state_dict`` from ``<name>.npz`` (``best_model.npz``),
+    BatchNorm statistics included."""
     with np.load(Path(save_dir) / f"{name}.npz") as f:
         flat = {k: f[k] for k in f.files}
-    return flax_params_to_state_dict(unflatten_params(flat))
+    stats = {k[len(BATCH_STATS_PREFIX):]: flat.pop(k) for k in list(flat)
+             if k.startswith(BATCH_STATS_PREFIX)}
+    return flax_params_to_state_dict(unflatten_params(flat), unflatten_params(stats))
 
 
 def epoch_dir(save_dir: str | Path, epoch: int) -> Path:

@@ -2,33 +2,44 @@
 checkpoints and resume.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/training/trainer.py's
-per-epoch path (`train_epoch` :554, `validate` :598, `train` :768) for
-the diffusion model:
+per-epoch path (`train_epoch` :554, `validate` :598, `train` :768) and its
+architecture dispatch (:func:`build_model`, :849-863), for the three
+model families: the diffusion model, the cVAE and the flow. The trainer
+holds the family's ``nn.Module`` (``model.module``) and calls its loss as
+the JAX `_loss_with_aux` does (:256-275): the cVAE's with the z-scored
+survival target, the diffusion model's with the rows before augmentation
+for the AR head; the module is in training mode during a step (dropout,
+and the cVAE's BatchNorm on the batch's statistics, updating the running
+ones) and in eval mode in :meth:`Trainer.validate`.
 
 - the whole cohort lives on the trainer's device; a batch is an index
   into that copy;
 - a step applies mixup (one Beta(alpha, alpha) lambda a batch, drawn on
-  the host from a seeded numpy generator) and Gaussian jitter on the
-  pathway block, then the loss with dropout on (the AR head's CE on the
+  the host from a seeded numpy generator; the cVAE's survival target mixed
+  with the same lambda and permutation) and Gaussian jitter on the
+  pathway block, then the loss in training mode (the AR head's CE on the
   rows before both augmentations), one global-norm clip over every
   parameter at ``grad_clip_norm`` (:func:`clip_by_global_norm`, optax's
   arithmetic), and the optimizers of the JAX trainer's layout (:200-250):
-  ``torch.optim.AdamW`` over the denoiser, with the low-rank sigma
-  parameters (``lowrank_*``) in a group without weight decay, and the AR
-  head's parameters (``ar_*``) in a plain ``torch.optim.Adam`` of their
-  own at the constant ``ar_lr``;
+  ``torch.optim.AdamW`` over every parameter of the module (BatchNorm's
+  scale and bias decayed too), with the low-rank sigma parameters
+  (``lowrank_*``) in a group without weight decay, and the AR head's
+  parameters (``ar_*``) in a plain ``torch.optim.Adam`` of their own at
+  the constant ``ar_lr``;
 - each epoch takes the batches of ``np.random.default_rng(seed + 1000 +
   epoch).permutation(train_idx)`` in order, dropping the last partial
   one; one host sync an epoch reads its losses;
 - the plateau schedule writes the learning rate into AdamW's groups
   only; best model, early stopping and the schedule follow the
-  validation ``sel_loss`` (the loss without the AR head's terms).
+  validation ``sel_loss`` (the loss without the AR head's terms; the loss
+  itself for a family without it).
 
 Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
 at the start of ``train``; ``checkpoint_epoch_<n>/`` (weights, the optimizers'
 moments and steps, the learning rate) every ``save_frequency`` epochs;
-``best_model.npz``, the weights of the best epoch so far, kept on the
-device and written with each periodic checkpoint and at the end.
+``best_model.npz``, the weights (and the cVAE's BatchNorm statistics) of
+the best epoch so far, kept on the device and written with each periodic
+checkpoint and at the end.
 
 ``training.epochs_per_dispatch`` fuses epochs into one XLA program in
 the JAX package; the port runs the per-epoch loop, the reference
@@ -47,7 +58,9 @@ import torch
 
 from ..config import Config, FrozenDims
 from ..data.dataset import OsteosarcomaArrays, mixup, train_val_split
+from ..models.cvae import BiologyConstrainedVAE
 from ..models.diffusion import ConditionalDiffusion, check_supported
+from ..models.flow import ConditionalFlow
 from ..models.networks import init_flax
 from . import checkpoint as ckpt
 
@@ -128,10 +141,24 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch
     return norm
 
 
-class Trainer:
-    """Per-epoch training loop of the diffusion model on one device."""
+def build_model(config: Config, dims: FrozenDims, constraint_spec=None):
+    """The model of ``model.architecture`` (JAX :849-863): the diffusion
+    model, the cVAE or the flow, each with its module in eval mode; any
+    other architecture is a ValueError, as there."""
+    arch = config.model.architecture
+    if arch == "diffusion":
+        return ConditionalDiffusion.from_config(config, dims, constraint_spec)
+    if arch == "cvae":
+        return BiologyConstrainedVAE.from_config(config, dims, constraint_spec)
+    if arch == "flow":
+        return ConditionalFlow.from_config(config, dims, constraint_spec)
+    raise ValueError(f"Unknown architecture: {arch}")
 
-    def __init__(self, model: ConditionalDiffusion, arrays: OsteosarcomaArrays,
+
+class Trainer:
+    """Per-epoch training loop of one model family on one device."""
+
+    def __init__(self, model, arrays: OsteosarcomaArrays,
                  dims: FrozenDims, config: Config, device: str | torch.device):
         check_supported(config, dims, training=True)
         tc = config.training
@@ -143,11 +170,12 @@ class Trainer:
         self.dims = dims
         self.config = config
         self.device = torch.device(device)
+        self.is_vae = isinstance(model, BiologyConstrainedVAE)
 
-        denoiser = model.denoiser
-        init_flax(denoiser, torch.Generator().manual_seed(tc.random_seed))
-        denoiser.to(self.device)
-        named = list(denoiser.named_parameters())
+        self.module = model.module
+        init_flax(self.module, torch.Generator().manual_seed(tc.random_seed))
+        self.module.to(self.device)
+        named = list(self.module.named_parameters())
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
         # capturable keeps the step counters on the card (and the updates
@@ -163,7 +191,7 @@ class Trainer:
             weight_decay=tc.weight_decay, capturable=capturable,
         )
         self.ar_optimizer = torch.optim.Adam(
-            ar_params, lr=model.ar_lr, betas=(0.9, 0.999), eps=1e-8,
+            ar_params, lr=getattr(model, "ar_lr", 0.0), betas=(0.9, 0.999), eps=1e-8,
             capturable=capturable) if ar_params else None
         self.optimizers = [o for o in (self.optimizer, self.ar_optimizer) if o is not None]
         self.start_epoch = 0
@@ -173,11 +201,15 @@ class Trainer:
         self._data = torch.from_numpy(np.ascontiguousarray(arrays.data, np.float32)).to(self.device)
         self._cond = torch.from_numpy(
             np.ascontiguousarray(arrays.conditions, np.float32)).to(self.device)
+        surv_norm = ((arrays.survival - arrays.survival_mean)
+                     / max(arrays.survival_std, 1e-8)).astype(np.float32)
+        self._surv = torch.from_numpy(surv_norm).to(self.device)
         self._val_idx = torch.from_numpy(self.val_idx).to(self.device)
         self.pathway_start = dims.mutation_dim + dims.expression_dim
 
-        # The step's draws: t, noise, bit flips, mixup's permutation and
-        # the pathway jitter on the device; mixup's lambda on the host.
+        # The step's draws: the loss's (t, noise, bit flips; the cVAE's
+        # epsilon; the flow's z), mixup's permutation and the pathway
+        # jitter on the device; mixup's lambda on the host.
         self.generator = torch.Generator(device=self.device).manual_seed(tc.random_seed + 7)
         self.np_rng = np.random.default_rng(tc.random_seed + 7)
 
@@ -187,22 +219,33 @@ class Trainer:
         self.history = TrainLog()
 
     # ------------------------------------------------------------------
-    def train_step(self, data: torch.Tensor, cond: torch.Tensor, *,
+    def _loss(self, data, cond, surv, raw, train: bool, draws):
+        """The family's loss as the JAX `_loss_with_aux` calls it."""
+        if self.is_vae:
+            return self.model.loss(data, cond, surv, self.generator, train=train, **draws)
+        if isinstance(self.model, ConditionalDiffusion):
+            return self.model.loss(data, cond, self.generator, ar_x0=raw[0],
+                                   ar_conditions=raw[1], train=train, **draws)
+        return self.model.loss(data, cond, self.generator, train=train, **draws)
+
+    def train_step(self, data: torch.Tensor, cond: torch.Tensor,
+                   surv: Optional[torch.Tensor] = None, *,
                    lam: Optional[float] = None, perm: Optional[torch.Tensor] = None,
                    pathway_noise: Optional[torch.Tensor] = None,
-                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                   bit_uniforms: Optional[torch.Tensor] = None,
-                   cfg_uniforms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a batch. The keyword arguments replace
-        the step's draws (mixup's lambda and permutation, the pathway
-        jitter, then the loss's t, noise, bit uniforms and CFG keep
-        uniforms). Returns the loss's metrics and ``grad_norm``, the global
-        norm before the clip, as device tensors."""
+                   **draws: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch (``surv``: the normalized survival
+        target, which only the cVAE reads). The keyword arguments replace
+        the step's draws: mixup's lambda and permutation, the pathway
+        jitter, then the loss's (``t``, ``noise``, ``bit_uniforms``,
+        ``cfg_uniforms`` for the diffusion model; ``eps`` for the cVAE;
+        ``z`` for the flow). Returns the loss's metrics and ``grad_norm``,
+        the global norm before the clip, as device tensors."""
         aug = self.config.training.augmentation
         raw_data, raw_cond = data, cond
         if aug.mixup_alpha > 0:
-            data, cond = mixup(data, cond, aug.mixup_alpha, lam=lam, perm=perm,
-                               rng=self.np_rng, generator=self.generator)
+            mixed = mixup(data, cond, aug.mixup_alpha, lam=lam, perm=perm, rng=self.np_rng,
+                          generator=self.generator, survival=surv if self.is_vae else None)
+            data, cond, surv = mixed if self.is_vae else (*mixed, surv)
         if aug.pathway_noise > 0:
             ps = self.pathway_start
             if pathway_noise is None:
@@ -212,9 +255,7 @@ class Trainer:
                              dim=1)
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
-        loss, metrics = self.model.loss(data, cond, self.generator, t=t, noise=noise,
-                                        bit_uniforms=bit_uniforms, cfg_uniforms=cfg_uniforms,
-                                        ar_x0=raw_data, ar_conditions=raw_cond, train=True)
+        loss, metrics = self._loss(data, cond, surv, (raw_data, raw_cond), True, draws)
         loss.backward()
         grads = [p.grad for p in self.params]
         metrics["grad_norm"] = clip_by_global_norm(grads, self.config.training.grad_clip_norm)
@@ -234,13 +275,16 @@ class Trainer:
     def train_epoch(self, epoch: int) -> torch.Tensor:
         """The epoch's mean train loss, as a device scalar."""
         batches = torch.from_numpy(self.epoch_batches(epoch)).to(self.device)
-        losses = [self.train_step(self._data[idx], self._cond[idx])["loss"] for idx in batches]
+        losses = [self.train_step(self._data[idx], self._cond[idx], self._surv[idx])["loss"]
+                  for idx in batches]
         return torch.stack(losses).mean()
 
     @torch.no_grad()
     def validate(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(val loss, val sel_loss) as device scalars: per-batch means of
-        the loss in eval mode, averaged; NaN without validation rows."""
+        """(val loss, val selection loss) as device scalars: per-batch
+        means of the loss in eval mode, averaged; the selection loss is
+        ``sel_loss`` where the family reports one, else the loss (JAX
+        :598-617); NaN without validation rows."""
         if len(self.val_idx) == 0:
             nan = torch.full((), float("nan"), device=self.device)
             return nan, nan
@@ -248,10 +292,10 @@ class Trainer:
         total, sel = [], []
         for b in range(0, len(self.val_idx), batch_size):
             idx = self._val_idx[b: b + batch_size]
-            _, metrics = self.model.loss(self._data[idx], self._cond[idx], self.generator,
-                                         train=False)
+            data, cond = self._data[idx], self._cond[idx]
+            _, metrics = self._loss(data, cond, self._surv[idx], (data, cond), False, {})
             total.append(metrics["loss"])
-            sel.append(metrics["sel_loss"])
+            sel.append(metrics.get("sel_loss", metrics["loss"]))
         return torch.stack(total).mean(), torch.stack(sel).mean()
 
     # ------------------------------------------------------------------
@@ -267,8 +311,8 @@ class Trainer:
         return [(by_id[id(p)], p) for group in opt.param_groups for p in group["params"]]
 
     def save_checkpoint(self, epoch: int, val_loss: float) -> None:
-        """``checkpoint_epoch_<epoch>/``: weights, the optimizers' moments
-        (by parameter name) and steps, the LR."""
+        """``checkpoint_epoch_<epoch>/``: weights and BatchNorm statistics,
+        the optimizers' moments (by parameter name) and steps, the LR."""
         moments = {"exp_avg": {}, "exp_avg_sq": {}}
         steps = []
         for opt in self.optimizers:
@@ -281,19 +325,19 @@ class Trainer:
                 "lr": self.optimizer.param_groups[0]["lr"]}
         if self.ar_optimizer is not None:
             info["ar_step"] = steps[1]
-        ckpt.save_training_state(self.save_dir, epoch, self.model.denoiser.state_dict(),
-                                 moments, info)
+        ckpt.save_training_state(self.save_dir, epoch, self.module.state_dict(), moments, info)
 
     def resume(self) -> bool:
-        """Restore the latest periodic checkpoint, if any: the weights, the
-        optimizers' moments and steps, and the learning rate (into AdamW and
-        the plateau schedule). Training goes on from the epoch after it."""
+        """Restore the latest periodic checkpoint, if any: the weights and
+        BatchNorm statistics, the optimizers' moments and steps, and the
+        learning rate (into AdamW and the plateau schedule). Training goes on
+        from the epoch after it."""
         latest = ckpt.latest_epoch(self.save_dir)
         if latest is None:
             logger.info("No checkpoint to resume from")
             return False
         weights, moments, info = ckpt.load_training_state(ckpt.epoch_dir(self.save_dir, latest))
-        self.model.denoiser.load_state_dict(weights)
+        self.module.load_state_dict(weights)
         for opt, step_key in ((self.optimizer, "step"), (self.ar_optimizer, "ar_step")):
             if opt is None:
                 continue
@@ -353,7 +397,7 @@ class Trainer:
 
             if val_sel < best_val:
                 best_val = val_sel
-                best = {k: v.detach().clone() for k, v in self.model.denoiser.state_dict().items()}
+                best = {k: v.detach().clone() for k, v in self.module.state_dict().items()}
                 best_written = False
             if (epoch + 1) % tc.save_frequency == 0:
                 self.save_checkpoint(epoch, val_loss)

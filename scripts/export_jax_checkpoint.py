@@ -7,9 +7,11 @@ Runs where JAX is installed: restores the checkpoint with
 ``osteosarcoma_diffusionmodel_tpu.generation.generator.load_trained_model``
 and writes OUT_DIR with
 
-- ``best_model.npz``: the denoiser parameters under their flat Flax paths
-  (``enc_0/fc1/kernel``, ...), which
-  ``osteosarcoma_diffusionmodel_torch.convert`` maps onto the port;
+- ``best_model.npz``: the model's parameters under their flat Flax paths
+  (``enc_0/fc1/kernel``, ``encoder/fc_0/kernel``, ...) and the cVAE's
+  BatchNorm statistics under ``batch_stats/`` (``batch_stats/encoder/bn_0/
+  mean``), which ``osteosarcoma_diffusionmodel_torch.convert`` maps onto the
+  port;
 - ``metadata.json`` and ``data_stats.npz``, copied unchanged.
 
 The port then loads OUT_DIR as ``training.save_dir`` (its CLI, or
@@ -49,9 +51,12 @@ def export(checkpoint_dir: str | Path, out_dir: str | Path, name: str = "best_mo
     from osteosarcoma_diffusionmodel_tpu.generation.generator import load_trained_model
 
     checkpoint_dir, out_dir = Path(checkpoint_dir), Path(out_dir)
-    _model, params, _bs, _config, _dims = load_trained_model(checkpoint_dir, checkpoint_name=name)
+    _model, params, batch_stats, _config, _dims = load_trained_model(
+        checkpoint_dir, checkpoint_name=name)
     out_dir.mkdir(parents=True, exist_ok=True)
-    np.savez(out_dir / "best_model.npz", **flat_params(params))
+    flat = flat_params(params)
+    flat.update({f"batch_stats/{k}": v for k, v in flat_params(batch_stats or {}).items()})
+    np.savez(out_dir / "best_model.npz", **flat)
     for fname in (METADATA_FILE, DATA_STATS_FILE):
         src = checkpoint_dir / fname
         if not src.exists():

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the port's train step spends its time, at full width on one card.
 
-    python3 scripts/profile_torch_train.py [--epochs 20] [--out results/train_profile.json]
+    python3 scripts/profile_torch_train.py [--epochs 20] [--architecture diffusion]
+        [--out results/train_profile.json]
 
 The production training settings (config defaults: batch 16, AdamW 1e-4,
 clip 1.0, constraints on, dropout 0.2, mixup 0.2, pathway noise 0.05) on
 the seeded structured cohort of 100 patients at 62/5054/26 with hidden
-256/512/256 and T = 1000. After two warm-up epochs it reports
+256/512/256 and T = 1000, for the diffusion model, the cVAE (latent 128)
+or the flow (six couplings of width 512). After two warm-up epochs it
+reports
 
 - epochs as the trainer runs them (``train_epoch`` + ``validate`` + one
   host read): seconds an epoch and train steps a second;
@@ -45,8 +48,7 @@ from osteosarcoma_diffusionmodel_torch.data.dummy import (  # noqa: E402
     cohort_arrays,
     make_dummy_cohort,
 )
-from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion  # noqa: E402
-from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer  # noqa: E402
+from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer, build_model  # noqa: E402
 
 PROFILED_STEPS = 20
 
@@ -60,7 +62,7 @@ def make_trainer(save_dir: Path, device, dims=(62, 5054, 26), config: Config | N
         data, conditions, np.asarray(cohort.clinical["survival_days"], np.float32),
         cohort.sample_ids, cohort.mutation_genes, cohort.expression_genes,
         cohort.pathway_names, fdims.condition_names)
-    model = ConditionalDiffusion.from_config(cfg, fdims, build_constraint_spec(cfg, arrays))
+    model = build_model(cfg, fdims, build_constraint_spec(cfg, arrays))
     return Trainer(model, arrays, fdims, cfg, device)
 
 
@@ -79,26 +81,26 @@ def run(tr: Trainer, epochs: int) -> dict:
     t0 = time.perf_counter()
     tr.save_checkpoint(epochs + 1, 0.0)
     checkpoint_s = time.perf_counter() - t0
-    best = {k: v.detach().clone() for k, v in tr.model.denoiser.state_dict().items()}
+    best = {k: v.detach().clone() for k, v in tr.module.state_dict().items()}
     t0 = time.perf_counter()
     tr.write_best(best)
     best_s = time.perf_counter() - t0
 
     idx = torch.from_numpy(tr.epoch_batches(0)[0]).to(tr.device)
-    data, cond = tr._data[idx], tr._cond[idx]
+    data, cond, surv = tr._data[idx], tr._cond[idx], tr._surv[idx]
     activities = [torch.profiler.ProfilerActivity.CPU]
     if tr.device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     sync()
     t0 = time.perf_counter()
     for _ in range(PROFILED_STEPS):
-        tr.train_step(data, cond)
+        tr.train_step(data, cond, surv)
     sync()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED_STEPS):
-            tr.train_step(data, cond)
+            tr.train_step(data, cond, surv)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
     events = prof.key_averages()
@@ -134,6 +136,7 @@ def run(tr: Trainer, epochs: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--epochs", type=int, default=20)
+    parser.add_argument("--architecture", default="diffusion", choices=("diffusion", "cvae", "flow"))
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,7 +144,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="osdm_train_profile_") as tmp:
-        out = {"card": card, **run(make_trainer(Path(tmp), "cuda"), args.epochs)}
+        cfg = Config()
+        cfg.model.architecture = args.architecture
+        out = {"card": card, "architecture": args.architecture,
+               **run(make_trainer(Path(tmp), "cuda", config=cfg), args.epochs)}
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

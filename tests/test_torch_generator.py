@@ -99,17 +99,31 @@ def test_seeded_generators_are_independent():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("architecture", "cvae"), ("architecture", "flow"), ("architecture", "gnn"),
+    ("architecture", "diffusion"), ("architecture", "cvae"), ("architecture", "flow"),
+    ("architecture", "gnn"),
 ])
 def test_unported_features_raise(field, value):
+    """``build_model`` dispatches on ``model.architecture`` as the JAX one
+    does (training/trainer.py:849-863): diffusion, cvae and flow build
+    their families; anything else is the JAX ValueError."""
     from osteosarcoma_diffusionmodel_torch.config import Config
+    from osteosarcoma_diffusionmodel_torch.models.cvae import BiologyConstrainedVAE
     from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
+    from osteosarcoma_diffusionmodel_torch.models.flow import ConditionalFlow
+    from osteosarcoma_diffusionmodel_torch.training.trainer import build_model
 
     cfg = Config()
+    cfg.model.hidden_dims = [32, 64, 32]
     setattr(cfg.model, field, value)
     dims = cfg.freeze_dims(4, 8, 4, ["a"])
-    with pytest.raises(NotImplementedError):
-        ConditionalDiffusion.from_config(cfg, dims)
+    family = {"diffusion": ConditionalDiffusion, "cvae": BiologyConstrainedVAE,
+              "flow": ConditionalFlow}.get(value)
+    if family is None:
+        with pytest.raises(ValueError, match=f"Unknown architecture: {value}"):
+            build_model(cfg, dims)
+        return
+    model = build_model(cfg, dims)
+    assert isinstance(model, family) and not model.module.training
 
 
 # The variants the port once rejected: each builds, routes as the JAX
@@ -152,16 +166,43 @@ def test_ported_variants_generate(section, field, value, sampler):
     assert set(np.unique(out["mutations"])) <= {0.0, 1.0}
 
 
-@pytest.mark.parametrize("field,value", [("sampler", "dpm"), ("sampler", "euler")])
+@pytest.mark.parametrize("field,value", [("sampler", "dpm"), ("sampler", "euler"),
+                                         ("sampler", "ancestral")])
 def test_unported_generation_settings_raise(field, value):
+    """A sampler other than "ddim" is DDPM, as in the JAX generator
+    (generation/generator.py:242, :266): the model builds (nothing is
+    refused) and its cohort equals the "ddpm" cohort under the same seed."""
     from osteosarcoma_diffusionmodel_torch.config import Config
     from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 
-    cfg = Config()
+    cfg = _configure(Config(), 4, "bfloat16")
     setattr(cfg.generation, field, value)
     dims = cfg.freeze_dims(4, 8, 4, ["a"])
-    with pytest.raises(NotImplementedError):
-        ConditionalDiffusion.from_config(cfg, dims)
+    model = ConditionalDiffusion.from_config(cfg, dims)
+    cohorts = []
+    for sampler in ("ddpm", value):
+        setattr(cfg.generation, field, sampler)
+        gen = SyntheticPatientGenerator(model, cfg, dims, device="cpu")
+        cohorts.append(gen.generate(5, {"survival_time": 500}, seeded_generator(3)))
+    for key in cohorts[0]:
+        np.testing.assert_array_equal(cohorts[1][key], cohorts[0][key], err_msg=key)
+
+
+def test_jax_generator_samples_ddpm_for_other_samplers(setup):
+    """The reference behaviour the port follows: the JAX generator's
+    "ancestral" cohort equals its "ddpm" cohort under the same key."""
+    import jax
+
+    jc, jdims, jmodel, params, *_ = setup
+    cohorts = []
+    for sampler in ("ddpm", "ancestral"):
+        jc.generation.sampler = sampler
+        gen = JaxGenerator(jmodel, params, jc, jdims)
+        cohorts.append(gen.generate(5, {"survival_time": 500}, rng=jax.random.PRNGKey(4)))
+    jc.generation.sampler = "ddpm"
+    for key in cohorts[0]:
+        np.testing.assert_array_equal(np.asarray(cohorts[1][key]), np.asarray(cohorts[0][key]),
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("section,field,value", [
