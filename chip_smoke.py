@@ -119,7 +119,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
    max|CPU|)) and the flow's inverse(forward(x)) on the card (2e-3); the
    server on 127.0.0.1 answering five requests of 64 rows, no kernel
    launched;
-8. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
+8. "[pipeline]" (after ``[arch]``): the training side of the pipeline
+   from raw files. The seeded structured cohort (100 patients,
+   62/5054/26) written in the GDC download's layout: a gzipped MAF with
+   a protein-altering record for each 1-bit and silent records the
+   filter must drop, one gzipped STAR file a patient (20,000 genes and
+   STAR's four N_* summary rows), ``rna_seq/metadata.csv`` and
+   ``clinical.csv``; a second cohort (seed 1, 60 patients, six mutation
+   and 300 expression genes and the stage column absent) under
+   ``data_dir/pretrain/TARGET-SMOKE/raw``. The CLI's preprocess (both
+   cohorts; the expression width is the preprocessor's 5000, not 5054),
+   pathways and train steps with the production training settings:
+   20 pretraining epochs, 30 epochs in blocks of 25, sample-path
+   fine-tuning with config/config.yaml's values (300 steps of DDIM-8 on
+   256 rows, lr 1e-5, tau 0.1, weights 5 / 1); every loss finite,
+   ``pretrain/`` and ``best_model_prefinetune.npz`` written and
+   ``best_model.npz`` changed; then DDIM-50 generate -> calibrate ->
+   validate at 3 x 333 with the trained path's launch accounting (K1,
+   K1+GN and K1+posterior "none" launched, K1's general path, K2 and K3
+   not, every cohort calibrated on the card, K4 on validation) and
+   overall, MMD, co-occurrence and pathway coherence printed (no gate);
+   one fine-tuning step on the card against the CPU on the same draws
+   (each loss within 5e-2 of itself), the fine-tuning step's ms,
+   launches and device ms; the hard-thresholded co-occurrence loss of a
+   999-row DDIM-50 cohort before and after fine-tuning; each step's
+   seconds;
+9. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
    checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
    warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
    HTTP requests a pair (JSON at 1 and 64 rows, npz at 1,024), each
@@ -128,7 +153,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (counted in that process, set to 0 after the warmup): K1, K1+GN and
    K1+posterior launched, K1's general path and K2/K3 apart not; the
    1,024-row requests calibrated on the device;
-9. the kernel sampler against the plain PyTorch loop at 333 rows:
+10. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
    the same x_T, noise, zeta and eta); then at serving's small batches,
@@ -146,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gzip
 import http.client
 import importlib.util
 import json
@@ -163,17 +189,29 @@ import numpy as np
 import torch
 
 from osteosarcoma_diffusionmodel_torch.cli import (
+    build_constraint_spec,
+    compute_pathway_features,
     generate_synthetic_patients,
+    preprocess_data,
     train_model,
     validate_synthetic_patients,
 )
 from osteosarcoma_diffusionmodel_torch.config import Config
+from osteosarcoma_diffusionmodel_torch.data.dataset import prepare_arrays, train_val_split
 from osteosarcoma_diffusionmodel_torch.data.dummy import make_dummy_cohort, write_processed
+from osteosarcoma_diffusionmodel_torch.data.preprocessor import (
+    PROTEIN_ALTERING_CLASSES,
+    TOP_EXPRESSION_GENES,
+)
 from osteosarcoma_diffusionmodel_torch.generation import generator as gen_module
 from osteosarcoma_diffusionmodel_torch.generation.generator import (
     SyntheticPatientGenerator,
     load_trained_model,
     seeded_generator,
+)
+from osteosarcoma_diffusionmodel_torch.models.constraints import (
+    cooccurrence_matching_loss,
+    mutation_corr_matrix,
 )
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
@@ -249,6 +287,8 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     x0_posterior_step,
     x0_posterior_step_plain,
 )
+from osteosarcoma_diffusionmodel_torch.training.finetune import sample_path_finetune
+from osteosarcoma_diffusionmodel_torch.training.trainer import build_model
 from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
     METADATA_FILE,
     latest_epoch,
@@ -1449,12 +1489,13 @@ def d3pm_checkpoint(src: str, dst: Path) -> str:
     return str(dst)
 
 
-def check_outputs(cfg: Config, results: dict, label: str) -> np.ndarray:
-    """Every synthetic table has the expected shape and finite values;
-    every metric is finite; mutations are exactly 0 or 1. Returns the
-    mutation block of the whole cohort."""
+def check_outputs(cfg: Config, results: dict, label: str, dims=None) -> np.ndarray:
+    """Every synthetic table has the expected shape (``dims``: the data
+    widths, DATA_DIMS by default) and finite values; every metric is
+    finite; mutations are exactly 0 or 1. Returns the mutation block of
+    the whole cohort."""
     per = cfg.generation.num_synthetic_samples // len(cfg.generation.scenarios)
-    widths = dict(zip(("mutations", "expression", "pathways"), DATA_DIMS))
+    widths = dict(zip(("mutations", "expression", "pathways"), dims or DATA_DIMS))
     widths["conditions"] = len(cfg.model.condition_on)
     mutations = []
     for scenario in cfg.generation.scenarios:
@@ -1520,12 +1561,14 @@ def check_forbidden(path: str) -> None:
                              f"{GEMM_S8.modes['bf16_out']} input products")
 
 
-def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dict) -> dict:
+def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dict,
+             dims=None) -> dict:
     """generate -> calibrate -> validate through the port's CLI step
     functions for every run of one path, with its launch counts set to 0
     just before and read just after; every (kernel, mode) of ``required``
-    must have launched and none that the main paths forbid. Returns the
-    path's launches by kernel and the last run's validation metrics."""
+    must have launched and none that the main paths forbid. ``dims``: the
+    data widths, where they are not DATA_DIMS. Returns the path's launches
+    by kernel and the last run's validation metrics."""
     n = cfg.generation.num_synthetic_samples // len(cfg.generation.scenarios) * len(
         cfg.generation.scenarios)
     root = Path(cfg.output.results_dir).parent
@@ -1544,7 +1587,7 @@ def run_path(path: str, runs: list, required: dict, cfg: Config, dev, ckpts: dic
         _, gen_s = run_step(generate_synthetic_patients, cfg, dev)
         calibrations = dict(gen_module.CALIBRATIONS)
         results, val_s = run_step(validate_synthetic_patients, cfg, dev)
-        mutations = check_outputs(cfg, results, label)
+        mutations = check_outputs(cfg, results, label, dims)
         print(f"[main] {path} {label}: generate+calibrate {gen_s:.2f} s for {n} patients "
               f"({n / gen_s:.1f} patients/sec end to end), validate {val_s:.2f} s; calibration "
               f"backend by cohort: {json.dumps(calibrations)}", flush=True)
@@ -1589,9 +1632,9 @@ def run_main_paths(cfg: Config, dev, ckpts: dict) -> dict:
 
 # The train phase: the production settings (config/production.yaml over
 # the defaults: batch 16, AdamW 1e-4, constraints on, dropout 0.2, mixup
-# 0.2, pathway noise 0.05, 25-epoch dispatch blocks, which the port runs
-# epoch by epoch) for TRAIN_EPOCHS epochs on the seeded cohort, then
-# DDIM-50 from the trained weights on the continuous path.
+# 0.2, pathway noise 0.05, 25-epoch blocks) for TRAIN_EPOCHS epochs on the
+# seeded cohort, then DDIM-50 from the trained weights on the continuous
+# path.
 TRAIN_EPOCHS = 100
 TRAINED_RUNS = [(False, "none", "ddim")]
 TRAINED_REQUIRED = {**_COMMON, GEMM: ["bf16"], GEMM_POSTERIOR: ["none"]}
@@ -2584,6 +2627,308 @@ def run_serve_phase(ckpt: Path, tmp: Path) -> dict:
     return {k.name: sum(counts.get(k.name, {}).values()) for k in KERNELS}
 
 
+# The pipeline phase: raw TARGET-OS-layout files written from the seeded
+# structured cohort (a gzipped MAF, one gzipped STAR file a patient over
+# PIPELINE_STAR_GENES genes with STAR's N_* rows, the clinical table), then
+# the CLI's preprocess -> pathways -> train -> generate -> validate with
+# the production training settings: cross-cancer pretraining on a second
+# cohort under data_dir/pretrain/<project>/raw (preprocessed by the
+# preprocess step), sample-path fine-tuning with config/config.yaml's
+# values, DDIM-50 at 3 x 333. The preprocessor keeps the 5000 columns of
+# the largest variance, STAR's unnamed N_unmapped row among them, so the
+# expression width here is 5000, not 5054.
+PIPELINE_PATIENTS = 100
+PIPELINE_PRETRAIN = (60, 1)  # the pretraining cohort's patients and seed
+PIPELINE_PROJECT = "TARGET-SMOKE"  # a project id, not a directory
+PIPELINE_STAR_GENES = 20000  # STAR rows a patient besides its four summary rows
+PIPELINE_PRETRAIN_EPOCHS = 20
+PIPELINE_EPOCHS = 30
+PIPELINE_REQUIRED = TRAINED_REQUIRED
+PIPELINE_COOC_ROWS = 3 * BATCH  # the DDIM-50 cohort of the hard co-occurrence loss
+FINETUNE_PROFILED_STEPS = 5
+# One fine-tuning step on the card against the CPU on the same draws, of
+# each loss: bf16 products summed in another order, through eight chain
+# steps and the soft bits' 1/tau = 10.
+FINETUNE_CARD_RTOL = 5e-2
+
+
+def write_raw_cohort(raw: Path, cohort, seed: int, drop_mutation=(), drop_expression=(),
+                     with_stage: bool = True) -> None:
+    """``cohort`` as the GDC download lays it out under ``raw``: a gzipped
+    MAF with a protein-altering record for each 1-bit and silent records
+    that the filter drops; ``rna_seq/metadata.csv`` and one gzipped STAR
+    file a patient (its comment line, the four N_* rows without a gene
+    name, the cohort's genes as counts 2^(3 + 1.2 x) and low-count filler
+    genes up to PIPELINE_STAR_GENES rows); ``clinical.csv`` with vital
+    status, days, age in days, gender and stage strings."""
+    rng = np.random.default_rng(seed + 100)
+    ids = [f"TARGET-40-{s}" for s in cohort.sample_ids]
+    (raw / "mutations").mkdir(parents=True)
+    lines = ["#version gdc-1.0.0", "#filedate 20250101",
+             "Hugo_Symbol\tEntrez_Gene_Id\tVariant_Classification\tTumor_Sample_Barcode"]
+    for i, sid in enumerate(ids):
+        for j, gene in enumerate(cohort.mutation_genes):
+            if gene in drop_mutation:
+                continue
+            if cohort.mutations[i, j]:
+                cls = PROTEIN_ALTERING_CLASSES[(i + j) % len(PROTEIN_ALTERING_CLASSES)]
+                lines.append(f"{gene}\t0\t{cls}\t{sid}-01A")
+            elif rng.random() < 0.05:
+                lines.append(f"{gene}\t0\tSilent\t{sid}-01A")
+    with gzip.open(raw / "mutations" / "cohort.maf.gz", "wt", compresslevel=1) as f:
+        f.write("\n".join(lines) + "\n")
+
+    rna = raw / "rna_seq"
+    rna.mkdir()
+    keep = [j for j, g in enumerate(cohort.expression_genes) if g not in drop_expression]
+    names = [cohort.expression_genes[j] for j in keep]
+    names += [f"LINC{k:05d}" for k in range(PIPELINE_STAR_GENES - len(names))]
+    gene_ids = [f"ENSG{k:011d}.{1 + k % 9}" for k in range(len(names))]
+    counts = np.concatenate([
+        np.rint(np.exp2(3.0 + 1.2 * cohort.expression[:, keep])).astype(np.int64),
+        rng.poisson(2.0, (len(ids), len(names) - len(keep)))], axis=1)
+    header = ("gene_id\tgene_name\tgene_type\tunstranded\tstranded_first\tstranded_second\t"
+              "tpm_unstranded\tfpkm_unstranded\tfpkm_uq_unstranded")
+    meta = ["file_id,file_name,case_id,submitter_id,file_path"]
+    for i, sid in enumerate(ids):
+        path = rna / f"{sid}.rna_seq.augmented_star_gene_counts.tsv.gz"
+        meta.append(f"f{i},{path.name},c{i},{sid},{path}")
+        summary = [f"{name}\t\t\t{n}\t{n}\t{n}\t\t\t" for name, n in zip(
+            ("N_unmapped", "N_multimapping", "N_noFeature", "N_ambiguous"),
+            rng.integers(10 ** 5, 3 * 10 ** 6, 4))]
+        body = [f"{gid}\t{name}\tprotein_coding\t{c}\t{c // 2}\t{c - c // 2}\t0\t0\t0"
+                for gid, name, c in zip(gene_ids, names, counts[i].tolist())]
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            f.write("# gene-model: GENCODE v36\n" + header + "\n"
+                    + "\n".join(summary + body) + "\n")
+    (rna / "metadata.csv").write_text("\n".join(meta) + "\n")
+
+    clin = cohort.clinical
+    rows = ["case_id,submitter_id,age_at_diagnosis,gender,tumor_stage,days_to_death,"
+            "days_to_last_follow_up,vital_status"]
+    for i, sid in enumerate(ids):
+        dead = bool(clin["event_occurred"][i])
+        days = int(clin["survival_days"][i])
+        vital = ("Dead", "DEAD", "dead")[i % 3] if dead else ("Alive", "alive")[i % 2]
+        stage = ("Stage IVA" if clin["metastasis_at_diagnosis"][i] else "Stage IIB")
+        rows.append(",".join([
+            f"c{i}", sid, str(round(float(clin["age_years"][i]) * 365.25)),
+            "male" if clin["gender_bin"][i] else "female", stage if with_stage else "",
+            str(days) if dead else "", "" if dead else str(days), vital]))
+    if not with_stage:  # no stage column at all: the metastasis condition is missing
+        rows = [",".join(c for k, c in enumerate(r.split(",")) if k != 4) for r in rows]
+    (raw / "clinical.csv").write_text("\n".join(rows) + "\n")
+
+
+def _hard_cooccurrence(pcfg: Config, model, dims, save_dir: Path, target, dev) -> float:
+    """The co-occurrence matching loss of the hard-thresholded mutations of
+    a PIPELINE_COOC_ROWS-row DDIM-50 cohort (raw, before calibration)
+    against the training rows' correlation."""
+    gcfg = copy.deepcopy(pcfg)
+    gcfg.generation.sampler, gcfg.generation.sampling_steps = "ddim", 50
+    gen = SyntheticPatientGenerator(model, gcfg, dims, data_stats=load_data_stats(save_dir),
+                                    device=dev)
+    cond = np.concatenate([gen.create_conditions(BATCH, s.conditions)
+                           for s in gcfg.generation.scenarios])[:PIPELINE_COOC_ROWS]
+    raw = gen.sample_raw(cond, seeded_generator(11))
+    bits = (raw[:, :dims.mutation_dim].float() > 0.5).float()
+    return float(cooccurrence_matching_loss(bits, target.to(bits.device)))
+
+
+def _finetune_models(pcfg: Config, save_dir: Path, name: str, devices) -> tuple:
+    """The CLI's model (constraint spec included) with the weights
+    ``<name>.npz`` on each of ``devices``; and the training rows."""
+    arrays, dims = prepare_arrays(pcfg)
+    spec = build_constraint_spec(pcfg, arrays)
+    state = load_weights(save_dir, name)
+    models = []
+    for where in devices:
+        model = build_model(pcfg, dims, spec)
+        model.module.load_state_dict(state)
+        model.module.to(where)
+        models.append(model)
+    train_idx, _ = train_val_split(arrays.n_samples, pcfg.training.val_split,
+                                   pcfg.training.random_seed)
+    return models, dims, torch.from_numpy(arrays.data[train_idx]), torch.from_numpy(
+        arrays.conditions[train_idx])
+
+
+def _finetune_settings(pcfg: Config) -> dict:
+    ftc = pcfg.training.sample_path_finetune
+    return dict(ddim_steps=ftc.ddim_steps, sample_batch=ftc.sample_batch,
+                learning_rate=ftc.learning_rate, soft_tau=ftc.soft_tau,
+                cooccurrence_weight=ftc.cooccurrence_weight, anchor_weight=ftc.anchor_weight)
+
+
+def check_finetune_step(pcfg: Config, save_dir: Path, dev) -> dict:
+    """One fine-tuning step from the backed-up best model on the card and on
+    the CPU on the same draws (rows, x_T, the anchor's t and noise): each
+    loss within FINETUNE_CARD_RTOL; then FINETUNE_PROFILED_STEPS steps on
+    the card timed, and as many under torch.profiler for the launches and
+    device time a step."""
+    settings = _finetune_settings(pcfg)
+    (card, host), dims, data, cond = _finetune_models(
+        pcfg, save_dir, "best_model_prefinetune", (dev, torch.device("cpu")))
+    g = torch.Generator().manual_seed(5)
+    n, D, B = data.shape[0], data.shape[1], settings["sample_batch"]
+    draws = [{"rows": torch.randint(0, n, (B,), generator=g),
+              "x_T": torch.randn(B, D, generator=g),
+              "t": torch.randint(0, pcfg.model.diffusion.num_steps, (n,), generator=g),
+              "noise": torch.randn(n, D, generator=g)}]
+    got = sample_path_finetune(card, data.to(dev), cond.to(dev), None, steps=1, draws=draws,
+                               **settings)
+    t0 = time.perf_counter()
+    want = sample_path_finetune(host, data, cond, None, steps=1, draws=draws, **settings)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: abs(got[k][0] - want[k][0]) / max(abs(want[k][0]), 1e-12) for k in want}
+    ok = all(e <= FINETUNE_CARD_RTOL for e in errs.values()) and all(
+        math.isfinite(got[k][0]) for k in got)
+    print(f"[reference] pipeline fine-tune step, card vs CPU on the same draws (CPU "
+          f"{cpu_s:.1f} s): " + ", ".join(f"{k} {got[k][0]:.6f} / {want[k][0]:.6f} (rel "
+                                          f"{errs[k]:.2e})" for k in want)
+          + f"; bound {FINETUNE_CARD_RTOL}: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("[pipeline] the fine-tuning step on the card disagrees with the CPU")
+
+    gen = torch.Generator(device=dev).manual_seed(77)
+    data, cond = data.to(dev), cond.to(dev)
+    sample_path_finetune(card, data, cond, gen, steps=1, **settings)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample_path_finetune(card, data, cond, gen, steps=FINETUNE_PROFILED_STEPS, **settings)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / FINETUNE_PROFILED_STEPS
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        sample_path_finetune(card, data, cond, gen, steps=FINETUNE_PROFILED_STEPS, **settings)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in host_keys]
+    launches = sum(e.count for e in kernels) / FINETUNE_PROFILED_STEPS
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / FINETUNE_PROFILED_STEPS
+    return {"wall_ms": wall_ms, "launches": launches, "device_ms": device_ms}
+
+
+def run_pipeline_phase(cfg: Config, dev, root: Path) -> dict:
+    """[pipeline]: raw files -> the CLI's preprocess, pathways, train (with
+    pretraining and fine-tuning), generate, validate, with the generate
+    run's launch accounting; the fine-tuning step card vs CPU; the hard
+    co-occurrence before and after fine-tuning. Returns the launches of
+    the generate -> validate run by kernel."""
+    t_phase = time.perf_counter()
+    data_dir = root / "pipeline_data"
+    t0 = time.perf_counter()
+    primary = make_dummy_cohort(PIPELINE_PATIENTS, *DATA_DIMS, seed=0)
+    write_raw_cohort(data_dir / "raw", primary, seed=0)
+    n_pre, seed_pre = PIPELINE_PRETRAIN
+    second = make_dummy_cohort(n_pre, *DATA_DIMS, seed=seed_pre)
+    write_raw_cohort(data_dir / "pretrain" / PIPELINE_PROJECT / "raw", second, seed_pre,
+                     drop_mutation=second.mutation_genes[-6:],
+                     drop_expression=second.expression_genes[-300:], with_stage=False)
+    print(f"[pipeline] raw files: {PIPELINE_PATIENTS} + {n_pre} patients, STAR "
+          f"{PIPELINE_STAR_GENES} genes + 4 summary rows each, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    pcfg = copy.deepcopy(cfg)
+    pcfg.data.data_dir = str(data_dir)
+    pcfg.data.raw_dir = str(data_dir / "raw")
+    pcfg.data.processed_dir = str(data_dir / "processed")
+    tc = pcfg.training
+    tc.epochs_per_dispatch = 25
+    tc.num_epochs = tc.patience = PIPELINE_EPOCHS
+    tc.pretrain_epochs = PIPELINE_PRETRAIN_EPOCHS
+    tc.save_dir = str(root / "checkpoint_pipeline")
+    tc.augmentation.cross_cancer_pretrain = True
+    tc.augmentation.pretrain_datasets = [PIPELINE_PROJECT]
+    tc.sample_path_finetune.enabled = True
+    pcfg.output.results_dir = str(root / "results_pipeline")
+    seconds = {}
+
+    def step(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        if str(dev) != "cpu":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    processed = step("preprocess", preprocess_data, pcfg)
+    pre_dir = data_dir / "pretrain" / PIPELINE_PROJECT / "processed"
+    step("pathways", compute_pathway_features, pcfg)
+    mut = processed["mutation_matrix"]
+    expr = processed["expression_matrix"]
+    paths = read_matrix_csv(Path(pcfg.data.processed_dir) / "pathway_scores.csv")
+    pre_expr = read_matrix_csv(pre_dir / "expression_matrix_aligned.csv")
+    print(f"[pipeline] preprocess {seconds['preprocess']:.2f} s: {len(mut.index)} patients, "
+          f"{len(mut.columns)} mutation genes, {len(expr.columns)} expression columns (the "
+          f"unnamed N_unmapped among them: {None in expr.columns}); pretraining cohort "
+          f"{len(pre_expr.index)} patients; pathways {seconds['pathways']:.2f} s: "
+          f"{len(paths.columns)} pathways", flush=True)
+    width = min(TOP_EXPRESSION_GENES, PIPELINE_STAR_GENES + 1)  # + the unnamed N_unmapped
+    if len(expr.columns) != width or not (pre_dir / "clinical_aligned.csv").exists():
+        raise AssertionError(f"[pipeline] expression width {len(expr.columns)}, pretraining "
+                             f"cohort processed {pre_dir.exists()}")
+
+    ftc = tc.sample_path_finetune
+    print(f"[pipeline] train: {tc.pretrain_epochs} pretraining epochs, {tc.num_epochs} epochs "
+          f"in blocks of {tc.epochs_per_dispatch}, batch {tc.batch_size}, fine-tuning "
+          f"{ftc.steps} steps of DDIM-{ftc.ddim_steps} on {ftc.sample_batch} rows", flush=True)
+    history = step("train", train_model, pcfg, device=str(dev))
+    pre, ft = history.pretrain, history.finetune
+    save_dir = Path(tc.save_dir)
+    losses = history.train_loss + history.val_loss + (
+        pre.train_loss + pre.val_loss if pre else []) + sum((ft or {}).values(), [])
+    ok = (pre is not None and ft is not None and all(math.isfinite(v) for v in losses)
+          and (save_dir / "pretrain" / "best_model.npz").exists()
+          and (save_dir / "best_model_prefinetune.npz").exists())
+    before, after = load_weights(save_dir, "best_model_prefinetune"), load_weights(save_dir)
+    changed = any(not torch.equal(before[k], after[k]) for k in before)
+    print(f"[pipeline] train {seconds['train']:.2f} s: pretraining {len(pre.train_loss)} epochs "
+          f"{pre.steps_per_sec:.1f} steps/sec (loss {pre.train_loss[0]:.4f} -> "
+          f"{pre.train_loss[-1]:.4f}); training {len(history.train_loss)} epochs "
+          f"{history.steps_per_sec:.1f} steps/sec (val {history.val_loss[0]:.4f} -> best "
+          f"{min(history.val_loss):.4f}); fine-tuning soft co-occurrence "
+          f"{ft['cooccurrence'][0]:.6f} -> {ft['cooccurrence'][-1]:.6f}, anchor "
+          f"{ft['anchor'][0]:.6f} -> {ft['anchor'][-1]:.6f}; losses finite, pretrain/ and "
+          f"best_model_prefinetune.npz written: {ok}; best_model.npz changed: {changed}",
+          flush=True)
+    if not (ok and changed):
+        raise AssertionError("[pipeline] the train step's pretraining or fine-tuning failed")
+
+    gcfg = copy.deepcopy(pcfg)
+    gcfg.output.synthetic_data_dir = str(root / "synthetic_pipeline")
+    t = time.perf_counter()
+    dims = metadata_to_dims(load_metadata(save_dir))
+    launches, results = run_path(
+        "pipeline", [(False, "none", "ddim")], PIPELINE_REQUIRED, gcfg, dev,
+        {False: str(save_dir)}, (dims.mutation_dim, dims.expression_dim, dims.pathway_dim))
+    seconds["generate+validate"] = time.perf_counter() - t
+    print(f"[pipeline] fine-tuned weights, DDIM-50 3 x {BATCH}: overall "
+          f"{results['overall_biological_score']:.4f}, MMD {results['mmd']:.4f}, co-occurrence "
+          f"pattern {results['cooccurrence_pattern_correlation']:.4f}, pathway coherence "
+          f"(synthetic / real) {results.get('synthetic_pathway_coherence', math.nan):.4f} / "
+          f"{results.get('real_pathway_coherence', math.nan):.4f} (no gate)", flush=True)
+
+    prof = check_finetune_step(pcfg, save_dir, dev)
+    print(f"[pipeline] fine-tune step on the card: {prof['wall_ms']:.2f} ms a step, "
+          f"{prof['launches']:.0f} launches a step, device {prof['device_ms']:.3f} ms a step "
+          f"(busy {prof['device_ms'] / prof['wall_ms']:.3f})", flush=True)
+    (model_before,), dims, data, _ = _finetune_models(pcfg, save_dir, "best_model_prefinetune",
+                                                      (dev,))
+    (model_after,), *_ = _finetune_models(pcfg, save_dir, "best_model", (dev,))
+    target = torch.from_numpy(mutation_corr_matrix(data[:, :dims.mutation_dim].numpy()))
+    hard = [_hard_cooccurrence(pcfg, m, dims, save_dir, target, dev)
+            for m in (model_before, model_after)]
+    print(f"[pipeline] hard-thresholded co-occurrence loss of a {PIPELINE_COOC_ROWS}-row "
+          f"DDIM-50 cohort: {hard[0]:.6f} before fine-tuning, {hard[1]:.6f} after", flush=True)
+    print(f"[pipeline] seconds by step: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    return launches
+
+
 def kernel_report(cases: dict, launches: dict) -> list:
     """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
@@ -2631,10 +2976,12 @@ def main(argv=None) -> int:
         trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
         variants = run_variants_phase(cfg, dev, Path(tmp))
         archs = run_arch_phase(cfg, dev, Path(tmp))
+        pipeline = run_pipeline_phase(cfg, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
-        for counts in (trained, variants, archs, run_serve_phase(trained_ckpt, Path(tmp)),
+        for counts in (trained, variants, archs, pipeline,
+                       run_serve_phase(trained_ckpt, Path(tmp)),
                        run_latent_path(cfg, dev, Path(tmp))):
             for name, n in counts.items():
                 launches[name] += n

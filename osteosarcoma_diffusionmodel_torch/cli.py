@@ -1,34 +1,45 @@
-"""Pipeline CLI of the PyTorch port: the train, generate and validate steps.
+"""Pipeline CLI of the PyTorch port: the JAX CLI's six steps.
 
     python -m osteosarcoma_diffusionmodel_torch.cli --config config/config.yaml \
-        --steps train generate validate [--resume] [--device cpu]
+        --steps {download,preprocess,pathways,train,generate,validate,all} \
+        [--resume | --resume-training] [--device cpu]
 
-Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:150-398). It
-reads a processed directory in the JAX layout (``data.processed_dir``)
-and writes the port's checkpoint directory (``training.save_dir``:
-weights ``best_model.npz``, ``metadata.json``, ``data_stats.npz`` and the
-periodic ``checkpoint_epoch_<n>/``), ``<results_dir>/training_history.csv``,
-and the JAX CLI's files: ``<synthetic_data_dir>/<scenario>/<scenario>_
-{mutations,expression,pathways,conditions}.csv`` and
-``<results_dir>/validation_results.csv``. ``--steps all`` is ``train
-generate validate``. The model section of the config always comes from
-the checkpoint's metadata: the train step does not write the JAX CLI's
-``config/config_updated.yaml``. The three architectures of
-``model.architecture`` (diffusion, cvae, flow) and every variant of the
-diffusion model train, generate and validate (the AR and latent-factor
-heads, CFG, the parameterizations, learned and low-rank sigma);
-sample-path fine-tuning is not ported and is rejected before training,
-except where the JAX CLI skips it with a warning (the cVAE, the flow, the
-D3PM, latent-factor and AR heads). The download, preprocess, pathways,
-report and doctor steps are not ported yet. The steps run on the CUDA
-card; the CPU runs them only when asked (``--device cpu``): without a
-card and without that flag the CLI raises before it reads or writes
-anything.
+Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:59-398), under the
+same step names; ``all`` (the default) is the JAX ``ALL_STEPS``:
+
+- ``download``: the TARGET-OS files (and each pretraining cohort that is a
+  GDC project id) from the GDC API into ``data.data_dir/raw`` (needs
+  network access);
+- ``preprocess``: the raw files of ``data.raw_dir`` into the processed
+  tables of ``data.processed_dir`` (:mod:`.data.preprocessor`), and the
+  raw files of each pretraining project into
+  ``data.data_dir/pretrain/<project>/processed``;
+- ``pathways``: ``pathway_scores.csv``, ``pathway_mutation_scores.csv``
+  and ``gene_pathway_matrix.csv`` in the processed directory;
+- ``train``: the checkpoint directory (``training.save_dir``: weights
+  ``best_model.npz``, ``metadata.json``, ``data_stats.npz`` and the
+  ``checkpoint_epoch_<n>/``) and ``<results_dir>/training_history.csv``;
+  cross-cancer pretraining first (STEP 4a, into ``save_dir/pretrain``)
+  and sample-path fine-tuning of the best model after (STEP 4b: the
+  model before it kept as ``best_model_prefinetune.npz``), where the JAX
+  CLI runs them;
+- ``generate``: ``<synthetic_data_dir>/<scenario>/<scenario>_
+  {mutations,expression,pathways,conditions}.csv``;
+- ``validate``: ``<results_dir>/validation_results.csv``.
+
+The model section of the config always comes from the checkpoint's
+metadata: the train step does not write the JAX CLI's
+``config/config_updated.yaml``. The report and doctor steps, ``--profile``
+and several devices are not ported yet. The download, preprocess and
+pathways steps run on the host. The others run on the CUDA card; the CPU
+runs them only when asked (``--device cpu``): without a card and without
+that flag the CLI raises before it reads or writes anything.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import csv
 import logging
 from pathlib import Path
@@ -38,19 +49,28 @@ import numpy as np
 import torch
 
 from .config import Config
-from .data.dataset import OsteosarcomaArrays, prepare_arrays
-from .data.pathways import HALLMARK_GENE_SETS
+from .data.dataset import OsteosarcomaArrays, load_pretrain_arrays, prepare_arrays
+from .data.gdc_loader import GDCDataLoader
+from .data.pathways import (
+    HALLMARK_GENE_SETS,
+    gene_pathway_matrix,
+    pathway_scores_from_expression,
+    pathway_scores_from_mutations,
+)
+from .data.preprocessor import OsteosarcomaPreprocessor
 from .generation.generator import SyntheticPatientGenerator, load_trained_model
 from .models.constraints import ConstraintSpec
 from .models.diffusion import finetune_skip_reason
-from .training.checkpoint import load_data_stats
+from .training import checkpoint as ckpt
+from .training.finetune import sample_path_finetune
 from .training.trainer import TrainLog, Trainer, build_model
-from .utils.io import Matrix, read_matrix_csv, write_matrix_csv
+from .utils.io import Matrix, header_names, read_matrix_csv, write_matrix_csv
 from .validation.validator import BiologicalValidator
 
 logger = logging.getLogger(__name__)
 
-STEPS = ("train", "generate", "validate")
+ALL_STEPS = ("download", "preprocess", "pathways", "train", "generate", "validate")
+HOST_STEPS = ("download", "preprocess", "pathways")
 
 
 def default_device() -> str:
@@ -77,21 +97,126 @@ def build_constraint_spec(config: Config, arrays: OsteosarcomaArrays) -> Constra
     )
 
 
+def _pretrain_projects(config: Config) -> list:
+    """The ``pretrain_datasets`` entries that are GDC project ids (not
+    local directories), which the download and preprocess steps handle."""
+    aug = config.training.augmentation
+    if not (aug.cross_cancer_pretrain and aug.pretrain_datasets):
+        return []
+    return [e for e in aug.pretrain_datasets if not Path(e).is_dir()]
+
+
+def download_data(config: Config) -> Dict[str, Path]:
+    """STEP 1: the GDC files of ``data.gdc_project`` and of each pretraining
+    project (network access needed)."""
+    logger.info("STEP 1: Downloading TARGET-OS data from GDC")
+    results = GDCDataLoader(project_id=config.data.gdc_project,
+                            data_dir=config.data.data_dir).download_all(
+        include_copy_number=config.data.download.copy_number)
+    for project in _pretrain_projects(config):
+        logger.info("Downloading pretrain cohort %s", project)
+        GDCDataLoader(project_id=project,
+                      data_dir=Path(config.data.data_dir) / "pretrain" / project).download_all()
+    logger.info("Downloaded data to: %s", results)
+    return results
+
+
+def preprocess_data(config: Config) -> dict:
+    """STEP 2: the processed tables, of the primary cohort and of each
+    pretraining project that has raw files."""
+    logger.info("STEP 2: Preprocessing data")
+    processed = OsteosarcomaPreprocessor(Path(config.data.raw_dir),
+                                         Path(config.data.processed_dir), config).process_all()
+    for project in _pretrain_projects(config):
+        base = Path(config.data.data_dir) / "pretrain" / project
+        if not (base / "raw").exists():
+            logger.warning("Pretrain cohort %s has no raw data; skipping", project)
+            continue
+        logger.info("Preprocessing pretrain cohort %s", project)
+        OsteosarcomaPreprocessor(base / "raw", base / "processed", config).process_all()
+    logger.info("Processed %d samples", len(processed["mutation_matrix"].index))
+    return processed
+
+
+def compute_pathway_features(config: Config) -> Matrix:
+    """STEP 3: pathway scores from the aligned expression and mutation
+    tables, and the gene-pathway membership matrix."""
+    logger.info("STEP 3: Computing pathway features")
+    processed = Path(config.data.processed_dir)
+    expr = read_matrix_csv(processed / "expression_matrix_aligned.csv")
+    mut = read_matrix_csv(processed / "mutation_matrix_aligned.csv")
+    scores, names = pathway_scores_from_expression(expr.values, expr.columns)
+    write_matrix_csv(processed / "pathway_scores.csv", scores, names, index=expr.index,
+                     index_label=expr.index_name, fmt="%r")
+    mut_scores, mut_names = pathway_scores_from_mutations(mut.values, mut.columns)
+    write_matrix_csv(processed / "pathway_mutation_scores.csv", mut_scores, mut_names,
+                     index=mut.index, index_label=mut.index_name, fmt="%r")
+    membership, genes, pathways = gene_pathway_matrix()
+    write_matrix_csv(processed / "gene_pathway_matrix.csv", membership, pathways, index=genes,
+                     fmt="%d")
+    logger.info("Computed %d pathway features", len(names))
+    return Matrix(scores, names, expr.index)
+
+
+def _finetune(config: Config, model, trainer: Trainer) -> Optional[Dict[str, list]]:
+    """STEP 4b where the JAX CLI runs it (cli.py:190-262): the best model
+    backed up as ``best_model_prefinetune.npz``, fine-tuned on the
+    trainer's training rows, saved as ``best_model.npz``. Returns the
+    fine-tuning history, or None where it is off or skipped."""
+    ftc = config.training.sample_path_finetune
+    if not ftc.enabled:
+        return None
+    skip = finetune_skip_reason(config, trainer.dims)
+    if skip:
+        logger.warning(skip)
+        return None
+    logger.info("STEP 4b: Sample-path fine-tuning (differentiable DDIM)")
+    state = ckpt.load_weights(trainer.save_dir)
+    trainer.module.load_state_dict(state)
+    ckpt.save_weights(trainer.save_dir, state, name=f"{ckpt.BEST_NAME}_prefinetune")
+    rows = torch.from_numpy(trainer.train_idx).to(trainer.device)
+    generator = torch.Generator(device=trainer.device).manual_seed(
+        config.training.random_seed + 77)
+    history = sample_path_finetune(
+        model, trainer._data[rows], trainer._cond[rows], generator,
+        steps=ftc.steps, ddim_steps=ftc.ddim_steps, sample_batch=ftc.sample_batch,
+        learning_rate=ftc.learning_rate, soft_tau=ftc.soft_tau,
+        cooccurrence_weight=ftc.cooccurrence_weight, anchor_weight=ftc.anchor_weight)
+    trainer.write_best(trainer.module.state_dict())
+    if history["cooccurrence"]:
+        logger.info("Fine-tune done: cooccurrence %.4f -> %.4f",
+                    history["cooccurrence"][0], history["cooccurrence"][-1])
+    return history
+
+
 def train_model(config: Config, device: Optional[str] = None, resume: bool = False) -> TrainLog:
-    """Train on ``data.processed_dir``, write the checkpoint directory and
-    ``<results_dir>/training_history.csv``; returns the history."""
+    """STEP 4: train on ``data.processed_dir`` (after STEP 4a, pretraining,
+    where it is on; STEP 4b, fine-tuning, after), write the checkpoint
+    directory and ``<results_dir>/training_history.csv``; returns the
+    history, with the pretraining's under ``pretrain`` and the
+    fine-tuning's under ``finetune``."""
     device = device or default_device()
     logger.info("STEP 4: Training model")
     arrays, dims = prepare_arrays(config)
     logger.info("Model configured with: Mut=%d, Expr=%d, Path=%d, Cond=%d",
                 dims.mutation_dim, dims.expression_dim, dims.pathway_dim, dims.condition_dim)
     model = build_model(config, dims, build_constraint_spec(config, arrays))
-    history = Trainer(model, arrays, dims, config, device).train(resume=resume)
-    skip = finetune_skip_reason(config, dims)
-    if config.training.sample_path_finetune.enabled and skip:
-        # The JAX CLI skips it there (cli.py:193-225); elsewhere the trainer
-        # has already rejected it as unported.
-        logger.warning(skip)
+    # The main trainer first: a Trainer initializes the shared module, so
+    # the pre-trainer, built after it, hands the main training its final
+    # weights (JAX cli.py:161, :179).
+    trainer = Trainer(model, arrays, dims, config, device)
+    pretrain_arrays = load_pretrain_arrays(config, arrays)
+    pretrain = None
+    if pretrain_arrays is not None:
+        logger.info("STEP 4a: Cross-cancer pretraining (%d samples)", pretrain_arrays.n_samples)
+        pre_cfg = copy.deepcopy(config)
+        pre_cfg.training.num_epochs = config.training.pretrain_epochs
+        pre_cfg.training.patience = config.training.pretrain_epochs
+        pre_cfg.training.save_dir = str(Path(config.training.save_dir) / "pretrain")
+        pretrain = Trainer(model, pretrain_arrays, dims, pre_cfg, device).train()
+    history = trainer.train(resume=resume)
+    history.pretrain = pretrain
+    history.finetune = _finetune(config, model, trainer)
     results_dir = Path(config.output.results_dir)
     results_dir.mkdir(parents=True, exist_ok=True)
     n = len(history.train_loss)
@@ -106,7 +231,7 @@ def train_model(config: Config, device: Optional[str] = None, resume: bool = Fal
 
 def _header(path: Path) -> list:
     with open(path, newline="") as f:
-        return next(csv.reader(f))[1:]
+        return header_names(next(csv.reader(f)))[1:]
 
 
 def generate_synthetic_patients(config: Config, device: Optional[str] = None):
@@ -114,7 +239,7 @@ def generate_synthetic_patients(config: Config, device: Optional[str] = None):
     save_dir = Path(config.training.save_dir)
     model, config, dims = load_trained_model(save_dir, config)
     generator = SyntheticPatientGenerator(
-        model, config, dims, data_stats=load_data_stats(save_dir),
+        model, config, dims, data_stats=ckpt.load_data_stats(save_dir),
         device=device or default_device(),
     )
     scenarios = config.generation.scenarios
@@ -173,6 +298,9 @@ def validate_synthetic_patients(config: Config, device: Optional[str] = None) ->
 
 
 STEP_FUNCTIONS = {
+    "download": download_data,
+    "preprocess": preprocess_data,
+    "pathways": compute_pathway_features,
     "train": train_model,
     "generate": generate_synthetic_patients,
     "validate": validate_synthetic_patients,
@@ -181,22 +309,25 @@ STEP_FUNCTIONS = {
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
-        description="Osteosarcoma synthetic-patient pipeline (PyTorch port: train, generate, "
-                    "validate)")
+        description="Osteosarcoma synthetic-patient pipeline (PyTorch port)")
     parser.add_argument("--config", default="config/config.yaml", help="YAML configuration")
-    parser.add_argument("--steps", nargs="+", default=list(STEPS), choices=STEPS + ("all",),
-                        help="steps to run in order; 'all' runs train, generate, validate")
-    parser.add_argument("--resume", action="store_true",
+    parser.add_argument("--steps", nargs="+", default=["all"], choices=ALL_STEPS + ("all",),
+                        help="steps to run in order; 'all' runs " + ", ".join(ALL_STEPS))
+    parser.add_argument("--resume", "--resume-training", dest="resume", action="store_true",
                         help="train from the latest checkpoint_epoch_<n>/ of training.save_dir")
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    device = args.device or default_device()
+    steps = list(ALL_STEPS) if "all" in args.steps else args.steps
+    device = None
+    if any(step not in HOST_STEPS for step in steps):
+        device = args.device or default_device()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     config = Config.from_yaml(args.config)
-    steps = list(STEPS) if "all" in args.steps else args.steps
     for step in steps:
-        if step == "train":
+        if step in HOST_STEPS:
+            STEP_FUNCTIONS[step](config)
+        elif step == "train":
             train_model(config, device=device, resume=args.resume)
         else:
             STEP_FUNCTIONS[step](config, device=device)

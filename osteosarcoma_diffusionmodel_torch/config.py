@@ -1,14 +1,13 @@
 """Typed configuration: the part of the JAX package's schema that the
-train, generate and validate steps read.
+pipeline's steps read.
 
 Counterpart of osteosarcoma_diffusionmodel_tpu/config.py, under the same
 field names and defaults, so a ``metadata.json`` written by either
 package and ``config/*.yaml`` load into it: keys this schema does not
-hold (download, GNN layers, fused-kernel scheduling knobs, ...) are
-ignored on load. The field comments there explain each knob. A few
-fields are kept only so :func:`models.diffusion.check_supported` can
-reject the features the port does not implement yet (cross-cancer
-pretraining, sample-path fine-tuning, several devices).
+hold (GNN layers, fused-kernel scheduling knobs, ...) are ignored on
+load. The field comments there explain each knob. ``num_devices`` is
+kept only so :func:`models.diffusion.check_supported` can reject several
+devices, which the port does not implement yet.
 
 YAML is read by :meth:`Config.from_yaml`, which imports ``yaml`` only
 when called.
@@ -30,8 +29,23 @@ CONDITION_COLUMN_MAP = {
 
 
 @dataclass
+class DownloadConfig:
+    mutations: bool = True
+    rna_seq: bool = True
+    clinical: bool = True
+    copy_number: bool = False
+
+
+@dataclass
 class DataConfig:
+    gdc_project: str = "TARGET-OS"
+    data_dir: str = "./data"
+    raw_dir: str = "./data/raw"
     processed_dir: str = "./data/processed"
+    download: DownloadConfig = field(default_factory=DownloadConfig)
+    min_samples_per_gene: int = 3
+    min_var_expression: float = 0.1
+    pathway_database: str = "msigdb_hallmark"
 
 
 @dataclass
@@ -111,14 +125,24 @@ class ModelConfig:
 class AugmentationConfig:
     mixup_alpha: float = 0.2
     pathway_noise: float = 0.05
-    # Rejected when set (check_supported with training=True).
+    # Pretrain on these cohorts (processed directories, or GDC project ids
+    # under data_dir/pretrain/<project>/) before the main training.
     cross_cancer_pretrain: bool = False
     pretrain_datasets: List[str] = field(default_factory=list)
 
 
 @dataclass
 class SamplePathFinetuneConfig:
-    enabled: bool = False  # rejected when set (check_supported)
+    # Fine-tune the best model through a short differentiable DDIM chain
+    # (training/finetune.py) after the main training.
+    enabled: bool = False
+    steps: int = 300
+    ddim_steps: int = 8
+    sample_batch: int = 256
+    learning_rate: float = 1e-5
+    soft_tau: float = 0.1
+    cooccurrence_weight: float = 5.0
+    anchor_weight: float = 1.0
 
 
 @dataclass
@@ -134,13 +158,14 @@ class TrainingConfig:
     random_seed: int = 42
     save_dir: str = "./results/checkpoints"
     save_frequency: int = 10
+    pretrain_epochs: int = 200
     lr_plateau_factor: float = 0.5
     lr_plateau_patience: int = 10
     grad_clip_norm: float = 1.0
     # One device only: more than one is rejected (check_supported).
     num_devices: Optional[int] = None
-    # The port runs the reference per-epoch loop for any value (no fused
-    # epoch blocks); the trainer logs that once when it is above 1.
+    # Epochs a block: host work (checkpoints, the early-stopping break)
+    # waits for the block's end, as in the JAX trainer's block loop.
     epochs_per_dispatch: int = 1
     sample_path_finetune: SamplePathFinetuneConfig = field(
         default_factory=SamplePathFinetuneConfig
@@ -250,7 +275,7 @@ class Config:
     @classmethod
     def from_dict(cls, raw: Dict[str, Any]) -> "Config":
         return cls(
-            data=_build(DataConfig, raw.get("data", {}), {}),
+            data=_build(DataConfig, raw.get("data", {}), {"download": DownloadConfig}),
             model=_build(ModelConfig, raw.get("model", {}), {
                 "gnn": GNNConfig, "diffusion": DiffusionConfig, "constraints": ConstraintConfig}),
             training=_build(TrainingConfig, raw.get("training", {}), {

@@ -3,8 +3,10 @@
 The gene sets are a copy of the dict in
 osteosarcoma_diffusionmodel_tpu/data/pathways.py (same 29 curated MSigDB
 Hallmark sets), kept here so the port never imports the JAX package.
-Scoring follows `PathwayFeatures` there: the mean expression of the
-member genes present, for pathways with at least ``min_genes`` of them.
+Scoring follows `PathwayFeatures` there (:160-228): the mean expression
+of the member genes present, for pathways with at least ``min_genes`` of
+them; the fraction of those member genes mutated; the binary genes x
+pathways membership matrix over the sorted member genes.
 """
 
 from __future__ import annotations
@@ -165,3 +167,23 @@ def pathway_scores_from_expression(
         return np.zeros((expression.shape[0], 0)), []
     scores = expression.astype(np.float64) @ mask.astype(np.float64) / counts
     return scores, names
+
+
+def pathway_scores_from_mutations(
+    mutations: np.ndarray, genes: Sequence[str], min_genes: int = 5
+) -> Tuple[np.ndarray, List[str]]:
+    """(samples, pathways) pathway mutation burden, the fraction of the
+    member genes present that are mutated, and the pathway names."""
+    return pathway_scores_from_expression(mutations, genes, min_genes)
+
+
+def gene_pathway_matrix() -> Tuple[np.ndarray, List[str], List[str]]:
+    """(genes, pathways) int64 membership matrix over every member gene,
+    sorted, and the gene and pathway names."""
+    genes = sorted({g for members in HALLMARK_GENE_SETS.values() for g in members})
+    row = {g: i for i, g in enumerate(genes)}
+    matrix = np.zeros((len(genes), len(HALLMARK_GENE_SETS)), np.int64)
+    for j, members in enumerate(HALLMARK_GENE_SETS.values()):
+        for g in members:
+            matrix[row[g], j] = 1
+    return matrix, genes, list(HALLMARK_GENE_SETS)

@@ -34,6 +34,8 @@ Two families of samplers:
   sigma, no clip, no input skip, normal noise, CFG at guidance != 1), and
   so does the port's generator. They are ordinary PyTorch ops on the
   model's device; every draw can be passed in (``draws``).
+  :meth:`ddim_chain` is the DDIM one with autograd on, for sample-path
+  fine-tuning (``training/finetune.py``).
 """
 
 from __future__ import annotations
@@ -69,13 +71,6 @@ UNIFORM_SCALE = math.sqrt(3.0)
 logger = logging.getLogger(__name__)
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not implemented in the PyTorch port yet (ROADMAP.md, "
-        "'Modules to port'); use the JAX package for it"
-    )
-
-
 def finetune_skip_reason(config: Config, dims: FrozenDims) -> Optional[str]:
     """The JAX CLI's warning where it skips an enabled sample-path
     fine-tuning (cli.py:193-225 there): another architecture than the
@@ -99,11 +94,10 @@ def finetune_skip_reason(config: Config, dims: FrozenDims) -> Optional[str]:
 
 
 def check_supported(config: Config, dims: FrozenDims, training: bool = False) -> None:
-    """Raise NotImplementedError for the configurations the port does not
-    implement (with ``training``: cross-cancer pretraining, sample-path
-    fine-tuning where the JAX CLI would run it, several devices), and
-    ValueError for an unknown ``generation.fused_quantize``, loss type,
-    block weighting, compute dtype or carry dtype. Every architecture
+    """Raise NotImplementedError for the one configuration the port does
+    not implement (with ``training``: several devices), and ValueError for
+    an unknown ``generation.fused_quantize``, loss type, block weighting,
+    compute dtype or carry dtype. Every architecture
     passes: :func:`~..training.trainer.build_model` refuses an unknown one.
     A ``generation.sampler`` other than "ddim" samples with DDPM, as in the
     JAX package (its generator tests for "ddim" only); one warning says
@@ -116,18 +110,10 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False) ->
         raise ValueError(f"Unknown loss_type: {dc.loss_type}")
     if dc.block_loss_weighting not in ("balanced", "none"):
         raise ValueError(f"unknown block_loss_weighting {dc.block_loss_weighting!r}")
-    if training:
-        tc = config.training
-        aug = tc.augmentation
-        for bad, what in [
-            (aug.cross_cancer_pretrain and bool(aug.pretrain_datasets),
-             "cross-cancer pretraining"),
-            (tc.sample_path_finetune.enabled and finetune_skip_reason(config, dims) is None,
-             "sample-path fine-tuning"),
-            ((tc.num_devices or 1) > 1, "data-parallel training over several devices"),
-        ]:
-            if bad:
-                raise _unsupported(what)
+    if training and (config.training.num_devices or 1) > 1:
+        raise NotImplementedError(
+            "data-parallel training over several devices is not implemented in the PyTorch "
+            "port yet (ROADMAP.md, 'Modules to port'); use the JAX package for it")
     if gen.sampler not in ("ddpm", "ddim"):
         logger.warning("generation.sampler %r is not 'ddim': sampling with DDPM, as the JAX "
                        "package does", gen.sampler)
@@ -882,6 +868,17 @@ class ConditionalDiffusion:
         with it, learned sigma's residual on the last step only, and the
         D3PM bits over the same strided steps. ``draws``: "x_T" (B, D),
         "final_z" (B, D-M) (learned sigma), "bits" (n_steps, B, M)."""
+        return self.ddim_chain(conditions, generator, num_sampling_steps, guidance_scale, draws)
+
+    def ddim_chain(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   num_sampling_steps: int = 50, guidance_scale: float = 1.0,
+                   draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """:meth:`scan_sample_ddim` with autograd on: the chain that
+        sample-path fine-tuning differentiates through, as JAX differentiates
+        through ``sample_ddim``'s ``lax.scan`` (training/finetune.py:84-98
+        there). The denoiser runs in the mode its caller set. The x0 clip is
+        ``torch.clamp``, whose gradient at the bound itself is 1 where
+        ``jnp.clip``'s is 1/2."""
         d = self.denoiser
         dev = next(d.parameters()).device
         T = self.schedule.num_steps

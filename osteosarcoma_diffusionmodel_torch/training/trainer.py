@@ -34,16 +34,20 @@ ones) and in eval mode in :meth:`Trainer.validate`.
   validation ``sel_loss`` (the loss without the AR head's terms; the loss
   itself for a family without it).
 
-Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
-at the start of ``train``; ``checkpoint_epoch_<n>/`` (weights, the optimizers'
-moments and steps, the learning rate) every ``save_frequency`` epochs;
-``best_model.npz``, the weights (and the cVAE's BatchNorm statistics) of
-the best epoch so far, kept on the device and written with each periodic
-checkpoint and at the end.
+Epochs run in blocks of ``training.epochs_per_dispatch`` (k), as the JAX
+trainer's block loop does (`_train_block_loop`, :650-766; k = 1 is its
+per-epoch loop, :768-843). Each epoch of a block keeps the per-epoch
+numerics: its own host sync, plateau step and best-epoch tracking. Host
+work waits for the block's end: when early stopping fires, training goes
+on to the block's last epoch, and the checkpoints are written there.
 
-``training.epochs_per_dispatch`` fuses epochs into one XLA program in
-the JAX package; the port runs the per-epoch loop, the reference
-semantics, whatever its value.
+Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
+at the start of ``train``; ``best_model.npz``, the weights (and the cVAE's
+BatchNorm statistics) of the best epoch so far, kept on the device and
+written at the end of each block that improved on it;
+``checkpoint_epoch_<last>/`` (weights, the optimizers' moments and steps,
+the learning rate) at the end of each block in which some epoch reaches a
+multiple of ``save_frequency``, and with k = 1 also at each best epoch.
 """
 
 from __future__ import annotations
@@ -119,6 +123,10 @@ class TrainLog:
     val_loss: List[float] = field(default_factory=list)
     epoch_seconds: List[float] = field(default_factory=list)
     steps_per_sec: float = 0.0
+    # Set by the CLI's train step: the pretraining's log (STEP 4a) and the
+    # fine-tuning's history (STEP 4b), where they ran.
+    pretrain: Optional["TrainLog"] = None
+    finetune: Optional[Dict[str, List[float]]] = None
 
     def as_dict(self) -> Dict[str, Any]:
         return {
@@ -162,9 +170,6 @@ class Trainer:
                  dims: FrozenDims, config: Config, device: str | torch.device):
         check_supported(config, dims, training=True)
         tc = config.training
-        if tc.epochs_per_dispatch > 1:
-            logger.info("training.epochs_per_dispatch=%d: the port runs one epoch a "
-                        "dispatch (no fused epoch blocks)", tc.epochs_per_dispatch)
         self.model = model
         self.arrays = arrays
         self.dims = dims
@@ -173,7 +178,10 @@ class Trainer:
         self.is_vae = isinstance(model, BiologyConstrainedVAE)
 
         self.module = model.module
-        init_flax(self.module, torch.Generator().manual_seed(tc.random_seed))
+        # The init draws come from a CPU generator, so the module is on the
+        # CPU for them (a module that an earlier trainer moved to the card
+        # keeps its parameter objects, which that trainer's optimizer holds).
+        init_flax(self.module.cpu(), torch.Generator().manual_seed(tc.random_seed))
         self.module.to(self.device)
         named = list(self.module.named_parameters())
         self.param_names = [n for n, _ in named]
@@ -217,6 +225,7 @@ class Trainer:
         self.early_stopping = EarlyStopping(tc.patience, tc.min_delta)
         self.save_dir = tc.save_dir
         self.history = TrainLog()
+        self.best_epoch: Optional[int] = None
 
     # ------------------------------------------------------------------
     def _loss(self, data, cond, surv, raw, train: bool, draws):
@@ -360,6 +369,30 @@ class Trainer:
         """``best_model.npz`` from a ``state_dict`` snapshot."""
         ckpt.save_weights(self.save_dir, {k: v.cpu() for k, v in best.items()})
 
+    def _run_epoch(self, epoch: int) -> Tuple[float, float]:
+        """Train and validate one epoch, read its losses in one host sync,
+        log them and step the plateau schedule on them. Returns (val loss,
+        val selection loss)."""
+        t0 = time.perf_counter()
+        train_loss = self.train_epoch(epoch)
+        val_loss, val_sel = self.validate()
+        train_loss, val_loss, val_sel = torch.stack([train_loss, val_loss, val_sel]).tolist()
+        if val_loss != val_loss:  # no val samples: fall back to train loss
+            val_loss = val_sel = train_loss
+        dt = time.perf_counter() - t0
+        self.history.train_loss.append(train_loss)
+        self.history.val_loss.append(val_loss)
+        self.history.epoch_seconds.append(dt)
+        tc = self.config.training
+        if epoch % 25 == 0 or epoch == tc.num_epochs - 1:
+            logger.info("Epoch %d/%d  train %.4f  val %.4f  (%.2fs)",
+                        epoch + 1, tc.num_epochs, train_loss, val_loss, dt)
+        prev_lr = self.plateau.lr
+        new_lr = self.plateau.step(val_sel)
+        if new_lr != prev_lr:
+            self.set_learning_rate(new_lr)
+        return val_loss, val_sel
+
     def train(self, resume: bool = False) -> TrainLog:
         tc = self.config.training
         if resume:
@@ -368,53 +401,35 @@ class Trainer:
         ckpt.save_data_stats(self.save_dir, ckpt.data_stats_from_arrays(
             self.arrays.data, self.arrays.conditions, self.dims.mutation_dim))
 
+        k = max(tc.epochs_per_dispatch, 1)
         best_val = float("inf")
-        best: Optional[Dict[str, torch.Tensor]] = None
-        best_written = True
         total_steps = 0
         t_start = time.perf_counter()
-        for epoch in range(self.start_epoch, tc.num_epochs):
-            t0 = time.perf_counter()
-            train_loss = self.train_epoch(epoch)
-            val_loss, val_sel = self.validate()
-            train_loss, val_loss, val_sel = torch.stack([train_loss, val_loss, val_sel]).tolist()
-            if val_loss != val_loss:  # no val samples: fall back to train loss
-                val_loss = val_sel = train_loss
-            dt = time.perf_counter() - t0
+        epoch, stop = self.start_epoch, False
+        while epoch < tc.num_epochs and not stop:
+            last = min(epoch + k, tc.num_epochs) - 1
+            best, periodic = None, False
+            for e in range(epoch, last + 1):
+                val_loss, val_sel = self._run_epoch(e)
+                total_steps += max(len(self.train_idx) // tc.batch_size, 1)
+                if val_sel < best_val:
+                    best_val, self.best_epoch = val_sel, e
+                    best = {n: v.detach().clone() for n, v in self.module.state_dict().items()}
+                periodic = periodic or (e + 1) % tc.save_frequency == 0
+                if not stop:
+                    self.early_stopping(val_sel)
+                    if self.early_stopping.early_stop:
+                        logger.info("Early stopping at epoch %d (trained through epoch %d)",
+                                    e + 1, last + 1)
+                        stop = True
+            if best is not None:
+                self.write_best(best)
+            if periodic or (k == 1 and best is not None):
+                self.save_checkpoint(last, val_loss)
+            epoch = last + 1
 
-            self.history.train_loss.append(train_loss)
-            self.history.val_loss.append(val_loss)
-            self.history.epoch_seconds.append(dt)
-            total_steps += max(len(self.train_idx) // tc.batch_size, 1)
-            if epoch % 25 == 0 or epoch == tc.num_epochs - 1:
-                logger.info("Epoch %d/%d  train %.4f  val %.4f  (%.2fs)",
-                            epoch + 1, tc.num_epochs, train_loss, val_loss, dt)
-
-            prev_lr = self.plateau.lr
-            new_lr = self.plateau.step(val_sel)
-            if new_lr != prev_lr:
-                self.set_learning_rate(new_lr)
-
-            if val_sel < best_val:
-                best_val = val_sel
-                best = {k: v.detach().clone() for k, v in self.module.state_dict().items()}
-                best_written = False
-            if (epoch + 1) % tc.save_frequency == 0:
-                self.save_checkpoint(epoch, val_loss)
-                if not best_written:
-                    self.write_best(best)
-                    best_written = True
-
-            self.early_stopping(val_sel)
-            if self.early_stopping.early_stop:
-                logger.info("Early stopping at epoch %d", epoch + 1)
-                break
-
-        if not best_written:
-            self.write_best(best)
         elapsed = time.perf_counter() - t_start
         self.history.steps_per_sec = total_steps / max(elapsed, 1e-9)
-        logger.info("Training complete: best val %.4f, %.1f steps/sec",
-                    best_val, self.history.steps_per_sec)
+        logger.info("Training complete: best val %.4f (epoch %s), %.1f steps/sec",
+                    best_val, self.best_epoch, self.history.steps_per_sec)
         return self.history
-

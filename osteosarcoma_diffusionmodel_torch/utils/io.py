@@ -3,7 +3,10 @@
 Counterpart of osteosarcoma_diffusionmodel_tpu/utils/io.py without
 pandas: a header row of column names, optionally a leading index column
 (sample ids), then one row of numbers per sample. Floats are written
-with ``%.6g`` like the JAX package's synthetic tables.
+with ``%.6g`` like the JAX package's synthetic tables. Column names are
+read as ``pandas.read_csv`` names them (:func:`header_names`), so a table
+the preprocessor wrote with an empty or a repeated gene name reads the
+same here as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,9 +28,28 @@ class Matrix:
     values: np.ndarray
     columns: List[str]
     index: Optional[List[str]] = None
+    index_name: str = ""  # the index column's header, "" where it has none
 
     def column(self, name: str) -> np.ndarray:
         return self.values[:, self.columns.index(name)]
+
+
+def header_names(header: Sequence[str]) -> List[str]:
+    """A CSV header's column names as ``pandas.read_csv`` gives them: an
+    empty name becomes ``Unnamed: <position>``, and each repeat of a name
+    gets the suffix ``.<k>`` (skipping names already taken)."""
+    names = [name if name != "" else f"Unnamed: {i}" for i, name in enumerate(header)]
+    taken = set(names)
+    counts: dict = {}
+    for i, base in enumerate(names):
+        name, count = base, counts.get(base, 0)
+        while count > 0:
+            counts[base] = count + 1
+            name = f"{base}.{count}"
+            count = count + 1 if name in taken else counts.get(name, 0)
+        names[i] = name
+        counts[name] = count + 1
+    return names
 
 
 def read_matrix_csv(path: str | Path, index_col: Optional[int] = 0) -> Matrix:
@@ -36,17 +58,19 @@ def read_matrix_csv(path: str | Path, index_col: Optional[int] = 0) -> Matrix:
     synthetic tables). Empty cells read as NaN."""
     with open(path, newline="") as f:
         reader = csv.reader(f)
-        header = next(reader)
+        header = header_names(next(reader))
         rows = [r for r in reader if r]
-    index = None
+    index, index_name = None, ""
     if index_col is not None:
         index = [r[index_col] for r in rows]
         rows = [r[:index_col] + r[index_col + 1:] for r in rows]
+        if header[index_col] != f"Unnamed: {index_col}":
+            index_name = header[index_col]
         header = header[:index_col] + header[index_col + 1:]
     values = np.array(
         [[float(v) if v != "" else np.nan for v in r] for r in rows], dtype=np.float64
     ).reshape(len(rows), len(header))
-    return Matrix(values, list(header), index)
+    return Matrix(values, list(header), index, index_name)
 
 
 def write_matrix_csv(path: str | Path, values: np.ndarray, columns: Sequence[str],

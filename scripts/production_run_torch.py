@@ -126,7 +126,7 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
     n = len(history.train_loss)
     return {
         "config": ("config/production.yaml (ddim-50, batch_scenarios, copula_joint; "
-                   "epochs_per_dispatch 25 read, run one epoch a dispatch)"),
+                   "epochs_per_dispatch 25: 25-epoch blocks)"),
         "protocol": (f"scripts/production_run_torch.py (pathways train generate validate); "
                      f"100x{dims[0] + dims[1] + n_pathways} structured cohort, {epochs} epochs, "
                      f"{samples} generated"),

@@ -757,6 +757,29 @@ def test_cuda_train_keeps_every_tensor_on_the_card(cuda, tmp_path):
     assert (tmp_path / str(cuda) / "checkpoint_epoch_1" / "optimizer.npz").exists()
 
 
+@pytest.mark.cuda
+def test_cuda_second_trainer_on_one_model(cuda, tmp_path):
+    """The CLI's STEP 4a on the card: a pre-trainer built after the main
+    trainer re-initializes the shared module (moved back to the CPU for the
+    CPU generator's draws) to the CPU init's values; after it trains, the
+    main trainer's optimizer steps the same parameter objects on the card."""
+    from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer
+
+    main = _trainer(cuda, tmp_path)
+    init = {k: v.cpu().clone() for k, v in main.module.state_dict().items()}
+    main.module.load_state_dict({k: v + 1.0 for k, v in init.items()})
+    pre = Trainer(main.model, main.arrays, main.dims, main.config, cuda)
+    for k, v in pre.module.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v.cpu(), init[k]), k
+    assert [id(p) for p in pre.params] == [id(p) for p in main.params]
+    pre.config.training.num_epochs = 1
+    pre.train()
+    trained = {k: v.clone() for k, v in main.module.state_dict().items()}
+    log = main.train()
+    assert np.isfinite(log.train_loss).all()
+    assert any(not torch.equal(trained[k], v) for k, v in main.module.state_dict().items())
+
+
 # ----------------------------------------------------------------------
 # The device calibration, and the sampler at serving's small batches
 # ----------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Import guard: the PyTorch port never loads JAX, Flax, pandas or PyYAML.
+"""Import guard: the PyTorch port never loads JAX, Flax, pandas, PyYAML or
+requests.
 
 The card's machine has PyTorch, numpy and scipy but no JAX and no
-promise of pandas or PyYAML. A fresh interpreter (without the test
+promise of pandas, PyYAML or requests. A fresh interpreter (without the test
 suite's JAX environment) imports every module of the port and
 ``chip_smoke.py``, runs a tiny CPU generate and a one-epoch CPU train
 through the trainer and its checkpoints, and must not have any of them
@@ -61,8 +62,8 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(log.train_loss) == 1 and np.isfinite(log.train_loss).all()
     assert (Path(tmp) / "ckpt" / "checkpoint_epoch_0" / "optimizer.npz").exists()
 assert _build.LIBRARY._lib is None  # nothing was built or loaded
-bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "osteosarcoma_diffusionmodel_tpu")
-             if m in sys.modules)
+bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "requests",
+                         "osteosarcoma_diffusionmodel_tpu") if m in sys.modules)
 assert not bad, bad
 print("modules", len(names))
 """
@@ -86,13 +87,16 @@ def test_port_imports_no_jax_pandas_or_yaml():
     "osteosarcoma_diffusionmodel_torch.ops.copula_device",
     "osteosarcoma_diffusionmodel_torch.serving.monitoring",
     "osteosarcoma_diffusionmodel_torch.serving.server",
+    "osteosarcoma_diffusionmodel_torch.data.gdc_loader",
+    "osteosarcoma_diffusionmodel_torch.data.preprocessor",
 ])
 def test_calibration_and_serving_modules_import_no_jax(module):
-    """The device calibration and the serving modules, each imported alone
-    in a fresh interpreter: no JAX, Flax, pandas or PyYAML (yaml only
-    lazily, inside ``Config.from_yaml``), nothing of the JAX package."""
+    """The device calibration, the serving modules, the GDC loader and the
+    preprocessor, each imported alone in a fresh interpreter: no JAX,
+    Flax, pandas, PyYAML (yaml only lazily, inside ``Config.from_yaml``) or
+    requests, nothing of the JAX package."""
     script = (f"import sys, importlib; importlib.import_module({module!r}); "
-              "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', "
+              "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', 'requests', "
               "'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
               "assert not bad, bad; print('ok')")
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_clean_env(),

@@ -303,7 +303,8 @@ def test_ar_optimizer_checkpoint_resume(cohort, tmp_path):
 
 
 def test_cli_trains_generates_and_validates_a_variant(cohort, tmp_path):
-    """``--steps all --device cpu`` on an AR + latent-factor + CFG model:
+    """``--steps train generate validate --device cpu`` on an AR +
+    latent-factor + CFG model:
     the checkpoint's metadata rebuilds the model, the mutation CSVs are
     the AR head's bits, the validation metrics are finite; sample-path
     fine-tuning, enabled, is skipped for these heads as in the JAX CLI."""
@@ -323,7 +324,8 @@ def test_cli_trains_generates_and_validates_a_variant(cohort, tmp_path):
     }
     path = tmp_path / "config.yaml"
     path.write_text(yaml.safe_dump(raw))
-    cli.main(["--config", str(path), "--steps", "all", "--device", "cpu"])
+    cli.main(["--config", str(path), "--steps", "train", "generate", "validate",
+              "--device", "cpu"])
     meta = ckpt.load_metadata(tmp_path / "ckpt")
     diffusion = meta["config"]["model"]["diffusion"]
     assert diffusion["ar_mutation_head"] and diffusion["latent_factor_dim"] == 2
