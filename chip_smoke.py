@@ -144,7 +144,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    launches and device ms; the hard-thresholded co-occurrence loss of a
    999-row DDIM-50 cohort before and after fine-tuning; each step's
    seconds;
-9. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
+9. "[report]" (after ``[pipeline]``, on its directories: 61/5000/29,
+   100 real rows, 3 x 333 synthetic rows): the CLI's doctor step (every
+   entry OK, the dict printed); the report step (``summary_report.txt``
+   graded from the validate step's results, which it must read back
+   equal; the figures written, or a line saying they were skipped where
+   matplotlib is not installed, as in the JAX package; the step's seconds
+   and ``embed_2d``'s on the 1,099 x 5000 expression rows); the CLI's
+   train with ``profile=True`` (``--profile``) for 2 epochs on the card:
+   the ``torch.profiler`` trace under ``<results_dir>/profile`` parses as
+   JSON and holds CUDA kernel events (their count, the five device
+   operations with the most time, the trace's size), and
+   ``device_memory_stats()`` names the card with a nonzero peak; the GAT
+   encoder (``models/gnn.py``) on the pathway step's gene-pathway graph
+   (371 genes x 29 pathways, edges from ``gene_pathway_edges``; hidden
+   256, latent 128, 3 layers, 4 heads from ``model.gnn``), f32 with TF32
+   off, on the card against the same module on the CPU (max |diff| within
+   1e-4 of max |out|), one graph and two pooled, its forward's ms (CUDA
+   events over 20) and peak memory. The phase launches no kernel: its
+   counts are set to 0 before it and must read 0 after;
+10. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
    checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
    warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
    HTTP requests a pair (JSON at 1 and 64 rows, npz at 1,024), each
@@ -153,7 +172,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (counted in that process, set to 0 after the warmup): K1, K1+GN and
    K1+posterior launched, K1's general path and K2/K3 apart not; the
    1,024-row requests calibrated on the device;
-10. the kernel sampler against the plain PyTorch loop at 333 rows:
+11. the kernel sampler against the plain PyTorch loop at 333 rows:
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
    the same x_T, noise, zeta and eta); then at serving's small batches,
@@ -188,9 +207,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from osteosarcoma_diffusionmodel_torch.analysis import report as report_module
+from osteosarcoma_diffusionmodel_torch.analysis.report import grade
 from osteosarcoma_diffusionmodel_torch.cli import (
+    analysis_report,
     build_constraint_spec,
     compute_pathway_features,
+    doctor,
     generate_synthetic_patients,
     preprocess_data,
     train_model,
@@ -214,7 +237,8 @@ from osteosarcoma_diffusionmodel_torch.models.constraints import (
     mutation_corr_matrix,
 )
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
-from osteosarcoma_diffusionmodel_torch.models.networks import init_weights
+from osteosarcoma_diffusionmodel_torch.models.gnn import PathwayGraphEncoder, gene_pathway_edges
+from osteosarcoma_diffusionmodel_torch.models.networks import init_flax, init_weights
 from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
 from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
@@ -304,6 +328,7 @@ from osteosarcoma_diffusionmodel_torch.utils.card import (
     seeded_checkpoint,
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
+from osteosarcoma_diffusionmodel_torch.utils.profiling import device_memory_stats
 
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
 STEP_LAUNCHES = {"none": 12, "out": 12, "io": 13, "all": 15}
@@ -2926,6 +2951,178 @@ def run_pipeline_phase(cfg: Config, dev, root: Path) -> dict:
     print(f"[pipeline] seconds by step: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; phase {time.perf_counter() - t_phase:.1f} s; kernel launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    return launches, gcfg, results
+
+
+# The report phase, on [pipeline]'s directories: the figures every cohort
+# gets where matplotlib is installed (the driver-gene bars only where the
+# driver genes are among the mutation columns), the --profile train's
+# epochs, the GAT encoder's card-vs-CPU tolerance (of max |out|, f32 with
+# TF32 off) and its timed forwards.
+REPORT_FIGURES = {"mutation_frequency_scatter.png", "pathway_histograms.png",
+                  "cohort_embedding.png", "kaplan_meier.png", "validation_metrics.png"}
+PROFILE_EPOCHS = 2
+GNN_TOL = 1e-4
+GNN_FORWARDS = 20
+
+
+def _check_report(rcfg: Config, validation: dict) -> None:
+    """The report step: the summary graded from the validate step's
+    results, the figures written (or skipped without matplotlib), the
+    step's and ``embed_2d``'s seconds on the real + synthetic expression."""
+    timed = {}
+    embed = report_module.embed_2d
+
+    def timed_embed(real, synthetic):
+        t = time.perf_counter()
+        out = embed(real, synthetic)
+        timed.update(seconds=time.perf_counter() - t, shape=real.shape[0] + synthetic.shape[0],
+                     width=real.shape[1], out=out)
+        return out
+
+    report_module.embed_2d = timed_embed
+    try:
+        t = time.perf_counter()
+        results = analysis_report(rcfg)
+        report_s = time.perf_counter() - t
+    finally:
+        report_module.embed_2d = embed
+    overall = results["overall_biological_score"]
+    text = (Path(rcfg.output.results_dir) / "summary_report.txt").read_text()
+    graded = f"Overall biological score: {overall:.3f} -> {grade(overall)}"
+    figures = sorted(p.name for p in Path(rcfg.output.figures_dir).glob("*.png"))
+    have_plt = report_module._matplotlib() is not None
+    print(f"[report] report {report_s:.2f} s: summary_report.txt written ({graded!r}); "
+          + (f"figures {figures}" if have_plt else "matplotlib is not installed: the "
+             "figures were skipped, as in the JAX package"), flush=True)
+    if not have_plt:
+        processed = Path(rcfg.data.processed_dir)
+        real = read_matrix_csv(processed / "expression_matrix_aligned.csv")
+        synth = [read_matrix_csv(Path(rcfg.output.synthetic_data_dir) / s.name
+                                 / f"{s.name}_expression.csv", index_col=None)
+                 for s in rcfg.generation.scenarios]
+        names = report_module.common_columns(real.columns, synth[0].columns)
+        timed_embed(report_module.select(real, names),
+                    np.concatenate([report_module.select(m, names) for m in synth]))
+    r2, s2 = timed["out"]
+    print(f"[report] embed_2d on {timed['shape']} x {timed['width']} expression rows "
+          f"(real + synthetic): {timed['seconds']:.2f} s", flush=True)
+    same = results.keys() == validation.keys() and all(
+        v == validation[k] or (math.isnan(v) and math.isnan(validation[k]))
+        for k, v in results.items())
+    ok = (graded in text and same and np.isfinite(r2).all()
+          and np.isfinite(s2).all() and len(r2) + len(s2) == timed["shape"]
+          and (REPORT_FIGURES <= set(figures) if have_plt else not figures))
+    if not ok:
+        raise AssertionError(f"[report] summary, figures or embedding wrong: {figures}, "
+                             f"{results} against {validation}")
+
+
+def _check_profile(rcfg: Config, dev, root: Path) -> None:
+    """``--profile`` on the card: the CLI's train for PROFILE_EPOCHS epochs
+    under torch.profiler; the trace parses and holds CUDA kernel events."""
+    pcfg = copy.deepcopy(rcfg)
+    tc = pcfg.training
+    tc.num_epochs = tc.patience = PROFILE_EPOCHS
+    tc.epochs_per_dispatch = 1
+    tc.augmentation.cross_cancer_pretrain = False
+    tc.sample_path_finetune.enabled = False
+    tc.save_dir = str(root / "checkpoint_profile")
+    pcfg.output.results_dir = str(root / "results_profile")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    history = train_model(pcfg, device=str(dev), profile=True)
+    train_s = time.perf_counter() - t
+    traces = sorted((Path(pcfg.output.results_dir) / "profile").glob("*.pt.trace.json"))
+    if len(traces) != 1 or not all(math.isfinite(v) for v in history.train_loss):
+        raise AssertionError(f"[report] --profile: traces {traces}, history {history.train_loss}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[report] --profile: train {len(history.train_loss)} epochs in {train_s:.2f} s; "
+          f"trace {traces[0].name} {traces[0].stat().st_size / 1e6:.2f} MB, {len(events)} "
+          f"events, {len(kernels)} CUDA kernel events; top device operations (ms): "
+          + json.dumps([[name[:80], round(us / 1e3, 4)] for name, us in top]), flush=True)
+    if not kernels:
+        raise AssertionError("[report] --profile: the trace holds no CUDA kernel event")
+    stats = device_memory_stats()
+    name = torch.cuda.get_device_name(0)
+    peaks = {k: v.get("allocated_bytes.all.peak", 0) for k, v in stats.items()}
+    shown = {k: f"{v / 2**20:.1f} MiB peak" for k, v in peaks.items()}
+    print(f"[report] device_memory_stats: {json.dumps(shown)}", flush=True)
+    if not any(name in k and v > 0 for k, v in peaks.items()):
+        raise AssertionError(f"[report] device_memory_stats names no card or no peak: {peaks}")
+
+
+def _check_gnn(rcfg: Config, dev) -> None:
+    """The GAT encoder on the pathway step's gene-pathway graph, on the card
+    against the same module on the CPU, one graph and two pooled."""
+    gpm = read_matrix_csv(Path(rcfg.data.processed_dir) / "gene_pathway_matrix.csv")
+    x = torch.from_numpy(gpm.values.astype(np.float32))
+    edges = torch.from_numpy(gene_pathway_edges(gpm.values))
+    n, e = x.shape[0], edges.shape[1]
+    mc = rcfg.model
+    hidden = mc.hidden_dims[0]
+    enc = PathwayGraphEncoder(x.shape[1], hidden, mc.latent_dim, num_layers=mc.gnn.num_layers,
+                              heads=mc.gnn.heads, dropout=mc.gnn.dropout).eval()
+    init_flax(enc, torch.Generator().manual_seed(0))
+    batch = (torch.arange(n) >= n // 2).long()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = [enc(x, edges), enc(x, edges, batch=batch, num_graphs=2)]
+            card = copy.deepcopy(enc).to(dev)
+            xd, ed, bd = x.to(dev), edges.to(dev), batch.to(dev)
+            got = [card(xd, ed), card(xd, ed, batch=bd, num_graphs=2)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            card(xd, ed)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = time_ms(lambda: card(xd, ed), iters=GNN_FORWARDS)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = [float((g.cpu() - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
+    heads = mc.gnn.heads
+    print(f"[report] GAT encoder: N {n} genes x {x.shape[1]} pathways, E {e} edges (self-loops "
+          f"included), hidden {hidden}, latent {mc.latent_dim}, {mc.gnn.num_layers} layers, "
+          f"{heads} heads; messages E x H x F f32 {e * heads * hidden * 4 / 2**20:.1f} MiB; "
+          f"card vs CPU max|diff| / max|out| {errs[0]:.2e} (one graph), {errs[1]:.2e} (two "
+          f"pooled, shape {tuple(got[1].shape)}) (tol {GNN_TOL:.0e}); forward {ms:.4f} ms "
+          f"(CUDA events over {GNN_FORWARDS}), peak {peak / 2**20:.1f} MiB above the inputs",
+          flush=True)
+    if not (max(errs) <= GNN_TOL and tuple(got[1].shape) == (2, mc.latent_dim)
+            and all(torch.isfinite(g).all() for g in got)):
+        raise AssertionError(f"[report] GAT encoder card vs CPU {errs} > {GNN_TOL}")
+
+
+def run_report_phase(gcfg: Config, validation: dict, dev, root: Path) -> dict:
+    """[report]: on [pipeline]'s directories, the CLI's doctor (every entry
+    OK) and report steps, ``--profile`` on the card and the GAT encoder on
+    the card against the CPU. No kernel of the report's path exists:
+    returns the phase's launches, which must all be 0."""
+    t_phase = time.perf_counter()
+    for k in KERNELS:
+        k.reset()
+    rcfg = copy.deepcopy(gcfg)
+    rcfg.output.figures_dir = str(root / "figures_pipeline")
+    entries = doctor(rcfg)
+    print(f"[report] doctor: {json.dumps(entries)}", flush=True)
+    if not all(v.startswith("OK") for v in entries.values()) or len(entries) != 4:
+        raise AssertionError(f"[report] doctor: {entries}")
+    _check_report(rcfg, validation)
+    _check_profile(rcfg, dev, root)
+    _check_gnn(rcfg, dev)
+    launches = {k.name: k.launches for k in KERNELS}
+    print(f"[report] phase {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"[report] the report's path launched kernels: {launches}")
     return launches
 
 
@@ -2976,11 +3173,12 @@ def main(argv=None) -> int:
         trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
         variants = run_variants_phase(cfg, dev, Path(tmp))
         archs = run_arch_phase(cfg, dev, Path(tmp))
-        pipeline = run_pipeline_phase(cfg, dev, Path(tmp))
+        pipeline, pipeline_cfg, pipeline_results = run_pipeline_phase(cfg, dev, Path(tmp))
+        reported = run_report_phase(pipeline_cfg, pipeline_results, dev, Path(tmp))
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
-        for counts in (trained, variants, archs, pipeline,
+        for counts in (trained, variants, archs, pipeline, reported,
                        run_serve_phase(trained_ckpt, Path(tmp)),
                        run_latent_path(cfg, dev, Path(tmp))):
             for name, n in counts.items():

@@ -1,11 +1,11 @@
-"""Pipeline CLI of the PyTorch port: the JAX CLI's six steps.
+"""Pipeline CLI of the PyTorch port: the JAX CLI's steps.
 
     python -m osteosarcoma_diffusionmodel_torch.cli --config config/config.yaml \
-        --steps {download,preprocess,pathways,train,generate,validate,all} \
-        [--resume | --resume-training] [--device cpu]
+        --steps {download,preprocess,pathways,train,generate,validate,all,report,doctor} \
+        [--resume | --resume-training] [--profile] [--device cpu]
 
-Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py (:59-398), under the
-same step names; ``all`` (the default) is the JAX ``ALL_STEPS``:
+Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py, under the same step
+names; ``all`` (the default) is the JAX ``ALL_STEPS``:
 
 - ``download``: the TARGET-OS files (and each pretraining cohort that is a
   GDC project id) from the GDC API into ``data.data_dir/raw`` (needs
@@ -27,13 +27,26 @@ same step names; ``all`` (the default) is the JAX ``ALL_STEPS``:
   {mutations,expression,pathways,conditions}.csv``;
 - ``validate``: ``<results_dir>/validation_results.csv``.
 
+Two more steps, outside ``all`` as in the JAX CLI:
+
+- ``report``: the notebook's figures in ``output.figures_dir`` (skipped
+  without matplotlib) and ``<results_dir>/summary_report.txt`` graded from
+  ``validation_results.csv`` (:mod:`.analysis.report`);
+- ``doctor``: the consistency of the config, the processed tables, the
+  checkpoint's ``metadata.json`` and the scenarios' conditions, one "OK",
+  "MISMATCH", "MISSING" or "UNKNOWN CONDITIONS" entry each.
+
+``--profile`` writes a ``torch.profiler`` trace of the main training under
+``<results_dir>/profile`` (:func:`.utils.profiling.profile_trace`).
+
 The model section of the config always comes from the checkpoint's
 metadata: the train step does not write the JAX CLI's
-``config/config_updated.yaml``. The report and doctor steps, ``--profile``
-and several devices are not ported yet. The download, preprocess and
-pathways steps run on the host. The others run on the CUDA card; the CPU
-runs them only when asked (``--device cpu``): without a card and without
-that flag the CLI raises before it reads or writes anything.
+``config/config_updated.yaml``. Several devices are not ported yet: a
+``training.num_devices`` above the devices visible trains on one, as the
+JAX trainer does. The download, preprocess, pathways, report and doctor
+steps run on the host. The others run on the CUDA card; the CPU runs them
+only when asked (``--device cpu``): without a card and without that flag
+the CLI raises before it reads or writes anything.
 """
 
 from __future__ import annotations
@@ -64,13 +77,21 @@ from .models.diffusion import finetune_skip_reason
 from .training import checkpoint as ckpt
 from .training.finetune import sample_path_finetune
 from .training.trainer import TrainLog, Trainer, build_model
-from .utils.io import Matrix, header_names, read_matrix_csv, write_matrix_csv
+from .utils.io import (
+    Matrix,
+    header_names,
+    read_first_row,
+    read_matrix_csv,
+    read_typed_columns,
+    write_matrix_csv,
+)
+from .utils.profiling import profile_trace
 from .validation.validator import BiologicalValidator
 
 logger = logging.getLogger(__name__)
 
 ALL_STEPS = ("download", "preprocess", "pathways", "train", "generate", "validate")
-HOST_STEPS = ("download", "preprocess", "pathways")
+HOST_STEPS = ("download", "preprocess", "pathways", "report", "doctor")
 
 
 def default_device() -> str:
@@ -189,12 +210,15 @@ def _finetune(config: Config, model, trainer: Trainer) -> Optional[Dict[str, lis
     return history
 
 
-def train_model(config: Config, device: Optional[str] = None, resume: bool = False) -> TrainLog:
+def train_model(config: Config, device: Optional[str] = None, resume: bool = False,
+                profile: bool = False) -> TrainLog:
     """STEP 4: train on ``data.processed_dir`` (after STEP 4a, pretraining,
     where it is on; STEP 4b, fine-tuning, after), write the checkpoint
     directory and ``<results_dir>/training_history.csv``; returns the
     history, with the pretraining's under ``pretrain`` and the
-    fine-tuning's under ``finetune``."""
+    fine-tuning's under ``finetune``. ``profile``: the main training (not
+    STEP 4a or 4b) under :func:`profile_trace` into
+    ``<results_dir>/profile``, as the JAX CLI does."""
     device = device or default_device()
     logger.info("STEP 4: Training model")
     arrays, dims = prepare_arrays(config)
@@ -214,7 +238,9 @@ def train_model(config: Config, device: Optional[str] = None, resume: bool = Fal
         pre_cfg.training.patience = config.training.pretrain_epochs
         pre_cfg.training.save_dir = str(Path(config.training.save_dir) / "pretrain")
         pretrain = Trainer(model, pretrain_arrays, dims, pre_cfg, device).train()
-    history = trainer.train(resume=resume)
+    with profile_trace(Path(config.output.results_dir) / "profile", enabled=profile,
+                       device=device):
+        history = trainer.train(resume=resume)
     history.pretrain = pretrain
     history.finetune = _finetune(config, model, trainer)
     results_dir = Path(config.output.results_dir)
@@ -297,6 +323,125 @@ def validate_synthetic_patients(config: Config, device: Optional[str] = None) ->
     return results
 
 
+def _clinical_survival(path: Path) -> Optional[tuple]:
+    """(survival_days, event_occurred) of the clinical table as float
+    arrays, or None where it lacks either column. Raises
+    FileNotFoundError where the table is missing."""
+    columns = read_typed_columns(path)
+    if "survival_days" not in columns or "event_occurred" not in columns:
+        return None
+    return tuple(np.asarray(columns[name], np.float64)
+                 for name in ("survival_days", "event_occurred"))
+
+
+def analysis_report(config: Config) -> Dict[str, float]:
+    """Extra step (JAX ``cli.py:401-460``): the notebook's figures in
+    ``output.figures_dir`` and, where ``validation_results.csv`` exists,
+    ``<results_dir>/summary_report.txt``; returns that file's first row."""
+    logger.info("REPORT: analysis figures + summary")
+    from .analysis.report import (
+        AnalysisReport,
+        common_columns,
+        select,
+        write_summary_report,
+    )
+
+    processed = Path(config.data.processed_dir)
+    results_dir = Path(config.output.results_dir)
+    real_mut = read_matrix_csv(processed / "mutation_matrix_aligned.csv")
+    real_expr = read_matrix_csv(processed / "expression_matrix_aligned.csv")
+    real_path = read_matrix_csv(processed / "pathway_scores.csv")
+    clinical = _clinical_survival(processed / "clinical_aligned.csv")
+
+    output_dir = Path(config.output.synthetic_data_dir)
+    tables = {"mutations": [], "expression": [], "pathways": []}
+    scenario_survival = {}
+    if clinical is not None:
+        scenario_survival["real_cohort"] = clinical
+    for scenario in config.generation.scenarios:
+        scenario_dir = output_dir / scenario.name
+        if not (scenario_dir / f"{scenario.name}_mutations.csv").exists():
+            continue
+        for key, parts in tables.items():
+            parts.append(read_matrix_csv(
+                scenario_dir / f"{scenario.name}_{key}.csv", index_col=None))
+        n = len(tables["mutations"][-1].values)
+        surv = float(scenario.conditions.get("survival_time", 800))
+        event = int(scenario.conditions.get("event_occurred", 0))
+        scenario_survival[scenario.name] = (np.full(n, surv), np.full(n, event))
+    if not tables["mutations"]:
+        raise FileNotFoundError("No synthetic scenario data; run generate first")
+    synth_mut, synth_expr, synth_path = (_concat(parts) for parts in tables.values())
+
+    report = AnalysisReport(config)
+    report.mutation_frequency_scatter(real_mut, synth_mut)
+    report.driver_gene_bars(real_mut, synth_mut)
+    report.pathway_histograms(real_path, synth_path)
+    common_expr = common_columns(real_expr.columns, synth_expr.columns)
+    report.embedding_plot(select(real_expr, common_expr), select(synth_expr, common_expr))
+    report.km_curves(scenario_survival)
+
+    validation_path = results_dir / "validation_results.csv"
+    results: Dict[str, float] = {}
+    if validation_path.exists():
+        results = read_first_row(validation_path)
+        report.validation_bars(results)
+        write_summary_report(results, results_dir / "summary_report.txt")
+    logger.info("Analysis artifacts in %s", config.output.figures_dir)
+    return results
+
+
+def doctor(config: Config) -> Dict[str, str]:
+    """Dimension-consistency checks (JAX ``cli.py:463-521``): the same keys
+    and strings."""
+    logger.info("DOCTOR: config / data / checkpoint consistency")
+    report: Dict[str, str] = {}
+    processed = Path(config.data.processed_dir)
+
+    dims_from_data: Optional[Dict[str, int]] = None
+    try:
+        mut = _header(processed / "mutation_matrix_aligned.csv")
+        expr = _header(processed / "expression_matrix_aligned.csv")
+        path = _header(processed / "pathway_scores.csv")
+        with open(processed / "clinical_aligned.csv", newline="") as f:
+            clin = header_names(next(csv.reader(f)))
+        dims_from_data = {"mutation": len(mut), "expression": len(expr), "pathway": len(path)}
+        report["data"] = f"OK {dims_from_data}"
+        cond_cols = config.resolve_condition_columns(clin + ["survival_days_norm"])
+        report["conditions"] = (
+            f"OK {cond_cols}" if len(cond_cols) == len(config.model.condition_on)
+            else f"MISMATCH config={config.model.condition_on} data={cond_cols}"
+        )
+    except FileNotFoundError as e:
+        report["data"] = f"MISSING {e}"
+
+    meta = ckpt.load_metadata(Path(config.training.save_dir))
+    if meta is None:
+        report["checkpoint"] = "MISSING (no metadata.json)"
+    else:
+        ck = meta["dims"]
+        report["checkpoint"] = (
+            f"OK mut={ck['mutation_dim']} expr={ck['expression_dim']} "
+            f"path={ck['pathway_dim']} cond={len(ck['condition_names'])}"
+        )
+        if dims_from_data is not None:
+            consistent = (
+                ck["mutation_dim"] == dims_from_data["mutation"]
+                and ck["expression_dim"] == dims_from_data["expression"]
+                and ck["pathway_dim"] == dims_from_data["pathway"]
+            )
+            report["checkpoint_vs_data"] = "OK" if consistent else "MISMATCH"
+
+    for scenario in config.generation.scenarios:
+        unknown = [k for k in scenario.conditions if k not in config.model.condition_on]
+        if unknown:
+            report[f"scenario:{scenario.name}"] = f"UNKNOWN CONDITIONS {unknown}"
+
+    for key, value in report.items():
+        logger.info("%-22s %s", key, value)
+    return report
+
+
 STEP_FUNCTIONS = {
     "download": download_data,
     "preprocess": preprocess_data,
@@ -304,6 +449,8 @@ STEP_FUNCTIONS = {
     "train": train_model,
     "generate": generate_synthetic_patients,
     "validate": validate_synthetic_patients,
+    "report": analysis_report,
+    "doctor": doctor,
 }
 
 
@@ -311,10 +458,13 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         description="Osteosarcoma synthetic-patient pipeline (PyTorch port)")
     parser.add_argument("--config", default="config/config.yaml", help="YAML configuration")
-    parser.add_argument("--steps", nargs="+", default=["all"], choices=ALL_STEPS + ("all",),
+    parser.add_argument("--steps", nargs="+", default=["all"],
+                        choices=ALL_STEPS + ("all", "report", "doctor"),
                         help="steps to run in order; 'all' runs " + ", ".join(ALL_STEPS))
     parser.add_argument("--resume", "--resume-training", dest="resume", action="store_true",
                         help="train from the latest checkpoint_epoch_<n>/ of training.save_dir")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace of training to <results_dir>/profile")
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
     steps = list(ALL_STEPS) if "all" in args.steps else args.steps
@@ -328,7 +478,7 @@ def main(argv=None) -> None:
         if step in HOST_STEPS:
             STEP_FUNCTIONS[step](config)
         elif step == "train":
-            train_model(config, device=device, resume=args.resume)
+            train_model(config, device=device, resume=args.resume, profile=args.profile)
         else:
             STEP_FUNCTIONS[step](config, device=device)
 

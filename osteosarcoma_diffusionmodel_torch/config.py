@@ -4,10 +4,14 @@ pipeline's steps read.
 Counterpart of osteosarcoma_diffusionmodel_tpu/config.py, under the same
 field names and defaults, so a ``metadata.json`` written by either
 package and ``config/*.yaml`` load into it: keys this schema does not
-hold (GNN layers, fused-kernel scheduling knobs, ...) are ignored on
-load. The field comments there explain each knob. ``num_devices`` is
-kept only so :func:`models.diffusion.check_supported` can reject several
-devices, which the port does not implement yet.
+hold (fused-kernel scheduling knobs, ...) are ignored on load. The field
+comments there explain each knob. ``model.gnn`` holds the GAT encoder's
+type, layers and heads (:mod:`models.gnn`, which no architecture wires
+in) beside the denoiser's dropout. ``num_devices`` above the devices
+visible trains on one device with a warning, as the JAX trainer does;
+where that many cards are visible,
+:func:`models.diffusion.check_supported` refuses it, since data-parallel
+training is not ported yet.
 
 YAML is read by :meth:`Config.from_yaml`, which imports ``yaml`` only
 when called.
@@ -50,7 +54,11 @@ class DataConfig:
 
 @dataclass
 class GNNConfig:
-    # Only ``dropout`` is read: the denoiser blocks' dropout rate.
+    # ``dropout`` is also the denoiser blocks' dropout rate; the rest sizes
+    # the optional PathwayGraphEncoder (models/gnn.py).
+    type: str = "GAT"
+    num_layers: int = 3
+    heads: int = 4
     dropout: float = 0.2
 
 
@@ -162,7 +170,8 @@ class TrainingConfig:
     lr_plateau_factor: float = 0.5
     lr_plateau_patience: int = 10
     grad_clip_norm: float = 1.0
-    # One device only: more than one is rejected (check_supported).
+    # More devices than are visible: one device with a warning; as many
+    # cards as are visible: refused (check_supported).
     num_devices: Optional[int] = None
     # Epochs a block: host work (checkpoints, the early-stopping break)
     # waits for the block's end, as in the JAX trainer's block loop.
@@ -242,6 +251,8 @@ class GenerationConfig:
 @dataclass
 class OutputConfig:
     results_dir: str = "./results"
+    figures_dir: str = "./results/figures"
+    models_dir: str = "./results/models"
     synthetic_data_dir: str = "./results/synthetic"
     export_formats: List[str] = field(default_factory=lambda: ["csv"])
 

@@ -8,7 +8,10 @@ models/networks.py, names at :186-219) onto
 ``decoder/fc_i``, ``decoder/bn_i``, ``decoder/output``,
 ``survival_head/fc1``, ``survival_head/fc2``) onto
 :class:`~.models.cvae.ConditionalVAEModule`, and the flow's
-(``coupling_k/{fc1,fc2,out}``) onto :class:`~.models.flow.ConditionalRealNVP`:
+(``coupling_k/{fc1,fc2,out}``) onto :class:`~.models.flow.ConditionalRealNVP`,
+and the GAT encoder's (osteosarcoma_diffusionmodel_tpu/models/gnn.py:
+``input_proj``, ``gat_<i>/lin``, ``gat_<i>/attn_src``, ``gat_<i>/attn_dst``,
+``output_proj``) onto :class:`~.models.gnn.PathwayGraphEncoder`:
 
 - a Dense ``kernel`` (in, out) is a Linear ``weight`` (out, in); ``bias``
   stays ``bias``;
@@ -20,7 +23,9 @@ models/networks.py, names at :186-219) onto
   ``ar_ctx_fc1/2``);
 - the raw arrays of the AR head and of low-rank sigma (``ar_coupling``,
   ``ar_bias``, ``lowrank_U``, ``lowrank_logdiag``, ``lowrank_logs``) keep
-  their names and layout (no transpose).
+  their names and layout (no transpose), and so do the GAT layers'
+  (heads, features) ``attn_src`` / ``attn_dst`` (``gat_0/attn_src`` ->
+  ``gat_0.attn_src``); a GAT layer's ``lin`` has a kernel and no bias.
 
 A parameter or statistic of any other module or leaf is rejected, never
 dropped.
@@ -47,17 +52,30 @@ _FAMILY_MODULES = re.compile(
     r"(encoder/(fc_\d+|bn_\d+|fc_mu|fc_logvar)|decoder/(fc_\d+|bn_\d+|output)"
     r"|survival_head/fc[12]|coupling_\d+/(fc1|fc2|out))$")
 BATCH_STATS = ("mean", "var")
+# The GAT encoder: each layer's projection (a kernel, no bias) and its raw
+# attention vectors.
+_GAT_LIN = re.compile(r"gat_\d+/lin$")
+_GAT_RAW = re.compile(r"gat_\d+/attn_(src|dst)$")
 
 
 def _check_module(path: str) -> None:
     """``path``: a module path with "/" or "." between its names."""
     path = path.replace(".", "/")
     top = path.split("/")[0]
-    if top in _TOP_LEVEL or top.startswith(("enc_", "dec_")) or _FAMILY_MODULES.match(path):
+    if (top in _TOP_LEVEL or top.startswith(("enc_", "dec_")) or _FAMILY_MODULES.match(path)
+            or _GAT_LIN.match(path)):
         return
     raise NotImplementedError(
         f"Flax variable {path!r} belongs to no module of the PyTorch port's models"
     )
+
+
+def _check_gat_leaf(module: str, leaf: str, kernel: str) -> None:
+    """A GAT layer's ``lin`` holds its kernel (``kernel`` in Flax,
+    ``weight`` in PyTorch) and nothing else."""
+    if _GAT_LIN.match(module.replace(".", "/")) and leaf != kernel:
+        raise NotImplementedError(
+            f"GAT projection {module!r} has no {leaf!r} in the PyTorch port's encoder")
 
 
 def flatten_params(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -90,11 +108,12 @@ def flax_params_to_state_dict(params: Mapping[str, Any],
     where given, -> the port's ``state_dict``."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in flatten_params(params).items():
-        if path in RAW_ARRAYS:
-            state[path] = torch.from_numpy(np.array(value, np.float32))
+        if path in RAW_ARRAYS or _GAT_RAW.match(path):
+            state[path.replace("/", ".")] = torch.from_numpy(np.array(value, np.float32))
             continue
         module, _, leaf = path.rpartition("/")
         _check_module(module or path)
+        _check_gat_leaf(module, leaf, "kernel")
         module = module.replace("/", ".")
         arr = np.asarray(value, np.float32)
         if leaf == "kernel":
@@ -124,11 +143,12 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any
     stats: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         arr = value.detach().cpu().float().numpy()
-        if key in RAW_ARRAYS:
-            flat[key] = arr
+        if key in RAW_ARRAYS or _GAT_RAW.match(key.replace(".", "/")):
+            flat[key.replace(".", "/")] = arr
             continue
         module, leaf = key.rsplit(".", 1)
         _check_module(module)
+        _check_gat_leaf(module, leaf, "weight")
         path = module.replace(".", "/")
         if leaf == "weight" and arr.ndim == 2:
             flat[f"{path}/kernel"] = np.ascontiguousarray(arr.T)

@@ -52,7 +52,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.io import Matrix, header_names
+from ..utils.io import NA_STRINGS, Matrix, header_names
 
 logger = logging.getLogger(__name__)
 
@@ -76,11 +76,6 @@ CLINICAL_FEATURES = [
 ]
 
 TOP_EXPRESSION_GENES = 5000
-# The strings pandas.read_csv reads as a missing value by default.
-NA_STRINGS = frozenset([
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
-    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
-])
 
 
 @dataclass

@@ -93,11 +93,22 @@ def finetune_skip_reason(config: Config, dims: FrozenDims) -> Optional[str]:
     return None
 
 
-def check_supported(config: Config, dims: FrozenDims, training: bool = False) -> None:
+def visible_devices(device: str | torch.device | None) -> int:
+    """The devices of ``device``'s kind a trainer could spread over: the
+    visible cards for "cuda" (the default), one for the CPU."""
+    kind = torch.device(device or "cuda").type
+    return torch.cuda.device_count() if kind == "cuda" else 1
+
+
+def check_supported(config: Config, dims: FrozenDims, training: bool = False,
+                    device: str | torch.device | None = None) -> None:
     """Raise NotImplementedError for the one configuration the port does
-    not implement (with ``training``: several devices), and ValueError for
+    not implement (with ``training``: ``training.num_devices > 1`` where
+    that many devices of ``device``'s kind are visible), and ValueError for
     an unknown ``generation.fused_quantize``, loss type, block weighting,
-    compute dtype or carry dtype. Every architecture
+    compute dtype or carry dtype. Fewer visible devices than
+    ``num_devices`` train on one device with the JAX trainer's warning
+    (its ``__init__``, :190-198). Every architecture
     passes: :func:`~..training.trainer.build_model` refuses an unknown one.
     A ``generation.sampler`` other than "ddim" samples with DDPM, as in the
     JAX package (its generator tests for "ddim" only); one warning says
@@ -110,10 +121,15 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False) ->
         raise ValueError(f"Unknown loss_type: {dc.loss_type}")
     if dc.block_loss_weighting not in ("balanced", "none"):
         raise ValueError(f"unknown block_loss_weighting {dc.block_loss_weighting!r}")
-    if training and (config.training.num_devices or 1) > 1:
-        raise NotImplementedError(
-            "data-parallel training over several devices is not implemented in the PyTorch "
-            "port yet (ROADMAP.md, 'Modules to port'); use the JAX package for it")
+    wanted = config.training.num_devices or 1
+    if training and wanted > 1:
+        visible = visible_devices(device)
+        if visible >= wanted:
+            raise NotImplementedError(
+                "data-parallel training over several devices is not implemented in the "
+                "PyTorch port yet (ROADMAP.md, 'Modules to port'); use the JAX package for it")
+        logger.warning("training.num_devices=%d but only %d devices visible; "
+                       "training single-device", wanted, visible)
     if gen.sampler not in ("ddpm", "ddim"):
         logger.warning("generation.sampler %r is not 'ddim': sampling with DDPM, as the JAX "
                        "package does", gen.sampler)

@@ -357,7 +357,8 @@ def init_flax(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(mod, nn.Linear):
                 nn.init.trunc_normal_(mod.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
                 mod.weight.mul_(std / math.sqrt(mod.in_features))
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, (nn.GroupNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()

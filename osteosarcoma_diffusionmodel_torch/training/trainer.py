@@ -168,7 +168,7 @@ class Trainer:
 
     def __init__(self, model, arrays: OsteosarcomaArrays,
                  dims: FrozenDims, config: Config, device: str | torch.device):
-        check_supported(config, dims, training=True)
+        check_supported(config, dims, training=True, device=device)
         tc = config.training
         self.model = model
         self.arrays = arrays

@@ -14,11 +14,19 @@ from __future__ import annotations
 import csv
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 FLOAT_FORMAT = "%.6g"
+# The strings pandas.read_csv reads as a missing value, and as True and
+# False, by default.
+NA_STRINGS = frozenset([
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+])
+TRUE_STRINGS = frozenset(["True", "TRUE", "true"])
+FALSE_STRINGS = frozenset(["False", "FALSE", "false"])
 
 
 @dataclass
@@ -85,3 +93,50 @@ def write_matrix_csv(path: str | Path, values: np.ndarray, columns: Sequence[str
         for i, row in enumerate(values):
             cells = [fmt % v for v in row.tolist()]
             writer.writerow(([index[i]] if index is not None else []) + cells)
+
+
+def _typed(cell: str) -> Any:
+    if cell in NA_STRINGS:
+        return float("nan")
+    if cell in TRUE_STRINGS or cell in FALSE_STRINGS:
+        return cell in TRUE_STRINGS
+    for kind in (int, float):
+        try:
+            return kind(cell)
+        except ValueError:
+            pass
+    return cell
+
+
+def read_typed_columns(path: str | Path) -> Dict[str, list]:
+    """Every column of a CSV without an index column, by name, with the
+    types ``pandas.read_csv`` infers for it: int where every cell is an
+    integer, bool where every cell is True or False, float where the
+    cells are numbers and one is not an integer or is missing (NaN); a
+    column mixing bools or text with numbers or missing cells keeps each
+    cell's own type (text stays str)."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = header_names(next(reader))
+        rows = [r for r in reader if r]
+    columns = {}
+    for j, name in enumerate(header):
+        cells = [_typed(r[j]) if j < len(r) else float("nan") for r in rows]
+        kinds = {type(v) for v in cells}
+        if kinds == {int, float}:
+            cells = [float(v) for v in cells]
+        columns[name] = cells
+    return columns
+
+
+def read_first_row(path: str | Path) -> Dict[str, Any]:
+    """The first data row by column name, as
+    ``pandas.read_csv(path).iloc[0].to_dict()`` gives it: int and float
+    columns alone share one dtype (float as soon as one column is float),
+    a frame with a bool column keeps each column's type."""
+    columns = read_typed_columns(path)
+    row = {name: cells[0] for name, cells in columns.items()}
+    kinds = {type(v) for v in row.values()}
+    if kinds == {int, float}:
+        row = {name: float(v) for name, v in row.items()}
+    return row

@@ -1064,3 +1064,38 @@ def test_cuda_kernel_sampler_takes_widened_conditions(cuda, ddim):
         ref = model.sample(cond, g, x_init=x_init, noise=noise)
     assert bool(torch.isfinite(got).all())
     assert bool(((got - ref).abs() <= 0.15 + 0.05 * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [False, True])
+def test_cuda_gnn_matches_its_cpu_run(cuda, pooled):
+    """The GAT pathway encoder (f32 throughout) on the card against the
+    same module on the CPU: within 1e-4 of max |out|. TF32 is off so that
+    the card's products are f32 too."""
+    from osteosarcoma_diffusionmodel_torch.models.gnn import (
+        PathwayGraphEncoder,
+        gene_pathway_edges,
+    )
+    from osteosarcoma_diffusionmodel_torch.models.networks import init_flax
+
+    rng = np.random.default_rng(0)
+    gp = (rng.random((60, 12)) < 0.2).astype(np.float32)
+    x = torch.from_numpy(gp)
+    edges = torch.from_numpy(gene_pathway_edges(gp))
+    enc = PathwayGraphEncoder(12, 64, 16, num_layers=3, heads=4).eval()
+    init_flax(enc, torch.Generator().manual_seed(0))
+    kw = {"batch": torch.from_numpy((np.arange(60) >= 25).astype(np.int64)),
+          "num_graphs": 2} if pooled else {}
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = enc(x, edges, **kw)
+            card = enc.to(cuda)
+            got = card(x.to(cuda), edges.to(cuda),
+                       **{k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in kw.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+        enc.cpu()
+    assert got.shape == want.shape == ((2 if pooled else 1), 16)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())

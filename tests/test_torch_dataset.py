@@ -230,9 +230,11 @@ def test_checkpoint_resume_round_trip(cohort, tmp_path):
     assert more.train_loss == []
 
 
-def test_trainer_rejects_what_is_not_ported(cohort):
-    """Several devices are refused for training; cross-cancer pretraining
-    and sample-path fine-tuning are ported and pass."""
+def test_trainer_rejects_what_is_not_ported(cohort, caplog, monkeypatch):
+    """Several devices train on one with the JAX trainer's warning where
+    fewer are visible (one CPU; no card here), and are refused only where
+    that many cards are visible (device_count faked to 4); cross-cancer
+    pretraining and sample-path fine-tuning are ported and pass."""
     c, data, conditions, dims = cohort
     for change in ("pretrain", "finetune", "devices"):
         pc = train_config(Config())
@@ -245,8 +247,16 @@ def test_trainer_rejects_what_is_not_ported(cohort):
             pc.training.num_devices = 2
         check_supported(pc, dims)  # sampling does not read the training section
         if change == "devices":
+            for device, visible in (("cpu", 1), ("cuda", torch.cuda.device_count())):
+                caplog.clear()
+                with caplog.at_level("WARNING"):
+                    check_supported(pc, dims, training=True, device=device)
+                assert (f"training.num_devices=2 but only {visible} devices visible; "
+                        "training single-device") in caplog.text
+            monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
             with pytest.raises(NotImplementedError):
-                check_supported(pc, dims, training=True)
+                check_supported(pc, dims, training=True, device="cuda")
+            check_supported(pc, dims, training=True, device="cpu")  # one CPU: warns
         else:
             check_supported(pc, dims, training=True)
 
@@ -319,6 +329,24 @@ def test_cli_train_generate_validate_on_cpu(cohort, tmp_path):
     history = np.genfromtxt(tmp_path / "results" / "training_history.csv", delimiter=",",
                             names=True)
     assert history.shape == (2,)  # epochs 2 and 3
+
+
+def test_cli_num_devices_trains_on_one_device(cohort, tmp_path, caplog):
+    """``training.num_devices: 4`` with one CPU device: the trainer warns
+    as the JAX trainer does and trains; generate runs under the same
+    config (the JAX CLI's generate builds no mesh then)."""
+    path = _cli_yaml(tmp_path, cohort[0])
+    raw = yaml.safe_load(path.read_text())
+    raw["training"].update(num_devices=4, num_epochs=1)
+    path.write_text(yaml.safe_dump(raw))
+    with caplog.at_level("WARNING"):
+        cli.main(["--config", str(path), "--steps", "train", "generate", "--device", "cpu"])
+    assert ("training.num_devices=4 but only 1 devices visible; training single-device"
+            in caplog.text)
+    assert (tmp_path / "ckpt" / "best_model.npz").exists()
+    scenarios = Config.from_yaml(path).generation.scenarios
+    assert all((tmp_path / "synthetic" / s.name / f"{s.name}_expression.csv").exists()
+               for s in scenarios)
 
 
 def test_cli_train_raises_without_a_card(cohort, tmp_path, monkeypatch):

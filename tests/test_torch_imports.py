@@ -1,8 +1,8 @@
-"""Import guard: the PyTorch port never loads JAX, Flax, pandas, PyYAML or
-requests.
+"""Import guard: the PyTorch port never loads JAX, Flax, pandas, PyYAML,
+matplotlib or requests.
 
 The card's machine has PyTorch, numpy and scipy but no JAX and no
-promise of pandas, PyYAML or requests. A fresh interpreter (without the test
+promise of pandas, PyYAML, matplotlib or requests. A fresh interpreter (without the test
 suite's JAX environment) imports every module of the port and
 ``chip_smoke.py``, runs a tiny CPU generate and a one-epoch CPU train
 through the trainer and its checkpoints, and must not have any of them
@@ -26,6 +26,9 @@ import osteosarcoma_diffusionmodel_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+walked = {"analysis", "analysis.embedding", "analysis.report", "analysis.survival",
+          "models.gnn", "utils.profiling"}
+assert walked <= {n[len(pkg.__name__) + 1:] for n in names}, names
 import chip_smoke
 
 from osteosarcoma_diffusionmodel_torch.config import Config
@@ -62,7 +65,7 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(log.train_loss) == 1 and np.isfinite(log.train_loss).all()
     assert (Path(tmp) / "ckpt" / "checkpoint_epoch_0" / "optimizer.npz").exists()
 assert _build.LIBRARY._lib is None  # nothing was built or loaded
-bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "requests",
+bad = sorted(m for m in ("jax", "flax", "pandas", "yaml", "triton", "requests", "matplotlib",
                          "osteosarcoma_diffusionmodel_tpu") if m in sys.modules)
 assert not bad, bad
 print("modules", len(names))
@@ -89,15 +92,20 @@ def test_port_imports_no_jax_pandas_or_yaml():
     "osteosarcoma_diffusionmodel_torch.serving.server",
     "osteosarcoma_diffusionmodel_torch.data.gdc_loader",
     "osteosarcoma_diffusionmodel_torch.data.preprocessor",
+    "osteosarcoma_diffusionmodel_torch.analysis.report",
+    "osteosarcoma_diffusionmodel_torch.models.gnn",
+    "osteosarcoma_diffusionmodel_torch.utils.profiling",
 ])
 def test_calibration_and_serving_modules_import_no_jax(module):
-    """The device calibration, the serving modules, the GDC loader and the
-    preprocessor, each imported alone in a fresh interpreter: no JAX,
-    Flax, pandas, PyYAML (yaml only lazily, inside ``Config.from_yaml``) or
-    requests, nothing of the JAX package."""
+    """The device calibration, the serving modules, the GDC loader, the
+    preprocessor, the report, the GAT encoder and the profiling module,
+    each imported alone in a fresh interpreter: no JAX, Flax, pandas,
+    PyYAML (yaml only lazily, inside ``Config.from_yaml``), matplotlib
+    (only inside the report's ``_matplotlib``) or requests, nothing of the
+    JAX package."""
     script = (f"import sys, importlib; importlib.import_module({module!r}); "
               "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', 'requests', "
-              "'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
+              "'matplotlib', 'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
               "assert not bad, bad; print('ok')")
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=300)

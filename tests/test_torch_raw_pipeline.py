@@ -114,8 +114,8 @@ def test_all_is_the_jax_step_order(tmp_path, monkeypatch):
     for name in ("generate", "validate"):
         monkeypatch.setitem(cli.STEP_FUNCTIONS, name,
                             lambda cfg, device, n=name: ran.append((n, device)))
-    monkeypatch.setattr(cli, "train_model",
-                        lambda cfg, device, resume: ran.append(("train", device)))
+    monkeypatch.setattr(cli, "train_model", lambda cfg, device, resume, profile: ran.append(
+        ("train", device) if not profile else ("train profiled", device)))
     cli.main(["--config", str(path), "--device", "cpu"])
     assert ran == [("download", None), ("preprocess", None), ("pathways", None),
                    ("train", "cpu"), ("generate", "cpu"), ("validate", "cpu")]
