@@ -163,6 +163,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
    1e-4 of max |out|), one graph and two pooled, its forward's ms (CUDA
    events over 20) and peak memory. The phase launches no kernel: its
    counts are set to 0 before it and must read 0 after;
+9b. "[multi]" (after the main paths): the multi-device layer
+   (``parallel/``) in a child process of its own (``--multi-child``), a
+   world of one NCCL rank on the card (NCCL refuses two ranks on one
+   card), its NCCL version printed: the data-parallel trainer against the
+   one-device trainer from the same seed at the production settings
+   (diffusion 20 steps, cVAE 10, batch 16, constraints and dropout on;
+   losses within 1e-6 relative, parameters within 2 lr a step and all but
+   1e-3 of them within 1e-6; ms a step of each), ``sample_sharded``
+   against ``sample`` at 333 rows bit for bit (DDPM-1000 on a noise
+   buffer and on in-kernel noise, DDIM-50), both walls and the
+   all-gather's ms, and the sharded generator (3 x 333 DDPM-1000, host
+   calibration) against the unsharded one under "numpy": equal cohorts,
+   overall and MMD; then ``dryrun_multichip(4)`` on 4 gloo ranks on the
+   CPU. The sharded runs' launches are counted just before and after
+   each (K1, K1+GN, K1+posterior in every mode, K4) and reported in the
+   kernel line's ``multi`` key, and added to ``launches``;
 10. "[serve]": the port's server on 127.0.0.1 from the ``[train]``
    checkpoint through ``scripts/bench_serving_torch.py`` (a subprocess):
    warmed for buckets 1, 64 and 1,024 under DDPM-1000 and DDIM-50, ten
@@ -210,6 +226,7 @@ import torch
 from osteosarcoma_diffusionmodel_torch.analysis import report as report_module
 from osteosarcoma_diffusionmodel_torch.analysis.report import grade
 from osteosarcoma_diffusionmodel_torch.cli import (
+    _header,
     analysis_report,
     build_constraint_spec,
     compute_pathway_features,
@@ -312,7 +329,7 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     x0_posterior_step_plain,
 )
 from osteosarcoma_diffusionmodel_torch.training.finetune import sample_path_finetune
-from osteosarcoma_diffusionmodel_torch.training.trainer import build_model
+from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer, build_model
 from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
     METADATA_FILE,
     latest_epoch,
@@ -3126,17 +3143,276 @@ def run_report_phase(gcfg: Config, validation: dict, dev, root: Path) -> dict:
     return launches
 
 
-def kernel_report(cases: dict, launches: dict) -> list:
+# The multi-device phase ([multi]): the port's parallel/ layer on the card,
+# in a child process of its own so that its NCCL communicator never shares
+# this process's state. NCCL refuses two ranks on one card, so the card
+# runs a world of one rank: a real communicator and real collectives, the
+# kernels on the card. The production settings at full width, the seeded
+# cohort: data-parallel training against the one-device trainer (MULTI_STEPS
+# steps at batch 16 with the constraint losses and dropout on; the cVAE for
+# MULTI_CVAE_STEPS, BatchNorm's moments through the collectives),
+# sample_sharded against sample at BATCH rows, the sharded generator against
+# the unsharded one on host calibration. Then the 4-rank dry run on the CPU
+# (gloo), as a user on a one-card machine runs it.
+MULTI_STEPS = 20
+MULTI_CVAE_STEPS = 10
+# One rank: the collectives are copies, the arithmetic the one-device
+# trainer's, so the losses agree to 1e-6 relative, and a parameter may
+# move by at most 2 lr a step (AdamW's g / (|g| + eps) where rounding flips
+# a gradient near 0); all but 1e-3 of them must agree within 1e-6.
+MULTI_LOSS_RTOL = 1e-6
+MULTI_PARAM_TOL = 1e-6
+MULTI_WIDE_SHARE = 1e-3
+MULTI_SCORE_TOL = 1e-6  # sharded vs unsharded generator, both calibrated on the host
+MULTI_GATHER_ITERS = 50
+MULTI_DRYRUN_DEVICES = 4
+MULTI_TIMEOUT_S = 420
+MULTI_REQUIRED = {GEMM: ["bf16"], GEMM_GN: ["default"],
+                  GEMM_POSTERIOR: ["philox", "buffer", "none"], RBF: ["default"]}
+
+
+def _multi_counted(fn, totals: dict):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after, added to ``totals`` (by kernel and by mode)."""
+    for k in KERNELS:
+        k.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        totals["launches"][k.name] = totals["launches"].get(k.name, 0) + k.launches
+        modes = totals["modes"].setdefault(k.name, {})
+        for mode, n in k.modes.items():
+            modes[mode] = modes.get(mode, 0) + n
+    return out
+
+
+def _multi_train(cfg: Config, arch: str, steps: int, mesh, dev, root: Path) -> dict:
+    """The one-device trainer and the data-parallel one from the same seed,
+    ``steps`` steps on the same batches: losses, parameters, ms a step."""
+    tcfg = copy.deepcopy(cfg)
+    tcfg.model.architecture = arch
+    tcfg.training.save_dir = str(root / f"checkpoint_multi_{arch}")
+    arrays, dims = prepare_arrays(tcfg)
+    spec = build_constraint_spec(tcfg, arrays)
+    trainers = [Trainer(build_model(tcfg, dims, spec), arrays, dims, tcfg, dev, mesh=m)
+                for m in (None, mesh)]
+    one, dp = trainers
+    epochs = -(-steps // len(one.epoch_batches(0)))
+    batches = [torch.from_numpy(i).to(dev) for e in range(epochs)
+               for i in one.epoch_batches(e)][:steps]
+
+    def step(t, idx):
+        return t.train_step(t._data[idx], t._cond[idx], t._surv[idx])["loss"]
+
+    losses = [[step(t, batches[0])] for t in trainers]  # first steps: warm-up, not timed
+    ms = []
+    for t, out in zip(trainers, losses):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.extend(step(t, idx) for idx in batches[1:])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / (steps - 1))
+    la, lb = (torch.stack(v).tolist() for v in losses)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lb, la))
+    diffs = [(p.detach() - q.detach()).abs() for p, q in zip(dp.params, one.params)]
+    max_d = max(float(d.max()) for d in diffs)
+    wide = sum(int((d > MULTI_PARAM_TOL).sum()) for d in diffs) / sum(d.numel() for d in diffs)
+    lr = tcfg.training.learning_rate
+    ok = (loss_rel <= MULTI_LOSS_RTOL and max_d <= 2 * lr * steps and wide <= MULTI_WIDE_SHARE
+          and all(math.isfinite(v) for v in la + lb))
+    print(f"[multi] {arch} data-parallel training on NCCL at world size 1 (mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}), {steps} steps at batch "
+          f"{tcfg.training.batch_size}, constraints {tcfg.model.constraints.enabled}, dropout "
+          f"{tcfg.model.gnn.dropout}: loss {lb[0]:.6f} -> {lb[-1]:.6f} (one device "
+          f"{la[0]:.6f} -> {la[-1]:.6f}), max rel |dloss| {loss_rel:.2e} (tol "
+          f"{MULTI_LOSS_RTOL:.0e}); params max |d| {max_d:.3e}, share above "
+          f"{MULTI_PARAM_TOL:.0e} {wide:.2e} (tol {MULTI_WIDE_SHARE:.0e}); "
+          f"{ms[0]:.3f} ms a step on one device, {ms[1]:.3f} ms data-parallel "
+          f"({100 * (ms[1] / ms[0] - 1):+.1f}%), mean of {steps - 1} after one warm-up step: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"[multi] {arch}: the data-parallel trainer disagrees with the "
+                             "one-device trainer")
+    return {"loss_rel": loss_rel, "param_max": max_d, "wide": wide, "ms_one": ms[0],
+            "ms_dp": ms[1]}
+
+
+def _multi_sampler(cfg: Config, mesh, dev, totals: dict) -> dict:
+    """sample_sharded against sample at BATCH rows: DDPM-1000 "buffer" and
+    DDIM-50 "none" bit for bit; DDPM-1000 "philox" timed against sample
+    (one rank: the same seed, so equal too); the all-gather's ms."""
+    from osteosarcoma_diffusionmodel_torch.parallel import axis_group
+    from osteosarcoma_diffusionmodel_torch.parallel.batch import all_gather_rows
+
+    model, _, dims = load_trained_model(cfg.training.save_dir, copy.deepcopy(cfg))
+    cond = torch.randn(BATCH, dims.condition_dim, generator=torch.Generator().manual_seed(14))
+    ddpm, ddim = FusedSampler(model, dev), FusedSampler(model, dev, ddim_steps=50)
+    noise = torch.randn((ddpm.n_loop, BATCH, D), generator=torch.Generator(dev).manual_seed(15),
+                        device=dev)
+    equal = {}
+    for label, sampler, kw in ((f"DDPM-{ddpm.n_loop} buffer", ddpm, {"noise": noise}),
+                               (f"DDIM-{ddim.n_loop} none", ddim, {})):
+        got = _multi_counted(lambda: sampler.sample_sharded(
+            mesh, cond, torch.Generator().manual_seed(16), **kw), totals)
+        want = sampler.sample(cond, torch.Generator().manual_seed(16), **kw)
+        equal[label] = bool(torch.equal(got, want))
+    del noise, got, want
+    walls = {"sharded": [], "one": []}
+    for _ in range(3):  # in turns
+        for name in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "sharded":
+                out_s = _multi_counted(lambda: ddpm.sample_sharded(
+                    mesh, cond, torch.Generator().manual_seed(17)), totals)
+            else:
+                out_p = ddpm.sample(cond, torch.Generator().manual_seed(17))
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    equal[f"DDPM-{ddpm.n_loop} philox"] = bool(torch.equal(out_s, out_p))
+    moments = {k: (float(v.mean()), float(v.var())) for k, v in (("sharded", out_s),
+                                                                 ("one", out_p))}
+    finite = bool(torch.isfinite(out_s).all())
+    group = axis_group(mesh, "data")
+    block = torch.randn(BATCH, D, device=dev)
+    gather_ms = time_ms(lambda: all_gather_rows(group, block), iters=MULTI_GATHER_ITERS)
+    wall = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[multi] sample_sharded at {BATCH} rows on NCCL world size 1: bit-equal to sample "
+          f"{json.dumps(equal)}; DDPM-{ddpm.n_loop} philox finite {finite}, mean/var sharded "
+          f"{moments['sharded'][0]:.5f}/{moments['sharded'][1]:.5f}, one device "
+          f"{moments['one'][0]:.5f}/{moments['one'][1]:.5f}; wall (median of 3, in turns) "
+          f"sharded {wall['sharded']:.4f} s, sample {wall['one']:.4f} s "
+          f"({1e3 * (wall['sharded'] - wall['one']):+.2f} ms); all-gather of {BATCH} x {D} f32 "
+          f"({BATCH * D * 4 / 1e6:.2f} MB) {gather_ms:.4f} ms (CUDA events over "
+          f"{MULTI_GATHER_ITERS})", flush=True)
+    if not (all(equal.values()) and finite):
+        raise AssertionError(f"[multi] sample_sharded disagrees with sample: {equal}")
+    return {"equal": equal, "wall_sharded_s": wall["sharded"], "wall_one_s": wall["one"],
+            "gather_ms": gather_ms, "moments": moments}
+
+
+def _multi_generate(cfg: Config, mesh, dev, root: Path, totals: dict) -> dict:
+    """3 x BATCH DDPM-1000 through the sharded generator (host calibration)
+    and the unsharded one with host calibration, each saved and validated
+    through the CLI's validate step: equal cohorts, equal scores."""
+    out = {}
+    for label, m in (("sharded", mesh), ("one device", None)):
+        gcfg = copy.deepcopy(cfg)
+        gcfg.generation.sampler = "ddpm"
+        gcfg.generation.calibration_backend = "auto" if m is not None else "numpy"
+        gcfg.output.synthetic_data_dir = str(root / f"synthetic_multi_{label.replace(' ', '_')}")
+        model, gcfg, dims = load_trained_model(gcfg.training.save_dir, gcfg)
+        gen = SyntheticPatientGenerator(model, gcfg, dims, device=dev, mesh=m,
+                                        data_stats=load_data_stats(gcfg.training.save_dir))
+        gen_module.CALIBRATIONS.clear()
+
+        def run(gen=gen, gcfg=gcfg):
+            synthetic = gen.generate_scenarios(gcfg.generation.scenarios, BATCH)
+            processed = Path(gcfg.data.processed_dir)
+            names = {"mutation_genes": _header(processed / "mutation_matrix_aligned.csv"),
+                     "expression_genes": _header(processed / "expression_matrix_aligned.csv"),
+                     "pathway_names": _header(processed / "pathway_scores.csv")}
+            for name, cohort in synthetic.items():
+                gen.save_synthetic_data(cohort, Path(gcfg.output.synthetic_data_dir) / name,
+                                        names, prefix=name)
+            return synthetic, validate_synthetic_patients(gcfg, device=str(dev))
+
+        t0 = time.perf_counter()
+        synthetic, results = _multi_counted(run, totals) if m is not None else run()
+        out[label] = (synthetic, results, dict(gen_module.CALIBRATIONS),
+                      time.perf_counter() - t0)
+    (syn_s, res_s, cal_s, sec_s), (syn_p, res_p, cal_p, sec_p) = out["sharded"], out["one device"]
+    same = all(np.array_equal(syn_s[n][k], syn_p[n][k]) for n in syn_p for k in syn_p[n])
+    d_overall = abs(res_s["overall_biological_score"] - res_p["overall_biological_score"])
+    d_mmd = abs(res_s["mmd"] - res_p["mmd"])
+    ok = (same and d_overall <= MULTI_SCORE_TOL and d_mmd <= MULTI_SCORE_TOL
+          and cal_s == cal_p == {"host": 1})
+    print(f"[multi] sharded generator, {len(syn_s)} x {BATCH} DDPM-1000 (batched), calibration "
+          f"{json.dumps(cal_s)} (one device under 'numpy': {json.dumps(cal_p)}): cohorts equal "
+          f"{same}; overall {res_s['overall_biological_score']:.6f} vs "
+          f"{res_p['overall_biological_score']:.6f}, MMD {res_s['mmd']:.6f} vs "
+          f"{res_p['mmd']:.6f} (tol {MULTI_SCORE_TOL:.0e}); generate+save+validate "
+          f"{sec_s:.2f} s vs {sec_p:.2f} s: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("[multi] the sharded generator disagrees with the unsharded one")
+    return {"overall": res_s["overall_biological_score"], "mmd": res_s["mmd"],
+            "seconds_sharded": sec_s, "seconds_one": sec_p}
+
+
+def run_multi_child(out_path: Path, backend: str = "nccl") -> None:
+    """The [multi] phase's card part, in its own process: a world of one
+    NCCL rank on card 0 (``backend`` "gloo": the CPU, for a rehearsal).
+    Writes its launches and numbers to ``out_path``."""
+    import torch.distributed as dist
+
+    from osteosarcoma_diffusionmodel_torch.parallel import initialize_distributed, make_mesh
+
+    dev = torch.device("cuda", 0) if backend == "nccl" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    logging.basicConfig(level=logging.WARNING)
+    totals = {"launches": {}, "modes": {}}
+    with tempfile.TemporaryDirectory(prefix="osdm_multi_") as tmp:
+        root = Path(tmp)
+        initialize_distributed(f"file://{root / 'store'}", 1, 0, backend, timeout_s=120)
+        try:
+            mesh = make_mesh(1)
+            print(f"[multi] NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, backend "
+                  f"{dist.get_backend()}, world size {dist.get_world_size()}, mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                  f"{torch.cuda.get_device_name(0)}", flush=True)
+            cfg = prepare_workdir(root, None)
+            cfg.training.epochs_per_dispatch = 25  # config/production.yaml
+            cfg.generation.batch_scenarios = True
+            records = {"train": _multi_train(cfg, "diffusion", MULTI_STEPS, mesh, dev, root),
+                       "cvae": _multi_train(cfg, "cvae", MULTI_CVAE_STEPS, mesh, dev, root),
+                       "sampler": _multi_sampler(cfg, mesh, dev, totals),
+                       "generate": _multi_generate(cfg, mesh, dev, root, totals)}
+        finally:
+            dist.destroy_process_group()
+    out_path.write_text(json.dumps({**totals, "records": records}))
+
+
+def run_multi_phase(root: Path) -> dict:
+    """[multi]: the child process on the card, then the 4-rank dry run on
+    the CPU. Returns the card part's launches by kernel (its sharded
+    sampler and generator runs only)."""
+    from osteosarcoma_diffusionmodel_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = root / "multi.json"
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--multi-child",
+                           str(out)], cwd=str(REPO), timeout=MULTI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"[multi] the card's child process failed (rc {proc.returncode})")
+    res = json.loads(out.read_text())
+    child_s = time.perf_counter() - t0
+    dry_out, dry_s = dryrun_multichip(MULTI_DRYRUN_DEVICES, timeout_s=300, device="cpu")
+    print(f"[multi] dryrun_multichip({MULTI_DRYRUN_DEVICES}) on the CPU: rc 0 in {dry_s:.1f} s: "
+          f"{dry_out.strip()}", flush=True)
+    missing = [f"{k.name}:{mode}" for k, modes in MULTI_REQUIRED.items() for mode in modes
+               if res["modes"].get(k.name, {}).get(mode, 0) == 0]
+    print(f"[multi] phase {time.perf_counter() - t0:.1f} s (card child {child_s:.1f} s); sharded "
+          f"runs' kernel launches by mode: {json.dumps(res['modes'])}", flush=True)
+    if missing or res["modes"].get(GEMM.name, {}).get("unaligned", 0):
+        raise AssertionError(f"[multi] the sharded runs did not launch {missing}, or took K1's "
+                             "general path")
+    return res["launches"]
+
+
+def kernel_report(cases: dict, launches: dict, multi: dict) -> list:
     """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
-    single PyTorch call computes the function."""
+    single PyTorch call computes the function; ``multi``: the [multi]
+    phase's launches, counted in ``launches`` too."""
     out = []
     for k in KERNELS:
         rows = cases[k.name]
         libs = [r["library_ms"] for r in rows]
         out.append({
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
-            "launches": launches[k.name],
+            "launches": launches[k.name], "multi": multi.get(k.name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -3152,9 +3428,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--weights", default=None,
                         help="checkpoint dir written by scripts/export_jax_checkpoint.py")
+    parser.add_argument("--multi-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    if args.multi_child:
+        run_multi_child(Path(args.multi_child))
+        return 0
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     logging.basicConfig(level=logging.WARNING)
@@ -3178,14 +3458,15 @@ def main(argv=None) -> int:
         ckpts = {False: cfg.training.save_dir,
                  True: d3pm_checkpoint(cfg.training.save_dir, Path(tmp) / "checkpoint_d3pm")}
         launches = run_main_paths(cfg, dev, ckpts)
+        multi = run_multi_phase(Path(tmp))
         for counts in (trained, variants, archs, pipeline, reported,
                        run_serve_phase(trained_ckpt, Path(tmp)),
-                       run_latent_path(cfg, dev, Path(tmp))):
+                       run_latent_path(cfg, dev, Path(tmp)), multi):
             for name, n in counts.items():
                 launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
-        report = kernel_report(cases, launches)
+        report = kernel_report(cases, launches, multi)
         check_d3pm_calibration(cfg, ckpts[True], dev)
         check_against_plain_loop(cfg, dev)
         check_small_batches_against_plain(cfg, dev)

@@ -4,6 +4,8 @@
         --steps {download,preprocess,pathways,train,generate,validate,all,report,doctor} \
         [--resume | --resume-training] [--profile] [--device cpu]
 
+    torchrun --nproc-per-node N -m osteosarcoma_diffusionmodel_torch.cli --config ...
+
 Counterpart of osteosarcoma_diffusionmodel_tpu/cli.py, under the same step
 names; ``all`` (the default) is the JAX ``ALL_STEPS``:
 
@@ -41,10 +43,19 @@ Two more steps, outside ``all`` as in the JAX CLI:
 
 The model section of the config always comes from the checkpoint's
 metadata: the train step does not write the JAX CLI's
-``config/config_updated.yaml``. Several devices are not ported yet: a
-``training.num_devices`` above the devices visible trains on one, as the
-JAX trainer does. The download, preprocess, pathways, report and doctor
-steps run on the host. The others run on the CUDA card; the CPU runs them
+``config/config_updated.yaml``.
+
+Several devices (JAX ``cli.py:303-316``): under a launcher (torchrun sets
+``MASTER_ADDR``/``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``) every process
+joins the process group (NCCL on the cards, gloo with ``--device cpu``)
+and drives one device. With ``training.num_devices`` > 1 and that many
+ranks, ``train`` runs the trainer's data parallelism and ``generate``
+samples over ``parallel.make_mesh(num_devices)``; rank 0 alone writes the
+checkpoint, CSVs and figures. The unsharded steps (download, preprocess,
+pathways, validate, report, doctor) run on rank 0 while the other ranks
+wait at a barrier. A ``training.num_devices`` above the devices visible
+trains and generates on one, as the JAX trainer does. The download,
+preprocess, pathways, report and doctor steps run on the host. The others run on the CUDA card; the CPU runs them
 only when asked (``--device cpu``): without a card and without that flag
 the CLI raises before it reads or writes anything.
 """
@@ -60,6 +71,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config
 from .data.dataset import OsteosarcomaArrays, load_pretrain_arrays, prepare_arrays
@@ -73,7 +85,8 @@ from .data.pathways import (
 from .data.preprocessor import OsteosarcomaPreprocessor
 from .generation.generator import SyntheticPatientGenerator, load_trained_model
 from .models.constraints import ConstraintSpec
-from .models.diffusion import finetune_skip_reason
+from .models.diffusion import finetune_skip_reason, visible_devices
+from .parallel.mesh import initialize_distributed, is_writer, make_mesh
 from .training import checkpoint as ckpt
 from .training.finetune import sample_path_finetune
 from .training.trainer import TrainLog, Trainer, build_model
@@ -92,6 +105,14 @@ logger = logging.getLogger(__name__)
 
 ALL_STEPS = ("download", "preprocess", "pathways", "train", "generate", "validate")
 HOST_STEPS = ("download", "preprocess", "pathways", "report", "doctor")
+# Steps the JAX package runs unsharded: rank 0 alone under a launcher.
+RANK0_STEPS = HOST_STEPS + ("validate",)
+
+
+def _barrier() -> None:
+    """Wait for every rank of the process group (no-op without one)."""
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def default_device() -> str:
@@ -238,19 +259,21 @@ def train_model(config: Config, device: Optional[str] = None, resume: bool = Fal
         pre_cfg.training.patience = config.training.pretrain_epochs
         pre_cfg.training.save_dir = str(Path(config.training.save_dir) / "pretrain")
         pretrain = Trainer(model, pretrain_arrays, dims, pre_cfg, device).train()
-    with profile_trace(Path(config.output.results_dir) / "profile", enabled=profile,
-                       device=device):
+    with profile_trace(Path(config.output.results_dir) / "profile",
+                       enabled=profile and trainer.writer, device=device):
         history = trainer.train(resume=resume)
     history.pretrain = pretrain
-    history.finetune = _finetune(config, model, trainer)
-    results_dir = Path(config.output.results_dir)
-    results_dir.mkdir(parents=True, exist_ok=True)
-    n = len(history.train_loss)
-    write_matrix_csv(
-        results_dir / "training_history.csv",
-        np.column_stack([np.arange(n), history.train_loss, history.val_loss,
-                         history.epoch_seconds]),
-        ["epoch", "train_loss", "val_loss", "epoch_seconds"], fmt="%r")
+    if trainer.writer:
+        history.finetune = _finetune(config, model, trainer)
+        results_dir = Path(config.output.results_dir)
+        results_dir.mkdir(parents=True, exist_ok=True)
+        n = len(history.train_loss)
+        write_matrix_csv(
+            results_dir / "training_history.csv",
+            np.column_stack([np.arange(n), history.train_loss, history.val_loss,
+                             history.epoch_seconds]),
+            ["epoch", "train_loss", "val_loss", "epoch_seconds"], fmt="%r")
+    _barrier()  # the other ranks read rank 0's checkpoint after this
     logger.info("Training complete!")
     return history
 
@@ -263,11 +286,15 @@ def _header(path: Path) -> list:
 def generate_synthetic_patients(config: Config, device: Optional[str] = None):
     logger.info("STEP 5: Generating synthetic patients")
     save_dir = Path(config.training.save_dir)
+    device = device or default_device()
     model, config, dims = load_trained_model(save_dir, config)
+    mesh = None
+    wanted = config.training.num_devices or 1
+    if wanted > 1 and visible_devices(device) >= wanted:
+        mesh = make_mesh(wanted)
+        logger.info("Generation mesh: %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
     generator = SyntheticPatientGenerator(
-        model, config, dims, data_stats=ckpt.load_data_stats(save_dir),
-        device=device or default_device(),
-    )
+        model, config, dims, data_stats=ckpt.load_data_stats(save_dir), device=device, mesh=mesh)
     scenarios = config.generation.scenarios
     per_scenario = config.generation.num_synthetic_samples // len(scenarios)
     all_synthetic = generator.generate_scenarios(scenarios, per_scenario)
@@ -279,9 +306,10 @@ def generate_synthetic_patients(config: Config, device: Optional[str] = None):
         "pathway_names": _header(processed / "pathway_scores.csv"),
     }
     output_dir = Path(config.output.synthetic_data_dir)
-    for name, synthetic in all_synthetic.items():
-        generator.save_synthetic_data(synthetic, output_dir / name, gene_names, prefix=name)
-    logger.info("Synthetic data saved to %s", output_dir)
+    if is_writer():
+        for name, synthetic in all_synthetic.items():
+            generator.save_synthetic_data(synthetic, output_dir / name, gene_names, prefix=name)
+        logger.info("Synthetic data saved to %s", output_dir)
     return all_synthetic
 
 
@@ -471,12 +499,19 @@ def main(argv=None) -> None:
     device = None
     if any(step not in HOST_STEPS for step in steps):
         device = args.device or default_device()
-    logging.basicConfig(level=logging.INFO,
+    on_card = device is not None and torch.device(device).type == "cuda"
+    initialize_distributed(backend="nccl" if on_card else "gloo")
+    logging.basicConfig(level=logging.INFO if is_writer() else logging.WARNING,
                         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     config = Config.from_yaml(args.config)
     for step in steps:
-        if step in HOST_STEPS:
-            STEP_FUNCTIONS[step](config)
+        if step in RANK0_STEPS:
+            if is_writer():
+                if step in HOST_STEPS:
+                    STEP_FUNCTIONS[step](config)
+                else:
+                    STEP_FUNCTIONS[step](config, device=device)
+            _barrier()
         elif step == "train":
             train_model(config, device=device, resume=args.resume, profile=args.profile)
         else:

@@ -9,9 +9,8 @@ comments there explain each knob. ``model.gnn`` holds the GAT encoder's
 type, layers and heads (:mod:`models.gnn`, which no architecture wires
 in) beside the denoiser's dropout. ``num_devices`` above the devices
 visible trains on one device with a warning, as the JAX trainer does;
-where that many cards are visible,
-:func:`models.diffusion.check_supported` refuses it, since data-parallel
-training is not ported yet.
+with that many ranks in the process group, the trainer and the CLI's
+generate build a (data, model) mesh (:mod:`parallel`).
 
 YAML is read by :meth:`Config.from_yaml`, which imports ``yaml`` only
 when called.

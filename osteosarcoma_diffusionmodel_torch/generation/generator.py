@@ -45,6 +45,15 @@ with the raw cohort kept on the card until it is calibrated; otherwise
 the float64 numpy path of ``ops/copula.py``. A device calibration that
 fails raises; it never falls back to the host. Random streams come from
 explicit ``torch.Generator``s seeded from ``training.random_seed``.
+
+Under a ``mesh`` (``parallel.make_mesh``, one process per device; JAX
+:211-213, :241-297), each rank of the data axis samples its block of the
+cohort's rows and the blocks are all-gathered: the kernel route through
+``FusedSampler.sample_sharded``, the scan samplers, the cVAE and the flow
+with every draw made for the whole cohort and the rank's rows kept. The
+route is decided as without a mesh. Calibration then runs on the host
+(JAX :605-611), on rank 0 of the data axis, which sends the finished
+cohort to the other ranks.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, FrozenDims, Scenario
 from ..models.cvae import BiologyConstrainedVAE
@@ -70,6 +80,8 @@ from ..ops.copula import (
 )
 from ..ops.copula_device import DeviceCalibrator
 from ..ops.fused_sampler import FusedSampler, supports_fused
+from ..parallel.batch import RowBlock, gather_rows
+from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
 from ..training.trainer import build_model
 from ..utils.io import write_matrix_csv
@@ -97,10 +109,12 @@ class SyntheticPatientGenerator:
     (the card unless the caller passes the CPU)."""
 
     def __init__(self, model, config: Config, dims: FrozenDims,
-                 data_stats: Optional[Dict[str, np.ndarray]] = None, device="cuda"):
+                 data_stats: Optional[Dict[str, np.ndarray]] = None, device="cuda", mesh=None):
         """``model``: a ConditionalDiffusion, BiologyConstrainedVAE or
-        ConditionalFlow."""
+        ConditionalFlow; ``mesh``: a ``DeviceMesh`` whose data axis splits
+        each cohort (every rank of it calls the generator alike)."""
         self.model = model
+        self.mesh = mesh
         self.config = config
         self.dims = dims
         self.data_stats = data_stats
@@ -198,24 +212,44 @@ class SyntheticPatientGenerator:
         z = torch.randn((num_samples, mu.shape[0]), generator=generator, device=generator.device)
         return mu[None, :] + z.to(self.device) @ chol.T
 
+    def _rows(self, n: int) -> Optional[RowBlock]:
+        """This rank's block of an n-row cohort under a mesh, else None."""
+        if self.mesh is None:
+            return None
+        return RowBlock.of(n, axis_size(self.mesh, DATA_AXIS), axis_rank(self.mesh, DATA_AXIS))
+
+    def _gathered(self, local: torch.Tensor, n: int) -> torch.Tensor:
+        """The cohort from each rank's block (``local`` itself without a
+        mesh)."""
+        if self.mesh is None:
+            return local
+        return gather_rows(axis_group(self.mesh, DATA_AXIS), local, n)
+
     def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> torch.Tensor:
-        """The sampler's (N, D) float32 output, on the sampler's device."""
+        """The sampler's (N, D) float32 output, on the sampler's device (the
+        whole cohort on every rank under a mesh)."""
         cond = torch.from_numpy(conditions)
+        n = cond.shape[0]
+        rows = self._rows(n)
         if not self.is_diffusion:
             SAMPLERS["cvae" if isinstance(self.model, BiologyConstrainedVAE) else "plain"] += 1
-            return self.model.sample(cond.to(self.device), generator)
+            return self._gathered(self.model.sample(cond.to(self.device), generator, rows=rows), n)
         if self.model.latent_factor_dim > 0:
             cond = torch.cat([cond.to(self.device),
                               self._latent_prior_draw(cond.shape[0], generator)], dim=1)
         if self.uses_kernels():
             SAMPLERS["kernel"] += 1
+            if self.mesh is not None:
+                return self.sampler().sample_sharded(self.mesh, cond, generator)
             return self.sampler().sample(cond, generator)
         SAMPLERS["scan"] += 1
         gen = self.config.generation
         if gen.sampler == "ddim":
-            return self.model.scan_sample_ddim(cond, generator, gen.sampling_steps,
-                                               self.guidance())
-        return self.model.scan_sample(cond, generator, self.guidance())
+            out = self.model.scan_sample_ddim(cond, generator, gen.sampling_steps,
+                                              self.guidance(), rows=rows)
+        else:
+            out = self.model.scan_sample(cond, generator, self.guidance(), rows=rows)
+        return self._gathered(out, n)
 
     def generate(self, num_samples: int, scenario: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
@@ -237,7 +271,18 @@ class SyntheticPatientGenerator:
         or a tensor on the device. It goes to where calibration reads it,
         once: to the device when the device path calibrates it, else to the
         host. With the AR head the mutation block is then drawn from
-        ``ar_generator`` (JAX :376-386)."""
+        ``ar_generator`` (JAX :376-386). Under a mesh of several data ranks,
+        rank 0 of the data axis does it and sends the result to the others."""
+        if self.mesh is None or axis_size(self.mesh, DATA_AXIS) == 1:
+            return self._finish(samples, conditions, ar_generator)
+        group = axis_group(self.mesh, DATA_AXIS)
+        box = [self._finish(samples, conditions, ar_generator)
+               if axis_rank(self.mesh, DATA_AXIS) == 0 else None]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+        return box[0]
+
+    def _finish(self, samples: Union[torch.Tensor, np.ndarray], conditions: np.ndarray,
+                ar_generator: Optional[torch.Generator]) -> Dict[str, np.ndarray]:
         on_device = self._device_calibration_enabled(samples.shape[0])
         if on_device:
             samples = torch.as_tensor(samples, dtype=torch.float32).to(self.device)
@@ -370,7 +415,10 @@ class SyntheticPatientGenerator:
         it); "auto" on the card from 256 rows. Only the copula_joint and
         copula_full modes, with the quantile grid and the real cohort in
         ``data_stats``, more than two rows and at most
-        ``DeviceCalibrator.MAX_ROWS``."""
+        ``DeviceCalibrator.MAX_ROWS``. Never under a mesh: there rank 0
+        calibrates on the host (JAX :605-611)."""
+        if self.mesh is not None:
+            return False
         mode = self.config.generation.calibrate_marginals
         if mode is True:
             mode = "copula_joint"

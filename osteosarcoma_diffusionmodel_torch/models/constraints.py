@@ -16,6 +16,10 @@ four losses (:158-253) are torch functions on tensors:
 
 An empty part of the spec turns its loss into a constant 0.
 :meth:`ConstraintSpec.tensors` puts the index arrays on a device once.
+With a :class:`~..parallel.batch.BatchShard`, the batch is this rank's
+rows of a global batch, and every mean, standard deviation and
+correlation over the batch is the global batch's (all-reduced over the
+data group, differentiably), as XLA computes the JAX losses on a mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel.batch import BatchShard, batch_mean
 
 _EPS = 1e-8
 
@@ -182,9 +188,13 @@ class ConstraintSpec:
         return cache[device]
 
 
-def _standardize_over_batch(x: torch.Tensor) -> torch.Tensor:
-    mean = x.mean(dim=0, keepdim=True)
-    std = x.std(dim=0, unbiased=False, keepdim=True)
+def _standardize_over_batch(x: torch.Tensor, shard: Optional[BatchShard] = None) -> torch.Tensor:
+    if shard is None:
+        mean = x.mean(dim=0, keepdim=True)
+        std = x.std(dim=0, unbiased=False, keepdim=True)
+    else:
+        mean = shard.mean(x, 0, keepdim=True)
+        std = torch.sqrt(shard.mean((x - mean) ** 2, 0, keepdim=True))
     return (x - mean) / (std + _EPS)
 
 
@@ -192,7 +202,8 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def pathway_coherence_loss(expression: torch.Tensor, pathway_mask: torch.Tensor) -> torch.Tensor:
+def pathway_coherence_loss(expression: torch.Tensor, pathway_mask: torch.Tensor,
+                           shard: Optional[BatchShard] = None) -> torch.Tensor:
     """1 - mean within-pathway pairwise correlation, via masked matmul:
     for pathway p with k_p members, sum_{i,j in p} corr(i, j) =
     (1/B) sum_b (Z M)_bp^2, so the mean pairwise correlation is
@@ -200,9 +211,9 @@ def pathway_coherence_loss(expression: torch.Tensor, pathway_mask: torch.Tensor)
     if pathway_mask.shape[1] == 0:
         return _zero(expression)
     batch = expression.shape[0]
-    z = _standardize_over_batch(expression.float())
+    z = _standardize_over_batch(expression.float(), shard)
     y = z @ pathway_mask  # (B, P)
-    corr_sum = (y * y).sum(dim=0) / batch
+    corr_sum = (y * y).sum(dim=0) / batch if shard is None else shard.mean(y * y, 0)
     k = pathway_mask.sum(dim=0)
     mean_pairwise = (corr_sum - k) / torch.clamp(k * (k - 1.0), min=1.0)
     return (1.0 - mean_pairwise).mean()
@@ -214,47 +225,55 @@ def mutation_expression_correlation_loss(
     rule_mutation_idx: torch.Tensor,
     rule_pathway_idx: torch.Tensor,
     rule_sign: torch.Tensor,
+    shard: Optional[BatchShard] = None,
 ) -> torch.Tensor:
     """Hinge penalty for violated directional mutation->pathway rules."""
     if rule_mutation_idx.shape[0] == 0:
         return _zero(mutations)
-    mut_cols = _standardize_over_batch(mutations.float()[:, rule_mutation_idx])
-    path_cols = _standardize_over_batch(pathway_scores.float()[:, rule_pathway_idx])
-    corr = (mut_cols * path_cols).mean(dim=0)  # (R,)
+    mut_cols = _standardize_over_batch(mutations.float()[:, rule_mutation_idx], shard)
+    path_cols = _standardize_over_batch(pathway_scores.float()[:, rule_pathway_idx], shard)
+    corr = batch_mean(mut_cols * path_cols, shard, 0)  # (R,)
     return torch.clamp(-rule_sign * corr, min=0.0).mean()
 
 
-def mutual_exclusivity_loss(mutations: torch.Tensor, exclusive_pairs: torch.Tensor) -> torch.Tensor:
+def mutual_exclusivity_loss(mutations: torch.Tensor, exclusive_pairs: torch.Tensor,
+                            shard: Optional[BatchShard] = None) -> torch.Tensor:
     """Expected co-occurrence mass of mutually-exclusive gene pairs."""
     if exclusive_pairs.shape[0] == 0:
         return _zero(mutations)
     p = torch.clamp(mutations.float(), 0.0, 1.0)
-    return (p[:, exclusive_pairs[:, 0]] * p[:, exclusive_pairs[:, 1]]).mean()
+    return batch_mean(p[:, exclusive_pairs[:, 0]] * p[:, exclusive_pairs[:, 1]], shard)
 
 
-def cooccurrence_matching_loss(mutations: torch.Tensor, corr_target: torch.Tensor) -> torch.Tensor:
+def cooccurrence_matching_loss(mutations: torch.Tensor, corr_target: torch.Tensor,
+                               shard: Optional[BatchShard] = None) -> torch.Tensor:
     """Squared error between the batch mutation correlation matrix and
     the training cohort's, over the off-diagonal entries."""
     if corr_target.shape[0] == 0:
         return _zero(mutations)
-    z = _standardize_over_batch(mutations.float())
-    corr = z.T @ z / mutations.shape[0]
+    z = _standardize_over_batch(mutations.float(), shard)
+    if shard is None:
+        corr = z.T @ z / mutations.shape[0]
+    else:
+        corr = shard.sum(z.T @ z) / (mutations.shape[0] * shard.world)
     m = corr_target.shape[0]
     off_diag = 1.0 - torch.eye(m, dtype=torch.float32, device=corr.device)
     diff = (corr - corr_target) * off_diag
     return (diff * diff).sum() / max(m * (m - 1.0), 1.0)
 
 
-def constraint_losses(x_recon: torch.Tensor, spec: ConstraintSpec,
-                      tensors: SpecTensors) -> Dict[str, torch.Tensor]:
+def constraint_losses(x_recon: torch.Tensor, spec: ConstraintSpec, tensors: SpecTensors,
+                      shard: Optional[BatchShard] = None) -> Dict[str, torch.Tensor]:
     """All constraint terms on a reconstructed/predicted patient batch;
-    ``tensors`` is ``spec.tensors(x_recon.device)``."""
+    ``tensors`` is ``spec.tensors(x_recon.device)``; ``shard``: the batch is
+    this rank's rows of a global batch."""
     mut, expr, path = spec.split(x_recon)
     return {
-        "pathway_coherence": pathway_coherence_loss(expr, tensors.pathway_mask),
+        "pathway_coherence": pathway_coherence_loss(expr, tensors.pathway_mask, shard),
         "mutation_expression": mutation_expression_correlation_loss(
             mut, path, tensors.rule_mutation_idx, tensors.rule_pathway_idx, tensors.rule_sign,
+            shard,
         ),
-        "mutual_exclusivity": mutual_exclusivity_loss(mut, tensors.exclusive_pairs),
-        "cooccurrence": cooccurrence_matching_loss(mut, tensors.mutation_corr_target),
+        "mutual_exclusivity": mutual_exclusivity_loss(mut, tensors.exclusive_pairs, shard),
+        "cooccurrence": cooccurrence_matching_loss(mut, tensors.mutation_corr_target, shard),
     }

@@ -34,8 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config, FrozenDims
+from ..parallel.batch import BatchShard, RowBlock, batch_mean, batch_sum
 from .constraints import ConstraintSpec, constraint_losses
-from .networks import BatchNorm, SurvivalHead, _Dense, generator_on, torch_dtype
+from .networks import BatchNorm, Dropout, SurvivalHead, _Dense, generator_on, torch_dtype
 
 
 class _MLP(nn.Module):
@@ -50,7 +51,7 @@ class _MLP(nn.Module):
             self.add_module(f"fc_{i}", _Dense(in_features, width, compute_dtype))
             self.add_module(f"bn_{i}", BatchNorm(width))
             in_features = width
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def hidden(self, h: torch.Tensor) -> torch.Tensor:
         for i in range(self.depth):
@@ -152,35 +153,48 @@ class BiologyConstrainedVAE:
     def latent_dim(self) -> int:
         return self.module.latent_dim
 
+    def loss_draws(self, batch: int, generator: Optional[torch.Generator], device, *,
+                   eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The draws :meth:`loss` makes for a ``batch``-row batch: the
+        reparameterization's ``eps`` (batch, latent) from ``generator`` on
+        ``device`` unless given."""
+        if eps is None:
+            eps = torch.randn((batch, self.latent_dim), generator=generator, device=device)
+        return {"eps": eps}
+
     def loss(self, x: torch.Tensor, conditions: torch.Tensor, survival: torch.Tensor,
              generator: Optional[torch.Generator] = None, *, eps: Optional[torch.Tensor] = None,
-             train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             train: bool = False,
+             shard: Optional[BatchShard] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, metrics): the ELBO, the survival term and the constraint
         terms on a batch ``x`` (B, D) under ``conditions`` (B, C) with the
         normalized ``survival`` (B,). ``eps`` (B, latent) replaces the
         reparameterization's draw from ``generator``; ``train`` runs the
         module in training mode for this call (BatchNorm on the batch's
-        statistics, updating the running ones; dropout on). Metrics:
-        ``recon_loss``, ``kl_loss``, ``survival_loss``, the constraint terms
-        with a spec, ``loss``."""
+        statistics, updating the running ones; dropout on). With a
+        ``shard``, ``x`` holds this rank's rows of its global batch and every
+        batch statistic is the global batch's (BatchNorm's too, where the
+        caller attached the shard to the module). Metrics: ``recon_loss``,
+        ``kl_loss``, ``survival_loss``, the constraint terms with a spec,
+        ``loss``."""
         module = self.module
         batch = x.shape[0]
-        if eps is None:
-            eps = torch.randn((batch, self.latent_dim), generator=generator, device=x.device)
+        eps = self.loss_draws(batch, generator, x.device, eps=eps)["eps"]
         was_training = module.training
         module.train(train)
         try:
             x_recon, mu, logvar, survival_pred = module(x, conditions, eps.to(x.device))
         finally:
             module.train(was_training)
-        recon_loss = torch.sum((x_recon - x) ** 2) / batch
-        kl_loss = -0.5 * torch.sum(1.0 + logvar - mu**2 - torch.exp(logvar)) / batch
-        survival_loss = torch.mean((survival_pred - survival) ** 2)
+        rows = batch if shard is None else batch * shard.world
+        recon_loss = batch_sum((x_recon - x) ** 2, shard) / rows
+        kl_loss = -0.5 * batch_sum(1.0 + logvar - mu**2 - torch.exp(logvar), shard) / rows
+        survival_loss = batch_mean((survival_pred - survival) ** 2, shard)
         total = recon_loss + kl_loss + self.survival_weight * survival_loss
         metrics = {"recon_loss": recon_loss, "kl_loss": kl_loss, "survival_loss": survival_loss}
         if self.constraint_spec is not None:
             spec = self.constraint_spec
-            terms = constraint_losses(x_recon, spec, spec.tensors(x_recon.device))
+            terms = constraint_losses(x_recon, spec, spec.tensors(x_recon.device), shard)
             metrics.update(terms)
             total = (total
                      + self.pathway_coherence_weight * terms["pathway_coherence"]
@@ -192,10 +206,13 @@ class BiologyConstrainedVAE:
 
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None, *,
-               z: Optional[torch.Tensor] = None, num_samples: Optional[int] = None) -> torch.Tensor:
+               z: Optional[torch.Tensor] = None, num_samples: Optional[int] = None,
+               rows: Optional[RowBlock] = None) -> torch.Tensor:
         """Prior sampling (JAX :270-285): z ~ N(0, I) of (num_samples,
         latent), drawn on the module's device from ``generator`` unless
-        given, decoded in eval mode. Returns (N, D) float32 there."""
+        given, decoded in eval mode. Returns (N, D) float32 there. ``rows``:
+        decode only that block of the cohort's rows (its z drawn for the
+        whole cohort, its rows kept), for a sharded generator."""
         module = self.module
         device = module.survival_head.fc1.weight.device
         if num_samples is None:
@@ -203,6 +220,8 @@ class BiologyConstrainedVAE:
         if z is None:
             z = torch.randn((num_samples, self.latent_dim),
                             generator=generator_on(generator, device), device=device)
+        if rows is not None:
+            z, conditions = rows.take(z), rows.take(conditions)
         was_training = module.training
         module.eval()
         try:

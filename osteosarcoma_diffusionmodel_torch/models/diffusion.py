@@ -61,6 +61,8 @@ from ..ops.fused_sampler import (
 )
 from ..ops.sampler_kernels import gemm_s8_plain, mutation_transform, rowquant_s8_plain
 from ..ops.schedules import DiffusionSchedule, ddim_timesteps
+from ..parallel.batch import BatchShard, RowBlock, batch_mean
+from ..parallel.mesh import group_devices
 from .constraints import ConstraintSpec, SpecTensors, constraint_losses
 from .networks import DTYPES, DiffusionDenoiser, generator_on, sinusoid
 
@@ -94,21 +96,24 @@ def finetune_skip_reason(config: Config, dims: FrozenDims) -> Optional[str]:
 
 
 def visible_devices(device: str | torch.device | None) -> int:
-    """The devices of ``device``'s kind a trainer could spread over: the
-    visible cards for "cuda" (the default), one for the CPU."""
+    """The devices a trainer on ``device``'s kind could spread over: the
+    process group's world size where one is initialized (one process per
+    device); else the visible cards for "cuda" (the default), one for the
+    CPU."""
+    if torch.distributed.is_initialized():
+        return group_devices()
     kind = torch.device(device or "cuda").type
     return torch.cuda.device_count() if kind == "cuda" else 1
 
 
 def check_supported(config: Config, dims: FrozenDims, training: bool = False,
                     device: str | torch.device | None = None) -> None:
-    """Raise NotImplementedError for the one configuration the port does
-    not implement (with ``training``: ``training.num_devices > 1`` where
-    that many devices of ``device``'s kind are visible), and ValueError for
-    an unknown ``generation.fused_quantize``, loss type, block weighting,
-    compute dtype or carry dtype. Fewer visible devices than
-    ``num_devices`` train on one device with the JAX trainer's warning
-    (its ``__init__``, :190-198). Every architecture
+    """Raise ValueError for an unknown ``generation.fused_quantize``, loss
+    type, block weighting, compute dtype or carry dtype. With ``training``,
+    fewer visible devices (:func:`visible_devices`) than
+    ``training.num_devices`` train on one device with the JAX trainer's
+    warning (its ``__init__``, :190-198); with that many, the trainer
+    builds its mesh. Every architecture
     passes: :func:`~..training.trainer.build_model` refuses an unknown one.
     A ``generation.sampler`` other than "ddim" samples with DDPM, as in the
     JAX package (its generator tests for "ddim" only); one warning says
@@ -122,12 +127,8 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False,
     if dc.block_loss_weighting not in ("balanced", "none"):
         raise ValueError(f"unknown block_loss_weighting {dc.block_loss_weighting!r}")
     wanted = config.training.num_devices or 1
-    if training and wanted > 1:
+    if training and wanted > 1 and visible_devices(device) < wanted:
         visible = visible_devices(device)
-        if visible >= wanted:
-            raise NotImplementedError(
-                "data-parallel training over several devices is not implemented in the "
-                "PyTorch port yet (ROADMAP.md, 'Modules to port'); use the JAX package for it")
         logger.warning("training.num_devices=%d but only %d devices visible; "
                        "training single-device", wanted, visible)
     if gen.sampler not in ("ddpm", "ddim"):
@@ -197,22 +198,31 @@ class _Draws:
     """The scan samplers' random draws: the tensor under a name in
     ``given`` (a whole array, or its row ``step``), else a fresh draw on
     ``device``. A ``generator`` on another device seeds one there, so the
-    per-step draws never cross from the host."""
+    per-step draws never cross from the host. With ``rows`` (a block of a
+    cohort split over ranks), each draw is the whole cohort's and the block
+    keeps its rows, so every rank's rows get the draws of one device."""
 
     def __init__(self, given: Optional[Mapping[str, torch.Tensor]],
-                 generator: Optional[torch.Generator], device):
+                 generator: Optional[torch.Generator], device,
+                 rows: Optional[RowBlock] = None):
         self.given = dict(given or {})
         self.device = torch.device(device)
         self.generator = generator_on(generator, self.device)
+        self.rows = rows
+
+    def take(self, value: torch.Tensor) -> torch.Tensor:
+        return value if self.rows is None else self.rows.take(value)
 
     def __call__(self, name: str, kind: str, shape, dtype=torch.float32,
                  step: Optional[int] = None) -> torch.Tensor:
         """``kind``: "normal", "uniform" (U(-sqrt3, sqrt3)) or "unit" (U[0, 1))."""
         if name in self.given:
             value = self.given[name] if step is None else self.given[name][step]
-            return value.to(self.device, dtype)
+            return self.take(value.to(self.device, dtype))
         if self.generator is None:
             raise ValueError(f"no generator and no {name!r} draws given")
+        if self.rows is not None:
+            shape = (self.rows.total,) + tuple(shape[1:])
         g = self.generator
         if kind == "normal":
             value = torch.randn(shape, generator=g, device=self.device)
@@ -220,7 +230,7 @@ class _Draws:
             value = torch.rand(shape, generator=g, device=self.device)
             if kind == "uniform":
                 value = (value * 2.0 - 1.0) * UNIFORM_SCALE
-        return value.to(dtype)
+        return self.take(value.to(dtype))
 
 
 @dataclass
@@ -462,13 +472,40 @@ class ConditionalDiffusion:
             return (x_t - sqrt_om * pred) * inv_sqrt_acp
         return (x_t - sqrt_om * pred) / sqrt_acp
 
+    def loss_draws(self, batch: int, generator: Optional[torch.Generator], device, *,
+                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   bit_uniforms: Optional[torch.Tensor] = None,
+                   cfg_uniforms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The draws :meth:`loss` makes for a ``batch``-row batch, in its
+        order, from ``generator`` on ``device``; given ones are kept: ``t``
+        (B,), ``noise`` (B, D - M), with the D3PM head ``bit_uniforms`` (B,
+        M), with condition dropout ``cfg_uniforms`` (B, 1)."""
+        M = self.mutation_dim if self.discrete_head else 0
+        if t is None:
+            t = torch.randint(0, self.schedule.num_steps, (batch,), generator=generator,
+                              device=device)
+        if noise is None:
+            noise = torch.randn((batch, self.denoiser.data_dim - M), generator=generator,
+                                device=device)
+        out = {"t": t, "noise": noise}
+        if M:
+            if bit_uniforms is None:
+                bit_uniforms = torch.rand((batch, M), generator=generator, device=device)
+            out["bit_uniforms"] = bit_uniforms
+        if self.cfg_dropout_prob > 0:
+            if cfg_uniforms is None:
+                cfg_uniforms = torch.rand((batch, 1), generator=generator, device=device)
+            out["cfg_uniforms"] = cfg_uniforms
+        return out
+
     def loss(self, x0: torch.Tensor, conditions: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
              bit_uniforms: Optional[torch.Tensor] = None,
              cfg_uniforms: Optional[torch.Tensor] = None,
              ar_x0: Optional[torch.Tensor] = None,
-             ar_conditions: Optional[torch.Tensor] = None, train: bool = False):
+             ar_conditions: Optional[torch.Tensor] = None, train: bool = False,
+             shard: Optional[BatchShard] = None):
         """(total loss, metrics) on a clean batch ``x0`` (B, D) under
         ``conditions`` (B, C). ``t`` (B,) int, ``noise`` (B, D - M),
         ``bit_uniforms`` (B, M) and ``cfg_uniforms`` (B, 1) (CFG keeps a
@@ -481,7 +518,10 @@ class ConditionalDiffusion:
         ``ar_ce``, ``sigma_nll``, ``lowrank_sigma_nll``, the four constraint
         terms (with a spec), ``loss`` and ``sel_loss`` (the loss without the
         AR head's terms, which best model, early stopping and the plateau
-        schedule follow)."""
+        schedule follow). With a ``shard``, the rows are this rank's of its
+        global batch: every mean and batch statistic is the global batch's
+        (all-reduced over the data group), so the loss is the global loss on
+        every rank."""
         tables = self._loss_tables(x0.device)
         batch = x0.shape[0]
         M = self.mutation_dim if self.discrete_head else 0
@@ -489,16 +529,14 @@ class ConditionalDiffusion:
         dev = x0.device
         d = self.denoiser
         clin_conditions = conditions
-        if t is None:
-            t = torch.randint(0, T, (batch,), generator=generator, device=dev)
-        t = t.to(dev, torch.int64)
+        drawn = self.loss_draws(batch, generator, dev, t=t, noise=noise,
+                                bit_uniforms=bit_uniforms, cfg_uniforms=cfg_uniforms)
+        t = drawn["t"].to(dev, torch.int64)
         mut0, cont0 = x0[:, :M], x0[:, M:]
-        if noise is None:
-            noise = torch.randn(cont0.shape, generator=generator, device=dev)
-        noise = noise.to(dev, torch.float32)
+        noise = drawn["noise"].to(dev, torch.float32)
         cont_t = self.q_sample(cont0, t, noise)
         if M:
-            mut_t = q_sample_bits(mut0, tables.acp[t], generator, bit_uniforms)
+            mut_t = q_sample_bits(mut0, tables.acp[t], generator, drawn["bit_uniforms"])
             x_t = torch.cat([2.0 * mut_t - 1.0, cont_t], dim=1)
         else:
             x_t = cont_t
@@ -511,12 +549,11 @@ class ConditionalDiffusion:
                 # Factors of the clean vector, appended before the CFG
                 # dropout so the unconditional score drops them too.
                 h = self.encode_latents(x0)
-                latent_sq = torch.mean(h * h)
+                latent_sq = batch_mean(h * h, shard)
                 conditions = torch.cat([conditions, h], dim=1)
             if self.cfg_dropout_prob > 0:
-                if cfg_uniforms is None:
-                    cfg_uniforms = torch.rand((batch, 1), generator=generator, device=dev)
-                keep = (cfg_uniforms.to(dev) >= self.cfg_dropout_prob).to(conditions.dtype)
+                keep = (drawn["cfg_uniforms"].to(dev) >= self.cfg_dropout_prob).to(
+                    conditions.dtype)
                 conditions = conditions * keep
             pred = d(x_t, t_norm, conditions=conditions)
         finally:
@@ -536,14 +573,14 @@ class ConditionalDiffusion:
         err = _elementwise_loss(cont_pred, target, self.loss_type)
         if tables.feature_weights is not None:
             err = err * tables.feature_weights[None, M:]
-        mse = err.mean()
+        mse = batch_mean(err, shard)
         metrics: Dict[str, torch.Tensor] = {"diffusion_loss": mse}
         total = mse
         if self.latent_factor_dim > 0:
             metrics["latent_sq"] = latent_sq
             total = total + 1e-3 * latent_sq
         if M:
-            ce = bernoulli_cross_entropy(mut_logits, mut0).mean()
+            ce = batch_mean(bernoulli_cross_entropy(mut_logits, mut0), shard)
             metrics["mutation_ce"] = ce
             total = total + self.discrete_ce_weight * ce
         ar_term = None
@@ -552,7 +589,7 @@ class ConditionalDiffusion:
             src = x0 if ar_x0 is None else ar_x0.to(dev)
             cond = clin_conditions if ar_conditions is None else ar_conditions.to(dev)
             logits = d.ar_logits(src[:, :Ma], self._ar_context_view(src[:, Ma:], cond))
-            ar_ce = bernoulli_cross_entropy(logits, src[:, :Ma]).mean()
+            ar_ce = batch_mean(bernoulli_cross_entropy(logits, src[:, :Ma]), shard)
             metrics["ar_ce"] = ar_ce
             ar_term = self.ar_ce_weight * ar_ce
             if self.ar_l2 > 0:
@@ -571,7 +608,7 @@ class ConditionalDiffusion:
             # Gaussian NLL of the x0 residual against a detached mean.
             logvar_c = logvar[:, M:]
             resid = cont0 - cont_x0_pred.detach()
-            nll = 0.5 * torch.mean(logvar_c + resid**2 * torch.exp(-logvar_c))
+            nll = 0.5 * batch_mean(logvar_c + resid**2 * torch.exp(-logvar_c), shard)
             metrics["sigma_nll"] = nll
             total = total + self.sigma_loss_weight * nll
         if self.low_rank_sigma_dim:
@@ -592,11 +629,11 @@ class ConditionalDiffusion:
             Dc = r.shape[1]
             logdet = (torch.sum(torch.log(dg)) + 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
                       + 2.0 * Dc * logs[t])
-            nll = 0.5 * torch.mean(logdet + quad)
+            nll = 0.5 * batch_mean(logdet + quad, shard)
             metrics["lowrank_sigma_nll"] = nll / Dc
             total = total + self.low_rank_sigma_weight * nll
         if self.constraint_spec is not None:
-            terms = constraint_losses(x0_pred, self.constraint_spec, tables.spec)
+            terms = constraint_losses(x0_pred, self.constraint_spec, tables.spec, shard)
             metrics.update(terms)
             total = (total
                      + self.pathway_coherence_weight * terms["pathway_coherence"]
@@ -765,7 +802,7 @@ class ConditionalDiffusion:
         """x_T (``draws["x_T"]``, (B, D)): Gaussian in ``dtype``, with
         Bernoulli(1/2) bits on the first M columns."""
         if "x_T" in draw.given:
-            return draw.given["x_T"].to(draw.device, dtype)
+            return draw.take(draw.given["x_T"].to(draw.device, dtype))
         x = draw("x_T", "normal", (batch, self.denoiser.data_dim - M), dtype)
         if not M:
             return x
@@ -780,7 +817,8 @@ class ConditionalDiffusion:
     @torch.no_grad()
     def scan_sample(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None,
                     guidance_scale: float = 1.0,
-                    draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                    draws: Optional[Mapping[str, torch.Tensor]] = None,
+                    rows: Optional[RowBlock] = None) -> torch.Tensor:
         """Ancestral DDPM over all T steps, as JAX ``sample`` (:752-937): steps
         T-1 .. 1 in a loop with transition noise, then t = 0 outside it
         (the clipped x0 prediction, plus learned sigma's residual or low-rank
@@ -796,16 +834,22 @@ class ConditionalDiffusion:
         "lr_eps" (T-1, B, D-M) and "lr_epsk" (T-1, B, k) (low-rank sigma),
         "bits" (T-1, B, M) (D3PM uniforms); at t = 0 "final_z" (B, D-M)
         (learned sigma), "final_lr_eps" and "final_lr_epsk", "final_bits"
-        (B, M)."""
+        (B, M).
+
+        ``rows``: sample only that block of the cohort (the rank's rows of a
+        sharded generator); every draw is the whole cohort's, so the block
+        equals those rows of the unsharded cohort."""
         d = self.denoiser
         dev = next(d.parameters()).device
         sched = self.schedule
         T = sched.num_steps
         M = self.mutation_dim if self.discrete_head else 0
         cd = DTYPES[self.sample_dtype]
+        if rows is not None:
+            conditions = rows.take(conditions)
         batch = conditions.shape[0]
         Dc = d.data_dim - M
-        draw = _Draws(draws, generator, dev)
+        draw = _Draws(draws, generator, dev, rows)
         x = self._x_prior(draw, batch, M, cd)
         denoise = self._denoise_fn(conditions.to(dev, torch.float32), guidance_scale)
 
@@ -877,18 +921,22 @@ class ConditionalDiffusion:
     def scan_sample_ddim(self, conditions: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          num_sampling_steps: int = 50, guidance_scale: float = 1.0,
-                         draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                         draws: Optional[Mapping[str, torch.Tensor]] = None,
+                         rows: Optional[RowBlock] = None) -> torch.Tensor:
         """Deterministic (eta = 0) DDIM over ``num_sampling_steps`` strided
         timesteps, as JAX ``sample_ddim`` (:942-1063): an f32 carry, x0 from
         the parameterization (clipped when ``clip_denoised``), eps consistent
         with it, learned sigma's residual on the last step only, and the
         D3PM bits over the same strided steps. ``draws``: "x_T" (B, D),
-        "final_z" (B, D-M) (learned sigma), "bits" (n_steps, B, M)."""
-        return self.ddim_chain(conditions, generator, num_sampling_steps, guidance_scale, draws)
+        "final_z" (B, D-M) (learned sigma), "bits" (n_steps, B, M); ``rows``
+        as in :meth:`scan_sample`."""
+        return self.ddim_chain(conditions, generator, num_sampling_steps, guidance_scale, draws,
+                               rows)
 
     def ddim_chain(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None,
                    num_sampling_steps: int = 50, guidance_scale: float = 1.0,
-                   draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                   draws: Optional[Mapping[str, torch.Tensor]] = None,
+                   rows: Optional[RowBlock] = None) -> torch.Tensor:
         """:meth:`scan_sample_ddim` with autograd on: the chain that
         sample-path fine-tuning differentiates through, as JAX differentiates
         through ``sample_ddim``'s ``lax.scan`` (training/finetune.py:84-98
@@ -899,9 +947,11 @@ class ConditionalDiffusion:
         dev = next(d.parameters()).device
         T = self.schedule.num_steps
         M = self.mutation_dim if self.discrete_head else 0
+        if rows is not None:
+            conditions = rows.take(conditions)
         batch = conditions.shape[0]
         Dc = d.data_dim - M
-        draw = _Draws(draws, generator, dev)
+        draw = _Draws(draws, generator, dev, rows)
         x = self._x_prior(draw, batch, M, torch.float32)
         denoise = self._denoise_fn(conditions.to(dev, torch.float32), guidance_scale)
 

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config, FrozenDims
+from ..parallel.batch import BatchShard, RowBlock, batch_mean
 from .constraints import ConstraintSpec, constraint_losses
 from .networks import _Dense, generator_on, torch_dtype
 
@@ -144,25 +145,38 @@ class ConditionalFlow:
             cooccurrence_weight=weight(cc.cooccurrence_weight),
         )
 
+    def loss_draws(self, batch: int, generator: Optional[torch.Generator], device, *,
+                   z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The draws :meth:`loss` makes for a ``batch``-row batch: ``z``
+        (batch, D) from ``generator`` on ``device`` unless given, where the
+        constraint terms read it; none otherwise."""
+        if self.constraint_spec is None:
+            return {} if z is None else {"z": z}
+        if z is None:
+            z = torch.randn((batch, self.module.data_dim), generator=generator, device=device)
+        return {"z": z}
+
     def loss(self, x0: torch.Tensor, conditions: torch.Tensor,
              generator: Optional[torch.Generator] = None, *, z: Optional[torch.Tensor] = None,
-             train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             train: bool = False,
+             shard: Optional[BatchShard] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total, metrics): the negative log-likelihood in nats per
         dimension (``nll_per_dim``) and, with a spec, the constraint terms
         on ``inverse(z)`` with z (B, D) ~ N(0, I) from ``generator`` unless
         given; ``loss``. ``train`` changes nothing (no dropout, no batch
-        statistics); it is there for the trainer's uniform call."""
+        statistics); it is there for the trainer's uniform call. With a
+        ``shard``, the rows are this rank's of its global batch, and the
+        means and constraint statistics are the global batch's."""
         del train
         module = self.module
-        nll = -torch.mean(module.log_prob(x0, conditions)) / module.data_dim
+        nll = -batch_mean(module.log_prob(x0, conditions), shard) / module.data_dim
         metrics = {"nll_per_dim": nll}
         total = nll
         if self.constraint_spec is not None:
-            if z is None:
-                z = torch.randn(x0.shape, generator=generator, device=x0.device)
+            z = self.loss_draws(x0.shape[0], generator, x0.device, z=z)["z"]
             x_sample = module.inverse(z.to(x0.device, torch.float32), conditions)
             spec = self.constraint_spec
-            terms = constraint_losses(x_sample, spec, spec.tensors(x_sample.device))
+            terms = constraint_losses(x_sample, spec, spec.tensors(x_sample.device), shard)
             metrics.update(terms)
             total = (total
                      + self.pathway_coherence_weight * terms["pathway_coherence"]
@@ -174,10 +188,12 @@ class ConditionalFlow:
 
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None, *,
-               z: Optional[torch.Tensor] = None, num_samples: Optional[int] = None) -> torch.Tensor:
+               z: Optional[torch.Tensor] = None, num_samples: Optional[int] = None,
+               rows: Optional[RowBlock] = None) -> torch.Tensor:
         """``inverse(z)`` with z (num_samples, D) ~ N(0, I), drawn on the
         module's device from ``generator`` unless given. Returns (N, D)
-        float32 there."""
+        float32 there. ``rows``: only that block of the cohort's rows (z
+        drawn for the whole cohort), for a sharded generator."""
         module = self.module
         device = module.masks.device
         if num_samples is None:
@@ -185,4 +201,6 @@ class ConditionalFlow:
         if z is None:
             z = torch.randn((num_samples, module.data_dim),
                             generator=generator_on(generator, device), device=device)
+        if rows is not None:
+            z, conditions = rows.take(z), rows.take(conditions)
         return module.inverse(z.to(device, torch.float32), conditions.to(device, torch.float32))

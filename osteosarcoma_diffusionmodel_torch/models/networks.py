@@ -21,7 +21,11 @@ names (``enc_0``, ``bottleneck``, ``dec_0``, ``sigma_proj``,
 tree onto the other.
 Dropout holds no parameters and acts only in training mode: the samplers
 run the module in eval mode (``ConditionalDiffusion.from_config`` returns
-it so), and the kernel samplers read the weights directly.
+it so), and the kernel samplers read the weights directly. The trainer
+attaches its step's :class:`~..parallel.batch.BatchShard` to the
+:class:`Dropout` and :class:`BatchNorm` layers: dropout then draws the
+global batch's mask from the trainer's generator and keeps this rank's
+rows, and BatchNorm normalizes with the global batch's moments.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.batch import BatchShard
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
@@ -91,12 +97,18 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        # The step's global batch (parallel.batch.attached): its moments.
+        self.shard: Optional[BatchShard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
-            mu = x.mean(dim=0)
-            var = torch.clamp_min((x * x).mean(dim=0) - mu * mu, 0.0)
+            if self.shard is None:
+                mu = x.mean(dim=0)
+                var = torch.clamp_min((x * x).mean(dim=0) - mu * mu, 0.0)
+            else:
+                mu = self.shard.mean(x, 0)
+                var = torch.clamp_min(self.shard.mean(x * x, 0) - mu * mu, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mu)
@@ -104,6 +116,26 @@ class BatchNorm(nn.Module):
         else:
             mu, var = self.mean, self.var
         return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout``; with a :class:`~..parallel.batch.BatchShard`
+    attached, the mask of the global batch (this rank's rows times the
+    shard's world) is drawn from the shard's generator and the rank keeps
+    its rows of it, so every rank's rows see the mask that one device
+    would draw for the whole batch: ``x * bernoulli(1 - p) / (1 - p)``."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__(p)
+        self.shard: Optional[BatchShard] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = self.shard
+        if shard is None or shard.generator is None or not self.training or self.p == 0:
+            return super().forward(x)
+        keep = torch.empty((x.shape[0] * shard.world,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device).bernoulli_(1.0 - self.p, generator=shard.generator)
+        return x * shard.take(keep).div_(1.0 - self.p)
 
 
 class SurvivalHead(nn.Module):
@@ -116,7 +148,7 @@ class SurvivalHead(nn.Module):
                  hidden_dim: int = 128, dropout: float = 0.2):
         super().__init__()
         self.fc1 = _Dense(in_features, hidden_dim, compute_dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.fc2 = _Dense(hidden_dim, 1, compute_dtype)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -154,7 +186,7 @@ class DenoiserBlock(nn.Module):
         super().__init__()
         self.fc1 = _Dense(in_features, features, compute_dtype)
         self.norm1 = nn.GroupNorm(GN_GROUPS, features, eps=GN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.fc2 = _Dense(features, features, compute_dtype)
         self.norm2 = nn.GroupNorm(GN_GROUPS, features, eps=GN_EPS)
 

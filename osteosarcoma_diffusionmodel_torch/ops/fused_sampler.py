@@ -48,6 +48,12 @@ Noise: "philox" (in-kernel, the DDPM default), "buffer" (a given
 (n_loop, B, D) tensor: the parity hook) or "none" (DDIM). On CPU tensors
 the same loop runs the kernels' plain versions.
 
+:meth:`FusedSampler.sample_sharded` is the JAX ``sample_sharded``
+(:923-1001) on a ``DeviceMesh``: each rank of the data axis runs the same
+kernels on its block of the cohort's rows (the cohort padded to a multiple
+of the axis; rows are independent), with its own Philox seed, and the
+blocks are all-gathered.
+
 The sampler takes the models of :func:`supports_fused` (the JAX
 package's predicate, :50-66): x0, the x0 clip, the input skip, uniform
 noise, no sigma head. The AR head and latent factors do not change its
@@ -64,6 +70,8 @@ import numpy as np
 import torch
 
 from ..models.networks import sinusoid
+from ..parallel.batch import RowBlock, gather_rows
+from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size
 from .sampler_kernels import (
     QUANT_PROLOGUE_MAX_K,
     gemm_bf16_f32acc,
@@ -425,6 +433,41 @@ class FusedSampler:
                              step=s, mode=mode, noise=noise, seed=seed, clip=self.clip_value,
                              mut_dim=self.mut_dim)
 
+    def _mode(self, noise: Optional[torch.Tensor]) -> str:
+        if self.ddim_steps is not None:
+            if noise is not None:
+                raise ValueError("eta = 0 DDIM takes no transition noise")
+            return "none"
+        return "philox" if noise is None else "buffer"
+
+    def _check_noise(self, noise: Optional[torch.Tensor], batch: int) -> Optional[torch.Tensor]:
+        if noise is None:
+            return None
+        if tuple(noise.shape) != (self.n_loop, batch, self.data_dim):
+            raise ValueError(f"noise must be ({self.n_loop}, {batch}, {self.data_dim}), "
+                             f"got {tuple(noise.shape)}")
+        return noise.to(device=self.device, dtype=torch.float32).contiguous()
+
+    def _c_proj(self, conditions: torch.Tensor) -> torch.Tensor:
+        """The loop-invariant condition projection (plain torch, as the JAX
+        sampler computes it outside its kernel), rounded to bf16 (:890)."""
+        d = self.model.denoiser
+        home = next(d.parameters()).device
+        c_proj = d.embed_conditions(conditions.to(home, torch.float32))
+        return c_proj.to(self.device, torch.bfloat16).float().contiguous()
+
+    def _run(self, x_init: torch.Tensor, c_proj: torch.Tensor, mode: str,
+             noise: Optional[torch.Tensor], seed: int, n_run: int) -> torch.Tensor:
+        """The first ``n_run`` reverse rows from ``x_init`` through the
+        kernels; the bf16 carry's values as float32."""
+        batch = x_init.shape[0]
+        x = padded_rows(batch, self.data_dim, torch.bfloat16, self.device)  # TMA-readable rows
+        x.copy_(x_init.to(device=self.device, dtype=torch.bfloat16))
+        buf = self._buffers(batch)
+        for s in range(n_run):
+            self._step(s, x, c_proj, buf, mode, noise, seed)
+        return x.float().contiguous()
+
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: torch.Generator,
                x_init: Optional[torch.Tensor] = None,
@@ -439,36 +482,52 @@ class FusedSampler:
         values, as float32): the data-space head of the latent-tail sampler
         (the JAX ``stop_after``, fused_sampler.py:879-883); ``noise`` keeps
         its full shape."""
-        dev = self.device
-        batch, D = conditions.shape[0], self.data_dim
+        batch = conditions.shape[0]
         n_run = self.n_loop if stop_after is None else int(stop_after)
         if not 0 <= n_run <= self.n_loop:
             raise ValueError(f"stop_after must be in [0, {self.n_loop}], got {stop_after}")
-        if self.ddim_steps is not None:
-            if noise is not None:
-                raise ValueError("eta = 0 DDIM takes no transition noise")
-            mode = "none"
-        else:
-            mode = "philox" if noise is None else "buffer"
-        if noise is not None:
-            if tuple(noise.shape) != (self.n_loop, batch, D):
-                raise ValueError(f"noise must be ({self.n_loop}, {batch}, {D}), "
-                                 f"got {tuple(noise.shape)}")
-            noise = noise.to(device=dev, dtype=torch.float32).contiguous()
+        mode = self._mode(noise)
+        noise = self._check_noise(noise, batch)
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
         if x_init is None:
-            x_init = x_prior(batch, D, self.mut_dim, generator)
-        x = padded_rows(batch, D, torch.bfloat16, dev)  # the bf16 carry, TMA-readable rows
-        x.copy_(x_init.to(device=dev, dtype=torch.bfloat16))
+            x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+        return self._run(x_init, self._c_proj(conditions), mode, noise, seed, n_run)
 
-        # Loop-invariant condition projection (plain torch, as the JAX
-        # sampler computes it outside its kernel), rounded to bf16 (:890).
-        d = self.model.denoiser
-        home = next(d.parameters()).device
-        c_proj = d.embed_conditions(conditions.to(home, torch.float32))
-        c_proj = c_proj.to(dev, torch.bfloat16).float().contiguous()
-
-        buf = self._buffers(batch)
-        for s in range(n_run):
-            self._step(s, x, c_proj, buf, mode, noise, seed)
-        return x.float().contiguous()
+    @torch.no_grad()
+    def sample_sharded(self, mesh, conditions: torch.Tensor, generator: torch.Generator,
+                       x_init: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       keep_bf16: bool = False) -> torch.Tensor:
+        """:meth:`sample` over the data axis of ``mesh`` (a ``DeviceMesh``
+        from ``parallel.make_mesh``), the JAX ``sample_sharded``: every rank
+        computes ``c_proj`` for the whole cohort and draws the whole
+        ``x_init`` from ``generator`` (so all ranks hold the same), pads the
+        cohort to a multiple of the axis, runs the kernels on its block of
+        rows with its own Philox seed (one of ``world`` drawn, as the JAX
+        ``jax.random.bits(seed_rng, (n_dev, 1))``), and all-gathers the
+        blocks. ``noise`` (n_loop, B, D) is sliced on its batch axis. In
+        "none" and "buffer" modes the cohort is :meth:`sample`'s on the
+        same generator (or ``x_init``) and noise, bit for bit where every
+        rank's products take the whole cohort's kernel plans (one rank; the
+        plain versions on the CPU), and else up to the bf16 carry's
+        rounding, since K1's split-K plan follows a block's row count; on
+        one rank in "philox" mode too. Returns (B, D) float32 on every rank
+        (bf16 with ``keep_bf16``)."""
+        world, rank = axis_size(mesh, DATA_AXIS), axis_rank(mesh, DATA_AXIS)
+        batch = conditions.shape[0]
+        mode = self._mode(noise)
+        noise = self._check_noise(noise, batch)
+        # Rank 0's seed and x_init are the draws :meth:`sample` makes from
+        # the same generator; the other ranks' seeds come after them.
+        seeds = [torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device)]
+        if x_init is None:
+            x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+        seeds.append(torch.randint(0, 2**31 - 1, (world - 1,), generator=generator,
+                                   device=generator.device))
+        seeds = torch.cat(seeds)
+        rows = RowBlock.of(batch, world, rank)
+        local = self._run(rows.take(x_init.to(self.device)), rows.take(self._c_proj(conditions)),
+                          mode, None if noise is None else rows.take(noise, dim=1).contiguous(),
+                          int(seeds[rank]), self.n_loop)
+        out = gather_rows(axis_group(mesh, DATA_AXIS), local, batch)
+        return out.to(torch.bfloat16) if keep_bf16 else out

@@ -41,6 +41,25 @@ numerics: its own host sync, plateau step and best-epoch tracking. Host
 work waits for the block's end: when early stopping fires, training goes
 on to the block's last epoch, and the checkpoints are written there.
 
+Several devices (``training.num_devices`` > 1 with that many ranks in
+the process group, or a ``mesh`` from ``parallel.make_mesh``): data
+parallelism with the JAX package's global-batch numerics, one process per
+device. Every rank holds the whole cohort and the same parameters, takes
+the same global batch, draws the global batch's draws from the same seeded
+generators (mixup on the global batch) and keeps its rows; the loss's batch
+statistics (the constraint terms', the cVAE's BatchNorm moments) and means
+are all-reduced over the data group (:mod:`..parallel.batch`), so every
+rank computes the global batch's loss. A rank backpropagates its share
+(loss / world) and the gradients are summed over the group before the
+clip and AdamW, so the step is the one-device step up to reduction order.
+A batch whose size does not divide the data axis (a last validation
+batch, a cohort smaller than the batch) is replicated: every rank computes
+it whole, and its gradient is not summed (JAX :361-377, :543-550). Under a
+mesh, epoch blocks need the effective batch to divide the data axis;
+otherwise the trainer warns and runs per-epoch blocks (JAX :774-786). Rank 0
+alone writes files. One device is the same step with one rank and no
+collective.
+
 Checkpoints (:mod:`.checkpoint`): ``metadata.json`` and ``data_stats.npz``
 at the start of ``train``; ``best_model.npz``, the weights (and the cVAE's
 BatchNorm statistics) of the best epoch so far, kept on the device and
@@ -63,9 +82,11 @@ import torch
 from ..config import Config, FrozenDims
 from ..data.dataset import OsteosarcomaArrays, mixup, train_val_split
 from ..models.cvae import BiologyConstrainedVAE
-from ..models.diffusion import ConditionalDiffusion, check_supported
+from ..models.diffusion import ConditionalDiffusion, check_supported, visible_devices
 from ..models.flow import ConditionalFlow
 from ..models.networks import init_flax
+from ..parallel.batch import BatchShard, all_reduce_grads, attached
+from ..parallel.mesh import DATA_AXIS, axis_size, data_shard, is_writer, make_mesh
 from . import checkpoint as ckpt
 
 logger = logging.getLogger(__name__)
@@ -137,12 +158,24 @@ class TrainLog:
         }
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None,
+                        model_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm reaches
     ``max_norm``, every gradient becomes g / norm * max_norm (no epsilon),
     else it is left as it is. Returns the norm before clipping; nothing is
-    read on the host, and the work is a few multi-tensor launches."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    read on the host, and the work is a few multi-tensor launches. With
+    ``model_group``, the gradients marked in ``sharded`` are shards over
+    that group (tensor parallelism): their squares are summed over it, so
+    every rank clips by the whole model's norm."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(list(sharded), device=norms.device)
+        shard_sq = (norms[mask] ** 2).sum()
+        torch.distributed.all_reduce(shard_sq, group=model_group)
+        norm = torch.sqrt((norms[~mask] ** 2).sum() + shard_sq)
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
@@ -164,12 +197,22 @@ def build_model(config: Config, dims: FrozenDims, constraint_spec=None):
 
 
 class Trainer:
-    """Per-epoch training loop of one model family on one device."""
+    """Per-epoch training loop of one model family on one device, or data
+    parallel over the data axis of a mesh."""
 
     def __init__(self, model, arrays: OsteosarcomaArrays,
-                 dims: FrozenDims, config: Config, device: str | torch.device):
+                 dims: FrozenDims, config: Config, device: str | torch.device, mesh=None):
         check_supported(config, dims, training=True, device=device)
         tc = config.training
+        wanted = tc.num_devices or 1
+        if mesh is None and wanted > 1 and visible_devices(device) >= wanted:
+            mesh = make_mesh(wanted)
+        if mesh is not None and mesh.get_coordinate() is None:
+            raise ValueError("this rank is not in the trainer's mesh")
+        self.mesh = mesh
+        if mesh is not None:
+            logger.info("Training mesh: %s", dict(zip(mesh.mesh_dim_names, mesh.shape)))
+        self.writer = is_writer()
         self.model = model
         self.arrays = arrays
         self.dims = dims
@@ -228,14 +271,21 @@ class Trainer:
         self.best_epoch: Optional[int] = None
 
     # ------------------------------------------------------------------
-    def _loss(self, data, cond, surv, raw, train: bool, draws):
-        """The family's loss as the JAX `_loss_with_aux` calls it."""
+    def _loss(self, data, cond, surv, raw, train: bool, draws, shard: BatchShard):
+        """The family's loss as the JAX `_loss_with_aux` calls it, on this
+        rank's rows of the batch."""
+        kw = dict(train=train, shard=shard, **draws)
         if self.is_vae:
-            return self.model.loss(data, cond, surv, self.generator, train=train, **draws)
+            return self.model.loss(data, cond, surv, self.generator, **kw)
         if isinstance(self.model, ConditionalDiffusion):
             return self.model.loss(data, cond, self.generator, ar_x0=raw[0],
-                                   ar_conditions=raw[1], train=train, **draws)
-        return self.model.loss(data, cond, self.generator, train=train, **draws)
+                                   ar_conditions=raw[1], **kw)
+        return self.model.loss(data, cond, self.generator, **kw)
+
+    def _shard(self, rows: int) -> BatchShard:
+        """This rank's share of a ``rows``-row batch (the whole batch on one
+        device or where ``rows`` does not divide the data axis)."""
+        return data_shard(self.mesh, rows, self.generator)
 
     def train_step(self, data: torch.Tensor, cond: torch.Tensor,
                    surv: Optional[torch.Tensor] = None, *,
@@ -247,8 +297,10 @@ class Trainer:
         the step's draws: mixup's lambda and permutation, the pathway
         jitter, then the loss's (``t``, ``noise``, ``bit_uniforms``,
         ``cfg_uniforms`` for the diffusion model; ``eps`` for the cVAE;
-        ``z`` for the flow). Returns the loss's metrics and ``grad_norm``,
-        the global norm before the clip, as device tensors."""
+        ``z`` for the flow). Under a mesh every rank passes the same global
+        batch (and global draws) and computes its rows of it. Returns the
+        loss's metrics (the global batch's) and ``grad_norm``, the global
+        norm before the clip, as device tensors."""
         aug = self.config.training.augmentation
         raw_data, raw_cond = data, cond
         if aug.mixup_alpha > 0:
@@ -262,11 +314,19 @@ class Trainer:
                                             device=data.device)
             data = torch.cat([data[:, :ps], data[:, ps:] + aug.pathway_noise * pathway_noise],
                              dim=1)
+        shard = self._shard(data.shape[0])
+        take = shard.take
+        draws = self.model.loss_draws(data.shape[0], self.generator, data.device, **draws)
         for opt in self.optimizers:
             opt.zero_grad(set_to_none=True)
-        loss, metrics = self._loss(data, cond, surv, (raw_data, raw_cond), True, draws)
-        loss.backward()
+        with attached(self.module, shard):
+            loss, metrics = self._loss(take(data), take(cond), take(surv),
+                                       (take(raw_data), take(raw_cond)), True,
+                                       {k: take(v) for k, v in draws.items()}, shard)
+        (loss / shard.world).backward()
         grads = [p.grad for p in self.params]
+        if shard.group is not None:
+            all_reduce_grads(grads, shard.group)
         metrics["grad_norm"] = clip_by_global_norm(grads, self.config.training.grad_clip_norm)
         for opt in self.optimizers:
             opt.step()
@@ -293,7 +353,8 @@ class Trainer:
         """(val loss, val selection loss) as device scalars: per-batch
         means of the loss in eval mode, averaged; the selection loss is
         ``sel_loss`` where the family reports one, else the loss (JAX
-        :598-617); NaN without validation rows."""
+        :598-617); NaN without validation rows. Under a mesh a batch that
+        divides the data axis is split over it, as in :meth:`train_step`."""
         if len(self.val_idx) == 0:
             nan = torch.full((), float("nan"), device=self.device)
             return nan, nan
@@ -301,8 +362,12 @@ class Trainer:
         total, sel = [], []
         for b in range(0, len(self.val_idx), batch_size):
             idx = self._val_idx[b: b + batch_size]
-            data, cond = self._data[idx], self._cond[idx]
-            _, metrics = self._loss(data, cond, self._surv[idx], (data, cond), False, {})
+            shard = self._shard(len(idx))
+            take = shard.take
+            data, cond = take(self._data[idx]), take(self._cond[idx])
+            draws = self.model.loss_draws(len(idx), self.generator, self.device)
+            _, metrics = self._loss(data, cond, take(self._surv[idx]), (data, cond), False,
+                                    {k: take(v) for k, v in draws.items()}, shard)
             total.append(metrics["loss"])
             sel.append(metrics.get("sel_loss", metrics["loss"]))
         return torch.stack(total).mean(), torch.stack(sel).mean()
@@ -321,7 +386,10 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int, val_loss: float) -> None:
         """``checkpoint_epoch_<epoch>/``: weights and BatchNorm statistics,
-        the optimizers' moments (by parameter name) and steps, the LR."""
+        the optimizers' moments (by parameter name) and steps, the LR
+        (rank 0)."""
+        if not self.writer:
+            return
         moments = {"exp_avg": {}, "exp_avg_sq": {}}
         steps = []
         for opt in self.optimizers:
@@ -366,7 +434,9 @@ class Trainer:
         return True
 
     def write_best(self, best: Dict[str, torch.Tensor]) -> None:
-        """``best_model.npz`` from a ``state_dict`` snapshot."""
+        """``best_model.npz`` from a ``state_dict`` snapshot (rank 0)."""
+        if not self.writer:
+            return
         ckpt.save_weights(self.save_dir, {k: v.cpu() for k, v in best.items()})
 
     def _run_epoch(self, epoch: int) -> Tuple[float, float]:
@@ -397,11 +467,20 @@ class Trainer:
         tc = self.config.training
         if resume:
             self.resume()
-        ckpt.save_metadata(self.save_dir, self.config, self.dims)
-        ckpt.save_data_stats(self.save_dir, ckpt.data_stats_from_arrays(
-            self.arrays.data, self.arrays.conditions, self.dims.mutation_dim))
+        if self.writer:
+            ckpt.save_metadata(self.save_dir, self.config, self.dims)
+            ckpt.save_data_stats(self.save_dir, ckpt.data_stats_from_arrays(
+                self.arrays.data, self.arrays.conditions, self.dims.mutation_dim))
 
         k = max(tc.epochs_per_dispatch, 1)
+        if k > 1 and self.mesh is not None:
+            # The effective batch (a cohort smaller than batch_size shrinks
+            # it) must divide the data axis, as JAX's in-scan sharding needs.
+            eff_batch = min(tc.batch_size, len(self.train_idx))
+            if eff_batch % axis_size(self.mesh, DATA_AXIS):
+                logger.warning("epochs_per_dispatch>1 needs the effective batch size divisible "
+                               "by the mesh data axis; falling back to per-epoch dispatch")
+                k = 1
         best_val = float("inf")
         total_steps = 0
         t_start = time.perf_counter()

@@ -1099,3 +1099,35 @@ def test_cuda_gnn_matches_its_cpu_run(cuda, pooled):
         enc.cpu()
     assert got.shape == want.shape == ((2 if pooled else 1), 16)
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_sample_sharded_on_nccl_world_of_one(cuda, tmp_path):
+    """A real NCCL communicator at world size 1 on the card (NCCL refuses
+    two ranks on one card): ``sample_sharded`` over ``make_mesh(1)`` is bit
+    for bit ``sample`` in "buffer" (DDPM-20) and "none" (DDIM-10) modes on
+    the same generator and noise, at full width and 333 rows, and every
+    reverse step launches its kernels on the card."""
+    import torch.distributed as dist
+
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+    from osteosarcoma_diffusionmodel_torch.parallel import initialize_distributed, make_mesh
+
+    model = _variant_model({}, dims=(62, 5054, 26), steps=20, hidden=(256, 512, 256))
+    model.denoiser.to(cuda)
+    g = torch.Generator().manual_seed(4)
+    cond = torch.randn(333, 3, generator=g)
+    noise = torch.randn(20, 333, 5142, generator=g)
+    initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, "nccl", timeout_s=60)
+    try:
+        mesh = make_mesh(1)
+        for ddim in (None, 10):
+            sampler = FusedSampler(model, cuda, ddim_steps=ddim)
+            kw = {} if ddim else {"noise": noise}
+            before = sk.GEMM_POSTERIOR.launches
+            got = sampler.sample_sharded(mesh, cond, torch.Generator().manual_seed(9), **kw)
+            assert sk.GEMM_POSTERIOR.launches == before + (ddim or 20)
+            want = sampler.sample(cond, torch.Generator().manual_seed(9), **kw)
+            assert got.device.type == "cuda" and torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -32,8 +32,13 @@ from osteosarcoma_diffusionmodel_torch.data.dummy import (
     make_dummy_cohort,
     write_processed,
 )
-from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion, check_supported
+from osteosarcoma_diffusionmodel_torch.models.diffusion import (
+    ConditionalDiffusion,
+    check_supported,
+    visible_devices,
+)
 from osteosarcoma_diffusionmodel_torch.models.networks import DenoiserBlock, init_flax
+from osteosarcoma_diffusionmodel_torch.parallel.mesh import make_mesh
 from osteosarcoma_diffusionmodel_torch.training import checkpoint as ckpt
 from osteosarcoma_diffusionmodel_torch.training.trainer import EarlyStopping, PlateauLR, Trainer
 from torch_parity import BATCH, TRAIN_DUMMY, constraint_specs, train_config
@@ -232,9 +237,13 @@ def test_checkpoint_resume_round_trip(cohort, tmp_path):
 
 def test_trainer_rejects_what_is_not_ported(cohort, caplog, monkeypatch):
     """Several devices train on one with the JAX trainer's warning where
-    fewer are visible (one CPU; no card here), and are refused only where
-    that many cards are visible (device_count faked to 4); cross-cancer
-    pretraining and sample-path fine-tuning are ported and pass."""
+    fewer are visible (one CPU; no card here). Where that many cards are
+    visible (device_count faked to 4) nothing is refused and nothing warns:
+    the trainer builds its mesh, which needs one process per card, so
+    without a process group the mesh raises the JAX ValueError instead of
+    training on one card (the mesh itself: tests/test_torch_trainer_mesh.py);
+    cross-cancer pretraining and sample-path fine-tuning are ported and
+    pass."""
     c, data, conditions, dims = cohort
     for change in ("pretrain", "finetune", "devices"):
         pc = train_config(Config())
@@ -254,8 +263,14 @@ def test_trainer_rejects_what_is_not_ported(cohort, caplog, monkeypatch):
                 assert (f"training.num_devices=2 but only {visible} devices visible; "
                         "training single-device") in caplog.text
             monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-            with pytest.raises(NotImplementedError):
+            caplog.clear()
+            with caplog.at_level("WARNING"):
                 check_supported(pc, dims, training=True, device="cuda")
+            assert "devices visible" not in caplog.text
+            assert visible_devices("cuda") == 4
+            with pytest.raises(ValueError, match="requested a 2-device mesh but only 1 devices "
+                                                 "are visible"):
+                make_mesh(pc.training.num_devices)
             check_supported(pc, dims, training=True, device="cpu")  # one CPU: warns
         else:
             check_supported(pc, dims, training=True)
@@ -321,26 +336,37 @@ def test_cli_train_generate_validate_on_cpu(cohort, tmp_path):
     mut = np.genfromtxt(tmp_path / "synthetic" / "typical_patient" /
                         "typical_patient_mutations.csv", delimiter=",", skip_header=1)
     assert mut.shape == (10, 10) and np.isin(mut, (0.0, 1.0)).all()
-    # --resume goes on from the periodic checkpoint of epoch 1.
+    # --resume goes on from the latest checkpoint: the periodic one of epoch
+    # 1, or epoch 2's where epoch 2 was best (k = 1 writes one at each best
+    # epoch; the trainer's seeded dropout decides which).
+    latest = ckpt.latest_epoch(tmp_path / "ckpt")
+    assert latest in (1, 2)
     raw = yaml.safe_load(path.read_text())
     raw["training"]["num_epochs"] = 4
     path.write_text(yaml.safe_dump(raw))
     cli.main(["--config", str(path), "--steps", "train", "--resume", "--device", "cpu"])
     history = np.genfromtxt(tmp_path / "results" / "training_history.csv", delimiter=",",
                             names=True)
-    assert history.shape == (2,)  # epochs 2 and 3
+    assert np.atleast_1d(history).shape == (3 - latest,)  # epochs latest + 1 .. 3
 
 
-def test_cli_num_devices_trains_on_one_device(cohort, tmp_path, caplog):
-    """``training.num_devices: 4`` with one CPU device: the trainer warns
-    as the JAX trainer does and trains; generate runs under the same
-    config (the JAX CLI's generate builds no mesh then)."""
+def test_cli_num_devices_trains_on_one_device(cohort, tmp_path, caplog, monkeypatch):
+    """``training.num_devices: 4`` with one CPU device and no launcher's
+    environment: the CLI joins no process group, the trainer warns as the
+    JAX trainer does and trains on one device; generate runs under the same
+    config (the JAX CLI's generate builds no mesh then). Four ranks under a
+    launcher: tests/test_torch_trainer_mesh.py."""
+    import torch.distributed as dist
+
     path = _cli_yaml(tmp_path, cohort[0])
     raw = yaml.safe_load(path.read_text())
     raw["training"].update(num_devices=4, num_epochs=1)
     path.write_text(yaml.safe_dump(raw))
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
     with caplog.at_level("WARNING"):
         cli.main(["--config", str(path), "--steps", "train", "generate", "--device", "cpu"])
+    assert not dist.is_initialized()  # no launcher: no process group, no mesh
     assert ("training.num_devices=4 but only 1 devices visible; training single-device"
             in caplog.text)
     assert (tmp_path / "ckpt" / "best_model.npz").exists()

@@ -27,7 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 walked = {"analysis", "analysis.embedding", "analysis.report", "analysis.survival",
-          "models.gnn", "utils.profiling"}
+          "models.gnn", "utils.profiling", "parallel", "parallel.batch", "parallel.mesh",
+          "parallel.dryrun"}
 assert walked <= {n[len(pkg.__name__) + 1:] for n in names}, names
 import chip_smoke
 
@@ -95,11 +96,15 @@ def test_port_imports_no_jax_pandas_or_yaml():
     "osteosarcoma_diffusionmodel_torch.analysis.report",
     "osteosarcoma_diffusionmodel_torch.models.gnn",
     "osteosarcoma_diffusionmodel_torch.utils.profiling",
+    "osteosarcoma_diffusionmodel_torch.parallel.batch",
+    "osteosarcoma_diffusionmodel_torch.parallel.mesh",
+    "osteosarcoma_diffusionmodel_torch.parallel.dryrun",
 ])
 def test_calibration_and_serving_modules_import_no_jax(module):
     """The device calibration, the serving modules, the GDC loader, the
-    preprocessor, the report, the GAT encoder and the profiling module,
-    each imported alone in a fresh interpreter: no JAX, Flax, pandas,
+    preprocessor, the report, the GAT encoder, the profiling module and the
+    multi-device layer (``parallel/``), each imported alone in a fresh
+    interpreter: no JAX, Flax, pandas,
     PyYAML (yaml only lazily, inside ``Config.from_yaml``), matplotlib
     (only inside the report's ``_matplotlib``) or requests, nothing of the
     JAX package."""
