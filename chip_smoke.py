@@ -37,7 +37,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    K1+posterior also at the serving buckets' rows, 1, 64 and 1,024 (the
    products of a bf16 step recorded at each size: one 64-row tile with
    one valid row and the largest split-K at 1 row), each against its
-   plain version at the same tolerances, timed with its bound;
+   plain version at the same tolerances, timed with its bound; and the
+   same at the headline's 32,768 rows (K1's input product also beside
+   ``addmm``), with each product's launch plan (tiles, rounds over the
+   SMs, split-K workspace) and the step's summed time and bound;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -192,7 +195,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    continuous DDPM-20 and DDIM-10, D3PM DDPM-20, each int8 mode, and the
    latent kernel sampler against the plain ``LatentTailSampler`` (head 3,
    the same x_T, noise, zeta and eta); then at serving's small batches,
-   1 and 64 rows, continuous DDPM-20 and DDIM-10.
+   1 and 64 rows, continuous DDPM-20 and DDIM-10;
+12. "[bench]" (last): the kernel sampler against the plain loop at the
+   headline's 32,768 x 5,142 (the bench's model at a 20-step schedule,
+   DDPM-20 on a 13.5 GB noise buffer and DDIM-10, and DDIM-10 at the
+   suite's 131,072 rows, every draw on the card, atol 0.15 / rtol 0.05),
+   then the headline of
+   ``python -m osteosarcoma_diffusionmodel_torch.bench`` once (DDPM-1000
+   at 32,768 rows, one warm-up and the best of three calls), its JSON line
+   beside the card's, its launches counted (the kernel line's ``bench``
+   key) and the phase's seconds against its 60 s budget.
 
 K8 (``posterior_update``) has no caller in either package: its launches
 are those of its own check in phase 3.
@@ -223,6 +235,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from osteosarcoma_diffusionmodel_torch import bench as bench_module
 from osteosarcoma_diffusionmodel_torch.analysis import report as report_module
 from osteosarcoma_diffusionmodel_torch.analysis.report import grade
 from osteosarcoma_diffusionmodel_torch.cli import (
@@ -289,6 +302,7 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     GEMM_S8Q,
     GEMM_S8Q_GN,
     GEMM_S8Q_POSTERIOR,
+    GEMM_WIDTHS,
     GROUPNORM,
     GemmPlan,
     LATENT,
@@ -312,9 +326,11 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     gemm_s8q_gn_silu,
     gemm_s8q_plain,
     gemm_s8q_posterior,
+    _ctas_per_sm,
     gn_widths,
     groupnorm8_silu,
     groupnorm8_silu_plain,
+    k_tiles,
     kmajor_int8,
     latent_draw,
     latent_draw_plain,
@@ -356,6 +372,7 @@ STACK_LAUNCHES = 10
 LATENT_STEP_LAUNCHES = STACK_LAUNCHES + 1
 REPO = Path(__file__).resolve().parent
 BATCH = 333  # rows per scenario: 1000 // 3
+BENCH_ROWS = bench_module.BATCH  # the headline's rows, 32,768
 LATENT_ROWS = 999  # the latent path's rows: three scenarios of 333, batched
 LATENT_HEAD = 100  # a fixed head that leaves 899 latent steps at T = 1000
 DATA_DIMS = (62, 5054, 26)
@@ -1429,48 +1446,81 @@ def check_posterior_update(dev, g) -> list:
     return out
 
 
-def step_time(cases: dict) -> None:
-    """The bf16 step's summed kernel time at 333 rows, fused, and with each
-    fused product replaced by the pair it replaces."""
-    at_batch = lambda r: r["case"].startswith(f"{BATCH}x")  # noqa: E731
-    rows = [r for r in cases[GEMM.name] if r["per_step"] and at_batch(r)]
-    rows += [r for r in cases[GEMM_GN.name] if r["per_step"] and at_batch(r)]
-    rows += [r for r in cases[GEMM_POSTERIOR.name]
-             if at_batch(r) and r["case"].endswith("x5142 philox (bits = pair)")]
-    launches = sum(r["per_step"] for r in rows)
-    fused_launches = sum(r["per_step"] for r in rows if "pair_ms" in r)
-    fused = sum(r["per_step"] * r["ms"] for r in rows)
-    unfused = sum(r["per_step"] * r.get("pair_ms", r["ms"]) for r in rows)
-    print(f"[kernel] per bf16 DDPM step at {BATCH} rows: {launches} launches, {fused:.4f} ms "
-          f"summed; with K2 and K3 apart: {launches + fused_launches} launches, {unfused:.4f} ms",
-          flush=True)
+def step_time(cases: dict, rows: int = BATCH) -> None:
+    """The bf16 step's summed kernel time at ``rows`` rows, fused, and with
+    each fused product replaced by the pair it replaces; beside it the
+    sum of the launches' bounds."""
+    at_rows = lambda r: r["case"].startswith(f"{rows}x")  # noqa: E731
+    picked = [r for r in cases[GEMM.name] if r["per_step"] and at_rows(r)]
+    picked += [r for r in cases[GEMM_GN.name] if r["per_step"] and at_rows(r)]
+    picked += [r for r in cases[GEMM_POSTERIOR.name]
+               if at_rows(r) and r["case"].endswith("x5142 philox (bits = pair)")]
+    launches = sum(r["per_step"] for r in picked)
+    fused_launches = sum(r["per_step"] for r in picked if "pair_ms" in r)
+    fused = sum(r["per_step"] * r["ms"] for r in picked)
+    unfused = sum(r["per_step"] * r.get("pair_ms", r["ms"]) for r in picked)
+    bound = sum(r["per_step"] * r["bound_ms"] for r in picked)
+    print(f"[kernel] per bf16 DDPM step at {rows} rows: {launches} launches, {fused:.4f} ms "
+          f"summed (bound {bound:.4f} ms); with K2 and K3 apart: {launches + fused_launches} "
+          f"launches, {unfused:.4f} ms", flush=True)
+
+
+def check_step_shapes(dev, g, rows: int) -> tuple:
+    """K1, K1+GN and K1+posterior at every product of a bf16 step recorded
+    at ``rows`` rows (12 launches), each wrapper against its plain version
+    on the same inputs with the 333-row checks' tolerances (K1 repeat
+    bit-equal, the posterior carry bit-equal to the pair's), timed with
+    its bound. The posterior epilogue in every noise mode, without the
+    D3PM head. Returns the cases by kernel and the step's recorded calls."""
+    calls, launches = record_step(dev, rows=rows)
+    total = sum(sum(m.values()) for m in launches.values())
+    print(f"[kernel] launches per reverse step, bf16 at {rows} rows: {total} "
+          f"{json.dumps(launches)}", flush=True)
+    want = {GEMM.name, GEMM_GN.name, GEMM_POSTERIOR.name}
+    if total != STEP_LAUNCHES["none"] or set(launches) != want:
+        raise AssertionError(f"bf16 step at {rows} rows: {total} launches (want "
+                             f"{STEP_LAUNCHES['none']}, K1, K1+GN, K1+posterior only): "
+                             f"{launches}")
+    return {GEMM.name: check_gemm(dev, g, calls, extras=False),
+            GEMM_GN.name: check_gn_epilogue(dev, g, calls, [])[GEMM_GN.name],
+            GEMM_POSTERIOR.name: check_posterior_epilogue(
+                dev, g, rows, kinds=("bf16",), muts=(0,))[GEMM_POSTERIOR.name]}, calls
 
 
 def check_serve_shapes(dev, g) -> dict:
-    """K1, K1+GN and K1+posterior at the rows of the serving buckets that
+    """:func:`check_step_shapes` at the rows of the serving buckets that
     [serve] drives (``SERVE_BUCKETS``: one 64-row tile with one valid row
     and the largest split-K at 1 row, one full tile at 64, 16 tile rows at
-    1,024): every product of a bf16 step recorded at that size (12
-    launches), each wrapper against its plain version on the same inputs
-    with the 333-row checks' tolerances (K1 repeat bit-equal, the
-    posterior carry bit-equal to the pair's), timed with its bound. The
-    posterior epilogue in every noise mode, without the D3PM head (the
-    server's checkpoints are continuous)."""
+    1,024)."""
     out = {GEMM.name: [], GEMM_GN.name: [], GEMM_POSTERIOR.name: []}
     for rows in SERVE_BUCKETS:
-        calls, launches = record_step(dev, rows=rows)
-        total = sum(sum(m.values()) for m in launches.values())
-        print(f"[kernel] launches per reverse step, bf16 at {rows} rows: {total} "
-              f"{json.dumps(launches)}", flush=True)
-        if total != STEP_LAUNCHES["none"] or set(launches) != set(out):
-            raise AssertionError(f"bf16 step at {rows} rows: {total} launches (want "
-                                 f"{STEP_LAUNCHES['none']}, K1, K1+GN, K1+posterior only): "
-                                 f"{launches}")
-        out[GEMM.name] += check_gemm(dev, g, calls, extras=False)
-        out[GEMM_GN.name] += check_gn_epilogue(dev, g, calls, [])[GEMM_GN.name]
-        out[GEMM_POSTERIOR.name] += check_posterior_epilogue(
-            dev, g, rows, kinds=("bf16",), muts=(0,))[GEMM_POSTERIOR.name]
+        for name, cases in check_step_shapes(dev, g, rows)[0].items():
+            out[name] += cases
     return out
+
+
+def print_plans(dev, calls, rows: int) -> None:
+    """The launch plan of each distinct product of a step recorded at
+    ``rows`` rows: tiles, rounds of CTAs over the SMs (CTAs that share an
+    SM by shared memory counted) and the split-K workspace it needs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    widths = {"gemm_bf16_f32acc": GEMM_WIDTHS, "gemm_bf16_posterior": POSTERIOR_WIDTHS}
+    seen = []
+    for name, sig in calls:
+        m, k, n = sig[:3]
+        if (name, m, k, n) in seen:
+            continue
+        seen.append((name, m, k, n))
+        plan = gemm_plan(m, n, k, sms, "bf16", widths.get(name, gn_widths(n)))
+        tiles = -(-m // plan.bm) * -(-n // plan.bn)
+        walk = -(-k_tiles(k, "bf16") // plan.splits)
+        per_sm = _ctas_per_sm(plan.bn, walk)
+        rounds = -(-tiles * plan.splits // (sms * per_sm))
+        workspace = tiles * plan.splits * plan.bm * plan.bn * 4 if plan.splits > 1 else 0
+        print(f"[kernel] plan at {rows} rows, {name} {m}x{k}.{k}x{n}: {plan.bm}x{plan.bn} "
+              f"tiles, {plan.splits} split(s): {tiles} tiles, {per_sm} CTA(s) an SM, {rounds} "
+              f"round(s) over {sms} SMs ({tiles * plan.splits / sms:.2f} CTAs an SM); split-K "
+              f"workspace {workspace} bytes", flush=True)
 
 
 def check_kernels(dev) -> dict:
@@ -1494,6 +1544,13 @@ def check_kernels(dev) -> dict:
     for name, rows in check_serve_shapes(dev, g).items():
         cases[name] += rows
     step_time(cases)
+    t0 = time.perf_counter()
+    bench_cases, calls = check_step_shapes(dev, g, BENCH_ROWS)
+    print_plans(dev, calls, BENCH_ROWS)
+    for name, rows in bench_cases.items():
+        cases[name] += rows
+    step_time(cases, BENCH_ROWS)
+    print(f"[kernel] the {BENCH_ROWS}-row cases in {time.perf_counter() - t0:.1f} s", flush=True)
     return cases
 
 
@@ -3401,11 +3458,101 @@ def run_multi_phase(root: Path) -> dict:
     return res["launches"]
 
 
-def kernel_report(cases: dict, launches: dict, multi: dict) -> list:
+# The bench phase: the headline's batch, its model at a 20-step schedule
+# for the plain loop, and the kernels that the headline must launch.
+BENCH_PLAIN_STEPS = 20
+BENCH_DDIM_STEPS = 10
+BENCH_WIDE_ROWS = 131072  # the suite's widest DDIM-50 batch
+BENCH_BUDGET_S = 60
+BENCH_REQUIRED = {GEMM: ["bf16"], GEMM_GN: ["default"], GEMM_POSTERIOR: ["philox"]}
+
+
+def check_bench_against_plain_loop(dev) -> None:
+    """The kernel sampler against the plain PyTorch loop (the module in
+    f32) at the headline's batch, 32,768 x 5,142: the bench's model (seed-0
+    weights, constraints off) with a 20-step schedule, the same x_T,
+    conditions and noise, all drawn on the card; DDPM-20 on a noise buffer
+    (20 x 32,768 x 5,142 f32, 13.5 GB, freed after use), then DDIM-10; and
+    DDIM-10 at the suite's widest batch, 131,072 rows (675 M carry
+    elements, a 2.7 GB f32 result: offsets past 2^31 bytes). Tolerance,
+    the bf16-carry one of the 333-row check: atol 0.15 / rtol 0.05, and
+    finite."""
+    cfg = bench_module.bench_config(BENCH_PLAIN_STEPS)
+    cfg.model.compute_dtype = "float32"
+    model = bench_module.bench_model(cfg, DATA_DIMS, dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    cases = ((BENCH_ROWS, f"DDPM-{BENCH_PLAIN_STEPS} buffer", None),
+             (BENCH_ROWS, f"DDIM-{BENCH_DDIM_STEPS}", BENCH_DDIM_STEPS),
+             (BENCH_WIDE_ROWS, f"DDIM-{BENCH_DDIM_STEPS}", BENCH_DDIM_STEPS))
+    for rows, label, ddim in cases:
+        t0 = time.perf_counter()
+        cond = torch.randn(rows, len(bench_module.CONDITION_NAMES), generator=g, device=dev)
+        x_init = torch.randn(rows, D, generator=g, device=dev)
+        noise = None if ddim else torch.randn(BENCH_PLAIN_STEPS, rows, D, generator=g,
+                                              device=dev)
+        got = FusedSampler(model, dev, ddim_steps=ddim).sample(cond, g, x_init=x_init,
+                                                               noise=noise)
+        if ddim:
+            ref = model.sample_ddim(cond, g, ddim, x_init=x_init)
+        else:
+            ref = model.sample(cond, g, x_init=x_init, noise=noise)
+        del noise, x_init
+        torch.cuda.empty_cache()
+        err = (got - ref).abs()
+        ok = bool((err <= 0.15 + 0.05 * ref.abs()).all()) and bool(torch.isfinite(got).all())
+        print(f"[bench] {label} {rows}x{D}: kernel sampler vs plain loop max|diff| "
+              f"{float(err.max()):.4f} (mean {float(err.mean()):.2e}), within atol 0.15 / rtol "
+              f"0.05: {ok}; std {float(ref.std()):.3f}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{label} at {rows} rows: kernel sampler disagrees with the "
+                                 "plain loop")
+        del got, ref, err
+        torch.cuda.empty_cache()
+
+
+def run_bench_phase(dev) -> dict:
+    """[bench] (after every other phase): the kernel sampler against the
+    plain loop at 32,768 and 131,072 rows, then the headline of
+    ``osteosarcoma_diffusionmodel_torch.bench`` once (DDPM-1000 at 32,768
+    rows, one warm-up and the best of three calls, its draws on the card),
+    its JSON line printed beside the card's, with its launch counts set to
+    0 just before and read just after: K1, K1+GN and K1+posterior
+    ("philox") must have launched, nothing the main paths forbid. Returns
+    the headline's launches by kernel."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_bench_against_plain_loop(dev)
+    for k in KERNELS:
+        k.reset()
+    line, stats = bench_module.headline(dev)
+    counts = {k.name: dict(k.modes) for k in KERNELS}
+    ran = {name: {m: n for m, n in modes.items() if n} for name, modes in counts.items()
+           if any(modes.values())}
+    print(f"[bench] {card_line()}", flush=True)
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    print(f"[bench] headline calls at {stats['rows']} rows: best {stats['best']:.4f} s, median "
+          f"{stats['median']:.4f} s, spread {stats['spread']:.4f} s; "
+          f"{1e3 * stats['best'] / bench_module.NUM_STEPS:.4f} ms a step; launches by mode "
+          f"{json.dumps(ran)}", flush=True)
+    missing = [f"{k.name}:{mode}" for k, modes in BENCH_REQUIRED.items() for mode in modes
+               if counts[k.name][mode] == 0]
+    if missing or line["value"] is None:
+        raise AssertionError(f"[bench] the headline did not launch {missing}: {line}")
+    check_forbidden("bench")
+    seconds = time.perf_counter() - t0
+    print(f"[bench] phase {seconds:.1f} s (budget {BENCH_BUDGET_S} s)", flush=True)
+    if seconds > BENCH_BUDGET_S:
+        print(f"[bench] WARNING the phase took {seconds:.1f} s, over its {BENCH_BUDGET_S} s",
+              flush=True)
+    return {k.name: k.launches for k in KERNELS}
+
+
+def kernel_report(cases: dict, launches: dict, multi: dict, bench: dict) -> list:
     """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
-    single PyTorch call computes the function; ``multi``: the [multi]
-    phase's launches, counted in ``launches`` too."""
+    single PyTorch call computes the function; ``multi`` and ``bench``: the
+    [multi] and [bench] phases' launches, counted in ``launches`` too."""
     out = []
     for k in KERNELS:
         rows = cases[k.name]
@@ -3413,6 +3560,7 @@ def kernel_report(cases: dict, launches: dict, multi: dict) -> list:
         out.append({
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "multi": multi.get(k.name, 0),
+            "bench": bench.get(k.name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -3464,13 +3612,16 @@ def main(argv=None) -> int:
                        run_latent_path(cfg, dev, Path(tmp)), multi):
             for name, n in counts.items():
                 launches[name] += n
-        launches[POSTERIOR_UPDATE.name] = k8_launches
-        print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
-        report = kernel_report(cases, launches, multi)
         check_d3pm_calibration(cfg, ckpts[True], dev)
         check_against_plain_loop(cfg, dev)
         check_small_batches_against_plain(cfg, dev)
         check_latent_against_plain(cfg, dev)
+        bench = run_bench_phase(dev)
+        for name, n in bench.items():
+            launches[name] += n
+        launches[POSTERIOR_UPDATE.name] = k8_launches
+        print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
+        report = kernel_report(cases, launches, multi, bench)
 
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

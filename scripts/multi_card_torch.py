@@ -167,16 +167,20 @@ def sampler_parts(cfg: Config, shape: dict, rows: int, big_rows: int, mesh, dev)
         out["finite"] = out.get("finite", True) and bool(torch.isfinite(got).all())
     del noise
     for n in (rows, big_rows):
-        cond_n = torch.randn(n, dims.condition_dim, generator=torch.Generator().manual_seed(n))
+        # The walls' conditions, x_T and seeds come from generators on the
+        # rank's device, so no wall holds a host draw or a host-to-card copy.
+        cond_n = torch.randn(n, dims.condition_dim, generator=torch.Generator(dev).manual_seed(n),
+                             device=dev)
         walls = {"sharded": [], "one": []}
         for _ in range(3):
             dist.barrier()
             s, got = _wall(lambda: ddpm.sample_sharded(mesh, cond_n,
-                                                       torch.Generator().manual_seed(17)), dev)
+                                                       torch.Generator(dev).manual_seed(17)), dev)
             walls["sharded"].append(s)
             dist.barrier()
             if rank == 0:
-                s, _ = _wall(lambda: ddpm.sample(cond_n, torch.Generator().manual_seed(17)), dev)
+                s, _ = _wall(lambda: ddpm.sample(cond_n, torch.Generator(dev).manual_seed(17)),
+                             dev)
                 walls["one"].append(s)
             dist.barrier()
         out["finite"] = out["finite"] and bool(torch.isfinite(got).all())
