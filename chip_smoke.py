@@ -362,6 +362,7 @@ from osteosarcoma_diffusionmodel_torch.utils.card import (
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
 from osteosarcoma_diffusionmodel_torch.utils.profiling import device_memory_stats
+from osteosarcoma_diffusionmodel_torch.validation.validator import BiologicalValidator
 
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
 STEP_LAUNCHES = {"none": 12, "out": 12, "io": 13, "all": 15}
@@ -1161,15 +1162,19 @@ def check_rbf(dev, g) -> list:
     takes: "fma" (f32 FMA on the CUDA cores) 2nmd operations at the f32
     peak; "tf32x3" (three TF32 products on the tensor cores, never one)
     3·2nmd at the TF32 peak; or the bytes of x and y (once where y is x),
-    whichever is larger."""
+    whichever is larger. One case at gamma = 0.37/d (the validator's
+    ``compute_mmd`` takes any gamma), then one ``compute_mmd`` call on the
+    card at that gamma against the MMD of the float64 plain sums."""
     x = torch.randn(100, D, generator=g).to(dev)
     y = (torch.randn(999, D, generator=g) * 1.05 + 0.02).to(dev)
     z = (torch.randn(9999, D, generator=g) * 1.05 + 0.02).to(dev)
-    gamma = 1.0 / D
+    inv_d = 1.0 / D
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
-    for case, a, b in (("xx 100x100", x, x), ("yy 999x999", y, y), ("xy 100x999", x, y),
-                       ("zz 9999x9999", z, z), ("xz 100x9999", x, z)):
+    for case, a, b, gamma in (("xx 100x100", x, x, inv_d), ("yy 999x999", y, y, inv_d),
+                              ("xy 100x999", x, y, inv_d), ("zz 9999x9999", z, z, inv_d),
+                              ("xz 100x9999", x, z, inv_d),
+                              ("xy@0.37/d 100x999", x, y, 0.37 * inv_d)):
         got = float(rbf_kernel_sum(a, b, gamma))
         ref = float(rbf_kernel_sum_plain(a, b, gamma))
         again = float(rbf_kernel_sum(a, b, gamma))
@@ -1193,7 +1198,30 @@ def check_rbf(dev, g) -> list:
         if limit[0] > ms:
             raise AssertionError(f"K4 {case}: {ms} ms is under its bound {limit[0]} ms")
         out.append(row)
+    check_compute_mmd(dev, x, y, 0.37 * inv_d)
     return out
+
+
+def check_compute_mmd(dev, x: torch.Tensor, y: torch.Tensor, gamma: float) -> None:
+    """``BiologicalValidator.compute_mmd`` on the card (three K4 launches)
+    against sqrt(xx/n² + yy/m² − 2xy/nm) of the float64 plain sums. Each
+    K4 sum is held within 1e-5 of its own value, so the MMD within
+    1e-5·(xx/n² + yy/m² + 2xy/nm) / (2·MMD)."""
+    t0 = time.perf_counter()
+    got = BiologicalValidator(Config(), device=dev).compute_mmd(
+        x.cpu().numpy(), y.cpu().numpy(), gamma=gamma)
+    seconds = time.perf_counter() - t0
+    n, m = x.shape[0], y.shape[0]
+    terms = (float(rbf_kernel_sum_plain(x, x, gamma)) / n ** 2,
+             float(rbf_kernel_sum_plain(y, y, gamma)) / m ** 2,
+             float(rbf_kernel_sum_plain(x, y, gamma)) / (n * m))
+    ref = math.sqrt(max(terms[0] + terms[1] - 2.0 * terms[2], 0.0))
+    tol = 1e-5 * (terms[0] + terms[1] + 2.0 * terms[2]) / (2.0 * ref)
+    print(f"[kernel] {RBF.name} compute_mmd {n}x{m}x{D} at gamma 0.37/d on the card: {got:.6f} "
+          f"against {ref:.6f} (|diff| {abs(got - ref):.3e}, tol {tol:.3e}) in {seconds:.3f} s",
+          flush=True)
+    if not abs(got - ref) <= tol:
+        raise AssertionError(f"compute_mmd {got} against {ref}: beyond {tol}")
 
 
 def _latent_case(dev, g, m: int, h: int, mode: str, sms: int) -> dict:

@@ -3,9 +3,9 @@
 Counterpart of osteosarcoma_diffusionmodel_tpu/generation/generator.py
 for the three model families: scenario conditions (:90-134), sampling
 (:189-331), calibration against the training cohort (:333-704), the
-per-scenario and batched loops (:705-768), the modality split and the CSV
-export (:771-820), and checkpoint loading (:825-874, through
-:func:`~..training.trainer.build_model`).
+per-scenario and batched loops (:705-768), the modality split and the
+export in each configured format (:771-823), and checkpoint loading
+(:825-874, through :func:`~..training.trainer.build_model`).
 
 The cVAE and the flow sample in one pass on the generator's device, before
 anything of the diffusion model is read (JAX :217-233): the cVAE decodes
@@ -59,6 +59,7 @@ cohort to the other ranks.
 from __future__ import annotations
 
 import logging
+import os
 from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Union
@@ -81,7 +82,7 @@ from ..ops.copula import (
 from ..ops.copula_device import DeviceCalibrator
 from ..ops.fused_sampler import FusedSampler, supports_fused
 from ..parallel.batch import RowBlock, gather_rows
-from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size
+from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size, is_writer
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
 from ..training.trainer import build_model
 from ..utils.io import write_matrix_csv
@@ -128,6 +129,9 @@ class SyntheticPatientGenerator:
         self._device_joint_cal: Optional[DeviceCalibrator] = None
         self._device_cont_cal: Optional[DeviceCalibrator] = None
         self._latent_prior: Optional[tuple] = None
+        # Cohorts dumped under OSDM_DUMP_RAW: repeat calls get an _s{i}
+        # suffix, so a per-scenario loop keeps every dump (JAX :80-82).
+        self._dump_count = 0
 
     # ------------------------------------------------------------------
     def create_conditions(self, num_samples: int, scenario: Optional[Dict] = None,
@@ -272,7 +276,9 @@ class SyntheticPatientGenerator:
         once: to the device when the device path calibrates it, else to the
         host. With the AR head the mutation block is then drawn from
         ``ar_generator`` (JAX :376-386). Under a mesh of several data ranks,
-        rank 0 of the data axis does it and sends the result to the others."""
+        rank 0 of the data axis does it and sends the result to the others.
+        With ``OSDM_DUMP_RAW`` set, the rank that writes files dumps the raw
+        cohort first (:meth:`_dump_raw`)."""
         if self.mesh is None or axis_size(self.mesh, DATA_AXIS) == 1:
             return self._finish(samples, conditions, ar_generator)
         group = axis_group(self.mesh, DATA_AXIS)
@@ -283,6 +289,8 @@ class SyntheticPatientGenerator:
 
     def _finish(self, samples: Union[torch.Tensor, np.ndarray], conditions: np.ndarray,
                 ar_generator: Optional[torch.Generator]) -> Dict[str, np.ndarray]:
+        if os.environ.get("OSDM_DUMP_RAW") and is_writer():
+            self._dump_raw(samples, conditions)
         on_device = self._device_calibration_enabled(samples.shape[0])
         if on_device:
             samples = torch.as_tensor(samples, dtype=torch.float32).to(self.device)
@@ -308,6 +316,26 @@ class SyntheticPatientGenerator:
             "pathways": continuous[:, e:],
             "conditions": np.asarray(conditions),
         }
+
+    def _dump_raw(self, samples: Union[torch.Tensor, np.ndarray], conditions: np.ndarray) -> None:
+        """Debug hook (JAX :345-365): the pre-calibration cohort (float32,
+        read back from the device) and its conditions into
+        ``$OSDM_DUMP_RAW`` as ``savez_compressed(samples=, conditions=)``,
+        for replaying calibration modes on the host
+        (scripts/replay_calibration_torch.py). The first call writes the
+        path itself, call i > 0 ``<stem>_s{i}.npz``."""
+        dump = Path(os.environ["OSDM_DUMP_RAW"])
+        n_prev = self._dump_count
+        self._dump_count += 1
+        if n_prev:
+            stem = dump.name[:-4] if dump.name.endswith(".npz") else dump.name
+            dump = dump.with_name(f"{stem}_s{n_prev}.npz")
+        if torch.is_tensor(samples):
+            samples = samples.float().cpu().numpy()
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(dump, samples=np.asarray(samples, np.float32),
+                            conditions=np.asarray(conditions))
+        logger.info("Raw samples dumped to %s", dump)
 
     def _ar_bits(self, continuous: np.ndarray, conditions: np.ndarray,
                  generator: Optional[torch.Generator]) -> np.ndarray:
@@ -520,11 +548,22 @@ class SyntheticPatientGenerator:
     # ------------------------------------------------------------------
     def save_synthetic_data(self, synthetic: Dict[str, np.ndarray], output_dir: str | Path,
                             gene_names: Dict[str, List[str]], prefix: str = "synthetic") -> None:
-        """Per-modality CSV tables ``<prefix>_<modality>.csv``."""
+        """Per-modality tables ``<prefix>_<modality>`` in each of
+        ``output.export_formats`` (JAX :771-823): ``.csv`` where "csv" is
+        listed, ``.pkl`` (``DataFrame.to_pickle``) for "pickle", ``.h5``
+        (``to_hdf``) for "h5", or ``np.savez_compressed(values=,
+        columns=)`` into ``.npz`` where pytables is missing. pandas is
+        imported here only: without it "h5" writes the npz and "pickle"
+        raises."""
         formats = [f.lower() for f in self.config.output.export_formats] or ["csv"]
-        if set(formats) - {"csv"}:
-            raise NotImplementedError(
-                f"export formats {sorted(set(formats) - {'csv'})}: the port writes CSV only")
+        pd = None
+        if "pickle" in formats or "h5" in formats:
+            try:
+                import pandas as pd
+            except ImportError:
+                if "pickle" in formats:
+                    raise ImportError("output.export_formats 'pickle' needs pandas, "
+                                      "which is not installed") from None
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         tables = {}
@@ -534,9 +573,30 @@ class SyntheticPatientGenerator:
                 tables[key] = gene_names[names]
         tables["conditions"] = self.dims.condition_names or self.config.model.condition_on
         for name, columns in tables.items():
-            path = output_dir / f"{prefix}_{name}.csv"
-            write_matrix_csv(path, synthetic[name], columns)
-            logger.info("Saved %s", path.name)
+            base = output_dir / f"{prefix}_{name}"
+            values = np.asarray(synthetic[name])
+            frame = pd.DataFrame(values, columns=list(columns)) if pd is not None else None
+            if "csv" in formats:
+                write_matrix_csv(base.with_suffix(".csv"), values, columns)
+            if "pickle" in formats:
+                frame.to_pickle(base.with_suffix(".pkl"))
+            if "h5" in formats:
+                _write_h5(frame, values, columns, base, name)
+            logger.info("Saved %s (%s)", base.name, ", ".join(formats))
+
+
+def _write_h5(frame, values: np.ndarray, columns, base: Path, key: str) -> None:
+    """``frame.to_hdf`` into ``<base>.h5``; where pytables (or pandas) is
+    missing, the JAX fallback ``savez_compressed(values=, columns=)`` into
+    ``<base>.npz``."""
+    if frame is not None:
+        try:
+            frame.to_hdf(base.with_suffix(".h5"), key=key, mode="w")
+            return
+        except ImportError:
+            pass
+    np.savez_compressed(base.with_suffix(".npz"), values=values,
+                        columns=np.asarray(list(columns), dtype=object))
 
 
 def load_trained_model(checkpoint_dir: str | Path, config: Optional[Config] = None):

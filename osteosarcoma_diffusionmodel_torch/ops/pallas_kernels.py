@@ -127,12 +127,14 @@ def rbf_kernel_sum(x: torch.Tensor, y: torch.Tensor, gamma: float,
     return out
 
 
-def mmd_rbf(x: torch.Tensor, y: torch.Tensor) -> float:
-    """sqrt(max(E k(x,x) + E k(y,y) - 2 E k(x,y), 0)) with gamma = 1/d
-    (pallas_kernels.py `mmd_rbf_pallas`, as the validator calls it)."""
+def mmd_rbf(x: torch.Tensor, y: torch.Tensor, gamma: Optional[float] = None) -> float:
+    """sqrt(max(E k(x,x) + E k(y,y) - 2 E k(x,y), 0)) with k(a, b) =
+    exp(-gamma ||a - b||^2), gamma = 1/d unless given (pallas_kernels.py
+    `mmd_rbf_pallas`)."""
     x = x.float().contiguous()
     y = y.float().contiguous()
-    gamma = 1.0 / x.shape[1]
+    if gamma is None:
+        gamma = 1.0 / x.shape[1]
     n, m = x.shape[0], y.shape[0]
     xx = rbf_kernel_sum(x, x, gamma) / (n * n)
     yy = rbf_kernel_sum(y, y, gamma) / (m * m)

@@ -5,10 +5,10 @@ Counterpart of osteosarcoma_diffusionmodel_tpu/validation/validator.py
 correlation, driver-gene frequency difference, mutual-exclusivity
 violations, chi-square co-occurrence pattern correlation (seeded gene
 sample), within-pathway coherence, mutation -> pathway direction rules,
-KS (raw and size-matched), MMD (kernel K4), Wasserstein on 10 PCs, the
-novelty audit and the overall score. Inputs are numpy matrices with
-their column names (:class:`..utils.io.Matrix`) instead of DataFrames;
-the numeric work runs as PyTorch ops on ``device``.
+KS (raw and size-matched), MMD (kernel K4; ``compute_mmd`` at any gamma),
+Wasserstein on 10 PCs, the novelty audit and the overall score. Inputs
+are numpy matrices with their column names (:class:`..utils.io.Matrix`)
+instead of DataFrames; the numeric work runs as PyTorch ops on ``device``.
 """
 
 from __future__ import annotations
@@ -183,6 +183,11 @@ class BiologicalValidator:
         for key, value in results.items():
             logger.info("%s: %.4f", key, value)
         return results
+
+    def compute_mmd(self, x: np.ndarray, y: np.ndarray, gamma: Optional[float] = None) -> float:
+        """The RBF-kernel MMD of two cohorts on the validator's device
+        (kernel K4 on the card), gamma = 1/d unless given."""
+        return mmd_rbf(self._t(x), self._t(y), gamma=gamma)
 
     # ------------------------------------------------------------------
     def novelty_metrics(self, real_data: np.ndarray,

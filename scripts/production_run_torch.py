@@ -7,9 +7,9 @@ Counterpart of scripts/production_run.py (the protocol behind
 PRODUCTION_RUN.json) with the port's CLI steps: ``config/production.yaml``
 through the YAML loader; the seeded structured cohort of 100 patients at
 62 mutation genes, 5,054 expression genes and 26 pathway columns
-(``data/dummy.py``, the draws of the JAX ``make_dummy_data``); the JAX
-pathways step's files (pathway scores recomputed from the expression
-table, ``gene_pathway_matrix.csv``), which leave 29 pathway columns; then
+(``data/dummy.py``, the draws of the JAX ``make_dummy_data``); the CLI's
+pathways step (pathway scores recomputed from the expression table,
+``gene_pathway_matrix.csv``), which leaves 29 pathway columns; then
 train (600 epochs, patience 600), generate (10,002 patients, DDIM-50,
 ``batch_scenarios``, ``copula_joint``) and validate. The JAX protocol's
 report step is not ported and not run.
@@ -18,8 +18,9 @@ It writes one JSON object: the validator's metrics, the training history
 (epochs, first and last losses, steps/sec, seconds an epoch), the seconds
 of each step, the backend of generate's calibration (the card, under
 "auto", for the batched cohort of 10,002 rows), and the card's name and
-power limit as nvidia-smi reports them. ``--assert`` exits 1 unless overall_biological_score >= 0.85 and
-mmd < 0.15, the gate of scripts/demo_full_scale.py. The steps run on the
+power limit as nvidia-smi reports them (``utils/quality.py``, shared with
+the demo scripts). ``--assert`` exits 1 unless overall_biological_score
+>= 0.85 and mmd < 0.15, the gate of scripts/demo_full_scale.py. The steps run on the
 card; ``--device cpu`` runs them on the CPU.
 """
 
@@ -28,19 +29,18 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from osteosarcoma_diffusionmodel_torch.cli import (  # noqa: E402
+    compute_pathway_features,
     default_device,
     generate_synthetic_patients,
     train_model,
@@ -51,51 +51,13 @@ from osteosarcoma_diffusionmodel_torch.data.dummy import (  # noqa: E402
     make_dummy_cohort,
     write_processed,
 )
-from osteosarcoma_diffusionmodel_torch.data.pathways import (  # noqa: E402
-    HALLMARK_GENE_SETS,
-    pathway_scores_from_expression,
-)
 from osteosarcoma_diffusionmodel_torch.generation.generator import CALIBRATIONS  # noqa: E402
-from osteosarcoma_diffusionmodel_torch.utils.io import (  # noqa: E402
-    read_matrix_csv,
-    write_matrix_csv,
+from osteosarcoma_diffusionmodel_torch.utils.quality import (  # noqa: E402
+    apply_gate,
+    device_stamp,
+    gate_failures,  # noqa: F401 (the gate, for the tests)
+    timed,
 )
-
-GATE = {"overall_biological_score": 0.85, "mmd": 0.15}
-
-
-def pathways_step(processed: Path) -> int:
-    """The JAX CLI's pathways step on ``processed`` (cli.py:75-98 there):
-    pathway scores recomputed from the expression table and the binary
-    gene x pathway membership matrix. Returns the pathway count."""
-    expr = read_matrix_csv(processed / "expression_matrix_aligned.csv")
-    scores, names = pathway_scores_from_expression(expr.values, expr.columns)
-    write_matrix_csv(processed / "pathway_scores.csv", scores, names, index=expr.index,
-                     fmt="%r")
-    genes = sorted({g for members in HALLMARK_GENE_SETS.values() for g in members})
-    row = {g: i for i, g in enumerate(genes)}
-    member = np.zeros((len(genes), len(HALLMARK_GENE_SETS)), np.int64)
-    for j, members in enumerate(HALLMARK_GENE_SETS.values()):
-        member[[row[g] for g in members], j] = 1
-    write_matrix_csv(processed / "gene_pathway_matrix.csv", member, list(HALLMARK_GENE_SETS),
-                     index=genes, fmt="%d")
-    return len(names)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def _timed(fn, device: str):
-    sync = torch.cuda.synchronize if device.startswith("cuda") else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    out = fn()
-    sync()
-    return out, time.perf_counter() - t0
 
 
 def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
@@ -104,10 +66,10 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
     cohort = make_dummy_cohort(100, *dims, seed=0)
     processed = workdir / "processed"
     write_processed(cohort, processed)
-    n_pathways = pathways_step(processed)
 
     cfg = config or Config.from_yaml(REPO / "config" / "production.yaml")
     cfg.data.processed_dir = str(processed)
+    n_pathways = len(compute_pathway_features(cfg).columns)
     cfg.training.num_epochs = epochs
     cfg.training.patience = epochs
     cfg.training.save_dir = str(workdir / "ckpt")
@@ -116,11 +78,11 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
     cfg.output.synthetic_data_dir = str(workdir / "results" / "synthetic")
 
     t_start = time.perf_counter()
-    history, train_s = _timed(lambda: train_model(cfg, device=device), device)
+    history, train_s = timed(lambda: train_model(cfg, device=device), device)
     CALIBRATIONS.clear()
-    _, generate_s = _timed(lambda: generate_synthetic_patients(cfg, device=device), device)
+    _, generate_s = timed(lambda: generate_synthetic_patients(cfg, device=device), device)
     calibrations = dict(CALIBRATIONS)
-    results, validate_s = _timed(lambda: validate_synthetic_patients(cfg, device=device), device)
+    results, validate_s = timed(lambda: validate_synthetic_patients(cfg, device=device), device)
     wall = time.perf_counter() - t_start
 
     n = len(history.train_loss)
@@ -130,10 +92,7 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
         "protocol": (f"scripts/production_run_torch.py (pathways train generate validate); "
                      f"100x{dims[0] + dims[1] + n_pathways} structured cohort, {epochs} epochs, "
                      f"{samples} generated"),
-        "device": {"kind": torch.cuda.get_device_name(0) if device.startswith("cuda")
-                   else "cpu",
-                   "nvidia_smi": card_line() if device.startswith("cuda") else None,
-                   "torch": torch.__version__},
+        "device": device_stamp(device),
         "train_epochs": n,
         "training": {
             "steps_per_sec": history.steps_per_sec,
@@ -148,16 +107,6 @@ def run(workdir: Path, device: str, epochs: int = 600, samples: int = 10002,
         "pipeline_wall_clock_sec": wall,
         "validation": {k: float(v) for k, v in results.items()},
     }
-
-
-def gate_failures(validation: dict) -> list:
-    overall, mmd = validation["overall_biological_score"], validation["mmd"]
-    failures = []
-    if overall < GATE["overall_biological_score"]:
-        failures.append(f"overall_biological_score {overall:.4f} < 0.85")
-    if mmd >= GATE["mmd"]:
-        failures.append(f"mmd {mmd:.4f} >= 0.15")
-    return failures
 
 
 def main(argv=None) -> int:
@@ -175,15 +124,7 @@ def main(argv=None) -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1) + "\n")
     print(json.dumps(out, indent=1))
-    if args.gate:
-        failures = gate_failures(out["validation"])
-        v = out["validation"]
-        if failures:
-            print("QUALITY GATE FAILED: " + "; ".join(failures))
-            return 1
-        print(f"QUALITY GATE PASSED: overall={v['overall_biological_score']:.4f} "
-              f"mmd={v['mmd']:.4f}")
-    return 0
+    return apply_gate(out["validation"]) if args.gate else 0
 
 
 if __name__ == "__main__":

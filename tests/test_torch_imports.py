@@ -117,6 +117,23 @@ def test_calibration_and_serving_modules_import_no_jax(module):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
+@pytest.mark.parametrize("script", ["demo_full_scale_torch", "demo_held_out_torch",
+                                    "replay_calibration_torch", "production_run_torch"])
+def test_quality_scripts_import_no_jax_or_pandas(script):
+    """The port's quality scripts, each loaded alone in a fresh
+    interpreter: no JAX, Flax, pandas, PyYAML or matplotlib at module
+    level, nothing of the JAX package."""
+    code = ("import importlib.util, sys; "
+            f"spec = importlib.util.spec_from_file_location('s', 'scripts/{script}.py'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+            "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', 'matplotlib', "
+            "'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
+            "assert not bad, bad; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_refuses_without_a_card(where, tmp_path):
     """No CUDA device here: chip_smoke.py exits non-zero and prints no

@@ -22,6 +22,8 @@ sampler with DDPM as JAX ``tests/test_sharded_generation.py``, the cVAE),
 - The sharded generator agrees with the unsharded one within
   tests/test_sharded_generation.py's bounds (rtol 1e-3, atol 5e-3; under
   1% of the mutation bits flipped).
+- With ``OSDM_DUMP_RAW`` set (a path per rank), only data-rank 0, the rank
+  that calibrates, dumps the raw cohort.
 """
 
 import copy
@@ -167,3 +169,16 @@ def test_sharded_generator_matches_unsharded(world, name):
         assert (got["mutations"] != want["mutations"]).mean() < GEN_FLIPS
         np.testing.assert_array_equal(got["conditions"], want["conditions"])
     assert route == {name: 1}  # each case is named after its route
+
+
+@pytest.mark.parametrize("name", ["kernel", "scan", "cvae"])
+def test_sharded_generator_dumps_from_data_rank_0(world, name):
+    """One dump under the mesh, from data-rank 0: the gathered raw cohort
+    and the conditions that rank returns."""
+    out, _, generators = world
+    dims = generators[name][2]
+    assert all(f"gen/{name}/dump" not in res for res in out[1:])
+    dump = out[0][f"gen/{name}/dump"]
+    assert dump["samples"].shape == (GEN_ROWS, dims.data_dim)
+    assert dump["samples"].dtype == np.float32 and np.isfinite(dump["samples"]).all()
+    np.testing.assert_array_equal(dump["conditions"], out[0][f"gen/{name}"]["conditions"])

@@ -183,7 +183,10 @@ def mesh_world(rank: int, world: int, workdir: Path) -> None:
 
 def sampler_world(rank: int, world: int, workdir: Path) -> None:
     """``FusedSampler.sample_sharded`` in every mode against ``sample``, and
-    the sharded generator on each route against the unsharded one."""
+    the sharded generator on each route against the unsharded one, with
+    ``OSDM_DUMP_RAW`` set to a path of the rank's own."""
+    import numpy as np
+
     from osteosarcoma_diffusionmodel_torch.generation import generator as gen_module
     from osteosarcoma_diffusionmodel_torch.generation.generator import SyntheticPatientGenerator
     from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
@@ -206,9 +209,17 @@ def sampler_world(rank: int, world: int, workdir: Path) -> None:
         gen_module.SAMPLERS.clear()
         gen_module.CALIBRATIONS.clear()
         gen = SyntheticPatientGenerator(gmodel, cfg, dims, stats, device="cpu", mesh=mesh)
-        out[f"gen/{name}"] = gen.generate(inputs["gen_rows"], inputs["scenario"],
-                                          torch.Generator().manual_seed(5))
+        dump = workdir / f"raw_{name}_rank{rank}.npz"  # OSDM_DUMP_RAW: a path per rank
+        os.environ["OSDM_DUMP_RAW"] = str(dump)
+        try:
+            out[f"gen/{name}"] = gen.generate(inputs["gen_rows"], inputs["scenario"],
+                                              torch.Generator().manual_seed(5))
+        finally:
+            del os.environ["OSDM_DUMP_RAW"]
         out[f"gen/{name}/routes"] = (dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS))
+        if dump.exists():
+            with np.load(dump) as f:
+                out[f"gen/{name}/dump"] = {k: f[k] for k in f.files}
     _save(workdir, rank, out)
 
 
