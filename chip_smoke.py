@@ -40,7 +40,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
    plain version at the same tolerances, timed with its bound; and the
    same at the headline's 32,768 rows (K1's input product also beside
    ``addmm``), with each product's launch plan (tiles, rounds over the
-   SMs, split-K workspace) and the step's summed time and bound;
+   SMs, split-K workspace) and the step's summed time and bound; at those
+   rows also the launches that int8 "out" and the D3PM head change, from
+   steps of theirs recorded at that size (12 launches each): K6 quantizing
+   its own A with the posterior epilogue ("philox"; beside K5 -> K6 and
+   ``torch._int_mm`` on the same codes), K1's input product with the 2b-1
+   prologue and K1+posterior D3PM "philox", and each variant step's summed
+   time beside the bf16 step's;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -624,12 +630,12 @@ def _gn_vectors(n: int, g, dev) -> tuple:
 
 
 def _fused_report(kernel, case: str, got, again, ref, tol: float, ms: float, plain_ms: float,
-                  pair_ms: float, limit: tuple, plan, count: int) -> dict:
+                  pair_ms: float, limit: tuple, plan, count: int, library_ms=None) -> dict:
     """A fused case's [kernel] line, beside the hand-written pair it replaces."""
     if not torch.equal(got, again):
         raise AssertionError(f"{kernel.name} {case}: two launches differ")
     err = float((got.float() - ref).abs().max())
-    row = _report(kernel, case, err, tol, ms, plain_ms, limit)
+    row = _report(kernel, case, err, tol, ms, plain_ms, limit, library_ms)
     row.update(pair_ms=pair_ms, plan=f"{plan.bm}x{plan.bn}/{plan.splits}", per_step=count)
     print(f"[kernel] {kernel.name} {case}: pair {pair_ms:.4f} ms, fused/pair {ms / pair_ms:.3f}; "
           f"plan {plan.bm}x{plan.bn}/{plan.splits}; repeat bit-equal; {count} launch(es) per "
@@ -718,11 +724,11 @@ def check_gn_epilogue(dev, g, bf16_calls, all_calls) -> dict:
 
 
 def check_posterior_epilogue(dev, g, m: int = BATCH, kinds=("bf16", "int8"),
-                             muts=(0, MUT)) -> dict:
+                             muts=(0, MUT), modes=("philox", "buffer", "none")) -> dict:
     """The output product with the reverse step in its epilogue, at the
     path's shape (m x 256 · 256 x 5142, the padded W_out and carry; m = 333
     on the main paths): ``kinds`` of K1 (bf16) and K6 (int8, from K5's
-    codes of h), in every noise mode, without and with the D3PM head (62
+    codes of h), in the noise ``modes``, without and with the D3PM head (62
     bit columns, the discrete DDPM table) as ``muts`` has them. The carry must equal the pair's (the product into the padded
     f32 acc, then K3, with the same plan) bit for bit. Against the plain
     composition as K3 is held: 2^-7 of max(1, |ref|) on the continuous
@@ -757,6 +763,8 @@ def check_posterior_epilogue(dev, g, m: int = BATCH, kinds=("bf16", "int8"),
             coeffs = torch.from_numpy(coefficient_table(sched, gains, discrete=mut > 0)).to(dev)
             start = xb0 if mut else x0
             for mode, step in (("philox", 17), ("buffer", 0), ("none", 999)):
+                if mode not in modes:
+                    continue
                 noise = torch.randn(1, m, D, generator=g).to(dev) if mode == "buffer" else None
                 table = coeffs[17:18].contiguous() if mode == "buffer" else coeffs
                 kw = dict(b_out=b_out, coeffs=table, step=step, mode=mode, noise=noise, seed=1234,
@@ -897,9 +905,12 @@ def check_quant_prologue(dev, g, steps) -> dict:
     return out
 
 
-def _quant_posterior_case(dev, g, h, qb, cs, codes, scales, mode, mut, sms, count) -> dict:
+def _quant_posterior_case(dev, g, h, qb, cs, codes, scales, mode, mut, sms, count,
+                          library: bool = False) -> dict:
     """One output-product case of :func:`check_quant_prologue`: the carry
-    after the fused step against K5 -> K6 with the posterior epilogue."""
+    after the fused step against K5 -> K6 with the posterior epilogue;
+    with ``library``, cuBLASLt's s8·s8 -> s32 product of the same codes
+    (``torch._int_mm``) timed beside it."""
     m, k = h.shape
     sched = DiffusionSchedule.create("cosine", 1000)
     gains = torch.randn(1000, generator=g).numpy() * 0.3
@@ -942,10 +953,12 @@ def _quant_posterior_case(dev, g, h, qb, cs, codes, scales, mode, mut, sms, coun
                              "version")
     tol = BF16_ULP * max(1.0, float(ref[:, mut:].float().abs().max()))
     ms, plain_ms, pair_ms = time_ms(run), time_ms(plain), time_ms(pair)
+    library_ms = time_ms(lambda: torch._int_mm(codes, qb.t())) if library else None
     moved = m * k * 2 + qb.numel() + 8 * D + m * D * 4
     limit = roofline(moved, 2.0 * m * D * qb.shape[1], "int8")
     return _fused_report(GEMM_S8Q_POSTERIOR, case, got[:, mut:], again[:, mut:],
-                         ref[:, mut:].float(), tol, ms, plain_ms, pair_ms, limit, plan, count)
+                         ref[:, mut:].float(), tol, ms, plain_ms, pair_ms, limit, plan, count,
+                         library_ms)
 
 
 def check_groupnorm(dev, g) -> list:
@@ -1493,6 +1506,22 @@ def step_time(cases: dict, rows: int = BATCH) -> None:
           f"launches, {unfused:.4f} ms", flush=True)
 
 
+def _recorded_step(dev, rows: int, quantize: str, head: bool, want: set) -> list:
+    """A sampler step recorded at ``rows`` rows (:func:`record_step`); its
+    launches must number ``STEP_LAUNCHES[quantize]`` and be those of
+    ``want`` (kernel names) alone. Returns its calls."""
+    calls, launches = record_step(dev, quantize, head, rows=rows)
+    total = sum(sum(m.values()) for m in launches.values())
+    kind = "bf16" if quantize == "none" else "int8-" + quantize
+    label = f"{'d3pm' if head else kind} at {rows} rows"
+    print(f"[kernel] launches per reverse step, {label}: {total} {json.dumps(launches)}",
+          flush=True)
+    if total != STEP_LAUNCHES[quantize] or set(launches) != want:
+        raise AssertionError(f"{label}: {total} launches (want {STEP_LAUNCHES[quantize]}, "
+                             f"{sorted(want)} only): {launches}")
+    return calls
+
+
 def check_step_shapes(dev, g, rows: int) -> tuple:
     """K1, K1+GN and K1+posterior at every product of a bf16 step recorded
     at ``rows`` rows (12 launches), each wrapper against its plain version
@@ -1500,19 +1529,66 @@ def check_step_shapes(dev, g, rows: int) -> tuple:
     bit-equal, the posterior carry bit-equal to the pair's), timed with
     its bound. The posterior epilogue in every noise mode, without the
     D3PM head. Returns the cases by kernel and the step's recorded calls."""
-    calls, launches = record_step(dev, rows=rows)
-    total = sum(sum(m.values()) for m in launches.values())
-    print(f"[kernel] launches per reverse step, bf16 at {rows} rows: {total} "
-          f"{json.dumps(launches)}", flush=True)
-    want = {GEMM.name, GEMM_GN.name, GEMM_POSTERIOR.name}
-    if total != STEP_LAUNCHES["none"] or set(launches) != want:
-        raise AssertionError(f"bf16 step at {rows} rows: {total} launches (want "
-                             f"{STEP_LAUNCHES['none']}, K1, K1+GN, K1+posterior only): "
-                             f"{launches}")
+    calls = _recorded_step(dev, rows, "none", False, {GEMM.name, GEMM_GN.name,
+                                                      GEMM_POSTERIOR.name})
     return {GEMM.name: check_gemm(dev, g, calls, extras=False),
             GEMM_GN.name: check_gn_epilogue(dev, g, calls, [])[GEMM_GN.name],
             GEMM_POSTERIOR.name: check_posterior_epilogue(
                 dev, g, rows, kinds=("bf16",), muts=(0,))[GEMM_POSTERIOR.name]}, calls
+
+
+def check_bench_variants(dev, g, rows: int) -> dict:
+    """The launches that int8 "out" and the D3PM head change in a step at
+    ``rows`` rows (the suite's 32,768), at the shapes of a step recorded at
+    that size, each against its plain version with the 333-row checks'
+    tolerances: K6 quantizing its own A with the posterior epilogue,
+    "philox" (the output product of int8 "out"; its carry bit-equal to K5
+    -> K6+posterior, timed beside that pair and beside ``torch._int_mm``
+    on the same codes), K1's input product with the 2b-1 prologue on the
+    62 bit columns (beside ``addmm``) and K1+posterior D3PM "philox" (its
+    carry bit-equal to K1 -> K3). Returns the cases by kernel."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out_calls = _recorded_step(dev, rows, "out", False,
+                               {GEMM.name, GEMM_GN.name, GEMM_S8Q_POSTERIOR.name})
+    (m, k, n, lda, _), = [sig for name, sig in out_calls if name == "gemm_s8q_posterior"]
+    h = _strided(m, k, lda, torch.bfloat16, dev, lambda r, c: 2.0 * torch.randn(r, c, generator=g))
+    q, cs = pack_int8((torch.randn(k, n, generator=g) / math.sqrt(k)).numpy())
+    qb, cs = kmajor_int8(q).to(dev), cs.to(dev)
+    codes = torch.empty(m, qb.shape[1], dtype=torch.int8, device=dev)
+    scales = torch.empty(m, device=dev)
+    s8q = _quant_posterior_case(dev, g, h, qb, cs, codes, scales, "philox", 0, sms, 1,
+                                library=True)
+    d3pm_calls = _recorded_step(dev, rows, "none", True,
+                                {GEMM.name, GEMM_GN.name, GEMM_POSTERIOR.name})
+    if not any(name == "gemm_bf16_f32acc" and sig[-1] == MUT for name, sig in d3pm_calls):
+        raise AssertionError(f"d3pm at {rows} rows: the input product has no 2b-1 prologue")
+    return {GEMM.name: check_gemm(dev, g, d3pm_calls, extras=False),
+            GEMM_POSTERIOR.name: check_posterior_epilogue(
+                dev, g, rows, kinds=("bf16",), muts=(MUT,), modes=("philox",))[
+                    GEMM_POSTERIOR.name],
+            GEMM_S8Q_POSTERIOR.name: [s8q]}
+
+
+def variant_step_time(cases: dict, variants: dict, rows: int) -> None:
+    """The int8 "out" and D3PM DDPM steps' summed kernel time at ``rows``
+    rows: the bf16 step's launches (:func:`step_time`), each launch the
+    variant changes replaced by its case in ``variants``."""
+    at_rows = lambda r: r["case"].startswith(f"{rows}x")  # noqa: E731
+    k1_in = [r for r in cases[GEMM.name] if r["per_step"] and at_rows(r)]
+    gn = [r for r in cases[GEMM_GN.name] if r["per_step"] and at_rows(r)]
+    post = [r for r in cases[GEMM_POSTERIOR.name]
+            if at_rows(r) and r["case"].endswith("x5142 philox (bits = pair)")]
+    blocks = sum(r["per_step"] * r["ms"] for r in gn)
+    bounds = sum(r["per_step"] * r["bound_ms"] for r in gn)
+    for label, first, last in (
+            ("int8-out", k1_in, variants[GEMM_S8Q_POSTERIOR.name]),
+            ("d3pm", variants[GEMM.name], variants[GEMM_POSTERIOR.name])):
+        ms = blocks + sum(r["ms"] for r in first + last)
+        bound = bounds + sum(r["bound_ms"] for r in first + last)
+        bf16 = blocks + sum(r["ms"] for r in k1_in + post)
+        print(f"[kernel] per {label} DDPM step at {rows} rows: {ms:.4f} ms summed (bound "
+              f"{bound:.4f} ms), bf16 {bf16:.4f} ms: {100.0 * (ms / bf16 - 1.0):+.1f}%",
+              flush=True)
 
 
 def check_serve_shapes(dev, g) -> dict:
@@ -1579,6 +1655,13 @@ def check_kernels(dev) -> dict:
         cases[name] += rows
     step_time(cases, BENCH_ROWS)
     print(f"[kernel] the {BENCH_ROWS}-row cases in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    variants = check_bench_variants(dev, g, BENCH_ROWS)
+    variant_step_time(cases, variants, BENCH_ROWS)
+    for name, rows in variants.items():
+        cases[name] += rows
+    print(f"[kernel] the {BENCH_ROWS}-row int8-out and d3pm cases in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return cases
 
 

@@ -19,7 +19,9 @@ width (62/5054/26, hidden 256/512/256, cosine T = 1000, x0) on the seeded
   largest gap; bit-equal where each rank's block takes the kernel plans
   of the whole cohort), and DDPM-1000 on in-kernel noise at ``--rows``
   and ``--big-rows`` rows: wall seconds (median of 3, in turns with rank
-  0's one-device run while the others wait) and patients/sec;
+  0's one-device run while the others wait; every call's wall too) and
+  patients/sec, and each rank's block sampled without the gather, by
+  rank 0 alone and by every rank at once;
 - times the all-gather of each rank's block (CUDA events);
 - runs the CLI as torchrun launches it (``training.num_devices`` = N):
   train for ``--cli-epochs`` epochs, generate 3 x 333 with DDIM-50 on the
@@ -146,6 +148,24 @@ def _wall(fn, dev, runs: int = 1) -> tuple:
     return time.perf_counter() - t0, out
 
 
+def _block_walls(ddpm: FusedSampler, cond: torch.Tensor, dev) -> dict:
+    """Where a sharded wall goes: this rank's block sampled by ``sample``
+    with no gather, by rank 0 alone while the others wait ("alone") and by
+    every rank at once ("concurrent"); medians of 3, rank 0's clock."""
+    walls = {"alone": [], "concurrent": []}
+    for _ in range(3):
+        dist.barrier()
+        if dist.get_rank() == 0:
+            walls["alone"].append(_wall(lambda: ddpm.sample(
+                cond, torch.Generator(dev).manual_seed(17)), dev)[0])
+        dist.barrier()
+        walls["concurrent"].append(_wall(lambda: ddpm.sample(
+            cond, torch.Generator(dev).manual_seed(17)), dev)[0])
+    dist.barrier()
+    return {"rows": int(cond.shape[0]),
+            **{k: float(np.median(v)) if v else None for k, v in walls.items()}}
+
+
 def sampler_parts(cfg: Config, shape: dict, rows: int, big_rows: int, mesh, dev) -> dict:
     """sample_sharded against sample on the same generator; walls."""
     dims = cfg.freeze_dims(*shape["dims"], ["survival_days_norm", "event_occurred",
@@ -186,9 +206,11 @@ def sampler_parts(cfg: Config, shape: dict, rows: int, big_rows: int, mesh, dev)
         out["finite"] = out["finite"] and bool(torch.isfinite(got).all())
         med = {k: float(np.median(v)) if v else None for k, v in walls.items()}
         out[f"wall_{n}"] = med
+        out[f"walls_{n}"] = walls
         out[f"patients_per_sec_{n}"] = {k: (n / v if v else None) for k, v in med.items()}
-        per = RowBlock.of(n, dist.get_world_size(), rank).count
-        block = torch.randn(per, D, device=dev)
+        rows_block = RowBlock.of(n, dist.get_world_size(), rank)
+        out[f"block_{n}"] = _block_walls(ddpm, rows_block.take(cond_n), dev)
+        block = torch.randn(rows_block.count, D, device=dev)
         group = axis_group(mesh, DATA_AXIS)
         if dev.type == "cuda":
             all_gather_rows(group, block)

@@ -117,17 +117,21 @@ def test_calibration_and_serving_modules_import_no_jax(module):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
 
 
-@pytest.mark.parametrize("script", ["demo_full_scale_torch", "demo_held_out_torch",
-                                    "replay_calibration_torch", "production_run_torch"])
-def test_quality_scripts_import_no_jax_or_pandas(script):
+@pytest.mark.parametrize("scripts", [
+    ("demo_full_scale_torch",), ("demo_held_out_torch",), ("replay_calibration_torch",),
+    ("production_run_torch",), ("replay_ar_torch", "profile_ar_torch", "replay_lowrank_torch")],
+    ids="+".join)
+def test_quality_scripts_import_no_jax_or_pandas(scripts):
     """The port's quality scripts, each loaded alone in a fresh
-    interpreter: no JAX, Flax, pandas, PyYAML or matplotlib at module
-    level, nothing of the JAX package."""
-    code = ("import importlib.util, sys; "
-            f"spec = importlib.util.spec_from_file_location('s', 'scripts/{script}.py'); "
-            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
-            "bad = sorted(m for m in ('jax', 'flax', 'pandas', 'yaml', 'matplotlib', "
-            "'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
+    interpreter, and its three research scripts loaded together in one: no
+    JAX, Flax, Optax, Orbax, pandas, PyYAML or matplotlib at module level,
+    nothing of the JAX package."""
+    load = "".join(f"spec = importlib.util.spec_from_file_location('s{i}', 'scripts/{name}.py'); "
+                   "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
+                   for i, name in enumerate(scripts))
+    code = ("import importlib.util, sys; " + load +
+            "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax', 'pandas', 'yaml', "
+            "'matplotlib', 'osteosarcoma_diffusionmodel_tpu') if m in sys.modules); "
             "assert not bad, bad; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
                           capture_output=True, text=True, timeout=300)

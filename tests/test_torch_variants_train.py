@@ -25,7 +25,9 @@ import yaml
 from osteosarcoma_diffusionmodel_tpu.config import Config as JaxConfig
 from osteosarcoma_diffusionmodel_tpu.data.dataset import OsteosarcomaArrays as JaxArrays
 from osteosarcoma_diffusionmodel_tpu.models.diffusion import ConditionalDiffusion as JaxDiffusion
+from osteosarcoma_diffusionmodel_tpu.models.networks import DiffusionDenoiser as JaxDenoiser
 from osteosarcoma_diffusionmodel_tpu.training.trainer import Trainer as JaxTrainer
+from osteosarcoma_diffusionmodel_tpu.training.trainer import _set_learning_rate
 from osteosarcoma_diffusionmodel_torch import cli
 from osteosarcoma_diffusionmodel_torch.config import Config
 from osteosarcoma_diffusionmodel_torch.convert import flax_params_to_state_dict
@@ -262,6 +264,65 @@ def test_variant_train_steps_match_jax_trainer(cohort, tmp_path, case):
                 assert ok.all(), f"{name} after step {step + 1}: max |diff| {diff.max():.3e}"
             wide = sum((d > 2e-6).sum() for d in diffs.values())
             assert wide / sum(d.size for d in diffs.values()) < 1e-3, (step, wide)
+
+
+AR_EPOCHS = 3
+AR_TRAJECTORY_TOL = 1e-5  # the AR parameters and context logits after 3 epochs (6 steps)
+
+
+@pytest.mark.parametrize("main_lr", [1e-3, 1e-15])
+def test_ar_trajectory_matches_jax_trainer(cohort, tmp_path, main_lr):
+    """Three epochs of the port's Trainer beside the JAX Trainer's
+    ``train_epoch`` (its scan over the epoch's batches, keys folded in by
+    batch), the JAX keys' draws passed to the port's steps, the epoch's
+    batches the same rule's. The AR parameters and the AR context's logits
+    on every cohort row stay within 1e-5 of the JAX trainer's. With the main
+    learning rate forced to 1e-15 (a plateau schedule's collapse; JAX
+    tests/test_ar_head.py ``test_ar_optimizer_branch_is_plateau_immune``)
+    the AR parameters still move, by the same amounts in both, and the
+    others do not."""
+    jtr, ptr = _trainer_pair(cohort, tmp_path, {"model.diffusion.ar_mutation_head": True})
+    jtr.opt_state = _set_learning_rate(jtr.opt_state, main_lr)
+    ptr.set_learning_rate(main_lr)
+    start = {k: v.clone() for k, v in ptr.model.denoiser.state_dict().items()}
+    for epoch in range(AR_EPOCHS):
+        rng = jax.random.PRNGKey(300 + epoch)
+        batches = ptr.epoch_batches(epoch)
+        perm = np.random.default_rng(jtr.config.training.random_seed + 1000 + epoch).permutation(
+            jtr.train_idx)
+        np.testing.assert_array_equal(batches.ravel(), perm[: batches.size])
+        jtr.train_epoch(epoch, rng)
+        for b, rows in enumerate(batches):
+            mix_rng, noise_rng, loss_rng = jax.random.split(jax.random.fold_in(rng, b), 3)
+            lam_rng, perm_rng = jax.random.split(mix_rng)
+            draws = _loss_draws(loss_rng, BATCH, 0)
+            ptr.train_step(
+                ptr._data[rows], ptr._cond[rows], ptr._surv[rows],
+                lam=float(np.float32(jax.random.beta(lam_rng, 0.2, 0.2))),
+                perm=_t(jax.random.permutation(perm_rng, BATCH)),
+                pathway_noise=_t(jax.random.normal(noise_rng, (BATCH, P), jnp.float32)),
+                t=draws["t"], noise=draws["noise"])
+    want = flax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, jtr.params))
+    got = ptr.model.denoiser.state_dict()
+    for name in (n for n in want if n.startswith("ar_")):
+        diff = float(np.abs(got[name].numpy() - want[name].numpy()).max())
+        assert diff <= AR_TRAJECTORY_TOL, f"{name}: max |diff| {diff:.3e}"
+        assert float((got[name] - start[name]).abs().max()) > 1e-4, f"{name} did not move"
+    jm, dims = jtr.model, jtr.dims
+    data, cond = np.asarray(jtr._data), np.asarray(jtr._cond)
+    ctx = jm._ar_context_view(jnp.asarray(data[:, M:]), jnp.asarray(cond))
+    want_logits = np.asarray(jm.denoiser.apply({"params": jtr.params}, ctx,
+                                               method=JaxDenoiser.ar_context_logits))
+    with torch.no_grad():
+        got_logits = ptr.model.denoiser.ar_context_logits(ptr.model._ar_context_view(
+            ptr._data[:, M:], ptr._cond)).numpy()
+    assert float(np.abs(got_logits).max()) > 0.1
+    np.testing.assert_allclose(got_logits, want_logits, rtol=0, atol=AR_TRAJECTORY_TOL)
+    if main_lr < 1e-9:
+        for name in (n for n in got if not n.startswith("ar_")):
+            moved = float((got[name] - start[name]).abs().max())
+            assert moved < 1e-9, f"{name} moved {moved:.3e} at the collapsed main rate"
+            assert np.abs(want[name].numpy() - start[name].numpy()).max() < 1e-9, name
 
 
 def test_ar_optimizer_checkpoint_resume(cohort, tmp_path):
