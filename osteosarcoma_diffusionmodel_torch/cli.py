@@ -38,8 +38,10 @@ Two more steps, outside ``all`` as in the JAX CLI:
   checkpoint's ``metadata.json`` and the scenarios' conditions, one "OK",
   "MISMATCH", "MISSING" or "UNKNOWN CONDITIONS" entry each.
 
-``--profile`` writes a ``torch.profiler`` trace of the main training under
-``<results_dir>/profile`` (:func:`.utils.profiling.profile_trace`).
+``--profile`` writes ``torch.profiler`` traces of the main training and of
+the generation under ``<results_dir>/profile``
+(:func:`.utils.profiling.profile_trace`); the generation's holds the
+program's ``osdm.*`` spans.
 
 The model section of the config always comes from the checkpoint's
 metadata: the train step does not write the JAX CLI's
@@ -283,7 +285,12 @@ def _header(path: Path) -> list:
         return header_names(next(csv.reader(f)))[1:]
 
 
-def generate_synthetic_patients(config: Config, device: Optional[str] = None):
+def generate_synthetic_patients(config: Config, device: Optional[str] = None,
+                                profile: bool = False):
+    """STEP 5: every scenario's cohort from the checkpoint of
+    ``training.save_dir``, written under ``output.synthetic_data_dir``;
+    returns them by scenario name. ``profile``: the generation under
+    :func:`profile_trace` into ``<results_dir>/profile``."""
     logger.info("STEP 5: Generating synthetic patients")
     save_dir = Path(config.training.save_dir)
     device = device or default_device()
@@ -297,7 +304,9 @@ def generate_synthetic_patients(config: Config, device: Optional[str] = None):
         model, config, dims, data_stats=ckpt.load_data_stats(save_dir), device=device, mesh=mesh)
     scenarios = config.generation.scenarios
     per_scenario = config.generation.num_synthetic_samples // len(scenarios)
-    all_synthetic = generator.generate_scenarios(scenarios, per_scenario)
+    with profile_trace(Path(config.output.results_dir) / "profile",
+                       enabled=profile and is_writer(), device=device):
+        all_synthetic = generator.generate_scenarios(scenarios, per_scenario)
 
     processed = Path(config.data.processed_dir)
     gene_names = {
@@ -492,7 +501,8 @@ def main(argv=None) -> None:
     parser.add_argument("--resume", "--resume-training", dest="resume", action="store_true",
                         help="train from the latest checkpoint_epoch_<n>/ of training.save_dir")
     parser.add_argument("--profile", action="store_true",
-                        help="write a torch.profiler trace of training to <results_dir>/profile")
+                        help="write torch.profiler traces of training and generation to "
+                             "<results_dir>/profile")
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
     steps = list(ALL_STEPS) if "all" in args.steps else args.steps
@@ -514,6 +524,8 @@ def main(argv=None) -> None:
             _barrier()
         elif step == "train":
             train_model(config, device=device, resume=args.resume, profile=args.profile)
+        elif step == "generate":
+            STEP_FUNCTIONS[step](config, device=device, profile=args.profile)
         else:
             STEP_FUNCTIONS[step](config, device=device)
 

@@ -86,6 +86,7 @@ from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size, is_writ
 from ..training.checkpoint import load_metadata, load_weights, metadata_to_dims
 from ..training.trainer import build_model
 from ..utils.io import write_matrix_csv
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -232,42 +233,45 @@ class SyntheticPatientGenerator:
     def sample_raw(self, conditions: np.ndarray, generator: torch.Generator) -> torch.Tensor:
         """The sampler's (N, D) float32 output, on the sampler's device (the
         whole cohort on every rank under a mesh)."""
-        cond = torch.from_numpy(conditions)
-        n = cond.shape[0]
-        rows = self._rows(n)
-        if not self.is_diffusion:
-            SAMPLERS["cvae" if isinstance(self.model, BiologyConstrainedVAE) else "plain"] += 1
-            return self._gathered(self.model.sample(cond.to(self.device), generator, rows=rows), n)
-        if self.model.latent_factor_dim > 0:
-            cond = torch.cat([cond.to(self.device),
-                              self._latent_prior_draw(cond.shape[0], generator)], dim=1)
-        if self.uses_kernels():
-            SAMPLERS["kernel"] += 1
-            if self.mesh is not None:
-                return self.sampler().sample_sharded(self.mesh, cond, generator)
-            return self.sampler().sample(cond, generator)
-        SAMPLERS["scan"] += 1
-        gen = self.config.generation
-        if gen.sampler == "ddim":
-            out = self.model.scan_sample_ddim(cond, generator, gen.sampling_steps,
-                                              self.guidance(), rows=rows)
-        else:
-            out = self.model.scan_sample(cond, generator, self.guidance(), rows=rows)
-        return self._gathered(out, n)
+        with span("sample_raw"):
+            cond = torch.from_numpy(conditions)
+            n = cond.shape[0]
+            rows = self._rows(n)
+            if not self.is_diffusion:
+                SAMPLERS["cvae" if isinstance(self.model, BiologyConstrainedVAE) else "plain"] += 1
+                out = self.model.sample(cond.to(self.device), generator, rows=rows)
+                return self._gathered(out, n)
+            if self.model.latent_factor_dim > 0:
+                cond = torch.cat([cond.to(self.device),
+                                  self._latent_prior_draw(cond.shape[0], generator)], dim=1)
+            if self.uses_kernels():
+                SAMPLERS["kernel"] += 1
+                if self.mesh is not None:
+                    return self.sampler().sample_sharded(self.mesh, cond, generator)
+                return self.sampler().sample(cond, generator)
+            SAMPLERS["scan"] += 1
+            gen = self.config.generation
+            if gen.sampler == "ddim":
+                out = self.model.scan_sample_ddim(cond, generator, gen.sampling_steps,
+                                                  self.guidance(), rows=rows)
+            else:
+                out = self.model.scan_sample(cond, generator, self.guidance(), rows=rows)
+            return self._gathered(out, n)
 
     def generate(self, num_samples: int, scenario: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
         """Generate one cohort and split it into modality blocks."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(self.config.training.random_seed)
-        logger.info("Generating %d synthetic patients...", num_samples)
-        conditions = self.create_conditions(num_samples, scenario, generator)
-        ar_generator = None
-        if self._head("ar_head"):
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-            ar_generator = seeded_generator(seed, 424_243)
-        samples = self.sample_raw(conditions, generator)
-        return self._postprocess(samples, conditions, ar_generator)
+        with span("generate"):
+            if generator is None:
+                generator = torch.Generator().manual_seed(self.config.training.random_seed)
+            logger.info("Generating %d synthetic patients...", num_samples)
+            conditions = self.create_conditions(num_samples, scenario, generator)
+            ar_generator = None
+            if self._head("ar_head"):
+                seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+                ar_generator = seeded_generator(seed, 424_243)
+            samples = self.sample_raw(conditions, generator)
+            return self._postprocess(samples, conditions, ar_generator)
 
     def _postprocess(self, samples: Union[torch.Tensor, np.ndarray], conditions: np.ndarray,
                      ar_generator: Optional[torch.Generator] = None) -> Dict[str, np.ndarray]:
@@ -304,7 +308,8 @@ class SyntheticPatientGenerator:
             mode = "copula_joint"
         if bool(mode) and self.data_stats is not None and samples.shape[0] > 1:
             calibrate = self._calibrate_device if on_device else self._calibrate
-            mutations, continuous = calibrate(samples, m, str(mode))
+            with span("calibrate"):
+                mutations, continuous = calibrate(samples, m, str(mode))
         else:
             mutations = (samples[:, :m] > 0.5).astype(np.float32)
             continuous = samples[:, m:]
@@ -518,14 +523,15 @@ class SyntheticPatientGenerator:
                            seed: Optional[int] = None) -> Dict[str, Dict[str, np.ndarray]]:
         if seed is None:
             seed = self.config.training.random_seed
-        if self.config.generation.batch_scenarios and len(scenarios) > 1:
-            return self._generate_scenarios_batched(scenarios, samples_per_scenario, seed)
-        results = {}
-        for i, scenario in enumerate(scenarios):
-            logger.info("Scenario: %s", scenario.name)
-            results[scenario.name] = self.generate(
-                samples_per_scenario, scenario.conditions, seeded_generator(seed, i))
-        return results
+        with span("generate"):
+            if self.config.generation.batch_scenarios and len(scenarios) > 1:
+                return self._generate_scenarios_batched(scenarios, samples_per_scenario, seed)
+            results = {}
+            for i, scenario in enumerate(scenarios):
+                logger.info("Scenario: %s", scenario.name)
+                results[scenario.name] = self.generate(
+                    samples_per_scenario, scenario.conditions, seeded_generator(seed, i))
+            return results
 
     def _generate_scenarios_batched(self, scenarios: List[Scenario], samples_per_scenario: int,
                                     seed: int) -> Dict[str, Dict[str, np.ndarray]]:

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import COUNTERS, span
 from .copula import nearest_corr_psd
 from .precision import full_f32_matmul
 
@@ -63,18 +64,19 @@ def _whiten_exact(u: torch.Tensor, floor: float = _FLOOR) -> torch.Tensor:
     """Exact eigen-whitening (copula._whiten_exact): the dual N x N Gram
     when N < D, the primal D x D Gram otherwise."""
     n, d = u.shape
-    u64 = u.double()
-    if n < d:
-        eigval, q = torch.linalg.eigh(u64 @ u64.T / n)
-        del u64
-        q = q.float()
-        w = (q * _inv_sqrt(eigval, floor)) @ (q.T @ u)
-    else:
-        eigval, v = torch.linalg.eigh(u64.T @ u64 / n)
-        del u64
-        v = v.float()
-        w = (u @ (v * _inv_sqrt(eigval, floor))) @ v.T
-    return _unit_std(w)
+    with span("calibrate.whiten", u.device):
+        u64 = u.double()
+        if n < d:
+            eigval, q = torch.linalg.eigh(u64 @ u64.T / n)
+            del u64
+            q = q.float()
+            w = (q * _inv_sqrt(eigval, floor)) @ (q.T @ u)
+        else:
+            eigval, v = torch.linalg.eigh(u64.T @ u64 / n)
+            del u64
+            v = v.float()
+            w = (u @ (v * _inv_sqrt(eigval, floor))) @ v.T
+        return _unit_std(w)
 
 
 def _nearest_corr_psd(corr: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -183,6 +185,14 @@ class DeviceCalibrator:
             raise ValueError(f"DeviceCalibrator on {self.device} got a tensor on {raw.device}")
         return raw.float()
 
+    def _download(self, *arrays: torch.Tensor) -> Tuple[np.ndarray, ...]:
+        """The calibrated arrays as host numpy arrays; their bytes are
+        counted in ``COUNTERS["copy.d2h_bytes"]``."""
+        with span("calibrate.download", self.device):
+            out = tuple(a.cpu().numpy() for a in arrays)
+            COUNTERS["copy.d2h_bytes"] += sum(a.nbytes for a in out)
+        return out
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
@@ -208,7 +218,7 @@ class DeviceCalibrator:
                 bits = _count_threshold_bits(z[:, :m], k)
             cont = _quantile_map(z[:, m:], self._sorted_real)
             del z
-        return bits.cpu().numpy(), cont.cpu().numpy()
+        return self._download(bits, cont)
 
     @torch.no_grad()
     def continuous(self, cont_raw: torch.Tensor, seed: int) -> np.ndarray:
@@ -224,4 +234,4 @@ class DeviceCalibrator:
             z = w @ self._cont_chol.T
             del w
             out = _quantile_map(z, self._sorted_real)
-        return out.cpu().numpy()
+        return self._download(out)[0]

@@ -72,6 +72,7 @@ import torch
 from ..models.networks import sinusoid
 from ..parallel.batch import RowBlock, gather_rows
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size
+from ..utils.profiling import COUNTERS, span
 from .sampler_kernels import (
     QUANT_PROLOGUE_MAX_K,
     gemm_bf16_f32acc,
@@ -464,8 +465,10 @@ class FusedSampler:
         x = padded_rows(batch, self.data_dim, torch.bfloat16, self.device)  # TMA-readable rows
         x.copy_(x_init.to(device=self.device, dtype=torch.bfloat16))
         buf = self._buffers(batch)
-        for s in range(n_run):
-            self._step(s, x, c_proj, buf, mode, noise, seed)
+        with span("sampler.steps", self.device):
+            for s in range(n_run):
+                self._step(s, x, c_proj, buf, mode, noise, seed)
+            COUNTERS["sampler.steps"] += n_run
         return x.float().contiguous()
 
     @torch.no_grad()
@@ -490,7 +493,8 @@ class FusedSampler:
         noise = self._check_noise(noise, batch)
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
         if x_init is None:
-            x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+            with span("sampler.prior"):
+                x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
         return self._run(x_init, self._c_proj(conditions), mode, noise, seed, n_run)
 
     @torch.no_grad()
@@ -521,7 +525,8 @@ class FusedSampler:
         # the same generator; the other ranks' seeds come after them.
         seeds = [torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device)]
         if x_init is None:
-            x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+            with span("sampler.prior"):
+                x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
         seeds.append(torch.randint(0, 2**31 - 1, (world - 1,), generator=generator,
                                    device=generator.device))
         seeds = torch.cat(seeds)

@@ -1,12 +1,17 @@
 """Tracing and timing (counterpart of
 osteosarcoma_diffusionmodel_tpu/utils/profiling.py on ``torch.profiler``).
 
-- :class:`StepTimer`: per-step wall-clock meter with throughput summaries
-  (a copy of the JAX package's);
+- :func:`span`: a named range at a layer boundary of the program, recorded
+  only while a ``torch.profiler`` session records (the benchmark's traced
+  window, the CLI's ``--profile``): a ``record_function`` range
+  ``osdm.<name>`` on the profiler's timeline, and a record in memory (its
+  id, the span that caused it, the root span of its request, host times,
+  and on a CUDA device a pair of events) that :func:`spans` reads;
+- ``COUNTERS``: counts at the same boundaries, always kept;
 - :func:`profile_trace`: a context manager around ``torch.profiler`` that
   writes a Chrome / TensorBoard trace (``*.pt.trace.json``) under
-  ``log_dir``: host operators, and on the card also its kernels and
-  copies;
+  ``log_dir``: host operators and the program's spans, and on the card also
+  its kernels and copies;
 - :func:`device_memory_stats`: ``torch.cuda.memory_stats`` of each visible
   card.
 
@@ -20,58 +25,116 @@ which every later process loads without calling nvcc.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
+import threading
 import time
-from dataclasses import dataclass, field
+from collections import Counter, deque
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 logger = logging.getLogger(__name__)
 
+# Counts at the spans' boundaries since the process started:
+# "sampler.steps", the reverse steps ``FusedSampler._run`` enqueued;
+# "copy.d2h_bytes", the bytes of the arrays ``DeviceCalibrator`` hands
+# back to the host.
+COUNTERS: Counter = Counter()
 
-@dataclass
-class StepTimer:
-    """Accumulates per-step durations; reports rates."""
+# The newest span records; a long profiled session keeps its last ones.
+MAX_SPANS = 8192
+_RECORDS: deque = deque(maxlen=MAX_SPANS)
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # per thread, the spans entered and not yet left
+_NOT_RECORDING = contextlib.nullcontext()
 
-    name: str = "step"
-    durations: List[float] = field(default_factory=list)
-    _t0: Optional[float] = None
+
+class _Span:
+    __slots__ = ("name", "device", "id", "parent", "root", "t0", "counts0", "events", "range")
+
+    def __init__(self, name: str, device: Optional[torch.device]):
+        self.name = name
+        self.device = device
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.id = next(_IDS)
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[-1].root if stack else self.id
+        stack.append(self)
+        self.counts0 = dict(COUNTERS)
+        # The host clock is read before the range opens and before it
+        # closes, where the profiler reads its own.
+        self.t0 = time.perf_counter()
+        self.range = torch.profiler.record_function(f"osdm.{self.name}")
+        self.range.__enter__()
+        self.events = None
+        if self.device is not None and self.device.type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.device))
         return self
 
     def __exit__(self, *exc):
-        self.durations.append(time.perf_counter() - self._t0)
-        self._t0 = None
+        if self.events is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
+        t1 = time.perf_counter()
+        self.range.__exit__(*exc)
+        _OPEN.stack.pop()
+        counts = {k: v - self.counts0.get(k, 0) for k, v in COUNTERS.items()
+                  if v != self.counts0.get(k, 0)}
+        _RECORDS.append({"name": self.name, "id": self.id, "parent": self.parent,
+                         "root": self.root, "t0": self.t0, "t1": t1, "counts": counts,
+                         "events": self.events})
+        return False
 
-    @property
-    def total(self) -> float:
-        return sum(self.durations)
 
-    @property
-    def count(self) -> int:
-        return len(self.durations)
+def span(name: str, device: Optional[torch.device] = None):
+    """A context manager around one layer's work, named ``osdm.<name>`` on
+    the profiler's timeline. Outside a recording ``torch.profiler`` session
+    it does nothing beyond that one check. Inside one it opens a
+    ``record_function`` range and, on leaving, keeps a record: ``name``,
+    ``id``, ``parent`` (the id of the span open around it on this thread,
+    else None), ``root`` (the outermost such span: the request), ``t0`` /
+    ``t1`` (``time.perf_counter``), ``counts`` (how much each of
+    ``COUNTERS`` grew inside it) and, where ``device`` is a CUDA device, two
+    timing events recorded on its current stream at entry and exit. It
+    never synchronizes."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NOT_RECORDING
+    return _Span(name, device)
 
-    def rate(self, items_per_step: int = 1) -> float:
-        """Items (steps, patients, samples) per second."""
-        if not self.durations:
-            return 0.0
-        return self.count * items_per_step / self.total
 
-    def summary(self) -> Dict[str, float]:
-        if not self.durations:
-            return {"count": 0}
-        return {
-            "count": self.count,
-            "total_s": self.total,
-            "mean_s": self.total / self.count,
-            "min_s": min(self.durations),
-            "max_s": max(self.durations),
-            "per_sec": self.rate(),
-        }
+def _device_ms(events) -> Optional[float]:
+    if events is None or not events[1].query():
+        return None
+    return events[0].elapsed_time(events[1])
+
+
+def spans(since: Optional[float] = None) -> List[Dict[str, Any]]:
+    """The kept records, oldest first, each with ``device_ms``: its
+    device time between the two events where both have completed, else
+    None. With ``since`` (a ``time.perf_counter`` reading), only the
+    records of requests whose root span started at or after it."""
+    records = list(_RECORDS)
+    if since is not None:
+        roots = {r["id"] for r in records if r["parent"] is None and r["t0"] >= since}
+        records = [r for r in records if r["root"] in roots]
+    out = []
+    for r in records:
+        rec = {k: v for k, v in r.items() if k != "events"}
+        rec["device_ms"] = _device_ms(r["events"])
+        out.append(rec)
+    return out
+
+
+def clear() -> None:
+    """Forget every kept record."""
+    _RECORDS.clear()
 
 
 @contextlib.contextmanager

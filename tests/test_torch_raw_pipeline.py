@@ -111,9 +111,10 @@ def test_all_is_the_jax_step_order(tmp_path, monkeypatch):
     ran = []
     for name in ("download", "preprocess", "pathways"):
         monkeypatch.setitem(cli.STEP_FUNCTIONS, name, lambda cfg, n=name: ran.append((n, None)))
-    for name in ("generate", "validate"):
-        monkeypatch.setitem(cli.STEP_FUNCTIONS, name,
-                            lambda cfg, device, n=name: ran.append((n, device)))
+    monkeypatch.setitem(cli.STEP_FUNCTIONS, "generate", lambda cfg, device, profile: ran.append(
+        ("generate", device) if not profile else ("generate profiled", device)))
+    monkeypatch.setitem(cli.STEP_FUNCTIONS, "validate",
+                        lambda cfg, device: ran.append(("validate", device)))
     monkeypatch.setattr(cli, "train_model", lambda cfg, device, resume, profile: ran.append(
         ("train", device) if not profile else ("train profiled", device)))
     cli.main(["--config", str(path), "--device", "cpu"])
