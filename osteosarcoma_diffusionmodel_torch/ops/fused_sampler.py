@@ -175,8 +175,10 @@ def coefficient_table(schedule: DiffusionSchedule, gains: np.ndarray,
 
 
 def x_prior(batch: int, data_dim: int, mut_dim: int, generator: torch.Generator) -> torch.Tensor:
-    """x_T on the generator's device: Gaussian, with Bernoulli(1/2) bits on
-    the first ``mut_dim`` columns (the TPU's ``_x_init``, :847-861)."""
+    """x_T on the generator's device: float32 Gaussian, with Bernoulli(1/2)
+    bits on the first ``mut_dim`` columns (the TPU's ``_x_init``,
+    :847-861). :class:`FusedSampler` hands it a generator on the card when
+    it runs there (:meth:`FusedSampler._prior_generator`)."""
     dev = generator.device
     if not mut_dim:
         return torch.randn((batch, data_dim), generator=generator, device=dev)
@@ -463,7 +465,7 @@ class FusedSampler:
         kernels; the bf16 carry's values as float32."""
         batch = x_init.shape[0]
         x = padded_rows(batch, self.data_dim, torch.bfloat16, self.device)  # TMA-readable rows
-        x.copy_(x_init.to(device=self.device, dtype=torch.bfloat16))
+        x.copy_(x_init)
         buf = self._buffers(batch)
         with span("sampler.steps", self.device):
             for s in range(n_run):
@@ -471,13 +473,32 @@ class FusedSampler:
             COUNTERS["sampler.steps"] += n_run
         return x.float().contiguous()
 
+    def _prior_generator(self, generator: torch.Generator) -> torch.Generator:
+        """The generator x_T is drawn from, counted in
+        ``COUNTERS["sampler.prior_device"]`` or ``["sampler.prior_host"]``.
+        A sampler on a CUDA device handed a host generator takes one 63-bit
+        key from it and draws on the card, from a CUDA generator seeded with
+        that key, so no host draw and no copy of x_T hold the card back;
+        otherwise (a CPU sampler, a generator already on a card) the
+        request's own generator, from which nothing is drawn here."""
+        if self.device.type == "cuda" and generator.device.type != "cuda":
+            key = int(torch.randint(0, 2**63 - 1, (1,), generator=generator))
+            generator = torch.Generator(device=self.device).manual_seed(key)
+        COUNTERS["sampler.prior_device" if generator.device.type == "cuda"
+                 else "sampler.prior_host"] += 1
+        return generator
+
     @torch.no_grad()
     def sample(self, conditions: torch.Tensor, generator: torch.Generator,
                x_init: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,
                stop_after: Optional[int] = None) -> torch.Tensor:
         """Samples (B, D) float32 on the sampler's device. ``x_init``: the
-        x_T prior (B, D), drawn from ``generator`` when omitted; ``noise``:
+        x_T prior (B, D); when omitted it is drawn after the Philox seed,
+        from ``generator`` itself on the CPU, and on a CUDA sampler on the
+        card, from a card generator seeded with one 63-bit key taken from a
+        host ``generator`` (:meth:`_prior_generator`: the same law as a host
+        draw, another stream); ``noise``:
         (n_loop, B, D) per-step transition noise replacing the in-kernel
         Philox stream (DDPM only; with the D3PM head its mutation columns
         give the bit uniforms z/(2sqrt3) + 1/2). ``stop_after``: run only
@@ -494,7 +515,8 @@ class FusedSampler:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
         if x_init is None:
             with span("sampler.prior"):
-                x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+                x_init = x_prior(batch, self.data_dim, self.mut_dim,
+                                 self._prior_generator(generator))
         return self._run(x_init, self._c_proj(conditions), mode, noise, seed, n_run)
 
     @torch.no_grad()
@@ -505,9 +527,12 @@ class FusedSampler:
         """:meth:`sample` over the data axis of ``mesh`` (a ``DeviceMesh``
         from ``parallel.make_mesh``), the JAX ``sample_sharded``: every rank
         computes ``c_proj`` for the whole cohort and draws the whole
-        ``x_init`` from ``generator`` (so all ranks hold the same), pads the
-        cohort to a multiple of the axis, runs the kernels on its block of
-        rows with its own Philox seed (one of ``world`` drawn, as the JAX
+        ``x_init`` as :meth:`sample` does (every rank takes the same key
+        from ``generator``, so all ranks hold the same x_T: on the CPU, and
+        on identical cards, whose CUDA generators give one stream for one
+        key), pads the cohort to a multiple of the axis, runs the kernels
+        on its block of rows with its own Philox seed (one of ``world``
+        drawn after rank 0's seed and the x_T key, as the JAX
         ``jax.random.bits(seed_rng, (n_dev, 1))``), and all-gathers the
         blocks. ``noise`` (n_loop, B, D) is sliced on its batch axis. In
         "none" and "buffer" modes the cohort is :meth:`sample`'s on the
@@ -526,7 +551,8 @@ class FusedSampler:
         seeds = [torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device)]
         if x_init is None:
             with span("sampler.prior"):
-                x_init = x_prior(batch, self.data_dim, self.mut_dim, generator)
+                x_init = x_prior(batch, self.data_dim, self.mut_dim,
+                                 self._prior_generator(generator))
         seeds.append(torch.randint(0, 2**31 - 1, (world - 1,), generator=generator,
                                    device=generator.device))
         seeds = torch.cat(seeds)

@@ -39,6 +39,8 @@ logger = logging.getLogger(__name__)
 
 # Counts at the spans' boundaries since the process started:
 # "sampler.steps", the reverse steps ``FusedSampler._run`` enqueued;
+# "sampler.prior_device" and "sampler.prior_host", the sampler calls whose
+# x_T ``FusedSampler`` drew on a card or on the host;
 # "copy.d2h_bytes", the bytes of the arrays ``DeviceCalibrator`` hands
 # back to the host.
 COUNTERS: Counter = Counter()

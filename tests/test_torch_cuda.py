@@ -1102,6 +1102,49 @@ def test_cuda_gnn_matches_its_cpu_run(cuda, pooled):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,ddim,discrete", [(2048, 10, False), (333, None, True)],
+                         ids=["ddim10-2048", "d3pm-ddpm20-333"])
+def test_cuda_sampler_draws_x_prior_on_the_card(cuda, rows, ddim, discrete):
+    """Handed a host generator, the kernel sampler draws x_T on the card
+    (62/5054/26, hidden 256/512/256): float32 there, standard normal by its
+    moments (the benchmark's prior_z below 5), the D3PM bits in {0, 1} with
+    mean 1/2 within 5 standard errors; one host seed gives one cohort and
+    another seed another, and each call counts one draw on the card."""
+    from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler
+    from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
+
+    overrides = {"model.diffusion.discrete_mutation_head": True} if discrete else {}
+    model = _variant_model(overrides, dims=(62, 5054, 26), steps=20, hidden=(256, 512, 256))
+    model.denoiser.to(cuda)
+    sampler = FusedSampler(model, cuda, ddim_steps=ddim)
+    assert sampler.mut_dim == (62 if discrete else 0)
+    priors, run = [], sampler._run
+
+    def spy(x_init, *args):
+        priors.append(x_init)
+        return run(x_init, *args)
+
+    sampler._run = spy
+    cond = torch.randn(rows, 3, generator=torch.Generator().manual_seed(rows))
+    card, host = COUNTERS["sampler.prior_device"], COUNTERS["sampler.prior_host"]
+    a, b, c = (sampler.sample(cond, torch.Generator().manual_seed(s)) for s in (5, 5, 6))
+    assert COUNTERS["sampler.prior_device"] == card + 3 and COUNTERS["sampler.prior_host"] == host
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(priors[0], priors[1]) and not torch.equal(priors[0], priors[2])
+    x = priors[0]
+    assert x.device.type == "cuda" and x.dtype == torch.float32 and x.shape == (rows, 5142)
+    m = sampler.mut_dim
+    z = x[:, m:].double().flatten()
+    n = z.numel()
+    prior_z = max(abs(float(z.mean())) * n**0.5, abs(float(z.std()) - 1.0) * (2 * n)**0.5)
+    assert prior_z < 5, prior_z
+    if discrete:
+        bits = x[:, :m].double()
+        assert set(bits.unique().tolist()) <= {0.0, 1.0}
+        assert abs(float(bits.mean()) - 0.5) <= 5 * 0.5 / bits.numel()**0.5
+
+
+@pytest.mark.cuda
 def test_cuda_sample_sharded_on_nccl_world_of_one(cuda, tmp_path):
     """A real NCCL communicator at world size 1 on the card (NCCL refuses
     two ranks on one card): ``sample_sharded`` over ``make_mesh(1)`` is bit

@@ -23,6 +23,7 @@ from osteosarcoma_diffusionmodel_torch.ops.sampler_kernels import (
     philox4x32_10,
     philox_uniform_noise,
 )
+from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
 from torch_parity import DATA_DIMS, TILE_B, make_pair
 
 D = sum(DATA_DIMS)
@@ -187,6 +188,40 @@ def test_noise_shape_is_checked(pair):
     with pytest.raises(ValueError):
         FusedSampler(pmodel, "cpu", ddim_steps=3).sample(torch.zeros(4, 3), torch.Generator(),
                                                          noise=torch.zeros(3, 4, D))
+
+
+def test_prior_generator_on_the_samplers_device_is_the_requests_own(pair):
+    """A CPU sampler draws x_T from the request's own generator: the
+    helper hands it back and takes nothing from it."""
+    sampler = FusedSampler(pair[2], "cpu")
+    gen = torch.Generator().manual_seed(3)
+    state = gen.get_state()
+    assert sampler._prior_generator(gen) is gen
+    assert torch.equal(gen.get_state(), state)
+
+
+@pytest.mark.parametrize("ddim,discrete", [(None, False), (3, False), (None, True)],
+                         ids=["ddpm", "ddim3", "d3pm"])
+def test_cpu_sample_draws_x_prior_after_the_seed(pair, ddim, discrete):
+    """On the CPU a seed's cohort is, bit for bit, the loop from the
+    ``x_prior`` drawn on the request's generator right after the Philox
+    seed, and each call counts one host draw of x_T."""
+    pmodel = make_pair(num_steps=6, discrete=True)[2] if discrete else pair[2]
+    sampler = FusedSampler(pmodel, "cpu", ddim_steps=ddim)
+    cond = torch.from_numpy(_conditions(12))
+    host, card = COUNTERS["sampler.prior_host"], COUNTERS["sampler.prior_device"]
+    got = sampler.sample(cond, torch.Generator().manual_seed(13))
+    assert COUNTERS["sampler.prior_host"] == host + 1
+    assert COUNTERS["sampler.prior_device"] == card
+    gen = torch.Generator().manual_seed(13)
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+    x_init = fs.x_prior(B, D, sampler.mut_dim, gen)
+    assert bool(sampler.mut_dim) == discrete
+    want = sampler._run(x_init, sampler._c_proj(cond), sampler._mode(None), None, seed,
+                        sampler.n_loop)
+    assert torch.equal(got, want)
+    sampler.sample(cond, torch.Generator().manual_seed(13), x_init=x_init)
+    assert COUNTERS["sampler.prior_host"] == host + 1  # a given x_T is no draw
 
 
 # ----------------------------------------------------------------------
