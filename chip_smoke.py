@@ -46,7 +46,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    its own A with the posterior epilogue ("philox"; beside K5 -> K6 and
    ``torch._int_mm`` on the same codes), K1's input product with the 2b-1
    prologue and K1+posterior D3PM "philox", and each variant step's summed
-   time beside the bf16 step's;
+   time beside the bf16 step's; the grouped expert kernel
+   (``moe_grouped``) at the transformer cell's routed shapes (46,656 rows
+   of 7,776 tokens routed 6 of 64, 2048 -> 2·1408 -> 2048), its SwiGLU and
+   down modes each against the plain per-expert version, beside
+   ``torch._grouped_mm`` where PyTorch has it;
+3b. "[dit]": the transformer denoiser of config/dit_moonlight.yaml at its
+   published widths, two of its 27 blocks, through the generator's
+   ``generate_scenarios`` (3 x 8 patients, DDIM-50 on the scan loop,
+   calibrated on the card), its launches counted: the grouped kernel's two
+   modes once a step, no other hand-written kernel;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -255,9 +264,13 @@ from osteosarcoma_diffusionmodel_torch.cli import (
     train_model,
     validate_synthetic_patients,
 )
-from osteosarcoma_diffusionmodel_torch.config import Config
+from osteosarcoma_diffusionmodel_torch.config import Config, TransformerConfig
 from osteosarcoma_diffusionmodel_torch.data.dataset import prepare_arrays, train_val_split
-from osteosarcoma_diffusionmodel_torch.data.dummy import make_dummy_cohort, write_processed
+from osteosarcoma_diffusionmodel_torch.data.dummy import (
+    cohort_arrays,
+    make_dummy_cohort,
+    write_processed,
+)
 from osteosarcoma_diffusionmodel_torch.data.preprocessor import (
     PROTEIN_ALTERING_CLASSES,
     TOP_EXPRESSION_GENES,
@@ -275,7 +288,7 @@ from osteosarcoma_diffusionmodel_torch.models.constraints import (
 from osteosarcoma_diffusionmodel_torch.models.diffusion import ConditionalDiffusion
 from osteosarcoma_diffusionmodel_torch.models.gnn import PathwayGraphEncoder, gene_pathway_edges
 from osteosarcoma_diffusionmodel_torch.models.networks import init_flax, init_weights
-from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler
+from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler, moe
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
 from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
     LatentFusedSampler,
@@ -354,6 +367,7 @@ from osteosarcoma_diffusionmodel_torch.training.finetune import sample_path_fine
 from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer, build_model
 from osteosarcoma_diffusionmodel_torch.training.checkpoint import (
     METADATA_FILE,
+    data_stats_from_arrays,
     latest_epoch,
     load_data_stats,
     load_metadata,
@@ -1487,6 +1501,183 @@ def check_posterior_update(dev, g) -> list:
     return out
 
 
+# The transformer cell's routed experts (config/dit_moonlight.yaml): 3
+# scenarios x 8 patients x 324 tokens a denoiser call, 6 of 64 experts a
+# token, 2048 -> 2·1408 -> 2048.
+DIT_TOKENS = 24 * 324
+DIT_LAYERS = 2  # [dit]: layer 0 (dense) and layer 1 (routed) of the 27
+DIT_PATIENTS = 8  # a scenario, as in the cell
+
+
+def _grouped_library_ms(a: torch.Tensor, w: torch.Tensor, plan) -> float | None:
+    """``torch._grouped_mm``'s time for the same grouped product (bf16 out,
+    no epilogue), or None where this PyTorch has none or refuses it."""
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None:
+        return None
+    offs = plan.row_off[1:].contiguous()
+    for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+        try:
+            grouped_mm(a, b, offs=offs)
+            return time_ms(lambda: grouped_mm(a, b, offs=offs))
+        except (RuntimeError, TypeError):
+            continue
+    return None
+
+
+def check_moe_grouped(dev, g) -> list:
+    """The grouped expert kernel (``ops/moe.py``) at the transformer cell's
+    routed shapes: 7,776 tokens routed by a seeded router (sigmoid scores
+    of a U(±1/sqrt(2048)) gate plus a 0.1·U(±1) correction bias, top 6 of
+    64, as ``MoEFeedForward.route`` chooses), 46,656 rows permuted by
+    :func:`moe.expert_plan`; the SwiGLU then the down product with the
+    routing weight and the inverse permutation, each against its plain
+    per-expert version on the same operands, launched twice with equal
+    bits. Tolerances: both sum bf16-exact products in f32 in different
+    orders; the SwiGLU's bf16 result may round the other way near a
+    boundary (2^-7 of max(1, |ref|)), the down product's f32 result differs
+    by f32 rounding (1e-3 of max(1, |ref|)); and each output within 2e-3 of
+    the plain one in relative norm, which operands rounded to fp8 (e4m3,
+    ~3e-2) would fail. ``library_ms``: ``torch._grouped_mm`` on the same
+    rows (bf16 out, without the epilogue), where this PyTorch has it."""
+    tc = TransformerConfig()
+    e, h, inter, k = (tc.n_routed_experts, tc.hidden_size, tc.moe_intermediate_size,
+                      tc.num_experts_per_tok)
+    rows = DIT_TOKENS * k
+    x = torch.randn(DIT_TOKENS, h, generator=g).to(dev, torch.bfloat16)
+    gate = ((torch.rand(e, h, generator=g) * 2 - 1) / math.sqrt(h)).to(dev)
+    bias = (0.1 * (torch.rand(e, generator=g) * 2 - 1)).to(dev)
+    scores = torch.sigmoid(x.float() @ gate.T)
+    choice = torch.topk(scores + bias, k, dim=1).indices
+    plan, order, counts = moe.expert_plan(choice, e)
+    a = x[order // k]
+    row_scale = torch.rand(rows, generator=g).to(dev)
+    dest = order.to(torch.int32)
+
+    def uniform(*shape, fan_in):
+        return ((torch.rand(shape, generator=g) * 2 - 1) / math.sqrt(fan_in)).to(
+            dev, torch.bfloat16)
+
+    w_gu, w_down = uniform(e, h, 2 * inter, fan_in=h), uniform(e, inter, h, fan_in=inter)
+    print(f"[kernel] {moe.MOE_GROUPED.name} routing: {DIT_TOKENS} tokens x {k} of {e} experts, "
+          f"rows an expert {int(counts.min())}-{int(counts.max())} (mean {rows / e:.0f})",
+          flush=True)
+    out = []
+    cases = (
+        ("swiglu", f"{rows}x{h}.{e}x{h}x{2 * inter} ->bf16 SiLU(g)·u",
+         lambda: moe.grouped_swiglu(a, w_gu, plan),
+         lambda: moe.grouped_swiglu_plain(a, w_gu, plan), BF16_ULP,
+         (2.0 * rows * h * 2 * inter, 2 * (rows * h + e * h * 2 * inter + rows * inter)),
+         lambda: _grouped_library_ms(a, w_gu, plan)),
+    )
+    hid = moe.grouped_swiglu(a, w_gu, plan)
+    cases += (
+        ("down", f"{rows}x{inter}.{e}x{inter}x{h} ->f32 ·weight, scattered",
+         lambda: moe.grouped_down(hid, w_down, plan, row_scale, dest),
+         lambda: moe.grouped_down_plain(hid, w_down, plan, row_scale, dest), 1e-3,
+         (2.0 * rows * inter * h, 2 * (rows * inter + e * inter * h) + 4 * rows * h + 8 * rows),
+         lambda: _grouped_library_ms(hid, w_down, plan)),
+    )
+    for mode, case, call, plain, rel_tol, (ops, nbytes), library in cases:
+        before = moe.MOE_GROUPED.modes[mode]
+        got, again = call(), call()
+        ref = plain().float()
+        torch.cuda.synchronize()
+        if moe.MOE_GROUPED.modes[mode] != before + 2:
+            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: two calls did not launch twice")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: two launches differ")
+        rel = float((got.float() - ref).norm() / ref.norm())
+        print(f"[kernel] {moe.MOE_GROUPED.name} {mode}: relative norm of the difference "
+              f"{rel:.3e} (tol 2e-3)", flush=True)
+        if rel > 2e-3:
+            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: relative difference {rel}")
+        err = float((got.float() - ref).abs().max())
+        tol = rel_tol * max(1.0, float(ref.abs().max()))
+        out.append(_report(moe.MOE_GROUPED, case, err, tol, time_ms(call), time_ms(plain),
+                           roofline(nbytes, ops, "bf16"), library()))
+        del got, again, ref
+    del a, hid, w_gu, w_down
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def _dit_weights(module: torch.nn.Module, dev, seed: int) -> dict:
+    """Seeded weights on the card in each tensor's dtype: every projection
+    and expert weight and every bias U(±1/sqrt(fan_in)), RMSNorm scales
+    1 + 0.2·U(±1), correction biases 0.1·U(±1)."""
+    state = module.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, t in state.items():
+        u = torch.rand(t.shape, generator=gen, device=dev, dtype=t.dtype).mul_(2).sub_(1)
+        if name.endswith("norm.weight"):
+            u.mul_(0.2).add_(1.0)
+        elif name.endswith("e_score_correction_bias"):
+            u.mul_(0.1)
+        else:
+            w = state[name[: -len("bias")] + "weight"] if name.endswith(".bias") else t
+            u.mul_(w.shape[1] ** -0.5)
+        out[name] = u
+    return out
+
+
+def run_dit_phase(dev) -> dict:
+    """[dit]: the transformer denoiser of config/dit_moonlight.yaml at its
+    published widths, DIT_LAYERS of its 27 blocks, weights drawn on the
+    card, through ``SyntheticPatientGenerator.generate_scenarios`` as the
+    cell calls it (3 scenarios x 8 patients, DDIM-50 on the scan loop,
+    calibrated on the card), with its launch counts set to 0 just before
+    and read just after: the grouped kernel's two modes once a step each
+    routed layer, and no other hand-written kernel. Returns the run's
+    launches by kernel."""
+    cfg = Config.from_yaml(REPO / "config" / "dit_moonlight.yaml")
+    cfg.model.transformer.num_hidden_layers = DIT_LAYERS
+    cohort = make_dummy_cohort(100, *DATA_DIMS, seed=0)
+    data, conditions, dims = cohort_arrays(cohort, cfg)
+    with torch.device("meta"):
+        model = ConditionalDiffusion.from_config(cfg, dims)
+    model.denoiser.load_state_dict(_dit_weights(model.denoiser, dev, 0), assign=True)
+    gen = SyntheticPatientGenerator(model, cfg, dims,
+                                    data_stats_from_arrays(data, conditions, dims.mutation_dim),
+                                    device=dev)
+    scenarios = cfg.generation.scenarios
+    gen.generate_scenarios(scenarios, DIT_PATIENTS, seed=1)  # warm-up
+    for k in KERNELS:
+        k.reset()
+    gen_module.SAMPLERS.clear()
+    gen_module.CALIBRATIONS.clear()
+    t0 = time.perf_counter()
+    out = gen.generate_scenarios(scenarios, DIT_PATIENTS, seed=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: dict(k.modes) for k in KERNELS}
+    routed = DIT_LAYERS - cfg.model.transformer.first_k_dense_replace
+    want = cfg.generation.sampling_steps * routed
+    moe_modes = launches[moe.MOE_GROUPED.name]
+    others = {name: n for name, modes in launches.items() if name != moe.MOE_GROUPED.name
+              for n in [sum(modes.values())] if n}
+    samplers, calibrations = dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS)
+    print(f"[dit] {DIT_LAYERS} blocks at published widths, {len(scenarios)} x {DIT_PATIENTS} "
+          f"patients DDIM-{cfg.generation.sampling_steps} in {seconds:.3f} s; routes {samplers}, "
+          f"calibrations {calibrations}; {moe.MOE_GROUPED.name} launches {moe_modes} (want "
+          f"{want} a mode), other kernels {others}", flush=True)
+    if moe_modes != {"swiglu": want, "down": want} or others:
+        raise AssertionError(f"[dit] launches {launches}; want {want} a grouped mode, no other")
+    if samplers != {"scan": 1} or calibrations != {"device": 1}:
+        raise AssertionError(f"[dit] routes {samplers}, calibrations {calibrations}")
+    for s in scenarios:
+        got = out[s.name]
+        if (got["expression"].shape != (DIT_PATIENTS, DATA_DIMS[1])
+                or not np.isfinite(got["expression"]).all()
+                or not np.isin(got["mutations"], (0.0, 1.0)).all()):
+            raise AssertionError(f"[dit] {s.name}: the cohort's shape or values are wrong")
+    del gen, model
+    torch.cuda.empty_cache()
+    return {k.name: k.launches for k in KERNELS}
+
+
 def step_time(cases: dict, rows: int = BATCH) -> None:
     """The bf16 step's summed kernel time at ``rows`` rows, fused, and with
     each fused product replaced by the pair it replaces; beside it the
@@ -1644,6 +1835,7 @@ def check_kernels(dev) -> dict:
         GEMM_S8.name: check_gemm_s8(dev, g),
         **check_latent_step(dev, g),
         POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
+        moe.MOE_GROUPED.name: check_moe_grouped(dev, g),
     }
     for name, rows in check_serve_shapes(dev, g).items():
         cases[name] += rows
@@ -3705,6 +3897,7 @@ def main(argv=None) -> int:
 
     cases = check_kernels(dev)
     k8_launches = POSTERIOR_UPDATE.launches  # no path calls K8: its check's launches
+    dit_launches = run_dit_phase(dev)
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
@@ -3731,6 +3924,8 @@ def main(argv=None) -> int:
         for name, n in bench.items():
             launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
+        for name, n in dit_launches.items():
+            launches[name] += n
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
         report = kernel_report(cases, launches, multi, bench)
 

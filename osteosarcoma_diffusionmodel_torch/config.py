@@ -12,6 +12,10 @@ visible trains on one device with a warning, as the JAX trainer does;
 with that many ranks in the process group, the trainer and the CLI's
 generate build a (data, model) mesh (:mod:`parallel`).
 
+``model.denoiser`` and ``model.transformer`` (:class:`TransformerConfig`,
+Moonlight-16B-A3B's keys) are the port's own: the JAX package has no
+transformer denoiser, and an older schema ignores them.
+
 YAML is read by :meth:`Config.from_yaml`, which imports ``yaml`` only
 when called.
 """
@@ -106,6 +110,46 @@ class ConstraintConfig:
 
 
 @dataclass
+class TransformerConfig:
+    """The transformer denoiser (``model.denoiser: moonlight_dit``,
+    models/dit.py) under the keys of Moonlight-16B-A3B's ``config.json``
+    (https://huggingface.co/moonshotai/Moonlight-16B-A3B), whose values
+    are the defaults, plus the DiT keys ``patch_size`` and
+    ``time_embed_dim``. Keys the denoiser implements one value of
+    (``scoring_func``, ``topk_method``, ``n_group``, ...) are checked by
+    ``models.dit.check_transformer``."""
+
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 2.446
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    hidden_act: str = "silu"
+    attention_bias: bool = False
+    rope_theta: float = 50000.0
+    rope_scaling: Optional[Dict[str, Any]] = None
+    rms_norm_eps: float = 1e-5
+    patch_size: int = 16
+    time_embed_dim: int = 256
+
+
+@dataclass
 class ModelConfig:
     architecture: str = "diffusion"
     latent_dim: int = 128
@@ -126,6 +170,10 @@ class ModelConfig:
     # generation.guidance_scale.
     cfg_dropout_prob: float = 0.0
     denoiser_input_skip: bool = True
+    # The diffusion model's denoiser: "mlp" (the skip-connected MLP above)
+    # or "moonlight_dit" (the transformer of ``transformer``).
+    denoiser: str = "mlp"
+    transformer: TransformerConfig = field(default_factory=TransformerConfig)
 
 
 @dataclass
@@ -287,7 +335,8 @@ class Config:
         return cls(
             data=_build(DataConfig, raw.get("data", {}), {"download": DownloadConfig}),
             model=_build(ModelConfig, raw.get("model", {}), {
-                "gnn": GNNConfig, "diffusion": DiffusionConfig, "constraints": ConstraintConfig}),
+                "gnn": GNNConfig, "diffusion": DiffusionConfig, "constraints": ConstraintConfig,
+                "transformer": TransformerConfig}),
             training=_build(TrainingConfig, raw.get("training", {}), {
                 "augmentation": AugmentationConfig,
                 "sample_path_finetune": SamplePathFinetuneConfig}),

@@ -27,6 +27,11 @@ and the GAT encoder's (osteosarcoma_diffusionmodel_tpu/models/gnn.py:
   (heads, features) ``attn_src`` / ``attn_dst`` (``gat_0/attn_src`` ->
   ``gat_0.attn_src``); a GAT layer's ``lin`` has a kernel and no bias.
 
+The transformer denoiser (:class:`~.models.dit.MoonlightDiT`) has no Flax
+counterpart: its tensors (under the top-level modules of ``DIT_MODULES``)
+keep their names, with "/" between them, and their layout, stored as
+float32 (``layers/3/mlp/w_gate_up``).
+
 A parameter or statistic of any other module or leaf is rejected, never
 dropped.
 """
@@ -45,6 +50,8 @@ _TOP_LEVEL = {
     "ar_ctx_fc1", "ar_ctx_fc2",
 }
 RAW_ARRAYS = {"ar_coupling", "ar_bias", "lowrank_U", "lowrank_logdiag", "lowrank_logs"}
+DIT_MODULES = {"patch_embed", "time_fc1", "time_fc2", "cond_fc1", "cond_fc2", "layers",
+               "final_norm", "head"}
 
 
 # The cVAE's and the flow's module paths, whole.
@@ -108,7 +115,7 @@ def flax_params_to_state_dict(params: Mapping[str, Any],
     where given, -> the port's ``state_dict``."""
     state: Dict[str, torch.Tensor] = {}
     for path, value in flatten_params(params).items():
-        if path in RAW_ARRAYS or _GAT_RAW.match(path):
+        if path in RAW_ARRAYS or _GAT_RAW.match(path) or path.split("/")[0] in DIT_MODULES:
             state[path.replace("/", ".")] = torch.from_numpy(np.array(value, np.float32))
             continue
         module, _, leaf = path.rpartition("/")
@@ -143,7 +150,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any
     stats: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         arr = value.detach().cpu().float().numpy()
-        if key in RAW_ARRAYS or _GAT_RAW.match(key.replace(".", "/")):
+        if (key in RAW_ARRAYS or _GAT_RAW.match(key.replace(".", "/"))
+                or key.split(".")[0] in DIT_MODULES):
             flat[key.replace(".", "/")] = arr
             continue
         module, leaf = key.rsplit(".", 1)

@@ -35,7 +35,15 @@ Two families of samplers:
   so does the port's generator. They are ordinary PyTorch ops on the
   model's device; every draw can be passed in (``draws``).
   :meth:`ddim_chain` is the DDIM one with autograd on, for sample-path
-  fine-tuning (``training/finetune.py``).
+  fine-tuning (``training/finetune.py``); its draw of x_T and its loop
+  are the spans ``sampler.prior`` and ``sampler.steps``, and it counts
+  its steps in ``COUNTERS["sampler.steps"]``, as the kernel sampler does.
+
+The denoiser is the skip-connected MLP (``networks.DiffusionDenoiser``) or,
+with ``model.denoiser: moonlight_dit``, Moonlight-16B-A3B's transformer
+(``dit.MoonlightDiT``), which the scan samplers run (the kernel sampler
+takes the MLP only) and which takes no head and no guidance
+(:func:`check_denoiser`).
 """
 
 from __future__ import annotations
@@ -63,10 +71,13 @@ from ..ops.sampler_kernels import gemm_s8_plain, mutation_transform, rowquant_s8
 from ..ops.schedules import DiffusionSchedule, ddim_timesteps
 from ..parallel.batch import BatchShard, RowBlock, batch_mean
 from ..parallel.mesh import group_devices
+from ..utils.profiling import COUNTERS, span
 from .constraints import ConstraintSpec, SpecTensors, constraint_losses
+from .dit import MoonlightDiT
 from .networks import DTYPES, DiffusionDenoiser, generator_on, sinusoid
 
 QUANTIZE_MODES = ("none", "out", "io", "all")
+DENOISERS = ("mlp", "moonlight_dit")
 LOSS_TYPES = ("l1", "l2", "huber")
 AR_CONTEXTS = ("pathways", "continuous", "none")
 UNIFORM_SCALE = math.sqrt(3.0)
@@ -106,10 +117,41 @@ def visible_devices(device: str | torch.device | None) -> int:
     return torch.cuda.device_count() if kind == "cuda" else 1
 
 
+def check_denoiser(config: Config) -> None:
+    """ValueError for an unknown ``model.denoiser``, and for the
+    transformer denoiser anywhere it is not implemented: another
+    architecture than the diffusion model, a head (D3PM, AR, latent
+    factors, learned or low-rank sigma), classifier-free guidance (CFG
+    training, which makes generation guide at ``guidance_scale``) or an
+    int8 ``generation.fused_quantize`` (the MLP's kernel sampler)."""
+    mc, dc = config.model, config.model.diffusion
+    if mc.denoiser not in DENOISERS:
+        raise ValueError(f"model.denoiser must be one of {DENOISERS}, got {mc.denoiser!r}")
+    if mc.denoiser == "mlp":
+        return
+    if mc.architecture != "diffusion":
+        raise ValueError(f"model.denoiser {mc.denoiser!r} is the diffusion model's; "
+                         f"architecture {mc.architecture!r} does not take it")
+    refused = {"diffusion.discrete_mutation_head": dc.discrete_mutation_head,
+               "diffusion.ar_mutation_head": dc.ar_mutation_head,
+               "diffusion.latent_factor_dim": dc.latent_factor_dim > 0,
+               "diffusion.learn_sigma": dc.learn_sigma,
+               "diffusion.low_rank_sigma_dim": dc.low_rank_sigma_dim > 0,
+               "cfg_dropout_prob (guidance != 1)": mc.cfg_dropout_prob > 0}
+    on = [k for k, v in refused.items() if v]
+    if on:
+        raise ValueError(f"model.denoiser {mc.denoiser!r} takes no head and no guidance: "
+                         f"{', '.join(on)}")
+    if config.generation.fused_quantize not in ("none", None):
+        raise ValueError(f"generation.fused_quantize {config.generation.fused_quantize!r} is "
+                         f"the MLP kernel sampler's; model.denoiser {mc.denoiser!r} takes none")
+
+
 def check_supported(config: Config, dims: FrozenDims, training: bool = False,
                     device: str | torch.device | None = None) -> None:
     """Raise ValueError for an unknown ``generation.fused_quantize``, loss
-    type, block weighting, compute dtype or carry dtype. With ``training``,
+    type, block weighting, compute dtype or carry dtype, and for what
+    :func:`check_denoiser` refuses. With ``training``,
     fewer visible devices (:func:`visible_devices`) than
     ``training.num_devices`` train on one device with the JAX trainer's
     warning (its ``__init__``, :190-198); with that many, the trainer
@@ -119,6 +161,7 @@ def check_supported(config: Config, dims: FrozenDims, training: bool = False,
     JAX package (its generator tests for "ddim" only); one warning says
     so."""
     mc, dc, gen = config.model, config.model.diffusion, config.generation
+    check_denoiser(config)
     if gen.fused_quantize not in QUANTIZE_MODES + (None,):
         raise ValueError(f"generation.fused_quantize must be one of {QUANTIZE_MODES}, "
                          f"got {gen.fused_quantize!r}")
@@ -293,7 +336,10 @@ class ConditionalDiffusion:
     def from_config(config: Config, dims: FrozenDims,
                     constraint_spec: Optional[ConstraintSpec] = None) -> "ConditionalDiffusion":
         """The model of ``config``; its denoiser is in eval mode (no
-        dropout), the mode every sampler runs it in."""
+        dropout), the mode every sampler runs it in: the MLP, or with
+        ``model.denoiser: moonlight_dit`` the transformer of
+        ``model.transformer`` (models/dit.py; its parameters are left
+        undrawn: the trainer's init or a checkpoint gives them)."""
         check_supported(config, dims)
         check_variants(config, dims)
         mc, dc = config.model, config.model.diffusion
@@ -305,25 +351,30 @@ class ConditionalDiffusion:
             ar_context_dim = dims.data_dim - m + dims.condition_dim
         else:
             ar_context_dim = dims.condition_dim
-        denoiser = DiffusionDenoiser(
-            data_dim=dims.data_dim,
-            condition_dim=dims.condition_dim + dc.latent_factor_dim,
-            time_dim=mc.latent_dim,
-            condition_embed_dim=mc.latent_dim // 2,
-            hidden_dims=tuple(mc.hidden_dims),
-            compute_dtype=DTYPES[mc.compute_dtype],
-            input_skip=mc.denoiser_input_skip,
-            dropout=mc.gnn.dropout,
-            learn_sigma=dc.learn_sigma,
-            latent_factor_dim=dc.latent_factor_dim,
-            latent_input_dim=m if dc.latent_encoder_input == "mutations" and m else 0,
-            low_rank_sigma_dim=dc.low_rank_sigma_dim,
-            low_rank_sigma_steps=dc.num_steps,
-            low_rank_sigma_rows=m if dc.low_rank_sigma_scope == "mutations" else 0,
-            ar_head_dim=m if ar_on else 0,
-            ar_context_dim=ar_context_dim,
-            ar_context_hidden=dc.ar_context_hidden,
-        ).eval()
+        if mc.denoiser == "moonlight_dit":
+            denoiser = MoonlightDiT(mc.transformer,
+                                    (dims.mutation_dim, dims.expression_dim, dims.pathway_dim),
+                                    dims.condition_dim, DTYPES[mc.compute_dtype]).eval()
+        else:
+            denoiser = DiffusionDenoiser(
+                data_dim=dims.data_dim,
+                condition_dim=dims.condition_dim + dc.latent_factor_dim,
+                time_dim=mc.latent_dim,
+                condition_embed_dim=mc.latent_dim // 2,
+                hidden_dims=tuple(mc.hidden_dims),
+                compute_dtype=DTYPES[mc.compute_dtype],
+                input_skip=mc.denoiser_input_skip,
+                dropout=mc.gnn.dropout,
+                learn_sigma=dc.learn_sigma,
+                latent_factor_dim=dc.latent_factor_dim,
+                latent_input_dim=m if dc.latent_encoder_input == "mutations" and m else 0,
+                low_rank_sigma_dim=dc.low_rank_sigma_dim,
+                low_rank_sigma_steps=dc.num_steps,
+                low_rank_sigma_rows=m if dc.low_rank_sigma_scope == "mutations" else 0,
+                ar_head_dim=m if ar_on else 0,
+                ar_context_dim=ar_context_dim,
+                ar_context_hidden=dc.ar_context_hidden,
+            ).eval()
         feature_weights = None
         if dc.block_loss_weighting == "balanced":
             blocks = [dims.mutation_dim, dims.expression_dim, dims.pathway_dim]
@@ -915,6 +966,7 @@ class ConditionalDiffusion:
             u = draw("final_bits", "unit", (batch, M))
             bits = (u < torch.sigmoid(pred[:, :M])).float()
             x0 = torch.cat([bits, x0], dim=1)
+        self.flush_counters()
         return x0
 
     @torch.no_grad()
@@ -930,8 +982,10 @@ class ConditionalDiffusion:
         D3PM bits over the same strided steps. ``draws``: "x_T" (B, D),
         "final_z" (B, D-M) (learned sigma), "bits" (n_steps, B, M); ``rows``
         as in :meth:`scan_sample`."""
-        return self.ddim_chain(conditions, generator, num_sampling_steps, guidance_scale, draws,
-                               rows)
+        out = self.ddim_chain(conditions, generator, num_sampling_steps, guidance_scale, draws,
+                              rows)
+        self.flush_counters()
+        return out
 
     def ddim_chain(self, conditions: torch.Tensor, generator: Optional[torch.Generator] = None,
                    num_sampling_steps: int = 50, guidance_scale: float = 1.0,
@@ -952,7 +1006,8 @@ class ConditionalDiffusion:
         batch = conditions.shape[0]
         Dc = d.data_dim - M
         draw = _Draws(draws, generator, dev, rows)
-        x = self._x_prior(draw, batch, M, torch.float32)
+        with span("sampler.prior"):
+            x = self._x_prior(draw, batch, M, torch.float32)
         denoise = self._denoise_fn(conditions.to(dev, torch.float32), guidance_scale)
 
         ts = ddim_timesteps(T, num_sampling_steps)[::-1].copy()
@@ -965,25 +1020,35 @@ class ConditionalDiffusion:
                          np.sqrt(np.maximum(one - acp_prev, np.float32(0.0))),
                          one - acp_t / acp_prev, acp_prev], axis=1).astype(np.float32)
         t_norm = ts.astype(np.float32) / np.float32(T)
-        for s in range(len(ts)):
-            sa, so, sap, dir_coef, beta_eff, a_prev = (float(v) for v in rows[s])
-            xm, xc = (x[:, :M], x[:, M:]) if M else (None, x)
-            x_in = torch.cat([2.0 * xm - 1.0, xc], dim=1) if M else x
-            pred, logvar = self._split_sigma(
-                denoise(x_in, torch.full((batch,), t_norm[s], device=dev)))
-            x0 = self._clip(self._predict_x0(pred[:, M:], xc, sa, so))
-            eps = (xc - sa * x0) / max(so, 1e-8)
-            x_prev = sap * x0 + dir_coef * eps
-            if logvar is not None and s == len(ts) - 1:
-                z = draw("final_z", "normal", (batch, Dc))
-                x_prev = x_prev + torch.exp(0.5 * logvar[:, M:]) * z
-            if M:
-                p_prev = posterior_prob_one(xm, torch.sigmoid(pred[:, :M]),
-                                            _scalar(beta_eff), _scalar(a_prev))
-                u = draw("bits", "unit", (batch, M), step=s)
-                x_prev = torch.cat([(u < p_prev).float(), x_prev], dim=1)
-            x = x_prev
+        with span("sampler.steps", dev):
+            for s in range(len(ts)):
+                sa, so, sap, dir_coef, beta_eff, a_prev = (float(v) for v in rows[s])
+                xm, xc = (x[:, :M], x[:, M:]) if M else (None, x)
+                x_in = torch.cat([2.0 * xm - 1.0, xc], dim=1) if M else x
+                pred, logvar = self._split_sigma(
+                    denoise(x_in, torch.full((batch,), t_norm[s], device=dev)))
+                x0 = self._clip(self._predict_x0(pred[:, M:], xc, sa, so))
+                eps = (xc - sa * x0) / max(so, 1e-8)
+                x_prev = sap * x0 + dir_coef * eps
+                if logvar is not None and s == len(ts) - 1:
+                    z = draw("final_z", "normal", (batch, Dc))
+                    x_prev = x_prev + torch.exp(0.5 * logvar[:, M:]) * z
+                if M:
+                    p_prev = posterior_prob_one(xm, torch.sigmoid(pred[:, :M]),
+                                                _scalar(beta_eff), _scalar(a_prev))
+                    u = draw("bits", "unit", (batch, M), step=s)
+                    x_prev = torch.cat([(u < p_prev).float(), x_prev], dim=1)
+                x = x_prev
+            COUNTERS["sampler.steps"] += len(ts)
         return x
+
+    def flush_counters(self) -> None:
+        """The denoiser's device-side counters into ``COUNTERS``, where it
+        keeps any (the transformer's ``moe.max_expert_rows``): one read of
+        the device, after a sampler call."""
+        flush = getattr(self.denoiser, "flush_counters", None)
+        if flush is not None:
+            flush()
 
 
 def _scalar(value) -> torch.Tensor:

@@ -145,12 +145,13 @@ def save_training_state(save_dir: str | Path, epoch: int,
                         moments: Mapping[str, Mapping[str, torch.Tensor]],
                         info: Mapping[str, Any]) -> Path:
     """Write ``checkpoint_epoch_<epoch>/``: the weights, ``moments``
-    (``{"exp_avg": {name: tensor}, "exp_avg_sq": {...}}``) and ``info``
+    (``{"exp_avg": {name: tensor}, "exp_avg_sq": {...}}``, stored as
+    float32 whatever the parameters' dtype) and ``info``
     (JSON: epoch, val_loss, step, lr, and ar_step with an AR head)."""
     path = epoch_dir(save_dir, epoch)
     save_weights(path, state_dict, name="model")
     np.savez(path / "optimizer.npz", **{
-        f"{kind}/{name}": t.detach().cpu().numpy()
+        f"{kind}/{name}": t.detach().cpu().float().numpy()
         for kind, tensors in moments.items() for name, t in tensors.items()})
     (path / "state.json").write_text(json.dumps(dict(info), indent=2))
     return path

@@ -82,7 +82,12 @@ import torch
 from ..config import Config, FrozenDims
 from ..data.dataset import OsteosarcomaArrays, mixup, train_val_split
 from ..models.cvae import BiologyConstrainedVAE
-from ..models.diffusion import ConditionalDiffusion, check_supported, visible_devices
+from ..models.diffusion import (
+    ConditionalDiffusion,
+    check_denoiser,
+    check_supported,
+    visible_devices,
+)
 from ..models.flow import ConditionalFlow
 from ..models.networks import init_flax
 from ..parallel.batch import BatchShard, all_reduce_grads, attached
@@ -185,8 +190,11 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
 def build_model(config: Config, dims: FrozenDims, constraint_spec=None):
     """The model of ``model.architecture`` (JAX :849-863): the diffusion
     model, the cVAE or the flow, each with its module in eval mode; any
-    other architecture is a ValueError, as there."""
+    other architecture is a ValueError, as there, and so is a
+    ``model.denoiser`` the architecture does not take."""
     arch = config.model.architecture
+    if arch in ("cvae", "flow"):
+        check_denoiser(config)
     if arch == "diffusion":
         return ConditionalDiffusion.from_config(config, dims, constraint_spec)
     if arch == "cvae":

@@ -42,11 +42,16 @@ logger = logging.getLogger(__name__)
 # "sampler.prior_device" and "sampler.prior_host", the sampler calls whose
 # x_T ``FusedSampler`` drew on a card or on the host;
 # "copy.d2h_bytes", the bytes of the arrays ``DeviceCalibrator`` hands
-# back to the host.
+# back to the host; the transformer denoiser's (models/dit.py) "dit.tokens",
+# the tokens through its calls, "moe.routed_rows", the token copies its
+# routed layers dispatched, and "moe.max_expert_rows", each routed layer
+# call's largest expert, summed (the scan samplers add it after a call).
 COUNTERS: Counter = Counter()
 
-# The newest span records; a long profiled session keeps its last ones.
-MAX_SPANS = 8192
+# The newest span records; a long profiled session keeps its last ones
+# (the transformer denoiser records ~108 spans a call, ~5,400 a DDIM-50
+# request, so a traced minute of requests fits).
+MAX_SPANS = 1 << 17
 _RECORDS: deque = deque(maxlen=MAX_SPANS)
 _IDS = itertools.count(1)
 _OPEN = threading.local()  # per thread, the spans entered and not yet left

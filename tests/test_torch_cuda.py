@@ -1174,3 +1174,152 @@ def test_cuda_sample_sharded_on_nccl_world_of_one(cuda, tmp_path):
             assert got.device.type == "cuda" and torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------
+# The transformer denoiser (models/dit.py): the grouped expert kernel and
+# the whole denoiser at Moonlight-16B-A3B's published widths
+# ----------------------------------------------------------------------
+def _expert_counts(case: str, rows: int, experts: int, g: torch.Generator) -> torch.Tensor:
+    """Uneven rows with experts that get none, or every row to one expert."""
+    if case == "one":
+        counts = torch.zeros(experts, dtype=torch.int64)
+        counts[experts // 2] = rows
+        return counts
+    w = torch.rand(experts, generator=g) ** 3
+    w[::7] = 0.0
+    counts = (w / w.sum() * rows).floor().long()
+    counts[int(w.argmax())] += rows - int(counts.sum())
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uneven", "one"])
+def test_cuda_grouped_experts_match_a_loop_over_experts(cuda, case):
+    """``grouped_swiglu`` then ``grouped_down`` at the routed experts'
+    published widths (2048 -> 2·1408 -> 2048, 64 experts, 7,776 tokens x 6)
+    against one plain product per expert on the card. bf16 operands and
+    f32 sums in both; the kernel sums k in another order, so SiLU·up's
+    bf16 rounding may tip one ulp (2^-8) on a few values."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    e, h, inter, rows = 64, 2048, 1408, 7776 * 6
+    counts = _expert_counts(case, rows, e, torch.Generator().manual_seed(3))
+    assert int(counts.sum()) == rows and int((counts == 0).sum()) >= (1 if case == "uneven" else 63)
+    plan = moe.plan_from_counts(counts.to(cuda), rows)
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def uniform(*shape, fan_in=1):
+        return ((torch.rand(shape, generator=g, device=cuda) * 2 - 1) / fan_in ** 0.5).to(
+            torch.bfloat16)
+
+    a = uniform(rows, h)
+    w_gu, w_down = uniform(e, h, 2 * inter, fan_in=h), uniform(e, inter, h, fan_in=inter)
+    scale = torch.rand(rows, generator=g, device=cuda)
+    dest = torch.randperm(rows, generator=g, device=cuda)
+    before = moe.MOE_GROUPED.launches
+    hid = moe.grouped_swiglu(a, w_gu, plan)
+    y = moe.grouped_down(hid, w_down, plan, scale, dest)
+    torch.cuda.synchronize()
+    assert moe.MOE_GROUPED.launches == before + 2
+    hid_ref = moe.grouped_swiglu_plain(a, w_gu, plan)
+    y_ref = moe.grouped_down_plain(hid_ref, w_down, plan, scale, dest)
+    assert float((hid.float() - hid_ref.float()).norm() / hid_ref.float().norm()) <= 2e-3
+    assert float((y - y_ref).norm() / y_ref.norm()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_experts_backward_matches_autograd_of_a_loop(cuda):
+    """The experts' backward on the card (``expert_swiglu`` then
+    ``expert_down``: the activation gradients on the grouped kernel over
+    the transposed weights, the weight gradients an expert at a time)
+    against autograd through one plain product per expert, at 8 experts of
+    256 -> 2·128 -> 256, uneven rows and expert 5 with none; six launches
+    in all (two forward, the recomputed [gate | up] and the two activation
+    gradients, the recomputed product for the routing weights' gradient).
+    The kernel's operands, the incoming gradients among them, are bf16
+    where the plain backward keeps f32: ~2^-9 relative each."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    e, k, h, inter, t = 8, 2, 256, 128, 512
+    g = torch.Generator(device=cuda).manual_seed(4)
+    choice = torch.randint(0, e - 1, (t, k), generator=g, device=cuda)
+    choice[choice >= 5] += 1
+    plan, order, counts = moe.expert_plan(choice, e)
+    assert int(counts[5]) == 0
+    leaves = [(torch.randn(t, h, generator=g, device=cuda)).to(torch.bfloat16),
+              (torch.randn(e, h, 2 * inter, generator=g, device=cuda) / h ** 0.5).to(torch.bfloat16),
+              (torch.randn(e, inter, h, generator=g, device=cuda) / inter ** 0.5).to(torch.bfloat16),
+              torch.rand(t, k, generator=g, device=cuda)]
+    dy = torch.randn(t, h, generator=g, device=cuda)
+
+    def grads(swiglu, down):
+        x, w_gu, w_down, weight = (v.clone().requires_grad_() for v in leaves)
+        y = down(swiglu(x[order // k], w_gu, plan), w_down, plan, weight.reshape(-1)[order],
+                 order)
+        y.view(t, k, h).sum(1).backward(dy)
+        return [v.grad.float() for v in (x, w_gu, w_down, weight)]
+
+    before = moe.MOE_GROUPED.launches
+    got = grads(moe.expert_swiglu, moe.expert_down)
+    torch.cuda.synchronize()
+    assert moe.MOE_GROUPED.launches == before + 6
+    want = grads(moe.grouped_swiglu_plain, moe.grouped_down_plain)
+    assert float(got[1][5].abs().max()) == 0.0 and float(got[2][5].abs().max()) == 0.0
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_denoiser_at_published_widths_matches_the_reference(cuda):
+    """Two blocks of Moonlight-16B-A3B at its published widths (layer 0
+    dense, layer 1 DeepSeekMoE with 64 experts, top 6, 2 shared) on the
+    card against the plain reference given the program's expert choices.
+    Both round the same operands to bf16; the card sums in other orders,
+    and its attention rounds the softmax's probabilities to bf16 before
+    the product with V where the reference keeps them in f32: ~1e-3 of
+    the output through two layers."""
+    import dataclasses
+
+    from osteosarcoma_diffusionmodel_torch.config import TransformerConfig
+    from osteosarcoma_diffusionmodel_torch.models.dit import MoonlightDiT
+    from torch_reference_dit import Reference
+
+    tc = TransformerConfig(num_hidden_layers=2)
+    blocks = (62, 5054, 26)
+    with torch.device("meta"):
+        model = MoonlightDiT(tc, blocks, 3, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    weights = {}
+    for name, t in model.state_dict().items():
+        u = torch.rand(t.shape, generator=g, device=cuda, dtype=t.dtype) * 2 - 1
+        if name.endswith("norm.weight"):
+            u = 1 + 0.2 * u
+        elif name.endswith("e_score_correction_bias"):
+            u = 0.1 * u
+        else:
+            w = model.state_dict()[name[:-4] + "weight"] if name.endswith(".bias") else t
+            u = u / w.shape[-2 if w.dim() == 3 else 1] ** 0.5
+        weights[name] = u.to(t.dtype)
+    model.load_state_dict(weights, assign=True)
+    model.eval()
+    routes = []
+    layer = model.moe_layers()[0]
+    inner = layer.route
+
+    def route(x):
+        choice, weight = inner(x)
+        routes.append(choice)
+        return choice, weight
+
+    layer.route = route
+    x = torch.randn(4, sum(blocks), device=cuda, generator=g)
+    t = torch.rand(4, device=cuda, generator=g)
+    c = torch.randn(4, 3, device=cuda, generator=g)
+    with torch.no_grad():
+        out = model(x, t, conditions=c)
+    conf = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)}
+    ref = Reference(weights, conf, blocks, cuda, bf16=True)
+    with torch.no_grad():
+        want = ref.forward(x, t, c, routes=routes)
+    assert float((out - want).norm() / want.norm()) <= 1e-2

@@ -163,6 +163,37 @@ def test_step_counter_advances_by_the_steps_run(tiny_gen, ddim_steps, stop_after
                                                  else stop_after)
 
 
+def test_scan_ddim_records_prior_and_steps_and_counts_its_steps(one_thread):
+    """The scan sampler's DDIM loop (``ConditionalDiffusion.ddim_chain``,
+    the route of a model the kernel sampler does not take: here an MLP of
+    hidden 96/192/96) has the kernel sampler's ``sampler.prior`` and
+    ``sampler.steps`` spans under ``sample_raw`` and counts its steps."""
+    cfg = Config()
+    cfg.model.hidden_dims = [96, 192, 96]
+    cfg.model.diffusion.num_steps = 12
+    cfg.generation.sampler = "ddim"
+    cfg.generation.sampling_steps = 4
+    cfg.generation.calibration_backend = "device"
+    cohort = make_dummy_cohort(30, 10, 40, 14, seed=3)
+    data, conditions, dims = cohort_arrays(cohort, cfg)
+    torch.manual_seed(0)
+    gen = SyntheticPatientGenerator(
+        ConditionalDiffusion.from_config(cfg, dims), cfg, dims,
+        ckpt.data_stats_from_arrays(data, conditions, dims.mutation_dim), device="cpu")
+    assert not gen.uses_kernels()
+    before = COUNTERS["sampler.steps"]
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _generate(gen)
+    assert COUNTERS["sampler.steps"] - before == 4
+    by_name = {r["name"]: r for r in spans()}
+    assert {"sampler.prior", "sampler.steps"} <= set(by_name)
+    assert by_name["sampler.prior"]["parent"] == by_name["sampler.steps"]["parent"] == \
+        by_name["sample_raw"]["id"]
+    assert by_name["sampler.steps"]["counts"] == {"sampler.steps": 4}
+    assert by_name["sampler.prior"]["t1"] <= by_name["sampler.steps"]["t0"]
+
+
 def test_device_calibrator_records_whiten_and_download_and_counts_bytes(tiny_gen):
     m = tiny_gen.dims.mutation_dim
     cal = tiny_gen._get_device_joint_cal(m)
