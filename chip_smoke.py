@@ -66,6 +66,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (warm, median of 3) against host seconds (median of 3 at 333 and
    1,024 rows, one run at 10,002), the float64 ``eigh``'s share of the
    device time, and the device path's peak memory;
+4b. "[copy]": the calibrated cohort's copy back at the cohort cells'
+   download shapes (16,384 and 10,002 rows of 62 bits and 5,080
+   continuous values, f32): ``.cpu()`` into fresh pageable memory against
+   ``copula_device.to_host``'s reused page-locked blocks, GB/s (median of
+   5 after a warm-up), equal bit for bit, no new block after the warm-up;
 5. "[train]": the port's CLI train step at full model width (data dims
    62/5054/26, hidden 256/512/256, T = 1000) on the seeded structured
    cohort of 100 patients with the production settings (batch 16, AdamW
@@ -2981,6 +2986,68 @@ def check_calibration(cfg: Config, dev) -> list:
     return records
 
 
+# [copy]: the cohort cells' downloads, rows of (bits, continuous block):
+# DDPM-1000's 16,384-row cohort and DDIM-50's 3 x 3,334.
+COPY_ROWS = {"ddpm1000-cohort-16k": 16384, "ddim50-cohort-10k": 10002}
+COPY_REPEATS = 5
+
+
+def check_copy_back(dev) -> dict:
+    """[copy]: the calibrated cohort's copy back at the cohort cells'
+    download shapes, ``.cpu()`` into fresh pageable memory (the copy back
+    before ``copula_device.to_host``) against ``to_host`` (page-locked
+    blocks of PyTorch's caching host allocator, reused): GB/s of the whole
+    download, the median of ``COPY_REPEATS`` after one warm-up, each
+    result dropped before the next; the two results equal bit for bit,
+    page-locked, and no new page-locked block after the warm-up. Returns
+    the GB/s by cell and path."""
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import to_host
+    from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
+
+    t_phase = time.perf_counter()
+    rates = {}
+    for label, rows in COPY_ROWS.items():
+        g = torch.Generator(dev).manual_seed(rows)
+        tensors = (torch.rand(rows, MUT, generator=g, device=dev),
+                   torch.randn(rows, D - MUT, generator=g, device=dev))
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        paths = {"pageable": lambda: tuple(t.cpu().numpy() for t in tensors),
+                 "page-locked": lambda: to_host(*tensors)}
+        seconds, blocks = {}, {}
+        for path, copy_back in paths.items():
+            times = []
+            for i in range(COPY_REPEATS + 1):
+                if i == 1:
+                    allocs = COUNTERS["copy.host_allocs"]
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                got = copy_back()
+                times.append(time.perf_counter() - t0)
+                if i < COPY_REPEATS:
+                    del got
+            seconds[path] = float(np.median(times[1:]))
+            blocks[path] = COUNTERS["copy.host_allocs"] - allocs
+            if path == "pageable":
+                want = got
+        equal = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                    for a, b in zip(got, want))
+        pinned = all(torch.from_numpy(a).is_pinned() for a in got)
+        del got, want, tensors
+        rates[label] = {path: nbytes / s / 1e9 for path, s in seconds.items()}
+        print(f"[copy] {label}: {rows} x ({MUT} + {D - MUT}) f32, {nbytes / 1e6:.1f} MB: "
+              f"pageable .cpu() {rates[label]['pageable']:.2f} GB/s "
+              f"({1e3 * seconds['pageable']:.1f} ms), page-locked "
+              f"{rates[label]['page-locked']:.2f} GB/s ({1e3 * seconds['page-locked']:.1f} ms), "
+              f"{seconds['pageable'] / seconds['page-locked']:.1f}x (median of {COPY_REPEATS} "
+              f"after a warm-up); equal bit for bit {equal}, page-locked {pinned}, new "
+              f"page-locked blocks after the warm-up {blocks['page-locked']}", flush=True)
+        if not (equal and pinned and blocks["page-locked"] == 0):
+            raise AssertionError(f"[copy] {label}: the page-locked copy back is wrong or "
+                                 "allocates in steady state")
+    print(f"[copy] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rates
+
+
 def run_serve_phase(ckpt: Path, tmp: Path) -> dict:
     """[serve]: scripts/bench_serving_torch.py on the trained checkpoint
     (buckets 1, 64, 1,024 under DDPM and DDIM, ten requests a pair). Its
@@ -3902,6 +3969,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
         check_calibration(cfg, dev)
+        check_copy_back(dev)
         trained, trained_ckpt = run_train_phase(cfg, dev, Path(tmp))
         variants = run_variants_phase(cfg, dev, Path(tmp))
         archs = run_arch_phase(cfg, dev, Path(tmp))

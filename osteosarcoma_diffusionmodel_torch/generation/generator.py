@@ -79,7 +79,7 @@ from ..ops.copula import (
     gaussian_transplant,
     joint_transplant,
 )
-from ..ops.copula_device import DeviceCalibrator
+from ..ops.copula_device import DeviceCalibrator, to_host
 from ..ops.fused_sampler import FusedSampler, supports_fused
 from ..parallel.batch import RowBlock, gather_rows
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size, is_writer
@@ -390,11 +390,13 @@ class SyntheticPatientGenerator:
         CALIBRATIONS["device"] += 1
         if self._joint_branch(mode, samples.shape[0], m):
             return self._get_device_joint_cal(m).joint(samples, self._tie_seed())
-        mutations = self._host_mutations(samples[:, :m].cpu().numpy(), m, mode)
+        (raw_mut,) = to_host(samples[:, :m])
+        mutations = self._host_mutations(raw_mut, m, mode)
         cont = samples[:, m:]
         if self._cont_branch(mode, cont.shape):
             return mutations, self._get_device_cont_cal(m).continuous(cont, self._tie_seed())
-        return mutations, self._quantile_map_continuous(cont.cpu().numpy(), m, mode)
+        (cont,) = to_host(cont)
+        return mutations, self._quantile_map_continuous(cont, m, mode)
 
     def _joint_branch(self, mode: str, n: int, m: int) -> bool:
         """Every precondition of the joint copula: no D3PM or AR head, more

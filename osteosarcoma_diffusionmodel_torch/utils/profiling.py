@@ -42,10 +42,14 @@ logger = logging.getLogger(__name__)
 # "sampler.prior_device" and "sampler.prior_host", the sampler calls whose
 # x_T ``FusedSampler`` drew on a card or on the host;
 # "copy.d2h_bytes", the bytes of the arrays ``DeviceCalibrator`` hands
-# back to the host; the transformer denoiser's (models/dit.py) "dit.tokens",
-# the tokens through its calls, "moe.routed_rows", the token copies its
-# routed layers dispatched, and "moe.max_expert_rows", each routed layer
-# call's largest expert, summed (the scan samplers add it after a call).
+# back to the host; "copy.d2h_pinned" and "copy.d2h_pageable", the arrays
+# ``copula_device.to_host`` copied from a card into page-locked blocks or,
+# where those could not be had, into pageable memory, and
+# "copy.host_allocs", the new page-locked blocks that took; the
+# transformer denoiser's (models/dit.py) "dit.tokens", the tokens through
+# its calls, "moe.routed_rows", the token copies its routed layers
+# dispatched, and "moe.max_expert_rows", each routed layer call's largest
+# expert, summed (the scan samplers add it after a call).
 COUNTERS: Counter = Counter()
 
 # The newest span records; a long profiled session keeps its last ones

@@ -826,6 +826,84 @@ def test_cuda_device_calibration_matches_its_cpu_run(cuda, n):
         assert float(np.mean(np.abs(c_card - c_cpu) <= 1e-4 + 1e-4 * np.abs(c_cpu))) >= 0.99
 
 
+def _copy_back(case, cuda, monkeypatch):
+    """``call(seed) -> (host arrays, device tensors they came from)``: the
+    joint calibration of a 700-row cohort at tiny widths, or the download
+    of the DDIM cell's calibrated cohort (10,002 x 62 bits, 10,002 x 5,080
+    continuous). Sizes no other test here copies back, so the allocator's
+    cache holds no block of theirs that another test freed."""
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import DeviceCalibrator
+
+    if case == "download_10002x5142":
+        cal = DeviceCalibrator(62, np.zeros((2, 5080), np.float32), device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(5)
+
+        def call(seed):
+            tensors = (torch.randn(10002, 62, generator=g, device=cuda),
+                       torch.randn(10002, 5080, generator=g, device=cuda))
+            return cal._download(*tensors), tensors
+        return call
+    (freq, chol, tetra), sorted_real, _, raw = _calibration_case(700)
+    cal = DeviceCalibrator(10, sorted_real, device=cuda, freq=freq, joint_chol=chol, tetra=tetra)
+    given, download = [], DeviceCalibrator._download
+    monkeypatch.setattr(DeviceCalibrator, "_download",
+                        lambda self, *arrays: given.append(arrays) or download(self, *arrays))
+    x = torch.from_numpy(raw).to(cuda)
+    return lambda seed: (cal.joint(x, seed), given.pop())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["joint_700x50", "download_10002x5142"])
+def test_cuda_copy_back_into_reused_page_locked_blocks(cuda, case, monkeypatch):
+    """The calibrated arrays come back bit for bit equal to ``.cpu()`` of the
+    same tensors, in page-locked memory; a dropped result's blocks serve the
+    next call, and a held result keeps its own: one new block per held
+    array, its values unchanged, no memory shared with the next result."""
+    from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
+
+    call = _copy_back(case, cuda, monkeypatch)
+    out, tensors = call(1)
+    for a, t in zip(out, tensors):
+        assert a.dtype == np.float32 and torch.from_numpy(a).is_pinned()
+        np.testing.assert_array_equal(a.view(np.uint32), t.cpu().numpy().view(np.uint32))
+    del out, tensors, a, t
+    allocs, pinned = COUNTERS["copy.host_allocs"], COUNTERS["copy.d2h_pinned"]
+    held, _ = call(2)
+    assert COUNTERS["copy.host_allocs"] == allocs
+    assert COUNTERS["copy.d2h_pinned"] == pinned + 2
+    kept = [a.copy() for a in held]
+    out, _ = call(3)
+    assert COUNTERS["copy.host_allocs"] == allocs + len(held)
+    for a, k in zip(held, kept):
+        np.testing.assert_array_equal(a, k)
+    assert not any(np.shares_memory(a, b) for a in held for b in out)
+
+
+@pytest.mark.cuda
+def test_cuda_copy_back_falls_back_to_pageable_memory(cuda, monkeypatch):
+    """Where page-locked memory cannot be had, the copy back takes
+    ``.cpu()`` and counts its arrays as pageable."""
+    from osteosarcoma_diffusionmodel_torch.ops.copula_device import to_host
+    from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
+
+    empty = torch.empty
+
+    def refuse_page_locked(*args, pin_memory=False, **kwargs):
+        if pin_memory:
+            raise RuntimeError("CUDA error: out of memory")
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", refuse_page_locked)
+    tensors = (torch.randn(33, 62, device=cuda), torch.randn(33, 5080, device=cuda))
+    keys = ("copy.d2h_pinned", "copy.d2h_pageable", "copy.host_allocs")
+    before = [COUNTERS[k] for k in keys]
+    out = to_host(*tensors)
+    assert [COUNTERS[k] - b for k, b in zip(keys, before)] == [0, 2, 0]
+    for a, t in zip(out, tensors):
+        assert not torch.from_numpy(a).is_pinned()
+        np.testing.assert_array_equal(a, t.cpu().numpy())
+
+
 @pytest.mark.cuda
 def test_cuda_generator_calibrates_on_the_card_under_auto(cuda):
     """Under "auto" the generator on the card calibrates a 300-row cohort

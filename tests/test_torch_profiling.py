@@ -209,6 +209,22 @@ def test_device_calibrator_records_whiten_and_download_and_counts_bytes(tiny_gen
     assert records["calibrate.download"]["counts"] == {"copy.d2h_bytes": got}
 
 
+def test_device_calibrator_download_on_the_cpu_returns_the_tensors_memory(tiny_gen):
+    """On a CPU calibrator the copy back is ``.cpu().numpy()`` as it was: the
+    tensors' own memory, a strided view too, and none of the page-locked
+    path's counters moves."""
+    cal = tiny_gen._get_device_joint_cal(tiny_gen.dims.mutation_dim)
+    g = torch.Generator().manual_seed(4)
+    tensors = (torch.randn(24, 10, generator=g), torch.randn(24, 41, generator=g)[:, 1:])
+    keys = ("copy.d2h_pinned", "copy.d2h_pageable", "copy.host_allocs")
+    before = {k: COUNTERS[k] for k in keys}
+    out = cal._download(*tensors)
+    assert {k: COUNTERS[k] for k in keys} == before
+    for a, t in zip(out, tensors):
+        assert np.shares_memory(a, t.numpy())
+        np.testing.assert_array_equal(a, t.numpy())
+
+
 def test_spans_keep_a_bounded_buffer(monkeypatch):
     monkeypatch.setattr(profiling, "_RECORDS", profiling.deque(maxlen=3))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
