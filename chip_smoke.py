@@ -46,16 +46,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
    its own A with the posterior epilogue ("philox"; beside K5 -> K6 and
    ``torch._int_mm`` on the same codes), K1's input product with the 2b-1
    prologue and K1+posterior D3PM "philox", and each variant step's summed
-   time beside the bf16 step's; the grouped expert kernel
-   (``moe_grouped``) at the transformer cell's routed shapes (46,656 rows
-   of 7,776 tokens routed 6 of 64, 2048 -> 2·1408 -> 2048), its SwiGLU and
-   down modes each against the plain per-expert version, beside
-   ``torch._grouped_mm`` where PyTorch has it;
-3b. "[dit]": the transformer denoiser of config/dit_moonlight.yaml at its
-   published widths, two of its 27 blocks, through the generator's
-   ``generate_scenarios`` (3 x 8 patients, DDIM-50 on the scan loop,
-   calibrated on the card), its launches counted: the grouped kernel's two
-   modes once a step, no other hand-written kernel;
+   time beside the bf16 step's;
+3b. "[experts]": the routed experts' grouped products (``ops/moe.py``:
+   ``torch._grouped_mm``, then SiLU·up, or the routing weight and the
+   scatter) at the transformer cell's routed shapes (46,656 rows of 7,776
+   tokens routed 6 of 64, 2048 -> 2·1408 -> 2048), each against its plain
+   per-expert version within 2e-3 in relative norm, twice with equal
+   bits, both timed; "[dit]": the transformer denoiser of
+   config/dit_moonlight.yaml at its published widths, two of its 27
+   blocks, through the generator's ``generate_scenarios`` (3 x 8
+   patients, DDIM-50 on the scan loop, calibrated on the card), no
+   hand-written kernel launched;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -1514,37 +1515,20 @@ DIT_LAYERS = 2  # [dit]: layer 0 (dense) and layer 1 (routed) of the 27
 DIT_PATIENTS = 8  # a scenario, as in the cell
 
 
-def _grouped_library_ms(a: torch.Tensor, w: torch.Tensor, plan) -> float | None:
-    """``torch._grouped_mm``'s time for the same grouped product (bf16 out,
-    no epilogue), or None where this PyTorch has none or refuses it."""
-    grouped_mm = getattr(torch, "_grouped_mm", None)
-    if grouped_mm is None:
-        return None
-    offs = plan.row_off[1:].contiguous()
-    for b in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
-        try:
-            grouped_mm(a, b, offs=offs)
-            return time_ms(lambda: grouped_mm(a, b, offs=offs))
-        except (RuntimeError, TypeError):
-            continue
-    return None
-
-
-def check_moe_grouped(dev, g) -> list:
-    """The grouped expert kernel (``ops/moe.py``) at the transformer cell's
-    routed shapes: 7,776 tokens routed by a seeded router (sigmoid scores
-    of a U(±1/sqrt(2048)) gate plus a 0.1·U(±1) correction bias, top 6 of
-    64, as ``MoEFeedForward.route`` chooses), 46,656 rows permuted by
-    :func:`moe.expert_plan`; the SwiGLU then the down product with the
-    routing weight and the inverse permutation, each against its plain
-    per-expert version on the same operands, launched twice with equal
-    bits. Tolerances: both sum bf16-exact products in f32 in different
-    orders; the SwiGLU's bf16 result may round the other way near a
-    boundary (2^-7 of max(1, |ref|)), the down product's f32 result differs
-    by f32 rounding (1e-3 of max(1, |ref|)); and each output within 2e-3 of
-    the plain one in relative norm, which operands rounded to fp8 (e4m3,
-    ~3e-2) would fail. ``library_ms``: ``torch._grouped_mm`` on the same
-    rows (bf16 out, without the epilogue), where this PyTorch has it."""
+def check_moe_grouped(dev) -> None:
+    """[experts]: the routed experts' grouped products (``ops/moe.py``) at
+    the transformer cell's routed shapes: 7,776 tokens routed by a seeded
+    router (sigmoid scores of a U(±1/sqrt(2048)) gate plus a 0.1·U(±1)
+    correction bias, top 6 of 64, as ``MoEFeedForward.route`` chooses),
+    46,656 rows permuted by :func:`moe.expert_plan`; the SwiGLU, then the
+    down product with the routing weight and the inverse permutation, each
+    against its plain per-expert version on the same operands, which
+    rounds the same products to bf16: the two sum in different orders, so
+    a bf16 result may round the other way near a boundary (max|diff| 2^-7
+    of max(1, |ref|)), and within 2e-3 of it in relative norm, which
+    operands rounded to fp8 (e4m3, ~3e-2) would fail; called twice with
+    equal bits; each timed beside its plain version and its bound."""
+    g = torch.Generator().manual_seed(0)
     tc = TransformerConfig()
     e, h, inter, k = (tc.n_routed_experts, tc.hidden_size, tc.moe_intermediate_size,
                       tc.num_experts_per_tok)
@@ -1557,54 +1541,43 @@ def check_moe_grouped(dev, g) -> list:
     plan, order, counts = moe.expert_plan(choice, e)
     a = x[order // k]
     row_scale = torch.rand(rows, generator=g).to(dev)
-    dest = order.to(torch.int32)
 
     def uniform(*shape, fan_in):
         return ((torch.rand(shape, generator=g) * 2 - 1) / math.sqrt(fan_in)).to(
             dev, torch.bfloat16)
 
     w_gu, w_down = uniform(e, h, 2 * inter, fan_in=h), uniform(e, inter, h, fan_in=inter)
-    print(f"[kernel] {moe.MOE_GROUPED.name} routing: {DIT_TOKENS} tokens x {k} of {e} experts, "
-          f"rows an expert {int(counts.min())}-{int(counts.max())} (mean {rows / e:.0f})",
-          flush=True)
-    out = []
+    hid = moe.grouped_swiglu(a, w_gu, plan)
+    print(f"[experts] routing: {DIT_TOKENS} tokens x {k} of {e} experts, rows an expert "
+          f"{int(counts.min())}-{int(counts.max())} (mean {rows / e:.0f})", flush=True)
     cases = (
         ("swiglu", f"{rows}x{h}.{e}x{h}x{2 * inter} ->bf16 SiLU(g)·u",
          lambda: moe.grouped_swiglu(a, w_gu, plan),
-         lambda: moe.grouped_swiglu_plain(a, w_gu, plan), BF16_ULP,
-         (2.0 * rows * h * 2 * inter, 2 * (rows * h + e * h * 2 * inter + rows * inter)),
-         lambda: _grouped_library_ms(a, w_gu, plan)),
-    )
-    hid = moe.grouped_swiglu(a, w_gu, plan)
-    cases += (
+         lambda: moe.grouped_swiglu_plain(a, w_gu, plan),
+         (2.0 * rows * h * 2 * inter, 2 * (rows * h + e * h * 2 * inter + rows * inter))),
         ("down", f"{rows}x{inter}.{e}x{inter}x{h} ->f32 ·weight, scattered",
-         lambda: moe.grouped_down(hid, w_down, plan, row_scale, dest),
-         lambda: moe.grouped_down_plain(hid, w_down, plan, row_scale, dest), 1e-3,
-         (2.0 * rows * inter * h, 2 * (rows * inter + e * inter * h) + 4 * rows * h + 8 * rows),
-         lambda: _grouped_library_ms(hid, w_down, plan)),
+         lambda: moe.grouped_down(hid, w_down, plan, row_scale, order),
+         lambda: moe.grouped_down_plain(hid, w_down, plan, row_scale, order),
+         (2.0 * rows * inter * h, 2 * (rows * inter + e * inter * h) + 4 * rows * h + 8 * rows)),
     )
-    for mode, case, call, plain, rel_tol, (ops, nbytes), library in cases:
-        before = moe.MOE_GROUPED.modes[mode]
-        got, again = call(), call()
-        ref = plain().float()
-        torch.cuda.synchronize()
-        if moe.MOE_GROUPED.modes[mode] != before + 2:
-            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: two calls did not launch twice")
-        if not torch.equal(got, again):
-            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: two launches differ")
-        rel = float((got.float() - ref).norm() / ref.norm())
-        print(f"[kernel] {moe.MOE_GROUPED.name} {mode}: relative norm of the difference "
-              f"{rel:.3e} (tol 2e-3)", flush=True)
-        if rel > 2e-3:
-            raise AssertionError(f"{moe.MOE_GROUPED.name} {mode}: relative difference {rel}")
-        err = float((got.float() - ref).abs().max())
-        tol = rel_tol * max(1.0, float(ref.abs().max()))
-        out.append(_report(moe.MOE_GROUPED, case, err, tol, time_ms(call), time_ms(plain),
-                           roofline(nbytes, ops, "bf16"), library()))
-        del got, again, ref
+    with torch.no_grad():
+        for mode, case, call, plain, (ops, nbytes) in cases:
+            got, again = call(), call()
+            ref = plain().float()
+            rel = float((got.float() - ref).norm() / ref.norm())
+            err = float((got.float() - ref).abs().max())
+            tol = BF16_ULP * max(1.0, float(ref.abs().max()))
+            bound = roofline(nbytes, ops, "bf16")
+            print(f"[experts] {mode} {case}: relative norm of the difference {rel:.3e} (tol "
+                  f"2e-3), max|diff| {err:.3e} (tol {tol:.3e}), equal bits "
+                  f"{torch.equal(got, again)}; {time_ms(call):.4f} ms, plain "
+                  f"{time_ms(plain):.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+            if rel > 2e-3 or err > tol or not torch.equal(got, again):
+                raise AssertionError(f"[experts] {mode}: relative difference {rel}, max|diff| "
+                                     f"{err}, or two calls differ")
+            del got, again, ref
     del a, hid, w_gu, w_down
     torch.cuda.empty_cache()
-    return out
 
 
 @torch.no_grad()
@@ -1628,15 +1601,13 @@ def _dit_weights(module: torch.nn.Module, dev, seed: int) -> dict:
     return out
 
 
-def run_dit_phase(dev) -> dict:
+def run_dit_phase(dev) -> None:
     """[dit]: the transformer denoiser of config/dit_moonlight.yaml at its
     published widths, DIT_LAYERS of its 27 blocks, weights drawn on the
     card, through ``SyntheticPatientGenerator.generate_scenarios`` as the
     cell calls it (3 scenarios x 8 patients, DDIM-50 on the scan loop,
     calibrated on the card), with its launch counts set to 0 just before
-    and read just after: the grouped kernel's two modes once a step each
-    routed layer, and no other hand-written kernel. Returns the run's
-    launches by kernel."""
+    and read just after: no hand-written kernel."""
     cfg = Config.from_yaml(REPO / "config" / "dit_moonlight.yaml")
     cfg.model.transformer.num_hidden_layers = DIT_LAYERS
     cohort = make_dummy_cohort(100, *DATA_DIMS, seed=0)
@@ -1657,19 +1628,13 @@ def run_dit_phase(dev) -> dict:
     out = gen.generate_scenarios(scenarios, DIT_PATIENTS, seed=2)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k.name: dict(k.modes) for k in KERNELS}
-    routed = DIT_LAYERS - cfg.model.transformer.first_k_dense_replace
-    want = cfg.generation.sampling_steps * routed
-    moe_modes = launches[moe.MOE_GROUPED.name]
-    others = {name: n for name, modes in launches.items() if name != moe.MOE_GROUPED.name
-              for n in [sum(modes.values())] if n}
+    launches = {k.name: k.launches for k in KERNELS if k.launches}
     samplers, calibrations = dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS)
     print(f"[dit] {DIT_LAYERS} blocks at published widths, {len(scenarios)} x {DIT_PATIENTS} "
           f"patients DDIM-{cfg.generation.sampling_steps} in {seconds:.3f} s; routes {samplers}, "
-          f"calibrations {calibrations}; {moe.MOE_GROUPED.name} launches {moe_modes} (want "
-          f"{want} a mode), other kernels {others}", flush=True)
-    if moe_modes != {"swiglu": want, "down": want} or others:
-        raise AssertionError(f"[dit] launches {launches}; want {want} a grouped mode, no other")
+          f"calibrations {calibrations}; hand-written kernels launched {launches}", flush=True)
+    if launches:
+        raise AssertionError(f"[dit] launches {launches}; want none")
     if samplers != {"scan": 1} or calibrations != {"device": 1}:
         raise AssertionError(f"[dit] routes {samplers}, calibrations {calibrations}")
     for s in scenarios:
@@ -1680,7 +1645,6 @@ def run_dit_phase(dev) -> dict:
             raise AssertionError(f"[dit] {s.name}: the cohort's shape or values are wrong")
     del gen, model
     torch.cuda.empty_cache()
-    return {k.name: k.launches for k in KERNELS}
 
 
 def step_time(cases: dict, rows: int = BATCH) -> None:
@@ -1840,7 +1804,6 @@ def check_kernels(dev) -> dict:
         GEMM_S8.name: check_gemm_s8(dev, g),
         **check_latent_step(dev, g),
         POSTERIOR_UPDATE.name: check_posterior_update(dev, g),
-        moe.MOE_GROUPED.name: check_moe_grouped(dev, g),
     }
     for name, rows in check_serve_shapes(dev, g).items():
         cases[name] += rows
@@ -3964,7 +3927,10 @@ def main(argv=None) -> int:
 
     cases = check_kernels(dev)
     k8_launches = POSTERIOR_UPDATE.launches  # no path calls K8: its check's launches
-    dit_launches = run_dit_phase(dev)
+    t0 = time.perf_counter()
+    check_moe_grouped(dev)
+    run_dit_phase(dev)
+    print(f"[dit] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
@@ -3992,8 +3958,6 @@ def main(argv=None) -> int:
         for name, n in bench.items():
             launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
-        for name, n in dit_launches.items():
-            launches[name] += n
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
         report = kernel_report(cases, launches, multi, bench)
 

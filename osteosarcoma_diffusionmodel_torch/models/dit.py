@@ -32,17 +32,17 @@ arXiv:2212.09748):
 
 Precision, with ``compute_dtype`` bfloat16: parameters in bf16; every
 product takes bf16 operands and accumulates in f32; a product's output is
-rounded to bf16 (the routed experts' SwiGLU takes SiLU·up of the f32 sums
-and rounds once, and their down product keeps f32 for the weighted
-combine; the dense and shared SwiGLUs round SiLU and the product with up,
-as Moonlight's module in bf16); RMSNorm statistics, the router's scores
-and the attention softmax in f32; the residual stream in f32. With
-float32 every step is f32.
+rounded to bf16 (the routed experts' SiLU·up is taken in f32 from the bf16
+``[gate | up]`` and rounded once, their routing weight and combine are in
+f32; the dense and shared SwiGLUs round SiLU and the product with up, as
+Moonlight's module in bf16); RMSNorm statistics, the router's scores and
+the attention softmax in f32; the residual stream in f32. With float32
+every step is f32.
 
-On a CUDA device the routed experts run on the grouped expert kernel
-(``ops/moe.py``), under autograd too (its backward runs on the same
-kernel); the shared experts, the dense feed-forward and the other
-products on PyTorch's matrix products and attention.
+The routed experts' two grouped products are ``torch._grouped_mm`` calls
+over the expert-sorted rows (``ops/moe.py``), under autograd too; the
+shared experts, the dense feed-forward and the other products run on
+PyTorch's matrix products and attention.
 
 Spans (``utils/profiling.span``, recorded only under a profiler):
 ``dit.embed``, ``dit.attn`` (a block's attention sublayer), ``dit.router``
@@ -226,8 +226,8 @@ class MoEFeedForward(nn.Module):
             most = counts.max()
             self.max_rows = most if self.max_rows is None else self.max_rows + most
         with span("dit.experts", dev):
-            h = moe.expert_swiglu(a, self.w_gate_up, plan)
-            y = moe.expert_down(h, self.w_down, plan, row_scale, order)
+            h = moe.grouped_swiglu(a, self.w_gate_up, plan)
+            y = moe.grouped_down(h, self.w_down, plan, row_scale, order)
             routed = y.view(t, k, -1).sum(dim=1)
         with span("dit.shared", dev):
             return _add(routed, self.shared(x))

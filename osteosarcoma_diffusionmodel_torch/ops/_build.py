@@ -89,10 +89,6 @@ SIGNATURES = {
     "osdm_latent_update": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     # x, pred, out, n, d, coefs, c0, c1, sv, add_noise, clip, seed, stream
     "osdm_posterior_update": [_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _U32, _P],
-    # A, lda, rows_a, B, ldb, b_cols, experts, K, C, ldc, n_out, epi, row_off, tile_off,
-    # max_tiles, row_scale, dest, stream
-    "osdm_moe_grouped": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P,
-                         _P],
 }
 
 

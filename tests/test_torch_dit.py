@@ -16,6 +16,7 @@ import pytest
 import torch
 import yaml
 
+from benchmark.dit_readings import fp8_round
 from osteosarcoma_diffusionmodel_torch import cli
 from osteosarcoma_diffusionmodel_torch.config import Config, TransformerConfig
 from osteosarcoma_diffusionmodel_torch.data.dataset import prepare_arrays
@@ -180,9 +181,9 @@ def test_router_weights_are_the_normalised_scaled_scores():
 
 
 def test_grouped_products_equal_a_loop_over_experts():
-    """The plain grouped products (what the kernel computes) against one
-    product per expert, with an expert that gets no token and one that
-    gets most."""
+    """The grouped products (``torch._grouped_mm`` over the expert-sorted
+    rows) against one product per expert, with an expert that gets no
+    token and one that gets most."""
     g = torch.Generator().manual_seed(0)
     e, k, h, inter, t = 5, 2, 16, 8, 30
     choice = torch.stack([torch.full((t,), 4), torch.randint(0, 3, (t,), generator=g)], 1)
@@ -192,7 +193,7 @@ def test_grouped_products_equal_a_loop_over_experts():
     weight = torch.rand(t, k, generator=g)
     plan, order, counts = moe.expert_plan(choice, e)
     assert counts.tolist() == [int((choice == i).sum()) for i in range(e)] and counts[3] == 0
-    assert plan.tile_off.tolist()[-1] <= plan.max_tiles
+    assert plan.offs.dtype == torch.int32 and plan.offs.tolist() == counts.cumsum(0).tolist()
     y = moe.grouped_down(moe.grouped_swiglu(x[order // k], w_gu, plan), w_down, plan,
                          weight.reshape(-1)[order], order).view(t, k, h).sum(1)
     want = torch.zeros(t, h)
@@ -205,11 +206,10 @@ def test_grouped_products_equal_a_loop_over_experts():
 
 
 def test_grouped_products_backward_equals_autograd_of_the_loop():
-    """The experts' backward (activation gradients as grouped products of
-    the transposed weights, weight gradients an expert at a time, the
-    routing weights' gradient) against autograd through one product per
-    expert, in f32, with an expert that gets no token: the same sums in
-    other orders."""
+    """The experts' backward (autograd through ``torch._grouped_mm``, the
+    SwiGLU, the routing weights and the scatter) against autograd through
+    one product per expert, in f32, with an expert that gets no token: the
+    same sums in other orders."""
     g = torch.Generator().manual_seed(1)
     e, k, h, inter, t = 5, 2, 16, 8, 30
     choice = torch.stack([torch.full((t,), 4), torch.randint(0, 3, (t,), generator=g)], 1)
@@ -225,11 +225,51 @@ def test_grouped_products_backward_equals_autograd_of_the_loop():
         y.view(t, k, h).sum(1).backward(dy)
         return [x.grad, w_gu.grad, w_down.grad, weight.grad]
 
-    got = grads(moe.expert_swiglu, moe.expert_down)
+    got = grads(moe.grouped_swiglu, moe.grouped_down)
     want = grads(moe.grouped_swiglu_plain, moe.grouped_down_plain)
     assert float(got[1][3].abs().max()) == 0.0 and float(got[2][3].abs().max()) == 0.0
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_grouped_products_in_bf16_are_repeatable_and_tell_fp8_operands_apart():
+    """bf16 at 8 experts of 256 -> 2·128 -> 256, expert 7 with no token:
+    the grouped products against their plain versions, which round the
+    same products to bf16 (the two differ by summation order, far inside
+    2e-3 in relative norm); two calls, and a call without autograd, give
+    equal bits; the benchmark's ``fp8-experts`` rounding of the operands
+    moves both outputs past 2e-3."""
+    g = torch.Generator().manual_seed(2)
+    e, k, h, inter, t = 8, 2, 256, 128, 512
+    choice = torch.randint(0, e - 1, (t, k), generator=g)
+    plan, order, counts = moe.expert_plan(choice, e)
+    assert int(counts[e - 1]) == 0
+
+    def uniform(*shape, fan_in=1):
+        return ((torch.rand(shape, generator=g) * 2 - 1) / fan_in ** 0.5).to(torch.bfloat16)
+
+    a = uniform(t, h)[order // k]
+    w_gu, w_down = uniform(e, h, 2 * inter, fan_in=h), uniform(e, inter, h, fan_in=inter)
+    scale = torch.rand(t * k, generator=g)
+
+    def products(swiglu, down):
+        hid = swiglu(a, w_gu, plan)
+        return hid, down(hid, w_down, plan, scale, order)
+
+    def rel(p, q):
+        return float((p.float() - q.float()).norm() / q.float().norm())
+
+    got = products(moe.grouped_swiglu, moe.grouped_down)
+    want = products(moe.grouped_swiglu_plain, moe.grouped_down_plain)
+    with torch.no_grad():
+        again = products(moe.grouped_swiglu, moe.grouped_down)
+    fp8 = products(lambda x, w, p: moe.grouped_swiglu(fp8_round(x, 1), fp8_round(w, (1, 2)), p),
+                   lambda x, w, p, *rest: moe.grouped_down(fp8_round(x, 1), fp8_round(w, (1, 2)),
+                                                           p, *rest))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for i in range(2):
+        assert torch.equal(got[i], again[i])
+        assert rel(got[i], want[i]) <= 2e-3 < rel(fp8[i], want[i])
 
 
 def _config(**over) -> Config:
