@@ -49,14 +49,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
    time beside the bf16 step's;
 3b. "[experts]": the routed experts' grouped products (``ops/moe.py``:
    ``torch._grouped_mm``, then SiLU·up, or the routing weight and the
-   scatter) at the transformer cell's routed shapes (46,656 rows of 7,776
-   tokens routed 6 of 64, 2048 -> 2·1408 -> 2048), each against its plain
-   per-expert version within 2e-3 in relative norm, twice with equal
-   bits, both timed; "[dit]": the transformer denoiser of
+   scatter, or the sum over k) at the transformer cell's routed shapes
+   (46,656 rows of 7,776 tokens routed 6 of 64, 2048 -> 2·1408 -> 2048),
+   each against its plain per-expert version within 2e-3 in relative
+   norm, twice with equal bits, all timed; the two epilogue kernels
+   (``moe_silu_mul``, ``moe_combine``) against their plain versions (equal
+   bits) and the eager chains they replaced (SiLU·up equal bits, the
+   combine within f32 reassociation), timed beside their byte bounds and
+   those chains (``library_ms``), and one routed layer call with and
+   without them; "[dit]": the transformer denoiser of
    config/dit_moonlight.yaml at its published widths, two of its 27
    blocks, through the generator's ``generate_scenarios`` (3 x 8
-   patients, DDIM-50 on the scan loop, calibrated on the card), no
-   hand-written kernel launched;
+   patients, DDIM-50 on the scan loop, calibrated on the card), the two
+   epilogue kernels launched once each per routed layer call and no other
+   hand-written kernel;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -255,6 +261,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from osteosarcoma_diffusionmodel_torch import bench as bench_module
 from osteosarcoma_diffusionmodel_torch.analysis import report as report_module
@@ -296,6 +303,7 @@ from osteosarcoma_diffusionmodel_torch.models.gnn import PathwayGraphEncoder, ge
 from osteosarcoma_diffusionmodel_torch.models.networks import init_flax, init_weights
 from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler, moe
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
+from osteosarcoma_diffusionmodel_torch.ops.moe import COMBINE, SILU_MUL
 from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
     LatentFusedSampler,
     LatentTailSampler,
@@ -387,7 +395,7 @@ from osteosarcoma_diffusionmodel_torch.utils.card import (
     seeded_checkpoint,
 )
 from osteosarcoma_diffusionmodel_torch.utils.io import read_matrix_csv
-from osteosarcoma_diffusionmodel_torch.utils.profiling import device_memory_stats
+from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS, device_memory_stats
 from osteosarcoma_diffusionmodel_torch.validation.validator import BiologicalValidator
 
 # Launches of one reverse step by fused_quantize mode (the D3PM head adds none).
@@ -1515,19 +1523,23 @@ DIT_LAYERS = 2  # [dit]: layer 0 (dense) and layer 1 (routed) of the 27
 DIT_PATIENTS = 8  # a scenario, as in the cell
 
 
-def check_moe_grouped(dev) -> None:
+def check_moe_grouped(dev) -> dict:
     """[experts]: the routed experts' grouped products (``ops/moe.py``) at
     the transformer cell's routed shapes: 7,776 tokens routed by a seeded
     router (sigmoid scores of a U(±1/sqrt(2048)) gate plus a 0.1·U(±1)
     correction bias, top 6 of 64, as ``MoEFeedForward.route`` chooses),
-    46,656 rows permuted by :func:`moe.expert_plan`; the SwiGLU, then the
-    down product with the routing weight and the inverse permutation, each
-    against its plain per-expert version on the same operands, which
-    rounds the same products to bf16: the two sum in different orders, so
-    a bf16 result may round the other way near a boundary (max|diff| 2^-7
-    of max(1, |ref|)), and within 2e-3 of it in relative norm, which
-    operands rounded to fp8 (e4m3, ~3e-2) would fail; called twice with
-    equal bits; each timed beside its plain version and its bound."""
+    46,656 rows permuted by :func:`moe.expert_plan`; the SwiGLU, the down
+    product with the routing weight and the inverse permutation, and the
+    down product summed over each token's k copies, each against its plain
+    per-expert version on the same operands, which rounds the same
+    products to bf16: the two sum in different orders, so a bf16 result
+    may round the other way near a boundary (max|diff| 2^-7 of max(1,
+    |ref|)), and within 2e-3 of it in relative norm, which operands
+    rounded to fp8 (e4m3, ~3e-2) would fail; called twice with equal bits;
+    each timed beside its plain version and its bound. Then the two
+    epilogue kernels on the products' own outputs (:func:`epilogue_cases`)
+    and one routed layer's products and epilogues beside the eager chains
+    the kernels replaced. Returns the kernels' [kernel] rows."""
     g = torch.Generator().manual_seed(0)
     tc = TransformerConfig()
     e, h, inter, k = (tc.n_routed_experts, tc.hidden_size, tc.moe_intermediate_size,
@@ -1547,9 +1559,11 @@ def check_moe_grouped(dev) -> None:
             dev, torch.bfloat16)
 
     w_gu, w_down = uniform(e, h, 2 * inter, fan_in=h), uniform(e, inter, h, fan_in=inter)
-    hid = moe.grouped_swiglu(a, w_gu, plan)
+    with torch.no_grad():
+        hid = moe.grouped_swiglu(a, w_gu, plan)
     print(f"[experts] routing: {DIT_TOKENS} tokens x {k} of {e} experts, rows an expert "
           f"{int(counts.min())}-{int(counts.max())} (mean {rows / e:.0f})", flush=True)
+    down_bytes = 2 * (rows * inter + e * inter * h) + 8 * rows
     cases = (
         ("swiglu", f"{rows}x{h}.{e}x{h}x{2 * inter} ->bf16 SiLU(g)·u",
          lambda: moe.grouped_swiglu(a, w_gu, plan),
@@ -1558,7 +1572,12 @@ def check_moe_grouped(dev) -> None:
         ("down", f"{rows}x{inter}.{e}x{inter}x{h} ->f32 ·weight, scattered",
          lambda: moe.grouped_down(hid, w_down, plan, row_scale, order),
          lambda: moe.grouped_down_plain(hid, w_down, plan, row_scale, order),
-         (2.0 * rows * inter * h, 2 * (rows * inter + e * inter * h) + 4 * rows * h + 8 * rows)),
+         (2.0 * rows * inter * h, down_bytes + 4 * rows * h)),
+        ("down+combine", f"{rows}x{inter}.{e}x{inter}x{h} ->f32 ·weight, summed over k",
+         lambda: moe.grouped_down(hid, w_down, plan, row_scale, order, top_k=k),
+         lambda: moe.grouped_down_plain(hid, w_down, plan, row_scale, order).view(
+             DIT_TOKENS, k, h).sum(1),
+         (2.0 * rows * inter * h, down_bytes + 4 * DIT_TOKENS * h)),
     )
     with torch.no_grad():
         for mode, case, call, plain, (ops, nbytes) in cases:
@@ -1576,8 +1595,87 @@ def check_moe_grouped(dev) -> None:
                 raise AssertionError(f"[experts] {mode}: relative difference {rel}, max|diff| "
                                      f"{err}, or two calls differ")
             del got, again, ref
+        rows_out = epilogue_cases(a, w_gu, hid, w_down, plan, row_scale, order, k)
     del a, hid, w_gu, w_down
     torch.cuda.empty_cache()
+    return rows_out
+
+
+def epilogue_cases(a, w_gu, hid, w_down, plan, row_scale, order, k: int) -> dict:
+    """The routed experts' epilogue kernels (``csrc/moe_epilogue.cu``) on
+    the grouped products' own outputs: ``moe_silu_mul`` bit for bit equal
+    to its plain version and to the eager chain it replaced (the f32 cast,
+    SiLU in place, the mixed-dtype multiply into bf16); ``moe_combine``
+    bit for bit equal to its plain version (the same products and sums in
+    the same order) and, against the eager chain it replaced (the gathers,
+    the multiply into f32, ``.sum(dim=1)``, which sums k in another order),
+    within 2·γ_{k−1}·Σ_j|term_j| an element (γ_n = n·2^-24 / (1 − n·2^-24):
+    the bound on two orders of an f32 sum of k terms); each twice with
+    equal bits, timed beside its byte bound, its plain version and the
+    eager chain (``library_ms``). Then one routed layer call: the two
+    products with the kernels, and with the eager chains."""
+    rows, n = hid.shape[0], w_down.shape[2]
+    tokens = rows // k
+    gu = torch._grouped_mm(a, w_gu, offs=plan.offs)
+    y = torch._grouped_mm(hid, w_down, offs=plan.offs)
+    src = torch.empty_like(order).scatter_(0, order, torch.arange(rows, device=order.device))
+
+    def eager_silu_mul(gu=gu):
+        g, u = gu.chunk(2, dim=1)
+        out = torch.empty(u.shape, dtype=gu.dtype, device=gu.device)
+        return torch.mul(F.silu(g.float(), inplace=True), u, out=out)
+
+    def eager_combine(y=y, src=src):
+        p = y.index_select(0, src) * row_scale.index_select(0, src)[:, None]
+        return p.view(tokens, k, -1).sum(dim=1)
+
+    out = {}
+    for kernel, case, call, plain, eager, nbytes in (
+            (SILU_MUL, f"{rows}x{gu.shape[1]} [g | u] bf16 ->bf16 SiLU(g)·u",
+             lambda: moe.silu_mul(gu), lambda: moe.silu_mul_plain(gu), eager_silu_mul,
+             2 * gu.numel() + gu.numel()),
+            (COMBINE, f"{rows}x{n} bf16 ->{tokens}x{n} f32, ·weight summed over k = {k}",
+             lambda: moe.combine(y, row_scale, src, k),
+             lambda: moe.combine_plain(y, row_scale, src, k), eager_combine,
+             2 * y.numel() + 4 * tokens * n + 12 * rows)):
+        got, again, want, chain = call(), call(), plain(), eager()
+        err = float((got.float() - want.float()).abs().max())
+        gap = (got.float() - chain.float()).abs()
+        if kernel is SILU_MUL:
+            chain_ok = torch.equal(got, chain)
+            chain_note = f"equal to the eager chain {chain_ok}"
+        else:
+            terms = (y.index_select(0, src).float() * row_scale.index_select(0, src)[:, None])
+            nu = (k - 1) * 2.0 ** -24
+            limit = 2 * nu / (1 - nu) * terms.abs().view(tokens, k, n).sum(1)
+            chain_ok = bool((gap <= limit).all())
+            chain_note = (f"max|diff| from the eager chain {float(gap.max()):.3e}, "
+                          f"{float((gap / limit.clamp_min(1e-30)).max()):.3f} of the reassociation "
+                          f"bound (ok {chain_ok})")
+            del terms, limit
+        print(f"[experts] {kernel.name}: equal bits twice {torch.equal(got, again)}, "
+              f"{chain_note}", flush=True)
+        if not (torch.equal(got, again) and torch.equal(got, want) and chain_ok):
+            raise AssertionError(f"[experts] {kernel.name}: two calls differ, or the kernel "
+                                 "differs from its plain version or the eager chain")
+        del got, again, want, chain, gap
+        out[kernel.name] = [_report(kernel, case, err, 0.0, time_ms(call), time_ms(plain),
+                                    roofline(nbytes, 0.0, "bf16"), library_ms=time_ms(eager))]
+
+    def layer(eager: bool):
+        if not eager:
+            return moe.grouped_down(moe.grouped_swiglu(a, w_gu, plan), w_down, plan, row_scale,
+                                    order, top_k=k)
+        gu_ = torch._grouped_mm(a, w_gu, offs=plan.offs)
+        y_ = torch._grouped_mm(eager_silu_mul(gu_), w_down, offs=plan.offs)
+        src_ = torch.empty_like(order).scatter_(0, order, torch.arange(rows, device=order.device))
+        return eager_combine(y_, src_)
+
+    fused_ms, eager_ms = time_ms(lambda: layer(False)), time_ms(lambda: layer(True))
+    print(f"[experts] a routed layer call (both products and their epilogues): kernels "
+          f"{fused_ms:.4f} ms, eager chains {eager_ms:.4f} ms, saved {eager_ms - fused_ms:.4f} "
+          f"ms", flush=True)
+    return out
 
 
 @torch.no_grad()
@@ -1601,13 +1699,15 @@ def _dit_weights(module: torch.nn.Module, dev, seed: int) -> dict:
     return out
 
 
-def run_dit_phase(dev) -> None:
+def run_dit_phase(dev) -> dict:
     """[dit]: the transformer denoiser of config/dit_moonlight.yaml at its
     published widths, DIT_LAYERS of its 27 blocks, weights drawn on the
     card, through ``SyntheticPatientGenerator.generate_scenarios`` as the
     cell calls it (3 scenarios x 8 patients, DDIM-50 on the scan loop,
     calibrated on the card), with its launch counts set to 0 just before
-    and read just after: no hand-written kernel."""
+    and read just after: the two routed epilogue kernels, one launch each
+    per routed layer call (``moe.epilogue_fused``; none eager), and no
+    other hand-written kernel. Returns those launches."""
     cfg = Config.from_yaml(REPO / "config" / "dit_moonlight.yaml")
     cfg.model.transformer.num_hidden_layers = DIT_LAYERS
     cohort = make_dummy_cohort(100, *DATA_DIMS, seed=0)
@@ -1624,17 +1724,25 @@ def run_dit_phase(dev) -> None:
         k.reset()
     gen_module.SAMPLERS.clear()
     gen_module.CALIBRATIONS.clear()
+    counts0 = dict(COUNTERS)
     t0 = time.perf_counter()
     out = gen.generate_scenarios(scenarios, DIT_PATIENTS, seed=2)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k.name: k.launches for k in KERNELS if k.launches}
+    grew = {key: COUNTERS[key] - counts0.get(key, 0)
+            for key in ("sampler.steps", "moe.epilogue_fused", "moe.epilogue_eager")}
+    layer_calls = grew["sampler.steps"] * len(model.denoiser.moe_layers())
+    want = {SILU_MUL.name: layer_calls, COMBINE.name: layer_calls}
     samplers, calibrations = dict(gen_module.SAMPLERS), dict(gen_module.CALIBRATIONS)
     print(f"[dit] {DIT_LAYERS} blocks at published widths, {len(scenarios)} x {DIT_PATIENTS} "
           f"patients DDIM-{cfg.generation.sampling_steps} in {seconds:.3f} s; routes {samplers}, "
-          f"calibrations {calibrations}; hand-written kernels launched {launches}", flush=True)
-    if launches:
-        raise AssertionError(f"[dit] launches {launches}; want none")
+          f"calibrations {calibrations}; hand-written kernels launched {launches}; routed "
+          f"layer calls {layer_calls}, epilogues fused {grew['moe.epilogue_fused']}, eager "
+          f"{grew['moe.epilogue_eager']}", flush=True)
+    if (launches != want or grew["moe.epilogue_fused"] != layer_calls
+            or grew["moe.epilogue_eager"] or not layer_calls):
+        raise AssertionError(f"[dit] launches {launches}, epilogues {grew}; want {want}")
     if samplers != {"scan": 1} or calibrations != {"device": 1}:
         raise AssertionError(f"[dit] routes {samplers}, calibrations {calibrations}")
     for s in scenarios:
@@ -1645,6 +1753,7 @@ def run_dit_phase(dev) -> None:
             raise AssertionError(f"[dit] {s.name}: the cohort's shape or values are wrong")
     del gen, model
     torch.cuda.empty_cache()
+    return launches
 
 
 def step_time(cases: dict, rows: int = BATCH) -> None:
@@ -3928,8 +4037,8 @@ def main(argv=None) -> int:
     cases = check_kernels(dev)
     k8_launches = POSTERIOR_UPDATE.launches  # no path calls K8: its check's launches
     t0 = time.perf_counter()
-    check_moe_grouped(dev)
-    run_dit_phase(dev)
+    cases.update(check_moe_grouped(dev))
+    dit_launches = run_dit_phase(dev)
     print(f"[dit] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
@@ -3958,6 +4067,7 @@ def main(argv=None) -> int:
         for name, n in bench.items():
             launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
+        launches.update(dit_launches)
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
         report = kernel_report(cases, launches, multi, bench)
 

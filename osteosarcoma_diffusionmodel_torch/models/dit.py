@@ -227,8 +227,7 @@ class MoEFeedForward(nn.Module):
             self.max_rows = most if self.max_rows is None else self.max_rows + most
         with span("dit.experts", dev):
             h = moe.grouped_swiglu(a, self.w_gate_up, plan)
-            y = moe.grouped_down(h, self.w_down, plan, row_scale, order)
-            routed = y.view(t, k, -1).sum(dim=1)
+            routed = moe.grouped_down(h, self.w_down, plan, row_scale, order, top_k=k)
         with span("dit.shared", dev):
             return _add(routed, self.shared(x))
 

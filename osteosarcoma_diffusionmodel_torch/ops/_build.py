@@ -89,6 +89,10 @@ SIGNATURES = {
     "osdm_latent_update": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     # x, pred, out, n, d, coefs, c0, c1, sv, add_noise, clip, seed, stream
     "osdm_posterior_update": [_P, _P, _P, _I, _I, _P, _F, _F, _F, _F, _F, _U32, _P],
+    # gu, out, rows, inter, stream
+    "osdm_moe_silu_mul": [_P, _P, _I, _I, _P],
+    # y, src, scale, out, tokens, k, n, stream
+    "osdm_moe_combine": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -13,7 +13,16 @@ it:
   ``SiLU(g)·u`` in f32, rounded once;
 - :func:`grouped_down`: each expert's rows times its down weight, in the
   operands' dtype, then times ``row_scale`` in f32, each row stored at its
-  ``dest`` row, so the caller's combine is a sum over the k copies.
+  ``dest`` row; with ``top_k`` the sum of each token's k copies.
+
+Without autograd, in bf16, the passes after the two products are the
+hand-written kernels of ``csrc/moe_epilogue.cu``: :func:`silu_mul` (SiLU·up
+in one pass) and :func:`combine` (gather, weight and the sum over k in one
+pass), each beside its plain version, which the wrappers take for CPU
+tensors. Under autograd the eager composition runs, and autograd follows
+it. ``COUNTERS["moe.epilogue_fused"]`` and ``["moe.epilogue_eager"]`` count
+the ``top_k`` calls of :func:`grouped_down` (a routed layer call each) by
+the path their epilogues took.
 
 Weights: ``w_gate_up`` (E, K, 2I) holds each expert's [gate | up] as one
 (K, 2I) matrix (the transposes of Moonlight's ``gate_proj`` and
@@ -26,6 +35,17 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import COUNTERS
+from ._build import LIBRARY, check
+from .sampler_kernels import Kernel, _on_cuda, _stream
+
+_SOURCE = "osteosarcoma_diffusionmodel_torch/csrc/moe_epilogue.cu"
+SILU_MUL = Kernel("moe_silu_mul", _SOURCE,
+                  "none (the transformer denoiser's routed SiLU·up; the JAX package has no DiT)")
+COMBINE = Kernel("moe_combine", _SOURCE,
+                 "none (the transformer denoiser's routed combine; the JAX package has no DiT)")
+_MAX_ITEMS = 2 ** 31  # the kernels index elements of one output with 32 bits
 
 
 class ExpertPlan(NamedTuple):
@@ -102,29 +122,108 @@ def _check_operands(a: torch.Tensor, w: torch.Tensor, plan: ExpertPlan, name: st
                          f"got {a.shape[0]} rows and {w.shape[0]} experts")
 
 
+def silu_mul_plain(gu: torch.Tensor) -> torch.Tensor:
+    """``SiLU(g)·u`` (R, I) of ``gu`` (R, 2I) = ``[g | u]``: SiLU and the
+    product in f32, rounded once to ``gu``'s dtype."""
+    g, u = gu.float().chunk(2, dim=1)
+    return (F.silu(g) * u).to(gu.dtype)
+
+
+def combine_plain(y: torch.Tensor, row_scale: torch.Tensor, src: torch.Tensor,
+                  top_k: int) -> torch.Tensor:
+    """(T, N) f32, token t the sum over j = 0 … k−1, left to right, of
+    ``row_scale[r] · f32(y[r])`` with r = ``src[t·k + j]`` (``top_k`` = k)."""
+    p = y.index_select(0, src).float() * row_scale.index_select(0, src)[:, None]
+    p = p.view(-1, top_k, y.shape[1])
+    out = p[:, 0].clone()
+    for j in range(1, top_k):
+        out += p[:, j]
+    return out
+
+
+def _check_tensor(t: torch.Tensor, name: str, dim: int, dtype: torch.dtype) -> None:
+    if t.dim() != dim or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dim}-D {dtype} tensor, got {t.dtype} "
+                         f"of shape {tuple(t.shape)}, strides {t.stride()}")
+
+
+def silu_mul(gu: torch.Tensor) -> torch.Tensor:
+    """:func:`silu_mul_plain` of ``gu`` (R, 2I) bf16, contiguous: on the
+    card one launch of ``moe_silu_mul_kernel``, the same bits."""
+    _check_tensor(gu, "gu", 2, torch.bfloat16)
+    rows, width = gu.shape
+    if width < 2 or width % 2 or rows * (width // 2) >= _MAX_ITEMS:
+        raise ValueError(f"gu must be (R, 2I) with R·I < 2^31, got {tuple(gu.shape)}")
+    if not _on_cuda(gu):
+        return silu_mul_plain(gu)
+    out = torch.empty(rows, width // 2, dtype=gu.dtype, device=gu.device)
+    check(LIBRARY.get().osdm_moe_silu_mul(gu.data_ptr(), out.data_ptr(), rows, width // 2,
+                                          _stream(gu)), SILU_MUL.name)
+    SILU_MUL.count()
+    return out
+
+
+def combine(y: torch.Tensor, row_scale: torch.Tensor, src: torch.Tensor,
+            top_k: int) -> torch.Tensor:
+    """:func:`combine_plain` of ``y`` (T·k, N) bf16, ``row_scale`` (T·k,)
+    f32 and ``src`` (T·k,) int64, a permutation of the rows, all
+    contiguous: on the card one launch of ``moe_combine_kernel``, the same
+    bits."""
+    _check_tensor(y, "y", 2, torch.bfloat16)
+    _check_tensor(row_scale, "row_scale", 1, torch.float32)
+    _check_tensor(src, "src", 1, torch.int64)
+    rows, n = y.shape
+    if top_k < 1 or rows % top_k or rows // top_k * n >= _MAX_ITEMS:
+        raise ValueError(f"y must be (T·k, N) with k = top_k = {top_k} and T·N < 2^31, got "
+                         f"{tuple(y.shape)}")
+    if row_scale.shape[0] != rows or src.shape[0] != rows:
+        raise ValueError(f"row_scale and src must hold {rows} rows, got {row_scale.shape[0]} "
+                         f"and {src.shape[0]}")
+    if not _on_cuda(y, row_scale, src):
+        return combine_plain(y, row_scale, src, top_k)
+    out = torch.empty(rows // top_k, n, dtype=torch.float32, device=y.device)
+    check(LIBRARY.get().osdm_moe_combine(y.data_ptr(), src.data_ptr(), row_scale.data_ptr(),
+                                         out.data_ptr(), rows // top_k, top_k, n, _stream(y)),
+          COMBINE.name)
+    COMBINE.count()
+    return out
+
+
+def _fused(t: torch.Tensor) -> bool:
+    """Whether the epilogues after a product ``t`` take the kernels: bf16,
+    and no autograd to follow them."""
+    return t.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+
+
 def grouped_swiglu(a: torch.Tensor, w_gate_up: torch.Tensor, plan: ExpertPlan) -> torch.Tensor:
     """``SiLU(g)·u`` (R, I) in ``a``'s dtype: ``[g | u]`` each expert's rows
     of ``a`` (R, K) times its slice of ``w_gate_up`` (E, K, 2I), one
     grouped product in ``a``'s dtype; SiLU and the product in f32, rounded
     once."""
     _check_operands(a, w_gate_up, plan, "grouped_swiglu")
-    g, u = torch._grouped_mm(a, w_gate_up, offs=plan.offs).chunk(2, dim=1)
-    if torch.is_grad_enabled():
-        return (F.silu(g.float()) * u).to(a.dtype)
-    # The same values without autograd: SiLU in place, the product rounded
-    # as it is stored (two passes fewer over the f32 intermediate).
-    out = torch.empty(u.shape, dtype=a.dtype, device=a.device)
-    return torch.mul(F.silu(g.float(), inplace=True), u, out=out)
+    gu = torch._grouped_mm(a, w_gate_up, offs=plan.offs)
+    if _fused(gu):
+        return silu_mul(gu)
+    g, u = gu.chunk(2, dim=1)
+    return (F.silu(g.float()) * u).to(a.dtype)
 
 
 def grouped_down(h: torch.Tensor, w_down: torch.Tensor, plan: ExpertPlan,
                  row_scale: Optional[torch.Tensor] = None,
-                 dest: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 dest: Optional[torch.Tensor] = None,
+                 top_k: Optional[int] = None) -> torch.Tensor:
     """(R, N) f32: each expert's rows of ``h`` (R, I) times its (I, N)
     slice of ``w_down``, one grouped product in ``h``'s dtype; times
     ``row_scale`` (R,) in f32; row r stored at row ``dest[r]``, which must
-    be a permutation of the R rows."""
+    be a permutation of the R rows. With ``top_k`` = k (``row_scale`` and
+    ``dest`` given, R = T·k): (T, N) f32, row t the sum of rows t·k … t·k +
+    k − 1 of that result."""
     _check_operands(h, w_down, plan, "grouped_down")
+    if dest is not None and tuple(dest.shape) != (h.shape[0],):
+        raise ValueError(f"grouped_down: dest must hold a row for each of the {h.shape[0]} "
+                         f"rows, got shape {tuple(dest.shape)}")
+    if top_k is not None and (row_scale is None or dest is None):
+        raise ValueError("grouped_down: top_k needs row_scale and dest")
     y = torch._grouped_mm(h, w_down, offs=plan.offs)
     if dest is not None:
         # Row i gathers row src[i] (src the inverse permutation): every row
@@ -134,7 +233,13 @@ def grouped_down(h: torch.Tensor, w_down: torch.Tensor, plan: ExpertPlan,
         dest = dest.long()
         src = torch.empty_like(dest).scatter_(0, dest, torch.arange(dest.numel(),
                                                                     device=dest.device))
+        if top_k is not None:
+            fused = _fused(y)
+            COUNTERS["moe.epilogue_fused" if fused else "moe.epilogue_eager"] += 1
+            if fused:
+                return combine(y, row_scale, src, top_k)
         y = y.index_select(0, src)
         if row_scale is not None:
             row_scale = row_scale.index_select(0, src)
-    return y.float() if row_scale is None else y * row_scale.float()[:, None]
+    y = y.float() if row_scale is None else y * row_scale.float()[:, None]
+    return y if top_k is None else y.view(-1, top_k, y.shape[1]).sum(dim=1)

@@ -48,8 +48,11 @@ logger = logging.getLogger(__name__)
 # "copy.host_allocs", the new page-locked blocks that took; the
 # transformer denoiser's (models/dit.py) "dit.tokens", the tokens through
 # its calls, "moe.routed_rows", the token copies its routed layers
-# dispatched, and "moe.max_expert_rows", each routed layer call's largest
-# expert, summed (the scan samplers add it after a call).
+# dispatched, "moe.max_expert_rows", each routed layer call's largest
+# expert, summed (the scan samplers add it after a call), and
+# "moe.epilogue_fused" and "moe.epilogue_eager", its routed layer calls
+# whose epilogues took the kernels of ops/moe.py (no autograd, bf16) or the
+# eager composition.
 COUNTERS: Counter = Counter()
 
 # The newest span records; a long profiled session keeps its last ones

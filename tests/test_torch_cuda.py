@@ -1344,6 +1344,145 @@ def test_cuda_grouped_experts_backward_matches_autograd_of_a_loop(cuda):
         assert float((a - b).norm() / b.norm()) <= 1e-2
 
 
+def _routed_operands(cuda, case: str):
+    """The routed layer's operands at the transformer cell's shapes (7,776
+    tokens x 6 of 64 experts, 2048 -> 2·1408 -> 2048), rows an expert by
+    :func:`_expert_counts`, a random assignment of rows to token copies."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    e, h, inter, k, t = 64, 2048, 1408, 6, 7776
+    rows = t * k
+    counts = _expert_counts(case, rows, e, torch.Generator().manual_seed(6))
+    plan = moe.plan_from_counts(counts.to(cuda), rows)
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def uniform(*shape, fan_in=1):
+        return ((torch.rand(shape, generator=g, device=cuda) * 2 - 1) / fan_in ** 0.5).to(
+            torch.bfloat16)
+
+    return dict(a=uniform(rows, h), w_gu=uniform(e, h, 2 * inter, fan_in=h),
+                w_down=uniform(e, inter, h, fan_in=inter), plan=plan,
+                scale=torch.rand(rows, generator=g, device=cuda),
+                dest=torch.randperm(rows, generator=g, device=cuda), k=k, t=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uneven", "one"])
+def test_cuda_routed_epilogue_kernels_match_the_eager_chains(cuda, case):
+    """Without autograd the routed experts' epilogues are the kernels of
+    ``csrc/moe_epilogue.cu``, one launch each, at the cell's routed shapes
+    (uneven rows with empty experts, or every row to one expert).
+    ``silu_mul``: bit for bit the eager no-grad branch it replaced (f32
+    SiLU in place, the mixed-dtype multiply rounded once to bf16) and its
+    plain version. The combine, ``grouped_down(..., top_k=k)``: bit for bit
+    its plain version (the same products and sums in the same order), and
+    against ``grouped_down(...).view(t, k, -1).sum(1)``, which sums k in
+    another order, within the bound on two orders of an f32 sum of k terms,
+    2·γ_{k−1}·Σ_j|term_j| an element (γ_n = n·2^-24 / (1 − n·2^-24)); not
+    4 ulps of the row's largest term: partial sums outgrow that term, and
+    PyTorch's reducer order reached 6 such ulps on random data. Both
+    kernels repeat with equal bits."""
+    import torch.nn.functional as F
+
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    o = _routed_operands(cuda, case)
+    plan, k, t = o["plan"], o["k"], o["t"]
+    with torch.no_grad():
+        gu = torch._grouped_mm(o["a"], o["w_gu"], offs=plan.offs)
+        g, u = gu.chunk(2, dim=1)
+        eager = torch.mul(F.silu(g.float(), inplace=True), u,
+                          out=torch.empty(u.shape, dtype=u.dtype, device=cuda))
+        launches = moe.SILU_MUL.launches, moe.COMBINE.launches
+        hid = moe.grouped_swiglu(o["a"], o["w_gu"], plan)
+        assert moe.SILU_MUL.launches == launches[0] + 1
+        gu = torch._grouped_mm(o["a"], o["w_gu"], offs=plan.offs)
+        assert torch.equal(hid, eager) and torch.equal(hid, moe.silu_mul(gu))
+        assert torch.equal(hid, moe.silu_mul_plain(gu))
+        del g, u, gu, eager
+        routed = moe.grouped_down(hid, o["w_down"], plan, o["scale"], o["dest"], top_k=k)
+        assert moe.COMBINE.launches == launches[1] + 1
+        assert routed.shape == (t, o["w_down"].shape[2]) and routed.dtype == torch.float32
+        assert torch.equal(routed, moe.grouped_down(hid, o["w_down"], plan, o["scale"], o["dest"],
+                                                    top_k=k))
+        y = torch._grouped_mm(hid, o["w_down"], offs=plan.offs)
+        src = torch.empty_like(o["dest"]).scatter_(0, o["dest"],
+                                                   torch.arange(t * k, device=cuda))
+        assert torch.equal(routed, moe.combine_plain(y, o["scale"], src, k))
+        terms = (y.index_select(0, src).float() * o["scale"].index_select(0, src)[:, None]).view(
+            t, k, -1)
+        want = moe.grouped_down(hid, o["w_down"], plan, o["scale"], o["dest"]).view(t, k, -1).sum(1)
+        nu = (k - 1) * 2.0 ** -24
+        assert bool(((routed - want).abs() <= 2 * nu / (1 - nu) * terms.abs().sum(1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["gu dtype", "gu strides", "y dtype", "scale dtype",
+                                   "src strides", "dest length", "top_k rows"])
+def test_cuda_routed_epilogue_wrappers_refuse_bad_operands(cuda, fault):
+    """The epilogue wrappers raise a ValueError, before any launch, on an
+    operand of the wrong dtype, a non-contiguous one, or a ``dest`` that
+    does not hold one row for each of the product's rows."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    rows, inter, n, k = 48, 32, 64, 3
+    gu = torch.randn(rows, 2 * inter, generator=g, device=cuda).to(torch.bfloat16)
+    y = torch.randn(rows, n, generator=g, device=cuda).to(torch.bfloat16)
+    scale = torch.rand(rows, generator=g, device=cuda)
+    src = torch.randperm(rows, generator=g, device=cuda)
+    plan = moe.plan_from_counts(torch.tensor([rows, 0], device=cuda), rows)
+    w_down = torch.randn(2, inter, n, generator=g, device=cuda).to(torch.bfloat16)
+    calls = {
+        "gu dtype": lambda: moe.silu_mul(gu.float()),
+        "gu strides": lambda: moe.silu_mul(gu.t().contiguous().t()),
+        "y dtype": lambda: moe.combine(y.float(), scale, src, k),
+        "scale dtype": lambda: moe.combine(y, scale.to(torch.bfloat16), src, k),
+        "src strides": lambda: moe.combine(y, scale, torch.stack([src, src], 1)[:, 0], k),
+        "dest length": lambda: moe.grouped_down(gu[:, :inter].contiguous(), w_down, plan, scale,
+                                                src[:-1], top_k=k),
+        "top_k rows": lambda: moe.combine(y[:-1], scale[:-1], src[:-1], k),
+    }
+    launches = moe.SILU_MUL.launches, moe.COMBINE.launches
+    with torch.no_grad(), pytest.raises(ValueError):
+        calls[fault]()
+    assert (moe.SILU_MUL.launches, moe.COMBINE.launches) == launches
+
+
+@pytest.mark.cuda
+def test_cuda_routed_epilogues_under_autograd_keep_the_eager_path(cuda):
+    """Under autograd no epilogue kernel launches: ``grouped_down(...,
+    top_k=k)`` is the eager composition followed by the sum over k, so its
+    output and every gradient equal those of the view-and-sum path bit for
+    bit (8 experts of 256 -> 2·128 -> 256, expert 5 with no row)."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    e, k, h, inter, t = 8, 2, 256, 128, 512
+    g = torch.Generator(device=cuda).manual_seed(8)
+    choice = torch.randint(0, e - 1, (t, k), generator=g, device=cuda)
+    choice[choice >= 5] += 1
+    plan, order, counts = moe.expert_plan(choice, e)
+    leaves = [torch.randn(t, h, generator=g, device=cuda).to(torch.bfloat16),
+              (torch.randn(e, h, 2 * inter, generator=g, device=cuda) / h ** 0.5).to(torch.bfloat16),
+              (torch.randn(e, inter, h, generator=g, device=cuda) / inter ** 0.5).to(torch.bfloat16),
+              torch.rand(t, k, generator=g, device=cuda)]
+    dy = torch.randn(t, h, generator=g, device=cuda)
+
+    def run(top_k):
+        x, w_gu, w_down, weight = (v.clone().requires_grad_() for v in leaves)
+        hid = moe.grouped_swiglu(x[order // k], w_gu, plan)
+        args = (hid, w_down, plan, weight.reshape(-1)[order], order)
+        y = moe.grouped_down(*args, top_k=k) if top_k else moe.grouped_down(*args).view(
+            t, k, h).sum(1)
+        y.backward(dy)
+        return [y.detach()] + [v.grad for v in (x, w_gu, w_down, weight)]
+
+    launches = moe.SILU_MUL.launches, moe.COMBINE.launches
+    got, want = run(True), run(False)
+    assert (moe.SILU_MUL.launches, moe.COMBINE.launches) == launches
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_cuda_denoiser_at_published_widths_matches_the_reference(cuda):
     """Two blocks of Moonlight-16B-A3B at its published widths (layer 0

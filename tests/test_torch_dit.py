@@ -16,7 +16,7 @@ import pytest
 import torch
 import yaml
 
-from benchmark.dit_readings import fp8_round
+from benchmark.dit_readings import fault, fp8_round
 from osteosarcoma_diffusionmodel_torch import cli
 from osteosarcoma_diffusionmodel_torch.config import Config, TransformerConfig
 from osteosarcoma_diffusionmodel_torch.data.dataset import prepare_arrays
@@ -32,6 +32,7 @@ from osteosarcoma_diffusionmodel_torch.models.dit import MoonlightDiT
 from osteosarcoma_diffusionmodel_torch.ops import moe
 from osteosarcoma_diffusionmodel_torch.training import checkpoint as ckpt
 from osteosarcoma_diffusionmodel_torch.training.trainer import Trainer, build_model
+from osteosarcoma_diffusionmodel_torch.utils.profiling import COUNTERS
 from torch_reference_dit import Reference, ddim_chain, route_gaps
 
 TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, kv_lora_rank=16,
@@ -270,6 +271,108 @@ def test_grouped_products_in_bf16_are_repeatable_and_tell_fp8_operands_apart():
     for i in range(2):
         assert torch.equal(got[i], again[i])
         assert rel(got[i], want[i]) <= 2e-3 < rel(fp8[i], want[i])
+
+
+def routed_bf16(seed: int, e=6, k=3, h=32, inter=16, t=40) -> dict:
+    """bf16 operands of a routed layer: t tokens choosing k of e experts,
+    expert 2 chosen by none; the permuted activations, both weights, the
+    permuted routing weights, and the plan and order."""
+    g = torch.Generator().manual_seed(seed)
+    choice = torch.randint(0, e - 1, (t, k), generator=g)
+    choice[choice >= 2] += 1
+    plan, order, counts = moe.expert_plan(choice, e)
+    assert int(counts[2]) == 0
+
+    def uniform(*shape, fan_in=1):
+        return ((torch.rand(shape, generator=g) * 2 - 1) / fan_in ** 0.5).to(torch.bfloat16)
+
+    x = uniform(t, h)
+    return dict(a=x[order // k], w_gu=uniform(e, h, 2 * inter, fan_in=h),
+                w_down=uniform(e, inter, h, fan_in=inter), plan=plan, order=order,
+                scale=torch.rand(t, k, generator=g).reshape(-1)[order], k=k, t=t)
+
+
+def reassociation_bound(terms: torch.Tensor) -> torch.Tensor:
+    """The largest gap between two orders of an f32 sum over dim 1 of
+    ``terms`` (T, k, N): 2·γ_{k−1}·Σ_j|term_j|, γ_n = n·2^-24 / (1 − n·2^-24)."""
+    nu = (terms.shape[1] - 1) * 2.0 ** -24
+    return 2 * nu / (1 - nu) * terms.abs().sum(1)
+
+
+def test_plain_epilogues_equal_the_eager_composition():
+    """The epilogue kernels' plain versions, which the wrappers take on the
+    CPU: ``silu_mul_plain`` bit for bit the eager no-grad SwiGLU branch
+    (f32 SiLU in place, the mixed-dtype multiply rounded once to bf16);
+    ``combine_plain`` (its products, then a left-to-right sum over k)
+    against the eager gathers, multiply and ``.sum(dim=1)``, which may sum
+    k in another order, within the bound on two orders of an f32 sum."""
+    o = routed_bf16(3)
+    plan, k, t = o["plan"], o["k"], o["t"]
+    gu = torch._grouped_mm(o["a"], o["w_gu"], offs=plan.offs)
+    g, u = gu.chunk(2, dim=1)
+    eager = torch.mul(torch.nn.functional.silu(g.float(), inplace=True), u,
+                      out=torch.empty(u.shape, dtype=u.dtype))
+    hid = moe.silu_mul_plain(gu)
+    assert torch.equal(hid, eager) and torch.equal(moe.silu_mul(gu), hid)
+    y = torch._grouped_mm(hid, o["w_down"], offs=plan.offs)
+    src = torch.empty_like(o["order"]).scatter_(0, o["order"], torch.arange(t * k))
+    terms = (y.index_select(0, src) * o["scale"].index_select(0, src)[:, None]).view(t, k, -1)
+    got = moe.combine_plain(y, o["scale"], src, k)
+    assert torch.equal(moe.combine(y, o["scale"], src, k), got)
+    assert bool(((got - terms.sum(1)).abs() <= reassociation_bound(terms)).all())
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_grouped_down_sums_each_tokens_copies_with_top_k(grad):
+    """``grouped_down(..., top_k=k)`` against ``grouped_down(...)`` viewed
+    (t, k, N) and summed over k, with an expert that gets no row: under
+    autograd the same eager ops (equal bits); without it the plain combine,
+    within the bound on two orders of an f32 sum."""
+    o = routed_bf16(4)
+    args = (o["w_down"], o["plan"], o["scale"], o["order"])
+    with torch.set_grad_enabled(grad):
+        hid = moe.grouped_swiglu(o["a"], o["w_gu"], o["plan"])
+        got = moe.grouped_down(hid, *args, top_k=o["k"])
+        rows = moe.grouped_down(hid, *args)
+    terms = rows.view(o["t"], o["k"], -1)
+    assert got.shape == (o["t"], o["w_down"].shape[2]) and got.dtype == torch.float32
+    if grad:
+        assert torch.equal(got, terms.sum(1))
+    else:
+        assert bool(((got - terms.sum(1)).abs() <= reassociation_bound(terms)).all())
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_routed_layers_count_the_path_of_their_epilogues(grad):
+    """A bf16 denoiser call counts each routed layer once under
+    ``moe.epilogue_fused`` without autograd (the kernels' wrappers, their
+    plain versions on the CPU) and under ``moe.epilogue_eager`` with it."""
+    model = make_dit(torch.bfloat16)
+    routed = len(model.moe_layers())
+    x, t, c = inputs()
+    before = dict(COUNTERS)
+    with torch.set_grad_enabled(grad):
+        model(x, t, conditions=c)
+    grew = {key: COUNTERS[key] - before.get(key, 0)
+            for key in ("moe.epilogue_fused", "moe.epilogue_eager")}
+    assert routed >= 1
+    assert grew == {"moe.epilogue_fused": 0 if grad else routed,
+                    "moe.epilogue_eager": routed if grad else 0}
+
+
+def test_fp8_experts_control_passes_top_k_through():
+    """The benchmark's ``fp8-experts`` control wraps ``grouped_down`` and
+    hands the new keyword on: under it, the summed result equals the plain
+    call on operands rounded to fp8."""
+    o = routed_bf16(5)
+    args = (o["plan"], o["scale"], o["order"])
+    with torch.no_grad():
+        hid = moe.grouped_swiglu(o["a"], o["w_gu"], o["plan"])
+        want = moe.grouped_down(fp8_round(hid, 1), fp8_round(o["w_down"], (1, 2)), *args,
+                                top_k=o["k"])
+        with fault("fp8-experts"):
+            got = moe.grouped_down(hid, o["w_down"], *args, top_k=o["k"])
+    assert got.shape == (o["t"], o["w_down"].shape[2]) and torch.equal(got, want)
 
 
 def _config(**over) -> Config:
