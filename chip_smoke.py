@@ -62,7 +62,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
    blocks, through the generator's ``generate_scenarios`` (3 x 8
    patients, DDIM-50 on the scan loop, calibrated on the card), the two
    epilogue kernels launched once each per routed layer call and no other
-   hand-written kernel;
+   hand-written kernel; "[kimi]": the KDA kernel (``csrc/kda_chunk.cu``)
+   against its plain chunked twin at the hybrid cell's shape (6 x 1,289
+   tokens, 32 heads of 128), twice with equal bits, timed beside its bound
+   and the twin, then config/kimi_linear_dit.yaml's 27 hybrid blocks at
+   published widths (20 KDA, 7 NoPE MLA, 64 of 256 experts held) through
+   ``generate_scenarios`` (3 x 1 patients, DDIM-50): one KDA launch a KDA
+   layer call (20 a denoiser call), ``kda.chunks`` as counted, fewer held
+   than routed expert copies;
 4. "[calib]": the device calibration (``ops/copula_device.py``) against
    the host numpy path on the seeded structured cohort's data statistics
    at full width, on the kernel sampler's DDIM-50 output from the seeded
@@ -304,6 +311,8 @@ from osteosarcoma_diffusionmodel_torch.models.networks import init_flax, init_we
 from osteosarcoma_diffusionmodel_torch.ops import _build, fused_sampler, moe
 from osteosarcoma_diffusionmodel_torch.ops.fused_sampler import FusedSampler, coefficient_table
 from osteosarcoma_diffusionmodel_torch.ops.moe import COMBINE, SILU_MUL
+from osteosarcoma_diffusionmodel_torch.ops import kda as kda_ops
+from osteosarcoma_diffusionmodel_torch.ops.kda import KDA
 from osteosarcoma_diffusionmodel_torch.ops.latent_sampler import (
     LatentFusedSampler,
     LatentTailSampler,
@@ -1751,6 +1760,120 @@ def run_dit_phase(dev) -> dict:
                 or not np.isfinite(got["expression"]).all()
                 or not np.isin(got["mutations"], (0.0, 1.0)).all()):
             raise AssertionError(f"[dit] {s.name}: the cohort's shape or values are wrong")
+    del gen, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The hybrid cell (config/kimi_linear_dit.yaml): 3 scenarios x 2 patients x
+# 1,289 tokens a denoiser call, 32 KDA heads of 128.
+KIMI_SEQS, KIMI_SEQ, KIMI_HEADS = 6, 1289, 32
+KIMI_PATIENTS = 1  # [kimi]: a scenario
+
+
+def check_kda_kernel(dev) -> dict:
+    """[kimi]: the KDA kernel against its plain chunked twin at the hybrid
+    cell's shape: unit q and k, v ~ N(0, 1), β ~ U(0, 1), g = −A·softplus(z),
+    A ~ U(1, 16) a head, z ~ N(−3, 2) (channels from ≈ e^-0.00004 to ≈
+    e^-60 a token). Both f32 in other orders of sums (the kernel's exp2 ≤ 2
+    ulp): max|diff| 1e-4 of max(1, max|o|); equal bits twice; timed beside
+    the twin and its bound (f32 products at 67 TFLOP/s, or the bytes).
+    Returns its [kernel] row."""
+    from benchmark.roofline_kda import kda_chunk as kda_cost
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (KIMI_SEQS, KIMI_SEQ, KIMI_HEADS, 128)
+    q = F.normalize(torch.randn(shape, generator=g, device=dev), dim=-1)
+    k = F.normalize(torch.randn(shape, generator=g, device=dev), dim=-1)
+    v = torch.randn(shape, generator=g, device=dev)
+    a = 1 + 15 * torch.rand(KIMI_HEADS, generator=g, device=dev)
+    decay = -a[:, None] * F.softplus(2 * torch.randn(shape, generator=g, device=dev) - 3)
+    beta = torch.rand(shape[:3], generator=g, device=dev)
+    scale = 128 ** -0.5
+    with torch.no_grad():
+        got, again = (kda_ops.kda_chunk(q, k, v, decay, beta, scale) for _ in range(2))
+        want = kda_ops.kda_chunk_plain(q, k, v, decay, beta, scale)
+        err = float((got - want).abs().max())
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        if not torch.equal(got, again):
+            raise AssertionError("[kimi] two calls of the KDA kernel differ")
+        heads = {"linear_attn_config": {"num_heads": KIMI_HEADS, "head_dim": 128,
+                                        "kda_layers": []}}
+        ops, nbytes = kda_cost(heads, KIMI_SEQS, KIMI_SEQ)
+        row = _report(KDA, f"{KIMI_SEQS}x{KIMI_SEQ}x{KIMI_HEADS}x128 f32, chunk 64", err, tol,
+                      time_ms(lambda: kda_ops.kda_chunk(q, k, v, decay, beta, scale)),
+                      time_ms(lambda: kda_ops.kda_chunk_plain(q, k, v, decay, beta, scale),
+                              iters=3),
+                      roofline(nbytes, ops, "f32"))
+    del q, k, v, decay, beta, got, again, want
+    torch.cuda.empty_cache()
+    return {KDA.name: [row]}
+
+
+def run_kimi_phase(dev) -> dict:
+    """[kimi]: config/kimi_linear_dit.yaml's denoiser at published widths,
+    all 27 blocks, weights drawn on the card (``benchmark/kimi_weights.py``:
+    KDA's decay as published), through ``generate_scenarios`` (3 x
+    KIMI_PATIENTS, DDIM-50, calibrated on the card), launch counts set to
+    0 just before and read just after: one KDA launch a KDA layer call, the
+    two routed epilogue kernels one launch each a routed layer call, no
+    other hand-written kernel; ``kda.chunks`` = steps x KDA layers x
+    sequences x heads x 21; the held copies fewer than the routed ones.
+    Returns those launches."""
+    from benchmark.kimi_weights import seeded_kimi_weights
+
+    cfg = Config.from_yaml(REPO / "config" / "kimi_linear_dit.yaml")
+    cohort = make_dummy_cohort(100, *DATA_DIMS, seed=0)
+    data, conditions, dims = cohort_arrays(cohort, cfg)
+    with torch.device("meta"):
+        model = ConditionalDiffusion.from_config(cfg, dims)
+    model.denoiser.load_state_dict(seeded_kimi_weights(model.denoiser, 0, dev), assign=True)
+    gen = SyntheticPatientGenerator(model, cfg, dims,
+                                    data_stats_from_arrays(data, conditions, dims.mutation_dim),
+                                    device=dev)
+    scenarios = cfg.generation.scenarios
+    gen.generate_scenarios(scenarios, KIMI_PATIENTS, seed=1)  # warm-up
+    for kern in KERNELS:
+        kern.reset()
+    gen_module.SAMPLERS.clear()
+    gen_module.CALIBRATIONS.clear()
+    keys = ("sampler.steps", "kda.chunks", "moe.held_rows", "moe.routed_rows",
+            "moe.epilogue_fused", "moe.epilogue_eager")
+    counts0 = {key: COUNTERS[key] for key in keys}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = gen.generate_scenarios(scenarios, KIMI_PATIENTS, seed=2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in KERNELS if kern.launches}
+    grew = {key: COUNTERS[key] - counts0[key] for key in keys}
+    steps = grew["sampler.steps"]
+    kda_layers = len(cfg.model.transformer.linear_attn_config["kda_layers"])
+    routed = steps * len(model.denoiser.moe_layers())
+    seqs = len(scenarios) * KIMI_PATIENTS
+    want = {KDA.name: steps * kda_layers, SILU_MUL.name: routed, COMBINE.name: routed}
+    chunks = steps * kda_layers * seqs * KIMI_HEADS * -(-model.denoiser.seq_len // 64)
+    print(f"[kimi] {len(model.denoiser.layers)} hybrid blocks at published widths, {seqs} x "
+          f"{model.denoiser.seq_len} "
+          f"tokens, DDIM-{cfg.generation.sampling_steps} in {seconds:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB; routes "
+          f"{dict(gen_module.SAMPLERS)}, calibrations {dict(gen_module.CALIBRATIONS)}; "
+          f"hand-written kernels launched {launches}; counters {grew}", flush=True)
+    if launches != want or grew["kda.chunks"] != chunks or grew["moe.epilogue_eager"]:
+        raise AssertionError(f"[kimi] launches {launches}, counters {grew}; want {want}, "
+                             f"kda.chunks {chunks}")
+    if not 0 < grew["moe.held_rows"] < grew["moe.routed_rows"]:
+        raise AssertionError(f"[kimi] held rows {grew['moe.held_rows']} of "
+                             f"{grew['moe.routed_rows']} routed")
+    if dict(gen_module.SAMPLERS) != {"scan": 1} or dict(gen_module.CALIBRATIONS) != {"device": 1}:
+        raise AssertionError(f"[kimi] routes {dict(gen_module.SAMPLERS)}, calibrations "
+                             f"{dict(gen_module.CALIBRATIONS)}")
+    for s in scenarios:
+        got = out[s.name]
+        if (got["expression"].shape != (KIMI_PATIENTS, DATA_DIMS[1])
+                or not np.isfinite(got["expression"]).all()
+                or not np.isin(got["mutations"], (0.0, 1.0)).all()):
+            raise AssertionError(f"[kimi] {s.name}: the cohort's shape or values are wrong")
     del gen, model
     torch.cuda.empty_cache()
     return launches
@@ -3990,11 +4113,14 @@ def run_bench_phase(dev) -> dict:
     return {k.name: k.launches for k in KERNELS}
 
 
-def kernel_report(cases: dict, launches: dict, multi: dict, bench: dict) -> list:
+def kernel_report(cases: dict, launches: dict, multi: dict, bench: dict,
+                  transformer: dict) -> list:
     """One entry per kernel; times and bounds summed over its ``cases``,
     ``bound_by`` that of its largest bound, ``library_ms`` null where no
     single PyTorch call computes the function; ``multi`` and ``bench``: the
-    [multi] and [bench] phases' launches, counted in ``launches`` too."""
+    [multi] and [bench] phases' launches, counted in ``launches`` too;
+    ``transformer``: the [dit] and [kimi] phases' launches by phase, each
+    counted in ``launches`` too."""
     out = []
     for k in KERNELS:
         rows = cases[k.name]
@@ -4003,6 +4129,7 @@ def kernel_report(cases: dict, launches: dict, multi: dict, bench: dict) -> list
             "name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": launches[k.name], "multi": multi.get(k.name, 0),
             "bench": bench.get(k.name, 0),
+            **{phase: counts.get(k.name, 0) for phase, counts in transformer.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -4038,8 +4165,12 @@ def main(argv=None) -> int:
     k8_launches = POSTERIOR_UPDATE.launches  # no path calls K8: its check's launches
     t0 = time.perf_counter()
     cases.update(check_moe_grouped(dev))
-    dit_launches = run_dit_phase(dev)
+    transformer = {"dit": run_dit_phase(dev)}
     print(f"[dit] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cases.update(check_kda_kernel(dev))
+    transformer["kimi"] = run_kimi_phase(dev)
+    print(f"[kimi] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="osdm_chip_smoke_") as tmp:
         cfg = prepare_workdir(Path(tmp), args.weights)
@@ -4067,9 +4198,11 @@ def main(argv=None) -> int:
         for name, n in bench.items():
             launches[name] += n
         launches[POSTERIOR_UPDATE.name] = k8_launches
-        launches.update(dit_launches)
+        for counts in transformer.values():  # each phase's own in the report too
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
         print(f"[main] kernel launches over the main paths: {json.dumps(launches)}", flush=True)
-        report = kernel_report(cases, launches, multi, bench)
+        report = kernel_report(cases, launches, multi, bench, transformer)
 
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

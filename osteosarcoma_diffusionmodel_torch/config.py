@@ -117,7 +117,16 @@ class TransformerConfig:
     are the defaults, plus the DiT keys ``patch_size`` and
     ``time_embed_dim``. Keys the denoiser implements one value of
     (``scoring_func``, ``topk_method``, ``n_group``, ...) are checked by
-    ``models.dit.check_transformer``."""
+    ``models.dit.check_transformer``.
+
+    Kimi Linear's hybrid blocks take two of its own keys:
+    ``linear_attn_config`` (``kda_layers`` and ``full_attn_layers``,
+    numbered from 1, ``num_heads``, ``head_dim``,
+    ``short_conv_kernel_size``: the listed layers' attention is KDA,
+    models/kda.py, the others' MLA) and ``mla_use_nope`` (MLA without
+    RoPE). ``ep_size`` and ``ep_rank``: the layer's experts are divided
+    over ``ep_size`` cards and this one holds the ``ep_rank``-th
+    contiguous share of ``n_routed_experts`` (the router keeps them all)."""
 
     hidden_size: int = 2048
     num_hidden_layers: int = 27
@@ -147,6 +156,10 @@ class TransformerConfig:
     rms_norm_eps: float = 1e-5
     patch_size: int = 16
     time_embed_dim: int = 256
+    linear_attn_config: Optional[Dict[str, Any]] = None
+    mla_use_nope: bool = False
+    ep_size: int = 1
+    ep_rank: int = 0
 
 
 @dataclass

@@ -3,9 +3,11 @@
 //
 //   moe_silu_mul_kernel: gu (R, 2I) bf16 = [g | u]  ->  out (R, I) bf16,
 //     out = bf16(SiLU(f32 g) · f32 u), SiLU(x) = x / (1 + exp(-x)) in f32;
-//   moe_combine_kernel: y (T·k, N) bf16, src (T·k,) int64, scale (T·k,) f32
+//   moe_combine_kernel: y (R, N) bf16, src (T·k,) int64, scale (R,) f32
 //     ->  out (T, N) f32, out[t] = Σ_{j<k} scale[src[t·k+j]] · f32(y[src[t·k+j]]),
-//     summed in the order j = 0 … k−1.
+//     summed in the order j = 0 … k−1; a copy with src = −1 (its expert held
+//     on another card of an expert-parallel layer) adds 0·0, so a token sums
+//     0 to k rows (R = T·k and src a permutation where every expert is here).
 //
 // Replaces no TPU kernel: the JAX package has no transformer denoiser. They
 // take the place of PyTorch's eager chains after the grouped products: the
@@ -103,8 +105,9 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(
         for (int j = 0; j < kRowsInFlight; ++j) {
           if (j0 + j < k) {
             const int64_t r = __ldg(rows + j0 + j);
-            w[j] = __ldg(scale + r);
-            v[j] = __ldg(reinterpret_cast<const uint4*>(y + (size_t)r * n + col));
+            w[j] = r < 0 ? 0.0f : __ldg(scale + r);
+            v[j] = r < 0 ? make_uint4(0, 0, 0, 0)
+                         : __ldg(reinterpret_cast<const uint4*>(y + (size_t)r * n + col));
           }
         }
 #pragma unroll
@@ -127,7 +130,8 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(
       float acc = 0.0f;
       for (int j = 0; j < k; ++j) {
         const int64_t r = __ldg(rows + j);
-        const float p = __fmul_rn(__ldg(scale + r), __bfloat162float(y[(size_t)r * n + c]));
+        const float p = r < 0 ? __fmul_rn(0.0f, 0.0f)
+                              : __fmul_rn(__ldg(scale + r), __bfloat162float(y[(size_t)r * n + c]));
         acc = j == 0 ? p : __fadd_rn(acc, p);
       }
       o[c] = acc;
@@ -159,9 +163,9 @@ OSDM_EXPORT int osdm_moe_silu_mul(const void* gu, void* out, int rows, int inter
   return static_cast<int>(cudaGetLastError());
 }
 
-// y (tokens·k, n) contiguous bf16, src and scale (tokens·k,) int64 and f32,
-// out (tokens, n) contiguous f32; src a permutation of the rows; the caller
-// keeps tokens · n below 2^31.
+// y (R, n) contiguous bf16, src (tokens·k,) int64 naming each of the R rows
+// once and −1 elsewhere, scale (R,) f32, out (tokens, n) contiguous f32; the
+// caller keeps tokens · n below 2^31.
 OSDM_EXPORT int osdm_moe_combine(const void* y, const void* src, const void* scale, void* out,
                                  int tokens, int k, int n, void* stream) {
   if (tokens < 0 || k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);

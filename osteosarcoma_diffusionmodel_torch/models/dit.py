@@ -39,18 +39,33 @@ Moonlight's module in bf16); RMSNorm statistics, the router's scores and
 the attention softmax in f32; the residual stream in f32. With float32
 every step is f32.
 
+The same block stack runs Kimi-Linear-48B-A3B
+(https://huggingface.co/moonshotai/Kimi-Linear-48B-A3B-Instruct;
+``config/kimi_linear_dit.yaml``), DeepSeek's keys for its MLA and
+DeepSeekMoE, plus: ``linear_attn_config``, whose ``kda_layers`` (numbered
+from 1) take Kimi Delta Attention (models/kda.py: causal, in token order,
+the condition tokens first) in place of MLA; ``mla_use_nope``, MLA's rope
+parts used unrotated (the softmax scale stays 1/sqrt(nope + rope)); and
+the expert share of an expert-parallel layer, ``ep_size`` cards with this
+one the ``ep_rank``-th: the router scores and chooses over every routed
+expert (global ids), the layer computes only the copies routed to the
+experts it holds, and a token sums those (0 to k) with the shared
+experts, computed whole.
+
 The routed experts' two grouped products are ``torch._grouped_mm`` calls
 over the expert-sorted rows (``ops/moe.py``), under autograd too; the
 shared experts, the dense feed-forward and the other products run on
 PyTorch's matrix products and attention.
 
 Spans (``utils/profiling.span``, recorded only under a profiler):
-``dit.embed``, ``dit.attn`` (a block's attention sublayer), ``dit.router``
+``dit.embed``, ``dit.attn`` (a block's MLA sublayer), ``dit.kda`` (a
+block's KDA sublayer), ``dit.router``
 (gate, top-k, permutation), ``dit.experts`` (grouped products and
 combine), ``dit.shared`` (the shared experts, and the dense feed-forward
 of the leading layers), ``dit.head``. Counters: ``dit.tokens`` (tokens
 through a denoiser call), ``moe.routed_rows`` (token copies routed, over
-layer calls) and ``moe.max_expert_rows`` (the largest expert's rows,
+layer calls), ``moe.held_rows`` (those of them whose expert is held here),
+``kda.chunks`` (models/kda.py) and ``moe.max_expert_rows`` (the largest expert's rows,
 summed over layer calls; kept on the device and added to ``COUNTERS`` by
 :meth:`MoonlightDiT.flush_counters`, which reads it once).
 """
@@ -77,6 +92,11 @@ IMPLEMENTED = {"q_lora_rank": None, "n_group": 1, "topk_group": 1, "scoring_func
                "moe_layer_freq": 1, "rope_scaling": None}
 
 
+# Kimi Linear's ``linear_attn_config`` keys, all required.
+LINEAR_ATTN_KEYS = ("kda_layers", "full_attn_layers", "num_heads", "head_dim",
+                    "short_conv_kernel_size")
+
+
 def check_transformer(tc: TransformerConfig) -> None:
     """ValueError for a key whose value the denoiser does not implement."""
     for key, value in IMPLEMENTED.items():
@@ -86,6 +106,33 @@ def check_transformer(tc: TransformerConfig) -> None:
     if tc.qk_rope_head_dim % 2 or tc.num_experts_per_tok > tc.n_routed_experts:
         raise ValueError("model.transformer: qk_rope_head_dim must be even and "
                          "num_experts_per_tok at most n_routed_experts")
+    if tc.mla_use_nope not in (True, False):
+        raise ValueError(f"model.transformer.mla_use_nope = {tc.mla_use_nope!r}: true or false")
+    if (tc.ep_size < 1 or tc.n_routed_experts % tc.ep_size
+            or not 0 <= tc.ep_rank < tc.ep_size):
+        raise ValueError(f"model.transformer: ep_size {tc.ep_size} must divide n_routed_experts "
+                         f"{tc.n_routed_experts}, and 0 <= ep_rank {tc.ep_rank} < ep_size")
+    lac = tc.linear_attn_config
+    if lac is None:
+        return
+    if not isinstance(lac, dict) or sorted(lac) != sorted(LINEAR_ATTN_KEYS):
+        raise ValueError(f"model.transformer.linear_attn_config must hold exactly the keys "
+                         f"{', '.join(LINEAR_ATTN_KEYS)}; got {lac!r}")
+    kda, full = list(lac["kda_layers"]), list(lac["full_attn_layers"])
+    if sorted(kda + full) != list(range(1, tc.num_hidden_layers + 1)):
+        raise ValueError(f"model.transformer.linear_attn_config: kda_layers and "
+                         f"full_attn_layers must number each of the {tc.num_hidden_layers} "
+                         f"layers from 1 once; got {kda} and {full}")
+    for key in ("num_heads", "head_dim", "short_conv_kernel_size"):
+        if not isinstance(lac[key], int) or lac[key] < 1:
+            raise ValueError(f"model.transformer.linear_attn_config.{key} = {lac[key]!r}: a "
+                             f"positive integer")
+
+
+def kda_layers(tc: TransformerConfig) -> frozenset:
+    """The 0-based indices of the layers whose attention is KDA."""
+    lac = tc.linear_attn_config
+    return frozenset(i - 1 for i in lac["kda_layers"]) if lac else frozenset()
 
 
 def _param(*shape: int, dtype: torch.dtype) -> nn.Parameter:
@@ -153,16 +200,19 @@ class MLAttention(nn.Module):
         self.kv_b_proj = Linear(self.rank, heads * (self.nope + self.v_dim), dtype)
         self.o_proj = Linear(heads * self.v_dim, h, dtype)
         self.scale = 1.0 / math.sqrt(self.nope + self.rope)
+        self.rotary = not tc.mla_use_nope  # NoPE: the rope parts enter unrotated
 
     def forward(self, a: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
         b, s, _ = a.shape
         nh = self.heads
         q = self.q_proj(a).view(b, s, nh, self.nope + self.rope)
-        q[..., self.nope:] = apply_rope(q[..., self.nope:], rope[:, None])
         c, k_pe = self.kv_a_proj_with_mqa(a).split([self.rank, self.rope], dim=-1)
+        if self.rotary:
+            q[..., self.nope:] = apply_rope(q[..., self.nope:], rope[:, None])
+            k_pe = apply_rope(k_pe, rope)
         kv = self.kv_b_proj(self.kv_a_layernorm(c)).view(b, s, nh, self.nope + self.v_dim)
         k_nope, v = kv.split([self.nope, self.v_dim], dim=-1)
-        k_pe = apply_rope(k_pe, rope).to(kv.dtype)[:, :, None].expand(b, s, nh, self.rope)
+        k_pe = k_pe.to(kv.dtype)[:, :, None].expand(b, s, nh, self.rope)
         k = torch.cat([k_nope, k_pe], dim=-1)
         o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                            v.transpose(1, 2), scale=self.scale)
@@ -194,12 +244,14 @@ class MoEFeedForward(nn.Module):
         super().__init__()
         h, inter, e = tc.hidden_size, tc.moe_intermediate_size, tc.n_routed_experts
         self.experts, self.top_k = e, tc.num_experts_per_tok
+        self.held = e // tc.ep_size  # experts first … first + held − 1 live here
+        self.first = tc.ep_rank * self.held
         self.norm_topk_prob = bool(tc.norm_topk_prob)
         self.scaling = float(tc.routed_scaling_factor)
         self.gate = Linear(h, e, dtype)
         self.register_buffer("e_score_correction_bias", torch.empty(e, dtype=torch.float32))
-        self.w_gate_up = _param(e, h, 2 * inter, dtype=dtype)
-        self.w_down = _param(e, inter, h, dtype=dtype)
+        self.w_gate_up = _param(self.held, h, 2 * inter, dtype=dtype)
+        self.w_down = _param(self.held, inter, h, dtype=dtype)
         self.shared = SwiGLU(h, inter * tc.n_shared_experts, dtype)
         self.max_rows: Optional[torch.Tensor] = None  # on the device; see MoonlightDiT
 
@@ -215,19 +267,25 @@ class MoEFeedForward(nn.Module):
         return choice, weight * self.scaling
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The routed experts held here, over the token copies routed to
+        them (a token's 0 to k), plus the shared experts."""
         t, k = x.shape[0], self.top_k
         dev = x.device
         with span("dit.router", dev):
             choice, weight = self.route(x)
-            plan, order, counts = moe.expert_plan(choice, self.experts)
-            a = x[order // k]
-            row_scale = weight.reshape(-1)[order]
+            if self.held == self.experts:
+                plan, dest, counts = moe.expert_plan(choice, self.experts)
+            else:
+                plan, dest, counts = moe.held_plan(choice, self.first, self.held)
+            a = x[dest // k]
+            row_scale = weight.reshape(-1)[dest]
             COUNTERS["moe.routed_rows"] += t * k
+            COUNTERS["moe.held_rows"] += plan.rows
             most = counts.max()
             self.max_rows = most if self.max_rows is None else self.max_rows + most
         with span("dit.experts", dev):
             h = moe.grouped_swiglu(a, self.w_gate_up, plan)
-            routed = moe.grouped_down(h, self.w_down, plan, row_scale, order, top_k=k)
+            routed = moe.grouped_down(h, self.w_down, plan, row_scale, dest, top_k=k, tokens=t)
         with span("dit.shared", dev):
             return _add(routed, self.shared(x))
 
@@ -238,16 +296,25 @@ def _add(h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    def __init__(self, tc: TransformerConfig, dense: bool, dtype: torch.dtype):
+    """A pre-norm residual block: MLA attention, or with ``linear`` KDA
+    (models/kda.py), then the dense or DeepSeekMoE feed-forward."""
+
+    def __init__(self, tc: TransformerConfig, dense: bool, dtype: torch.dtype,
+                 linear: bool = False):
         super().__init__()
         self.attn_norm = RMSNorm(tc.hidden_size, tc.rms_norm_eps, dtype)
-        self.attn = MLAttention(tc, dtype)
+        if linear:
+            from .kda import KimiDeltaAttention
+
+            self.attn, self.attn_span = KimiDeltaAttention(tc, dtype), "dit.kda"
+        else:
+            self.attn, self.attn_span = MLAttention(tc, dtype), "dit.attn"
         self.ffn_norm = RMSNorm(tc.hidden_size, tc.rms_norm_eps, dtype)
         self.mlp = (SwiGLU(tc.hidden_size, tc.intermediate_size, dtype) if dense
                     else MoEFeedForward(tc, dtype))
 
     def forward(self, h: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
-        with span("dit.attn", h.device):
+        with span(self.attn_span, h.device):
             h = _add(h, self.attn(self.attn_norm(h), rope))
         b, s, width = h.shape
         m = self.ffn_norm(h).view(b * s, width)
@@ -281,7 +348,8 @@ class MoonlightDiT(nn.Module):
         self.time_fc2 = Linear(h, h, dtype, bias=True)
         self.cond_fc1 = Linear(condition_dim, h, dtype, bias=True)
         self.cond_fc2 = Linear(h, h, dtype, bias=True)
-        self.layers = nn.ModuleList([Block(tc, i < tc.first_k_dense_replace, dtype)
+        linear = kda_layers(tc)
+        self.layers = nn.ModuleList([Block(tc, i < tc.first_k_dense_replace, dtype, i in linear)
                                      for i in range(tc.num_hidden_layers)])
         self.final_norm = RMSNorm(h, tc.rms_norm_eps, dtype)
         self.head = Linear(h, p, dtype, bias=True)
@@ -292,7 +360,8 @@ class MoonlightDiT(nn.Module):
         """Training's initial weights (the trainer's init hook): every
         projection and expert weight normal(0, 0.02) (Moonlight's
         ``initializer_range``), biases 0, RMSNorm scales 1, the router's
-        correction bias 0."""
+        correction bias 0; KDA's decay and convolutions as published
+        (:meth:`~.kda.KimiDeltaAttention.init_decay`)."""
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("norm.weight"):
@@ -304,6 +373,9 @@ class MoonlightDiT(nn.Module):
             for name, b in self.named_buffers():
                 if name.endswith("e_score_correction_bias"):
                     b.zero_()
+            for blk in self.layers:
+                if blk.attn_span == "dit.kda":
+                    blk.attn.init_decay(generator)
 
     def moe_layers(self) -> List[MoEFeedForward]:
         return [blk.mlp for blk in self.layers if isinstance(blk.mlp, MoEFeedForward)]

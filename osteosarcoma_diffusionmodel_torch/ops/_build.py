@@ -93,6 +93,8 @@ SIGNATURES = {
     "osdm_moe_silu_mul": [_P, _P, _I, _I, _P],
     # y, src, scale, out, tokens, k, n, stream
     "osdm_moe_combine": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, g, beta, out, B, L, H, scale, stream
+    "osdm_kda_chunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

@@ -15,6 +15,11 @@ it:
   operands' dtype, then times ``row_scale`` in f32, each row stored at its
   ``dest`` row; with ``top_k`` the sum of each token's k copies.
 
+A layer of an expert-parallel deployment holds a contiguous share of the
+experts: :func:`held_plan` keeps only the copies routed to them (one read
+of the device, their number), so the products see no other row, and the
+sum over k adds 0 to k copies a token.
+
 Without autograd, in bf16, the passes after the two products are the
 hand-written kernels of ``csrc/moe_epilogue.cu``: :func:`silu_mul` (SiLU·up
 in one pass) and :func:`combine` (gather, weight and the sum over k in one
@@ -83,6 +88,19 @@ def expert_plan(choice: torch.Tensor, experts: int):
     return plan_from_counts(counts, flat.numel()), order, counts
 
 
+def held_plan(choice: torch.Tensor, first: int, held: int):
+    """(plan, dest, counts) of the copies among the (T, k) expert choices
+    (global ids) whose expert this layer holds, experts ``first`` …
+    ``first + held − 1``: ``dest`` (R,) int64 the flat index t·k + j of
+    each held copy, sorted by expert (stable), ``plan`` and ``counts``
+    over the held experts. The one read of the device is the number of
+    held copies R, which sizes the grouped products."""
+    local = choice.reshape(-1) - first
+    keep = ((local >= 0) & (local < held)).nonzero().squeeze(1)
+    plan, order, counts = expert_plan(local[keep], held)
+    return plan, keep[order], counts
+
+
 def grouped_swiglu_plain(a: torch.Tensor, w_gate_up: torch.Tensor,
                          plan: ExpertPlan) -> torch.Tensor:
     """Each expert's rows of ``a`` (R, K) times its (K, 2I) weight, exact
@@ -129,10 +147,21 @@ def silu_mul_plain(gu: torch.Tensor) -> torch.Tensor:
     return (F.silu(g) * u).to(gu.dtype)
 
 
+def _with_zero_row(y: torch.Tensor, row_scale: torch.Tensor, src: torch.Tensor):
+    """``y`` and ``row_scale`` with a zero row of weight 0 appended, and
+    ``src`` with each −1 (a copy whose expert is held elsewhere) pointing
+    at it."""
+    src = torch.where(src < 0, y.shape[0], src)
+    return (torch.cat([y, y.new_zeros(1, y.shape[1])]),
+            torch.cat([row_scale, row_scale.new_zeros(1)]), src)
+
+
 def combine_plain(y: torch.Tensor, row_scale: torch.Tensor, src: torch.Tensor,
                   top_k: int) -> torch.Tensor:
     """(T, N) f32, token t the sum over j = 0 … k−1, left to right, of
-    ``row_scale[r] · f32(y[r])`` with r = ``src[t·k + j]`` (``top_k`` = k)."""
+    ``row_scale[r] · f32(y[r])`` with r = ``src[t·k + j]`` (``top_k`` = k);
+    a copy with r = −1 (an expert held elsewhere) adds 0·0."""
+    y, row_scale, src = _with_zero_row(y, row_scale, src)
     p = y.index_select(0, src).float() * row_scale.index_select(0, src)[:, None]
     p = p.view(-1, top_k, y.shape[1])
     out = p[:, 0].clone()
@@ -165,25 +194,26 @@ def silu_mul(gu: torch.Tensor) -> torch.Tensor:
 
 def combine(y: torch.Tensor, row_scale: torch.Tensor, src: torch.Tensor,
             top_k: int) -> torch.Tensor:
-    """:func:`combine_plain` of ``y`` (T·k, N) bf16, ``row_scale`` (T·k,)
-    f32 and ``src`` (T·k,) int64, a permutation of the rows, all
-    contiguous: on the card one launch of ``moe_combine_kernel``, the same
-    bits."""
+    """:func:`combine_plain` of ``y`` (R, N) bf16, ``row_scale`` (R,) f32
+    and ``src`` (T·k,) int64, each row of ``y`` named once and −1 for a
+    copy whose expert is held elsewhere (R = T·k where every expert is
+    held here: a permutation), all contiguous: on the card one launch of
+    ``moe_combine_kernel``, the same bits."""
     _check_tensor(y, "y", 2, torch.bfloat16)
     _check_tensor(row_scale, "row_scale", 1, torch.float32)
     _check_tensor(src, "src", 1, torch.int64)
     rows, n = y.shape
-    if top_k < 1 or rows % top_k or rows // top_k * n >= _MAX_ITEMS:
-        raise ValueError(f"y must be (T·k, N) with k = top_k = {top_k} and T·N < 2^31, got "
-                         f"{tuple(y.shape)}")
-    if row_scale.shape[0] != rows or src.shape[0] != rows:
-        raise ValueError(f"row_scale and src must hold {rows} rows, got {row_scale.shape[0]} "
-                         f"and {src.shape[0]}")
+    slots = src.shape[0]
+    if top_k < 1 or slots % top_k or slots < rows or slots // top_k * n >= _MAX_ITEMS:
+        raise ValueError(f"src must hold T·k >= {rows} slots with k = top_k = {top_k} and "
+                         f"T·N < 2^31, got {slots} slots of width {n}")
+    if row_scale.shape[0] != rows:
+        raise ValueError(f"row_scale must hold {rows} rows, got {row_scale.shape[0]}")
     if not _on_cuda(y, row_scale, src):
         return combine_plain(y, row_scale, src, top_k)
-    out = torch.empty(rows // top_k, n, dtype=torch.float32, device=y.device)
+    out = torch.empty(slots // top_k, n, dtype=torch.float32, device=y.device)
     check(LIBRARY.get().osdm_moe_combine(y.data_ptr(), src.data_ptr(), row_scale.data_ptr(),
-                                         out.data_ptr(), rows // top_k, top_k, n, _stream(y)),
+                                         out.data_ptr(), slots // top_k, top_k, n, _stream(y)),
           COMBINE.name)
     COMBINE.count()
     return out
@@ -211,19 +241,23 @@ def grouped_swiglu(a: torch.Tensor, w_gate_up: torch.Tensor, plan: ExpertPlan) -
 def grouped_down(h: torch.Tensor, w_down: torch.Tensor, plan: ExpertPlan,
                  row_scale: Optional[torch.Tensor] = None,
                  dest: Optional[torch.Tensor] = None,
-                 top_k: Optional[int] = None) -> torch.Tensor:
+                 top_k: Optional[int] = None, tokens: Optional[int] = None) -> torch.Tensor:
     """(R, N) f32: each expert's rows of ``h`` (R, I) times its (I, N)
     slice of ``w_down``, one grouped product in ``h``'s dtype; times
     ``row_scale`` (R,) in f32; row r stored at row ``dest[r]``, which must
     be a permutation of the R rows. With ``top_k`` = k (``row_scale`` and
-    ``dest`` given, R = T·k): (T, N) f32, row t the sum of rows t·k … t·k +
-    k − 1 of that result."""
+    ``dest`` given): (T, N) f32, row t the sum of rows t·k … t·k + k − 1 of
+    that result, T = ``tokens`` (R / k by default); where R < T·k (the
+    copies of experts held here only) ``dest`` places the R rows among the
+    T·k copies and a copy it leaves out adds nothing."""
     _check_operands(h, w_down, plan, "grouped_down")
     if dest is not None and tuple(dest.shape) != (h.shape[0],):
         raise ValueError(f"grouped_down: dest must hold a row for each of the {h.shape[0]} "
                          f"rows, got shape {tuple(dest.shape)}")
     if top_k is not None and (row_scale is None or dest is None):
         raise ValueError("grouped_down: top_k needs row_scale and dest")
+    if tokens is not None and (top_k is None or tokens * top_k < h.shape[0]):
+        raise ValueError(f"grouped_down: tokens needs top_k and at least {h.shape[0]} copies")
     y = torch._grouped_mm(h, w_down, offs=plan.offs)
     if dest is not None:
         # Row i gathers row src[i] (src the inverse permutation): every row
@@ -231,13 +265,19 @@ def grouped_down(h: torch.Tensor, w_down: torch.Tensor, plan: ExpertPlan,
         # half the bytes of f32; on the card a gather runs faster than
         # index_copy's scatter.
         dest = dest.long()
-        src = torch.empty_like(dest).scatter_(0, dest, torch.arange(dest.numel(),
-                                                                    device=dest.device))
+        rows = dest.numel()
+        slots = rows if tokens is None else tokens * top_k
+        arange = torch.arange(rows, device=dest.device)
+        src = (torch.empty_like(dest) if slots == rows
+               else torch.full((slots,), -1, dtype=dest.dtype, device=dest.device))
+        src.scatter_(0, dest, arange)
         if top_k is not None:
             fused = _fused(y)
             COUNTERS["moe.epilogue_fused" if fused else "moe.epilogue_eager"] += 1
             if fused:
                 return combine(y, row_scale, src, top_k)
+        if slots != rows:
+            y, row_scale, src = _with_zero_row(y, row_scale, src)
         y = y.index_select(0, src)
         if row_scale is not None:
             row_scale = row_scale.index_select(0, src)

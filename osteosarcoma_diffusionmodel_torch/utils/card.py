@@ -14,6 +14,7 @@ from ..config import Config
 from ..data.dummy import DummyCohort, cohort_arrays
 from ..models.diffusion import ConditionalDiffusion
 from ..models.networks import init_weights
+from ..ops.kda import KDA
 from ..ops.moe import COMBINE, SILU_MUL
 from ..ops.pallas_kernels import POSTERIOR_UPDATE, RBF
 from ..ops.sampler_kernels import (
@@ -42,7 +43,7 @@ from ..training.checkpoint import (
 # Every hand-written kernel's launch counter, in the order of the kernel report.
 KERNELS = (GEMM, GEMM_GN, GEMM_POSTERIOR, GROUPNORM, POSTERIOR, RBF, ROWQUANT, GEMM_S8,
            GEMM_S8_GN, GEMM_S8_POSTERIOR, GEMM_S8Q, GEMM_S8Q_GN, GEMM_S8Q_POSTERIOR, LATENT,
-           GEMM_LATENT, POSTERIOR_UPDATE, SILU_MUL, COMBINE)
+           GEMM_LATENT, POSTERIOR_UPDATE, SILU_MUL, COMBINE, KDA)
 # The rows of the serving buckets the card scripts drive: one row, the JSON
 # bucket of 64 and the 1,024-row bucket that calibrates on the card.
 SERVE_BUCKETS = (1, 64, 1024)

@@ -1536,3 +1536,204 @@ def test_cuda_denoiser_at_published_widths_matches_the_reference(cuda):
     with torch.no_grad():
         want = ref.forward(x, t, c, routes=routes)
     assert float((out - want).norm() / want.norm()) <= 1e-2
+
+
+def _kda_inputs(device, b, length, heads, d=128, seed=0, steep=True):
+    """Unit q and k, v ~ N(0, 1), β ~ U(0, 1), and a decay per channel as
+    KDA draws it, g = −A·softplus(z), A ~ U(1, 16) a head (the published
+    range), z ~ N(−3, 2) (or N(−6, 1) without ``steep``): channels from
+    ≈ e^-0.00004 to ≈ e^-60 a token side by side."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    q = torch.nn.functional.normalize(randn(b, length, heads, d), dim=-1)
+    k = torch.nn.functional.normalize(randn(b, length, heads, d), dim=-1)
+    v = randn(b, length, heads, d)
+    a = 1 + 15 * torch.rand(heads, generator=g, device=device)
+    z = randn(b, length, heads, d) * (2.0 if steep else 1.0) + (-3.0 if steep else -6.0)
+    decay = -a[:, None] * torch.nn.functional.softplus(z)
+    beta = torch.rand(b, length, heads, generator=g, device=device)
+    return q, k, v, decay, beta
+
+
+def _kda_recurrence(q, k, v, g, beta, scale):
+    """The gated delta rule token by token in float64."""
+    b, length, heads, d = q.shape
+    state = torch.zeros(b, heads, d, v.shape[-1], dtype=torch.float64, device=q.device)
+    out = []
+    for t in range(length):
+        state = state * g[:, t].double().exp()[..., None]
+        kt = k[:, t].double()
+        kv = (kt[..., None] * state).sum(-2)
+        state = state + kt[..., None] * (beta[:, t].double()[..., None] * (v[:, t].double() - kv))[
+            ..., None, :]
+        out.append((q[:, t].double()[..., None] * state).sum(-2) * scale)
+    return torch.stack(out, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_kda_kernel_matches_the_twin_at_the_cell_shape(cuda):
+    """The KDA kernel (``csrc/kda_chunk.cu``), one launch, against its plain
+    chunked twin at the hybrid cell's shape (6 sequences of 1,289 tokens,
+    32 heads of 128, a ragged last chunk of 9): both f32, another order of
+    sums and the kernel's exp2 (≤ 2 ulp): 1e-4 of the output's norm and
+    of max(1, max|o|) an element; the same bits twice (no atomics)."""
+    from osteosarcoma_diffusionmodel_torch.ops import kda
+
+    q, k, v, g, beta = _kda_inputs(cuda, 6, 1289, 32)
+    with torch.no_grad():
+        before = kda.KDA.launches
+        got = kda.kda_chunk(q, k, v, g, beta, 128 ** -0.5)
+        assert kda.KDA.launches == before + 1
+        again = kda.kda_chunk(q, k, v, g, beta, 128 ** -0.5)
+        want = kda.kda_chunk_plain(q, k, v, g, beta, 128 ** -0.5)
+    assert got.shape == want.shape and torch.equal(got, again)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 64, 130])
+@pytest.mark.parametrize("steep", [True, False])
+def test_cuda_kda_kernel_matches_the_recurrence(cuda, length, steep):
+    """The KDA kernel against the token-by-token recurrence in float64 at a
+    small shape (2 sequences, 3 heads of 128), with decays down to e^-60 a
+    token: f32 sums against exact ones, 1e-4 of max(1, max|o|) an element."""
+    from osteosarcoma_diffusionmodel_torch.ops import kda
+
+    q, k, v, g, beta = _kda_inputs(cuda, 2, length, 3, seed=length, steep=steep)
+    with torch.no_grad():
+        got = kda.kda_chunk(q, k, v, g, beta, 128 ** -0.5)
+    want = _kda_recurrence(q, k, v, g, beta, 128 ** -0.5)
+    assert float((got.double() - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_kda_wrapper_refuses_other_widths_and_launches_under_autograd(cuda):
+    """Heads of 64 are refused. Under autograd the kernel still runs the
+    forward (one launch, the bits of a launch without autograd), and the
+    gradients are those of the plain twin, which the backward recomputes:
+    the upstream gradient is the same, so 1e-6 of each gradient's largest
+    element (cuBLAS may take another algorithm for the same product)."""
+    from osteosarcoma_diffusionmodel_torch.ops import kda
+
+    q, k, v, g, beta = _kda_inputs(cuda, 1, 70, 2, d=64)
+    with torch.no_grad(), pytest.raises(ValueError, match="width"):
+        kda.kda_chunk(q, k, v, g, beta, 0.125)
+    inputs = _kda_inputs(cuda, 1, 70, 2)
+    with torch.no_grad():
+        plain_out = kda.kda_chunk(*inputs, 128 ** -0.5)
+    mine = [t.clone().requires_grad_(i in (0, 2, 3)) for i, t in enumerate(inputs)]
+    theirs = [t.clone().requires_grad_(i in (0, 2, 3)) for i, t in enumerate(inputs)]
+    before = kda.KDA.launches
+    out = kda.kda_chunk(*mine, 128 ** -0.5)
+    assert kda.KDA.launches == before + 1 and torch.equal(out, plain_out)
+    out.sum().backward()
+    kda.kda_chunk_plain(*theirs, 128 ** -0.5).sum().backward()
+    assert kda.KDA.launches == before + 1
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        if i in (0, 2, 3):
+            assert float((a.grad - b.grad).abs().max()) <= 1e-6 * float(b.grad.abs().max()), i
+        else:
+            assert a.grad is None, i
+
+
+@pytest.mark.cuda
+def test_cuda_routed_combine_sums_the_held_copies_only(cuda):
+    """An expert share: the copies routed to experts held here (a quarter of
+    64, by ``moe.held_plan``) through the grouped products, and the
+    combine kernel summing 0 to k of them a token (copies held elsewhere
+    marked −1): bit for bit its plain version, which adds 0·0 for them,
+    and within a bf16 ulp of the full layer's combine with the other
+    experts' rows weighted 0."""
+    from osteosarcoma_diffusionmodel_torch.ops import moe
+
+    e, held, first, h, inter, k, t = 64, 16, 16, 512, 256, 8, 1289
+    g = torch.Generator(device=cuda).manual_seed(9)
+    choice = torch.rand(t, e, generator=g, device=cuda).topk(k, dim=1).indices
+    x = (torch.rand(t, h, generator=g, device=cuda) * 2 - 1).to(torch.bfloat16)
+    weight = torch.rand(t, k, generator=g, device=cuda)
+    w_gu = ((torch.rand(e, h, 2 * inter, generator=g, device=cuda) * 2 - 1) / h ** 0.5).to(
+        torch.bfloat16)
+    w_down = ((torch.rand(e, inter, h, generator=g, device=cuda) * 2 - 1) / inter ** 0.5).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        plan, dest, counts = moe.held_plan(choice, first, held)
+        flat = choice.reshape(-1)
+        assert plan.rows == int(((flat >= first) & (flat < first + held)).sum())
+        hid = moe.grouped_swiglu(x[dest // k], w_gu[first:first + held], plan)
+        row_scale = weight.reshape(-1)[dest]
+        launches = moe.COMBINE.launches
+        got = moe.grouped_down(hid, w_down[first:first + held], plan, row_scale, dest, top_k=k,
+                               tokens=t)
+        assert moe.COMBINE.launches == launches + 1 and got.shape == (t, h)
+        y = torch._grouped_mm(hid, w_down[first:first + held], offs=plan.offs)
+        src = torch.full((t * k,), -1, dtype=torch.int64, device=cuda)
+        src.scatter_(0, dest, torch.arange(plan.rows, device=cuda))
+        assert torch.equal(got, moe.combine_plain(y, row_scale, src, k))
+        # The full layer with every copy outside the share weighted 0.
+        fplan, order, _ = moe.expert_plan(choice, e)
+        fscale = torch.where((flat >= first) & (flat < first + held), weight.reshape(-1),
+                             torch.zeros_like(weight.reshape(-1)))[order]
+        fhid = moe.grouped_swiglu(x[order // k], w_gu, fplan)
+        full = moe.grouped_down(fhid, w_down, fplan, fscale, order, top_k=k)
+    # The two grouped products may tile the same rows differently and round a
+    # bf16 result the other way: one bf16 ulp (2^-7) of max(1, max|full|).
+    assert float((got - full).abs().max()) <= 2.0 ** -7 * max(1.0, float(full.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_hybrid_denoiser_matches_the_reference(cuda):
+    """The hybrid block stack at small widths with KDA heads of 128 (the
+    kernel's width): layers KDA, KDA, MLA (NoPE), a share of 2 of 8 experts,
+    bf16, on the card, against the plain reference given the program's
+    routing: both round the same operands and results to bf16; 1e-2 of the
+    output's norm (a rounding tipped the other way moves one activation by
+    2^-8 and the output by less)."""
+    import dataclasses
+
+    from osteosarcoma_diffusionmodel_torch.config import TransformerConfig
+    from osteosarcoma_diffusionmodel_torch.models.dit import MoonlightDiT
+    from osteosarcoma_diffusionmodel_torch.ops import kda
+    from torch_reference_kimi_linear import KimiReference
+
+    from benchmark.kimi_weights import seeded_kimi_weights
+
+    tc = TransformerConfig(
+        hidden_size=256, num_hidden_layers=3, num_attention_heads=4, kv_lora_rank=32,
+        qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32, intermediate_size=512,
+        moe_intermediate_size=128, n_routed_experts=8, n_shared_experts=1,
+        num_experts_per_tok=2, patch_size=4, time_embed_dim=32, mla_use_nope=True,
+        linear_attn_config=dict(kda_layers=[1, 2], full_attn_layers=[3], num_heads=2,
+                                head_dim=128, short_conv_kernel_size=4), ep_size=4, ep_rank=1)
+    blocks = (10, 100, 14)
+    with torch.device("meta"):
+        model = MoonlightDiT(tc, blocks, 3, torch.bfloat16)
+    weights = seeded_kimi_weights(model, 3, cuda)
+    model.load_state_dict(weights, assign=True)
+    model.eval()
+    routes = []
+    for layer in model.moe_layers():
+        inner = layer.route
+
+        def route(x, inner=inner):
+            choice, weight = inner(x)
+            routes.append(choice)
+            return choice, weight
+
+        layer.route = route
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(4, sum(blocks), device=cuda, generator=g)
+    t = torch.rand(4, device=cuda, generator=g)
+    c = torch.randn(4, 3, device=cuda, generator=g)
+    with torch.no_grad():
+        before = kda.KDA.launches
+        out = model(x, t, conditions=c)
+        assert kda.KDA.launches == before + 2
+    conf = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)}
+    with torch.no_grad():
+        want = KimiReference(weights, conf, blocks, cuda, bf16=True).forward(x, t, c,
+                                                                             routes=routes)
+    assert float((out - want).norm() / want.norm()) <= 1e-2
